@@ -5,7 +5,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
-(sm_90a), then:
+(sm_90a, one nvcc per source, in parallel), then:
 
 1. holds the render kernel against its plain PyTorch version on the card,
    at the ``small`` (3x30, S=30) and ``single64`` (4x64, S=64) shapes, in
@@ -16,13 +16,26 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    the JAX package's PSNR;
 3. renders a 4-frame 800x800 orbit with ``render_orbit`` (the serving path),
    then times one frame through the kernel and through the plain version with
-   CUDA events.
+   CUDA events;
+4. holds the train kernel (loss and dW/db) and the render backward against
+   autograd of their plain versions at the same shapes and modes, checks
+   that repeat launches are bit-identical, and compares the train kernel
+   with the plain version at the bench batch (262,144 rays);
+5. trains through ``train_nerf.main`` (small preset, 16 in-memory 64x64
+   synthetic views, 500 Adam steps of 4096 rays): one train-kernel launch per
+   step, eval renders through the render kernel, eval PSNR >= 19 dB after
+   500 steps and 8 dB above step 0, then ``--resume`` for 10 steps; and 10
+   steps on ``NeRFModel.loss``, whose backward is the render backward kernel;
+6. times the train step at the bench's shape (small, 262,144 rays, Adam)
+   through the kernel and through the plain backend, in turns, and each
+   gradient kernel's own call against its plain version.
 
-Phases 2 and 3's orbit are the main path: the kernel's launch count is reset
-before them and must be above zero after.  The last lines are the card's name
-and power limit, a JSON line per kernel, and ``{"ok": true, "device": ...}``.
-It exits non-zero, before printing any result, without a CUDA device or
-outside a checkout of the repository; any failing phase raises.
+Phases 2-3 (serving), 5 (training, the render backward's steps) are the
+main paths: each kernel's launch count is reset before its path and read
+after it.  The last lines are the card's name and power limit, a JSON line
+of the kernels, and ``{"ok": true, "device": ...}``.  It exits non-zero,
+before printing any result, without a CUDA device or outside a checkout of
+the repository; any failing phase raises.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,14 +54,57 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "convergence_64_step5000.npz")
-KERNEL_SOURCE = "lomanerf_tpu_torch/ops/csrc/nerf_render_fwd.cu"
-REPLACES = "lomanerf_tpu/ops/fused_nerf.py:1323"
 # kernel vs plain version: both f32, sums taken in another order (MLP dot
 # products, the colour sum over samples), encodings through different sin/cos
 ATOL, RTOL = 1e-4, 1e-4
 PSNR_TOL_DB = 0.05
-N_CHECK = 1000 + 37  # not a multiple of the 128-ray block
+N_CHECK = 1000 + 37  # not a multiple of the 128- or 64-ray block
 SERVE_SIZE, SERVE_FRAMES = 800, 4
+# gradient kernels vs autograd: the JAX test's bound for its fused train
+# kernel against jax.grad (test_fused_train_loss_and_grads_match_jax_grad),
+# rtol 3e-4 and atol 3e-5, with the atol scaled by the leaf's largest entry
+# where that is above 1: these sums run over 1037 rays, not the JAX test's 20
+GRAD_RTOL, GRAD_ATOL = 3e-4, 3e-5
+BENCH_RAYS = 262144  # the bench's train batch (bench.py, small)
+TRAIN_STEPS = 500
+# the JAX run of the same driver and preset: 9.72 -> 19.31 -> 21.63 dB at
+# steps 0, 250, 500 (artifacts/convergence_64/metrics.jsonl)
+JAX_CURVE = os.path.join(ROOT, "artifacts", "convergence_64", "metrics.jsonl")
+PSNR_FLOOR_DB, PSNR_GAIN_DB = 19.0, 8.0
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "nerf_render_fwd": ("lomanerf_tpu_torch/ops/csrc/nerf_render_fwd.cu",
+                        "lomanerf_tpu/ops/fused_nerf.py:1323"),
+    "nerf_train": ("lomanerf_tpu_torch/ops/csrc/nerf_train.cu",
+                   "lomanerf_tpu/ops/fused_nerf.py:1108"),
+    "nerf_render_bwd": ("lomanerf_tpu_torch/ops/csrc/nerf_render_bwd.cu",
+                        "lomanerf_tpu/ops/fused_nerf.py:1339"),
+}
+
+
+def seeded_params(rng, cfg):
+    """He-scaled numpy params of ``cfg``'s MLP, as CUDA tensors."""
+    sizes = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) \
+        + [cfg.out_channels]
+    params = {"w": [], "b": []}
+    for fi, fo in zip(sizes[:-1], sizes[1:]):
+        params["w"].append(torch.tensor(
+            rng.standard_normal((fi, fo)) * np.sqrt(2.0 / fi),
+            dtype=torch.float32, device="cuda"))
+        params["b"].append(torch.tensor(
+            rng.standard_normal(fo) * 0.5, dtype=torch.float32, device="cuda"))
+    return params
+
+
+def seeded_rays(rng, n):
+    """``(origins, directions)`` of ``n`` standard-normal rays on the card."""
+    return tuple(torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                              device="cuda") for _ in range(2))
+
+
+def uniform_depths(cfg):
+    from lomanerf_tpu_torch.core import rays
+
+    return rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
 
 
 def phase_kernel_vs_plain(fused_nerf, NeRFConfig, seed=0):
@@ -58,21 +115,9 @@ def phase_kernel_vs_plain(fused_nerf, NeRFConfig, seed=0):
     for name in ("small", "single64"):
         for mode in ("loma", "standard"):
             cfg = dataclasses.replace(NeRFConfig.preset(name), mode=mode)
-            sizes = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) \
-                + [cfg.out_channels]
-            params = {"w": [], "b": []}
-            for fi, fo in zip(sizes[:-1], sizes[1:]):
-                params["w"].append(torch.tensor(
-                    rng.standard_normal((fi, fo)) * np.sqrt(2.0 / fi),
-                    dtype=torch.float32, device="cuda"))
-                params["b"].append(torch.tensor(
-                    rng.standard_normal(fo) * 0.5, dtype=torch.float32, device="cuda"))
-            o = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
-                             device="cuda")
-            d = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
-                             device="cuda")
-            t = torch.linspace(cfg.near, cfg.far, cfg.num_samples, device="cuda")
-            dists = torch.cat([t[1:] - t[:-1], torch.full((1,), 1e8, device="cuda")])
+            params = seeded_params(rng, cfg)
+            o, d = seeded_rays(rng, N_CHECK)
+            t, dists = uniform_depths(cfg)
             got = fused_nerf.render_rays(params, o, d, t, dists, cfg)
             want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
             torch.cuda.synchronize()
@@ -110,6 +155,273 @@ def phase_trained_field(fx, model, normalized_intrinsics, psnr):
     return worst
 
 
+def leaves_of(params):
+    return [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+
+
+def grads_close(got, want, what, rtol, atol_of):
+    """Max |got - want| over the leaves, after asserting each leaf within
+    rtol and ``atol_of(want_leaf)``."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        worst = max(worst, (g - w).abs().max().item())
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol_of(w),
+                                   msg=lambda m, i=i: f"{what}, leaf {i}: {m}")
+    return worst
+
+
+def grad_atol(want):
+    return GRAD_ATOL * max(1.0, want.abs().max().item())
+
+
+def phase_grad_kernels(fused_nerf, NeRFConfig, seed=2):
+    """Phase 4: the train kernel (#3) and the render backward (#2) against
+    their plain versions (PyTorch autograd on the card), at the small and
+    single64 shapes in both modes on 1037 rays; two calls on the same inputs
+    must agree bit for bit.  Returns the worst |kernel - plain| per kernel."""
+    rng = np.random.default_rng(seed)
+    worst = {"nerf_train": 0.0, "nerf_render_bwd": 0.0}
+    for name in ("small", "single64"):
+        for mode in ("loma", "standard"):
+            cfg = dataclasses.replace(NeRFConfig.preset(name), mode=mode)
+            params = seeded_params(rng, cfg)
+            leaves = leaves_of(params)
+            o, d = seeded_rays(rng, N_CHECK)
+            t, dists = uniform_depths(cfg)
+            tgt = torch.tensor(rng.random((N_CHECK, 3)), dtype=torch.float32, device="cuda")
+            cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
+                               device="cuda")
+
+            def train(loss_fn):
+                loss = loss_fn(params, o, d, t, dists, tgt, cfg)
+                return (loss.detach(), *torch.autograd.grad(loss, leaves))
+
+            def render_bwd(render_fn):
+                out = render_fn(params, o, d, t, dists, cfg)
+                return torch.autograd.grad((out * cot).sum(), leaves)
+
+            k1, k2 = train(fused_nerf.nerf_train_loss), train(fused_nerf.nerf_train_loss)
+            p = train(fused_nerf.nerf_train_loss_reference)
+            b1, b2 = render_bwd(fused_nerf.render_rays), render_bwd(fused_nerf.render_rays)
+            q = render_bwd(fused_nerf.render_rays_reference)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(k1 + b1, k2 + b2)):
+                raise AssertionError(f"{name} {mode}: repeat launches differ")
+            loss_err = abs(k1[0].item() - p[0].item())
+            torch.testing.assert_close(k1[0], p[0], rtol=1e-5, atol=0.0)
+            e3 = grads_close(k1[1:], p[1:], f"nerf_train {name} {mode}", GRAD_RTOL,
+                             grad_atol)
+            e2 = grads_close(b1, q, f"nerf_render_bwd {name} {mode}", GRAD_RTOL,
+                             grad_atol)
+            worst["nerf_train"] = max(worst["nerf_train"], e3, loss_err)
+            worst["nerf_render_bwd"] = max(worst["nerf_render_bwd"], e2)
+            print(f"phase 4 {name:8s} {mode:8s} N={N_CHECK}: loss {k1[0].item():.6e} "
+                  f"(|kernel-plain| {loss_err:.3e}); max|dW,db kernel-plain| train "
+                  f"{e3:.3e}, render bwd {e2:.3e}; repeat launches bit-identical")
+    return worst
+
+
+def bench_batch(rng, cfg, n):
+    """A train batch as bench.py makes it: standard-normal origins and
+    directions, the (S,) uniform depths, uniform [0, 1) targets."""
+    o, d = seeded_rays(rng, n)
+    t, dists = uniform_depths(cfg)
+    tgt = torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")
+    return o, d, t, dists, tgt
+
+
+def phase_bench_batch_grads(fused_nerf, NeRFConfig):
+    """Phase 4, last check: fused against plain loss and gradients at the
+    bench batch (262,144 rays x 30 samples, small).  Both sum 7.9 M f32
+    terms, in other orders: loss rtol 1e-4; each leaf rtol 1e-3 with atol
+    1e-4 of the leaf's largest plain entry."""
+    cfg = NeRFConfig.small()
+    params = seeded_params(np.random.default_rng(0), cfg)
+    leaves = leaves_of(params)
+    batch = bench_batch(np.random.default_rng(0), cfg, BENCH_RAYS)
+    out = []
+    for fn in (fused_nerf.nerf_train_loss, fused_nerf.nerf_train_loss_reference):
+        loss = fn(params, *batch, cfg)
+        out.append((loss.detach(), *torch.autograd.grad(loss, leaves)))
+    (k, p) = out
+    torch.testing.assert_close(k[0], p[0], rtol=1e-4, atol=0.0)
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k[1:], p[1:]))
+    worst = grads_close(k[1:], p[1:], "nerf_train at the bench batch", 1e-3,
+                        lambda w: 1e-4 * w.abs().max().item())
+    print(f"phase 4 bench batch ({BENCH_RAYS} rays): loss kernel {k[0].item():.6e} plain "
+          f"{p[0].item():.6e}; max|dW,db kernel-plain| {worst:.3e} "
+          f"({rel:.3e} of the leaf's largest entry)")
+
+
+def phase_train_driver(train_nerf, fused_nerf, CheckpointManager, NeRFModel,
+                       NeRFConfig, synthetic_views, normalized_intrinsics, psnr, tmp):
+    """Phase 5: the train slice through its entry point,
+    ``train_nerf.main``, on the card: the small preset on the 16-view 64x64
+    synthetic scene (in memory), 500 Adam steps of 4096 rays; then 10 more
+    steps with ``--resume``.  Returns the train kernel's launches in the
+    500-step run."""
+    flags = ["--device", "cuda", "--data", "synthetic", "--preset", "small",
+             "--img-size", "64", "--rays-per-batch", "4096", "--eval-every", "250",
+             "--optimizer", "adam", "--lr", "5e-4", "--log-dir", os.path.join(tmp, "logs"),
+             "--ckpt-dir", os.path.join(tmp, "ck"), "--ckpt-every", "0"]
+    reset_launches(fused_nerf)
+    t0 = time.perf_counter()
+    out = train_nerf.main([*flags, "--steps", str(TRAIN_STEPS)])
+    train_s = time.perf_counter() - t0
+    counts = dict(fused_nerf.launches)
+    if counts["nerf_train"] != TRAIN_STEPS:
+        raise AssertionError(f"train kernel launched {counts['nerf_train']} times in "
+                             f"{TRAIN_STEPS} steps")
+    if counts["nerf_render_fwd"] < 1:
+        raise AssertionError("the evals made no render kernel launch")
+    if not np.all(np.isfinite(out["losses"])) or len(out["losses"]) != TRAIN_STEPS:
+        raise AssertionError("the run stopped or its loss is not finite")
+    # PSNR after the 500th step: the eval view rendered from the checkpoint
+    # the run wrote at its end (a round trip through CheckpointManager)
+    images, poses, focal = synthetic_views(16, 64, device="cuda")
+    model = NeRFModel(NeRFConfig.small(), device="cuda")
+    step = CheckpointManager(os.path.join(tmp, "ck")).restore(model)
+    with torch.no_grad():
+        img = model.render_image(normalized_intrinsics(focal, device="cuda"), poses[2], 64)
+    curve = dict(out["psnr"])
+    curve[step] = psnr(images[2], img).item()
+    with open(JAX_CURVE) as f:
+        jax_curve = {r["step"]: r["psnr"] for r in map(json.loads, f) if r["step"] <= step}
+    with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
+        stamps = {r["step"]: r["time"] for r in map(json.loads, f)}
+    between = sorted(stamps)[:2]  # the evals at steps 0 and 250
+    step_ms = (stamps[between[1]] - stamps[between[0]]) / (between[1] - between[0]) * 1e3
+    print(f"phase 5 train_nerf --preset small: {TRAIN_STEPS} steps x 4096 rays in "
+          f"{train_s:.2f} s host time (evals, checkpoint and data set-up included; "
+          f"{step_ms:.3f} ms/step between the evals at steps {between[0]} and "
+          f"{between[1]}); launches {counts}; final loss {out['losses'][-1]:.4f}")
+    print("  eval PSNR dB, port (this run) | JAX (artifacts/convergence_64, another "
+          "init): " + ", ".join(f"step {k}: {curve[k]:.2f} | {jax_curve.get(k, float('nan')):.2f}"
+                                for k in sorted(curve)))
+    if step != TRAIN_STEPS or curve[step] < PSNR_FLOOR_DB or curve[step] < curve[0] + PSNR_GAIN_DB:
+        raise AssertionError(f"PSNR {curve} after {step} steps: need >= {PSNR_FLOOR_DB} dB "
+                             f"and {PSNR_GAIN_DB} dB above step 0")
+    reset_launches(fused_nerf)
+    more = train_nerf.main([*flags, "--steps", str(TRAIN_STEPS + 10), "--resume"])
+    if fused_nerf.launches["nerf_train"] != 10 or len(more["losses"]) != 10 \
+            or not np.all(np.isfinite(more["losses"])):
+        raise AssertionError(f"--resume took {len(more['losses'])} steps, "
+                             f"{fused_nerf.launches['nerf_train']} train launches")
+    print(f"phase 5 --resume: 10 more steps from step {step}, loss "
+          f"{more['losses'][-1]:.4f}")
+    return counts["nerf_train"]
+
+
+def phase_render_loss_steps(fused_nerf, NeRFConfig, NeRFModel, synthetic_views,
+                            normalized_intrinsics, rays):
+    """Phase 5, the render-backward path: 10 Adam steps on
+    ``NeRFModel.loss`` (render, sum-MSE, backward through the render) over
+    the eval view's 4096 rays.  Returns the render backward's launches."""
+    images, poses, focal = synthetic_views(16, 64, device="cuda")
+    cfg = NeRFConfig.small()
+    model = NeRFModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    o, d = rays.get_rays(64, 64, normalized_intrinsics(focal, device="cuda"), poses[2])
+    t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    tgt = images[2].reshape(-1, 3)
+    losses = []
+    reset_launches(fused_nerf)
+    for _ in range(10):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(o, d, t, dists, tgt)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    n = fused_nerf.launches["nerf_render_bwd"]
+    if n != 10 or not np.all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"render-loss steps: {n} backward launches, losses {losses}")
+    print(f"phase 5 NeRFModel.loss: 10 steps, loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+          f"launches {dict(fused_nerf.launches)}")
+    return n
+
+
+def phase_bench_step(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_step, smi):
+    """Phase 6: the train step at the bench's shape (small, 262,144 rays,
+    Adam 5e-4, bench.py's numpy-seeded batches, two cycled): 3 warm-up
+    steps, then 20 steps each through the kernel and the plain backend, in
+    turns, by CUDA events; then each gradient kernel's own call against its
+    plain version (10 calls each).  Returns ``{kernel: (ms, plain_ms)}``."""
+    cfg = NeRFConfig.small()
+    rng = np.random.default_rng(0)
+    batches = [bench_batch(rng, cfg, BENCH_RAYS) for _ in range(2)]
+    steps = {}
+    for backend in ("auto", "plain"):
+        model = NeRFModel(cfg, device="cuda")
+        model.init(torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        steps[backend] = (model, make_single_chip_train_step(cfg, opt, backend))
+    times = {"auto": [], "plain": []}
+    losses = {"auto": [], "plain": []}
+
+    def run(backend, i, record=True):
+        model, step = steps[backend]
+        ms, loss = cuda_ms(lambda: step(model, *batches[i % 2]))
+        losses[backend].append(loss.item())
+        if record:
+            times[backend].append(ms)
+
+    for i in range(3):
+        run("auto", i, False)
+        run("plain", i, False)
+    for i in range(10):  # plain, kernel, kernel, plain
+        for backend in ("plain", "auto", "auto", "plain"):
+            run(backend, i)
+    if not all(np.all(np.isfinite(v)) for v in losses.values()):
+        raise AssertionError(f"non-finite loss at the bench shape: {losses}")
+    rel = abs(losses["auto"][0] - losses["plain"][0]) / losses["plain"][0]
+    print(f"phase 6 train step, small, {BENCH_RAYS} rays x {cfg.num_samples} samples, "
+          f"Adam 5e-4, on {smi} (first-step loss kernel {losses['auto'][0]:.6e} plain "
+          f"{losses['plain'][0]:.6e}, rel diff {rel:.2e}):")
+    for backend, name in (("auto", "kernel"), ("plain", "plain ")):
+        ts = times[backend]
+        med = statistics.median(ts)
+        print(f"  {name}: median {med:.3f} ms/step (min {min(ts):.3f}, max {max(ts):.3f}, "
+              f"n={len(ts)}), {BENCH_RAYS / med * 1e3:.4e} rays/s")
+
+    # each gradient kernel's own call (kernel + fixed-order block sum) at the
+    # bench batch, against the plain version of the same work
+    params = seeded_params(np.random.default_rng(0), cfg)
+    o, d, t, dists, tgt = batches[0]
+    pk = fused_nerf.pack_params(params, t, dists, 32)
+    G = fused_nerf.grad_floats(params, 32)
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((BENCH_RAYS, 3)),
+                       dtype=torch.float32, device="cuda")
+    lv = leaves_of(params)
+    plain_out = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+    calls = {
+        "nerf_train": (
+            lambda: fused_nerf._launch_grad("nerf_train", pk, G, o, d, tgt, cfg, 3, 32),
+            lambda: torch.autograd.grad(fused_nerf.nerf_train_loss_reference(
+                params, o, d, t, dists, tgt, cfg), lv)),
+        "nerf_render_bwd": (
+            lambda: fused_nerf._launch_grad("nerf_render_bwd", pk, G, o, d, cot, cfg, 3, 32),
+            lambda: torch.autograd.grad(plain_out, lv, cot, retain_graph=True)),
+    }
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        kernel(), plain()  # warm-up
+        k = [cuda_ms(kernel)[0] for _ in range(10)]
+        pl = [cuda_ms(plain)[0] for _ in range(10)]
+        out[name] = (statistics.median(k), statistics.median(pl))
+        what = ("loss + dW/db" if name == "nerf_train"
+                else "dW/db from a colour cotangent (plain: the backward pass only)")
+        print(f"  {name} alone, {what}: median {out[name][0]:.3f} ms (min {min(k):.3f}, "
+              f"max {max(k):.3f}) vs plain {out[name][1]:.3f} ms (min {min(pl):.3f}, "
+              f"max {max(pl):.3f}), n=10")
+    return out
+
+
+def reset_launches(fused_nerf):
+    for name in fused_nerf.launches:
+        fused_nerf.launches[name] = 0
+
+
 def cuda_ms(fn):
     """One call of ``fn`` timed with CUDA events, in ms."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -130,10 +442,13 @@ def main() -> None:
     if os.path.dirname(os.path.dirname(os.path.abspath(lomanerf_tpu_torch.__file__))) != ROOT:
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     from lomanerf_tpu_torch.core import normalized_intrinsics, psnr, rays
+    from lomanerf_tpu_torch.data import synthetic_views
     from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
     from lomanerf_tpu_torch.ops import build, fused_nerf
-    from lomanerf_tpu_torch.train.checkpoint import load_params_npz
+    from lomanerf_tpu_torch.train import train_nerf
+    from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
     from lomanerf_tpu_torch.train.make_video import render_orbit
+    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -149,23 +464,24 @@ def main() -> None:
     print(f"build: {os.path.relpath(lib_path, ROOT)} in {time.perf_counter() - t0:.1f} s")
     print((lib_path.parent / "build.log").read_text().strip())
 
-    worst = phase_kernel_vs_plain(fused_nerf, NeRFConfig)
+    worst = {"nerf_render_fwd": phase_kernel_vs_plain(fused_nerf, NeRFConfig)}
 
-    # ---- the main path: trained field -> render_image / render_orbit ----
+    # ---- the serving path: trained field -> render_image / render_orbit ----
     fx = np.load(FIXTURE)
     p = load_params_npz(FIXTURE)
     cfg = NeRFConfig.small()
     model = NeRFModel.from_numpy(cfg, p["w"], p["b"], device="cuda")
-    fused_nerf.launches = 0
-    worst = max(worst, phase_trained_field(fx, model, normalized_intrinsics, psnr))
-    after_phase2 = fused_nerf.launches
+    reset_launches(fused_nerf)
+    worst["nerf_render_fwd"] = max(worst["nerf_render_fwd"], phase_trained_field(
+        fx, model, normalized_intrinsics, psnr))
+    after_phase2 = fused_nerf.launches["nerf_render_fwd"]
     if after_phase2 == 0:
         raise AssertionError("phase 2 made no kernel launch")
     t0 = time.perf_counter()
     frames = render_orbit(model, float(fx["focal"]), 4.0, SERVE_FRAMES, SERVE_SIZE)
     orbit_s = time.perf_counter() - t0
-    launches = fused_nerf.launches
-    if launches <= after_phase2:
+    launches = {"nerf_render_fwd": fused_nerf.launches["nerf_render_fwd"]}
+    if launches["nerf_render_fwd"] <= after_phase2:
         raise AssertionError("render_orbit made no kernel launch")
     if frames.shape != (SERVE_FRAMES, SERVE_SIZE, SERVE_SIZE, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"orbit frames {frames.shape} {frames.dtype}")
@@ -173,7 +489,7 @@ def main() -> None:
         raise AssertionError("orbit frames are blank")
     print(f"phase 3 render_orbit: {SERVE_FRAMES} frames at {SERVE_SIZE}x{SERVE_SIZE} "
           f"in {orbit_s:.2f} s host time (incl. copies); kernel launches on the main "
-          f"path: {launches}")
+          f"path: {launches['nerf_render_fwd']}")
 
     # ---- phase 3 timing: one frame, kernel vs plain version, CUDA events ----
     K = normalized_intrinsics(float(fx["focal"]), device="cuda")
@@ -196,13 +512,14 @@ def main() -> None:
         torch.testing.assert_close(img_k, img_p, atol=ATOL, rtol=RTOL)
         if not torch.isfinite(img_k).all():
             raise AssertionError("non-finite pixels")
-        worst = max(worst, err)
+        worst["nerf_render_fwd"] = max(worst["nerf_render_fwd"], err)
         for _ in range(SERVE_FRAMES):  # in turns: plain, kernel, kernel, plain
             plain_ms.append(cuda_ms(plain_frame)[0])
             kernel_ms.append(cuda_ms(kernel_frame)[0])
             kernel_ms.append(cuda_ms(kernel_frame)[0])
             plain_ms.append(cuda_ms(plain_frame)[0])
-    k_med, p_med = statistics.median(kernel_ms), statistics.median(plain_ms)
+    timing = {"nerf_render_fwd": (statistics.median(kernel_ms), statistics.median(plain_ms))}
+    k_med, p_med = timing["nerf_render_fwd"]
     n_rays = SERVE_SIZE * SERVE_SIZE
     print(f"phase 3 800x800 frame ({n_rays} rays x {cfg.num_samples} samples), "
           f"max|kernel-plain| = {err:.3e}; on {smi}:")
@@ -211,12 +528,28 @@ def main() -> None:
     print(f"  plain : median {p_med:.3f} ms/frame (min {min(plain_ms):.3f}, max "
           f"{max(plain_ms):.3f}, n={len(plain_ms)}), {n_rays / p_med * 1e3:.4e} rays/s")
 
+    # ---- phase 4: the gradient kernels against their plain versions ----
+    worst.update(phase_grad_kernels(fused_nerf, NeRFConfig))
+    phase_bench_batch_grads(fused_nerf, NeRFConfig)
+
+    # ---- phase 5: the train path (train_nerf), and NeRFModel.loss's backward ----
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["nerf_train"] = phase_train_driver(
+            train_nerf, fused_nerf, CheckpointManager, NeRFModel, NeRFConfig,
+            synthetic_views, normalized_intrinsics, psnr, tmp)
+    launches["nerf_render_bwd"] = phase_render_loss_steps(
+        fused_nerf, NeRFConfig, NeRFModel, synthetic_views, normalized_intrinsics, rays)
+
+    # ---- phase 6: the train step at the bench's shape ----
+    timing.update(phase_bench_step(fused_nerf, NeRFConfig, NeRFModel,
+                                   make_single_chip_train_step, smi))
+
     print(smi)
     print(json.dumps({"kernels": [{
-        "name": "nerf_render_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": k_med, "plain_ms": p_med,
-    }]}))
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": worst[name],
+        "ms": timing[name][0], "plain_ms": timing[name][1],
+    } for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

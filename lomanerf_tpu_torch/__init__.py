@@ -9,8 +9,9 @@ is easy to find; public functions keep its layouts (params
 * ``ops``    — hand-written CUDA kernels for sm_90a, their plain PyTorch
                versions, and the nvcc/ctypes build
 * ``models`` — ``NeRFConfig`` and ``NeRFModel`` (an ``nn.Module``)
-* ``data``   — camera poses
-* ``train``  — params fixtures and the orbit renderer
+* ``data``   — camera poses, the synthetic scene, the Blender loader
+* ``train``  — optimizers, the train step, checkpoints, logging, the
+               ``train_nerf`` driver and the orbit renderer
 
 Tensors are made on the device of a function's inputs, or on the ``device``
 it is given; randomness comes from a ``torch.Generator`` argument.

@@ -14,10 +14,18 @@ from lomanerf_tpu_torch.core.mlp import (  # noqa: F401
     mlp_layer_sizes,
     params_from_numpy,
 )
-from lomanerf_tpu_torch.core.pipeline import nerf_render, nerf_render_rays  # noqa: F401
+from lomanerf_tpu_torch.core.pipeline import (  # noqa: F401
+    nerf_loss,
+    nerf_loss_rays,
+    nerf_render,
+    nerf_render_rays,
+    seeded_value_and_grad,
+)
 from lomanerf_tpu_torch.core.rays import (  # noqa: F401
+    generate_random_rays,
     get_rays,
     normalized_intrinsics,
     sample_along_rays,
+    stratified_ray_offsets,
     uniform_depths,
 )

@@ -6,6 +6,9 @@ pixel grid meshgrid'ed 'xy' over BOTH axes (square images), directions
 translation per pixel.  ``sample_along_rays`` gives uniform
 ``linspace(near, far, S)`` depths with an optional stratified jitter and
 ``dists`` = forward differences with a 1e8 far sentinel.
+``stratified_ray_offsets`` shifts each ray's whole depth comb instead, so
+depths stay ``(S,)``; ``generate_random_rays`` is the unit-direction
+random-pixel sampler.
 """
 
 from __future__ import annotations
@@ -87,3 +90,50 @@ def sample_along_rays(
         dists = _dists(t)
     points = origins[:, None, :] + directions[:, None, :] * t[..., None]
     return points, t, dists
+
+
+def stratified_ray_offsets(
+    generator: torch.Generator, num_rays: int, near: float, far: float,
+    num_samples: int,
+) -> torch.Tensor:
+    """Per-ray stratified depth offsets ``dt`` ``(N,)`` in
+    ``[0, (far - near) / S)``, drawn on the generator's device.
+
+    Shifted-lattice stratification: each ray's whole comb
+    ``linspace(near, far, S)`` shifts by one uniform draw within a bin, so
+    ``o + d * dt[:, None]`` with the unjittered ``(S,)`` depths gives the
+    points of depths ``t + dt`` and the depths stay per-ray-uniform (the
+    fused kernels' contract)."""
+    bin_width = (far - near) / num_samples
+    u = torch.rand((num_rays,), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return u * bin_width
+
+
+def generate_random_rays(
+    generator: torch.Generator,
+    image_size: Tuple[int, int],
+    num_rays: int,
+    cameras: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random-pixel rays with UNIT directions: per camera of the ``(C, 4, 4)``
+    camera-to-world ``cameras``, ``num_rays`` pixels drawn from
+    ``generator`` in ``image_size`` ``(W, H)``, centre-offset camera-space
+    directions normalised and rotated into world space; origins are the
+    camera translations.  Returns ``(origins, directions)``, each
+    ``(C*num_rays, 3)``, on the cameras' device."""
+    cameras = torch.as_tensor(cameras, dtype=torch.float32)
+    c = cameras.shape[0]
+    px = torch.randint(0, image_size[0], (c, num_rays), generator=generator,
+                       device=generator.device).to(cameras.device)
+    py = torch.randint(0, image_size[1], (c, num_rays), generator=generator,
+                       device=generator.device).to(cameras.device)
+    dirs = torch.stack(
+        [(px - image_size[0] / 2.0) / image_size[0],
+         (py - image_size[1] / 2.0) / image_size[1],
+         -torch.ones_like(px, dtype=torch.float32)], dim=-1,
+    ).to(torch.float32)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    dirs = torch.einsum("cij,cnj->cni", cameras[:, :3, :3], dirs)
+    origins = cameras[:, None, :3, 3].expand(dirs.shape)
+    return origins.reshape(-1, 3), dirs.reshape(-1, 3)

@@ -6,8 +6,9 @@ loma compositing; ``single_view_64()`` — 4 x 64, 64 samples; ``full()`` —
 8 x 256, 128 samples, standard compositing, bf16 compute.
 
 ``NeRFModel`` is an ``nn.Module`` that owns its MLP parameters; the device
-of those parameters decides the path: CUDA renders through the hand-written
-kernel (``ops.fused_nerf``), CPU through the plain PyTorch version.
+of those parameters decides the path: CUDA renders (and differentiates the
+render) through the hand-written kernels (``ops.fused_nerf``), CPU through
+the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -131,6 +132,12 @@ class NeRFModel(nn.Module):
     def render_rays(self, origins, directions, t_vals, dists) -> torch.Tensor:
         return fused_nerf.render_rays(self.params, origins, directions, t_vals,
                                       dists, self.config)
+
+    def loss(self, origins, directions, t_vals, dists, target) -> torch.Tensor:
+        """Sum-MSE of :meth:`render_rays` against ``(N, 3)`` targets; its
+        backward on CUDA runs the render backward kernel."""
+        return fused_nerf.nerf_loss(self.params, origins, directions, t_vals,
+                                    dists, target, self.config)
 
     def render_image(self, K, c2w, img_size: int, chunk: int = 1 << 20) -> torch.Tensor:
         """``(img_size, img_size, 3)`` render of pose ``c2w`` on the

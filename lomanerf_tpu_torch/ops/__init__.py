@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels (sm_90a) with their plain PyTorch versions.
 
-``fused_nerf`` — the narrow render forward (``csrc/nerf_render_fwd.cu``);
-``build`` — nvcc at first use, bound with ctypes.
+``fused_nerf`` — the narrow render forward (``csrc/nerf_render_fwd.cu``),
+its backward (``csrc/nerf_render_bwd.cu``) and the fused train loss
+(``csrc/nerf_train.cu``), sharing ``csrc/nerf_common.cuh`` and
+``csrc/nerf_grad.cuh``; ``build`` — nvcc at first use, bound with ctypes.
 """

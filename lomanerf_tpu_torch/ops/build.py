@@ -3,9 +3,10 @@
 Every ``ops/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface (no PyTorch headers: a build takes
 seconds, not minutes), under ``build/kernels/<hash>/`` at the repository
-root, keyed by a hash of the sources and flags.  No fast-math: the kernels
-keep IEEE ``expf``/``sincosf``.  Pointers and the CUDA stream cross as
-``c_void_p``; each entry point returns ``cudaGetLastError()`` of its launch.
+root, keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` headers
+they include) and flags.  No fast-math: the kernels keep IEEE
+``expf``/``sincosf``.  Pointers and the CUDA stream cross as ``c_void_p``;
+each entry point returns ``cudaGetLastError()`` of its launches.
 """
 
 from __future__ import annotations
@@ -20,15 +21,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# (pk, pk_floats, G, origins, directions, target or dcol, partials, out,
+#  n_rays, S, L, in_dim, num_functions, width, loma, stream)
+_GRAD = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # (pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim,
     #  num_functions, width, loma, stream)
     "nerf_render_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "nerf_train": _GRAD,
+    "nerf_render_bwd": _GRAD,
 }
 
 
@@ -44,29 +50,46 @@ def _nvcc() -> str:
                        "the CUDA kernels are built only where the toolkit is")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def source_hash(csrc: Path = CSRC, flags=tuple(NVCC_FLAGS)) -> str:
+    """Hash of the flags and of every ``*.cu`` and ``*.cuh`` under ``csrc``
+    (name and bytes): a changed header gives a new library, not a stale one."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def build() -> Path:
-    """Compile the sources unless a library for them (same sources, same
-    flags) exists; returns its path.  The compiler's register/shared-memory
-    report goes to ``build.log`` beside it."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    lib = BUILD_ROOT / h.hexdigest()[:16] / "liblomanerf_kernels.so"
+    """Compile the ``*.cu`` sources unless a library for them (same sources
+    and headers, same flags) exists; returns its path.  One ``nvcc -c`` per
+    source, all started together, then one link.  The compiler's
+    register/shared-memory report goes to ``build.log`` beside it."""
+    lib = BUILD_ROOT / source_hash() / "liblomanerf_kernels.so"
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (lib.parent / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    nvcc, pid = _nvcc(), os.getpid()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(lib.parent / f"{src.stem}.{pid}.o"),
+             str(src)] for src in sorted(CSRC.glob("*.cu"))]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    tmp = lib.with_suffix(f".{pid}.tmp")
+    objs = [cmd[cmd.index("-o") + 1] for cmd in cmds]
+    link = [nvcc, *GENCODE, "-shared", "-o", str(tmp), *objs]
+    if all(proc.returncode == 0 for proc in procs):
+        done = subprocess.run(link, capture_output=True, text=True)
+        outs.append(done.stdout + done.stderr)
+        failed = done.returncode
+    else:
+        failed = next(proc.returncode for proc in procs if proc.returncode)
+    log = "\n".join(" ".join(cmd) + "\n" + out for cmd, out in zip([*cmds, link], outs))
+    (lib.parent / "build.log").write_text(log)
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     os.replace(tmp, lib)
     return lib
 

@@ -28,71 +28,14 @@
 //   * layer 0 is fed straight from the encoding, one feature at a time, so
 //     the (in_dim)-wide encoded vector is never stored;
 //   * the last layer computes only the four rgba channels the render reads.
-// Built without fast-math: expf and sincosf stay IEEE-accurate, the 1e-10
-// epsilon in c = e + 1e-10 is kept, and sigma = 0 against the 1e8 far
-// sentinel gives exp(-0) = 1, alpha = 0 exactly.  The point o + d*t and the
-// product sigma*dist are rounded as the reference rounds them (no FMA
-// contraction), since the encoding amplifies the point's error by 2^(n-1).
-//
-// Packed parameter buffer (floats, built by ops/fused_nerf.py), per layer l:
-//   W_l padded to (rows_l, cols_l) row-major, then b_l padded to cols_l,
-// where rows_0 = in_dim, rows_l = W for l >= 1, cols_l = W for l < L-1 and
-// cols_{L-1} = 4; then t[0..S) and dist[0..S).  Every block is a multiple of
-// 4 floats, so each layer starts 16-byte aligned.
+// The per-sample MLP and compositing step live in nerf_common.cuh, shared
+// with the backward kernels (nerf_render_bwd.cu, nerf_train.cu).
 
-#include <cuda_runtime.h>
+#include "nerf_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kHead = 4;  // rgba channels the render reads
-
-// z[0..OUT) += a * w[0..OUT), w 16-byte aligned in shared memory
-template <int OUT, int N>
-__device__ __forceinline__ void axpy(float a, const float* __restrict__ w,
-                                     float (&z)[N]) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int j = 0; j < OUT / 4; ++j) {
-    const float4 v = w4[j];
-    z[4 * j + 0] = fmaf(a, v.x, z[4 * j + 0]);
-    z[4 * j + 1] = fmaf(a, v.y, z[4 * j + 1]);
-    z[4 * j + 2] = fmaf(a, v.z, z[4 * j + 2]);
-    z[4 * j + 3] = fmaf(a, v.w, z[4 * j + 3]);
-  }
-}
-
-template <int OUT, int N>
-__device__ __forceinline__ void load_bias(const float* __restrict__ b,
-                                          float (&z)[N]) {
-#pragma unroll
-  for (int j = 0; j < OUT; ++j) z[j] = b[j];
-}
-
-// Layer 0 straight from the encoding of point p: z = enc(p) @ W0 + b0.
-// Encoded row of sin(2^i p_c) is 3 + 6i + c, of cos(2^i p_c) 6 + 6i + c.
-template <int OUT, int N>
-__device__ __forceinline__ void encode_layer(const float (&p)[3], int nf,
-                                             const float* __restrict__ w,
-                                             int in_dim, float (&z)[N]) {
-  load_bias<OUT>(w + in_dim * OUT, z);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) axpy<OUT>(p[c], w + c * OUT, z);
-  for (int i = 0; i < nf; ++i) {
-    const float scale = ldexpf(1.0f, i);  // 2^i, exact
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float sn, cs;
-      sincosf(__fmul_rn(scale, p[c]), &sn, &cs);
-      axpy<OUT>(sn, w + (3 + 6 * i + c) * OUT, z);
-      axpy<OUT>(cs, w + (6 + 6 * i + c) * OUT, z);
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
@@ -109,17 +52,11 @@ nerf_render_fwd_kernel(const float* __restrict__ pk, int pk_floats,
   }
   __syncthreads();
 
+  // ragged last block: no barrier follows, so pad threads may leave
   const int ray = blockIdx.x * kThreads + threadIdx.x;
-  if (ray >= n_rays) return;  // ragged last block
+  if (ray >= n_rays) return;
 
-  // per-layer offsets into smem
-  const int l0_cols = (L == 1) ? kHead : W;
-  const float* w_first = smem;
-  const float* w_hidden = w_first + in_dim * l0_cols + l0_cols;
-  const float* w_head = w_hidden + (L >= 2 ? (L - 2) * (W * W + W) : 0);
-  const float* ts = (L == 1) ? w_hidden : w_head + W * kHead + kHead;
-  const float* ds = ts + S;
-
+  const nerf::Layout lay(smem, L, W, in_dim, nf, S);
   const float o[3] = {origins[3 * ray], origins[3 * ray + 1], origins[3 * ray + 2]};
   const float d[3] = {directions[3 * ray], directions[3 * ray + 1],
                       directions[3 * ray + 2]};
@@ -127,48 +64,15 @@ nerf_render_fwd_kernel(const float* __restrict__ pk, int pk_floats,
   float P = 1.0f;  // running product of c over the samples seen so far
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < S; ++s) {
-    const float t = ts[s];
     float p[3];
+    nerf::sample_point(o, d, lay.ts[s], p);
+    float rgba[nerf::kHead];
+    nerf::mlp_rgba<W, false>(p, lay, rgba, nullptr, 0);
+    float alpha, c;
+    nerf::sample_alpha(rgba[3], lay.ds[s], &alpha, &c);
+    const float wgt = alpha * nerf::transmittance(&P, c, s, loma);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) p[c] = __fadd_rn(o[c], __fmul_rn(d[c], t));
-
-    float rgba[kHead];
-    if (L == 1) {
-      encode_layer<kHead>(p, nf, w_first, in_dim, rgba);
-    } else {
-      float z[W];
-      float h[W];
-      encode_layer<W>(p, nf, w_first, in_dim, z);
-#pragma unroll
-      for (int j = 0; j < W; ++j) h[j] = fmaxf(z[j], 0.0f);
-      const float* w = w_hidden;
-      for (int l = 1; l < L - 1; ++l, w += W * W + W) {
-        load_bias<W>(w + W * W, z);
-#pragma unroll
-        for (int k = 0; k < W; ++k) axpy<W>(h[k], w + k * W, z);
-#pragma unroll
-        for (int j = 0; j < W; ++j) h[j] = fmaxf(z[j], 0.0f);
-      }
-      load_bias<kHead>(w_head + W * kHead, rgba);
-#pragma unroll
-      for (int k = 0; k < W; ++k) axpy<kHead>(h[k], w_head + k * kHead, rgba);
-    }
-
-    const float sigma = fmaxf(rgba[3], 0.0f);
-    const float e = expf(__fmul_rn(-sigma, ds[s]));
-    const float alpha = 1.0f - e;
-    const float c = e + 1e-10f;
-    float T;
-    if (loma) {
-      P *= c;
-      T = (s == 0) ? 1.0f : P;
-    } else {
-      T = P;
-      P *= c;
-    }
-    const float wgt = alpha * T;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) acc[k] = fmaf(wgt, sigmoidf(rgba[k]), acc[k]);
+    for (int k = 0; k < 3; ++k) acc[k] = fmaf(wgt, nerf::sigmoidf(rgba[k]), acc[k]);
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) out[3 * ray + k] = acc[k];

@@ -1,1 +1,4 @@
-"""Drivers: params fixtures and the orbit renderer."""
+"""Training and its drivers: ``optim`` (LomaAdam, loma_sgd), ``steps``
+(the single-device train step), ``checkpoint`` (CheckpointManager and params
+fixtures), ``logging_utils`` (JSONL metrics, PNG writer), ``train_nerf``
+(the NeRF driver) and ``make_video`` (the orbit renderer)."""

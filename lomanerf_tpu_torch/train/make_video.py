@@ -1,10 +1,13 @@
 """Render an orbit of a trained NeRF into a video (port of the ``--ckpt-dir``
-path of ``lomanerf_tpu.train.make_video``).
+path of ``lomanerf_tpu.train.make_video``), from a params ``.npz`` or from
+the port's own checkpoints (``train_nerf --ckpt-dir``).
 
 Run:
     python -m lomanerf_tpu_torch.train.make_video \
         --params tests/data/convergence_64_step5000.npz --preset small \
         --orbit 8 --img-size 800 --out orbit.mp4
+    python -m lomanerf_tpu_torch.train.make_video \
+        --ckpt-dir checkpoints/train_nerf --preset small --orbit 60 --out orbit.mp4
 """
 
 from __future__ import annotations
@@ -33,14 +36,22 @@ def render_orbit(model, focal: float, radius: float, n: int, img_size: int) -> n
 
 def main(argv=None) -> None:
     from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
-    from lomanerf_tpu_torch.train.checkpoint import load_params_npz
+    from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--params", required=True,
-                    help="npz of w0.., b0.. params (scripts/export_torch_fixture.py)")
-    ap.add_argument("--preset", default="small",
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--params",
+                     help="npz of w0.., b0.. params (scripts/export_torch_fixture.py)")
+    src.add_argument("--ckpt-dir",
+                     help="render from the latest checkpoint of train_nerf in this dir")
+    ap.add_argument("--preset", default=None,
                     choices=["small", "single64", "full"],
-                    help="NeRFConfig preset (must match the params)")
+                    help="NeRFConfig preset (must match the params; overrides "
+                         "--layers/--width/--samples/--enc-functions)")
+    ap.add_argument("--samples", type=int, default=30)
+    ap.add_argument("--layers", type=int, default=3)
+    ap.add_argument("--width", type=int, default=30)
+    ap.add_argument("--enc-functions", type=int, default=5)
     ap.add_argument("--orbit", type=int, default=60, help="orbit frame count")
     ap.add_argument("--img-size", type=int, default=64)
     ap.add_argument("--focal", type=float, default=1.1106)
@@ -53,9 +64,19 @@ def main(argv=None) -> None:
 
     import imageio.v2 as imageio
 
-    p = load_params_npz(args.params)
-    model = NeRFModel.from_numpy(NeRFConfig.preset(args.preset), p["w"], p["b"],
-                                 device=args.device)
+    if args.preset:
+        cfg = NeRFConfig.preset(args.preset)
+    else:
+        cfg = NeRFConfig(num_layers=args.layers, filter_size=args.width,
+                         num_encoding_functions=args.enc_functions,
+                         num_samples=args.samples)
+    if args.params:
+        p = load_params_npz(args.params)
+        model = NeRFModel.from_numpy(cfg, p["w"], p["b"], device=args.device)
+    else:
+        model = NeRFModel(cfg, device=args.device)
+        step = CheckpointManager(args.ckpt_dir).restore(model)
+        print(f"restored step {step} from {args.ckpt_dir}")
     print(f"rendering {args.orbit}-frame orbit at {args.img_size}px on {args.device}")
     frames = render_orbit(model, args.focal, args.radius, args.orbit, args.img_size)
     out = args.out

@@ -209,3 +209,44 @@ def test_nerf_render_pipeline(rng, mode):
         want = jcore.nerf_render_rays(jcore.params_from_numpy(ws, bs),
                                       jnp.asarray(o), jnp.asarray(d), tv, dv, 5, mode)
         close(got, want)
+
+
+def test_stratified_ray_offsets():
+    """Per-ray comb shifts in [0, (far - near) / S), from the generator."""
+    g = torch.Generator().manual_seed(5)
+    dt = tcore.stratified_ray_offsets(g, 1000, 2.0, 6.0, 8)
+    assert dt.shape == (1000,) and dt.dtype == torch.float32
+    assert 0.0 <= float(dt.min()) and float(dt.max()) < 0.5
+    assert float(dt.std()) > 0.1  # spread over the bin, not a constant
+    g2 = torch.Generator().manual_seed(5)
+    assert torch.equal(dt, tcore.stratified_ray_offsets(g2, 1000, 2.0, 6.0, 8))
+
+
+@pytest.mark.parametrize("mode", ["loma", "standard"])
+def test_nerf_losses_and_seeded_grad(rng, mode):
+    """nerf_loss / nerf_loss_rays and seeded_value_and_grad (seed = 1 and a
+    loss-valued seed) against the JAX core (grads rtol 1e-4, atol 1e-5:
+    float32 backward passes in two frameworks)."""
+    ws, bs = np_params(rng, tcore.mlp_layer_sizes(33, 4, 3, 16))
+    o, d = f32(rng, 10, 3), f32(rng, 10, 3)
+    tgt = np.abs(f32(rng, 10, 3))
+    _, t, dists = jcore.sample_along_rays(jnp.asarray(o), jnp.asarray(d), 2.0, 6.0, 8)
+    j_args = (jnp.asarray(o), jnp.asarray(d), t, dists, jnp.asarray(tgt), 5, mode)
+    t_args = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(np.array(t)),
+              torch.from_numpy(np.array(dists)), torch.from_numpy(tgt), 5, mode)
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    jp = jcore.params_from_numpy(ws, bs)
+    close(tcore.nerf_loss_rays(params, *t_args), jcore.nerf_loss_rays(jp, *j_args))
+    pts = torch.from_numpy(o)[:, None] + torch.from_numpy(d)[:, None] * t_args[2][:, None]
+    enc = tcore.positional_encoding(pts, 5)
+    close(tcore.nerf_loss(params, enc, t_args[3], t_args[4], mode),
+          tcore.nerf_loss_rays(params, *t_args))
+    t_vg = tcore.seeded_value_and_grad(tcore.nerf_loss_rays)
+    j_vg = jcore.seeded_value_and_grad(jcore.nerf_loss_rays)
+    for seed in (None, 3.5):
+        t_loss, t_grads = t_vg(params, *t_args, seed=seed)
+        j_loss, j_grads = j_vg(jp, *j_args, seed=seed)
+        close(t_loss, j_loss)
+        for a, b in zip([*t_grads["w"], *t_grads["b"]], [*j_grads["w"], *j_grads["b"]]):
+            close(a, b, rtol=1e-4, atol=1e-5)
+    assert not params["w"][0].requires_grad  # the params are not modified

@@ -1,12 +1,17 @@
-"""The port's CUDA render kernel on the card (skips without one).
+"""The port's CUDA kernels on the card (skips without one).
 
 Imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-The kernel is held to its plain PyTorch version at atol/rtol 1e-4: both are
-float32 and differ in the order of their sums and in sin/cos/exp.
+The render kernel is held to its plain PyTorch version at atol/rtol 1e-4:
+both are float32 and differ in the order of their sums and in sin/cos/exp.
+The gradient kernels (train step #3, render backward #2) are held to
+autograd of the plain version at the JAX test's bound for its fused train
+kernel (loss rtol 1e-5; grads rtol 3e-4, atol 3e-5 scaled by the leaf's
+largest entry where that is above 1, since these sums run over 1037 rays,
+not 20), and two launches on the same inputs must agree bit for bit.
 """
 
 import dataclasses
@@ -52,35 +57,103 @@ def test_kernel_matches_plain_version(preset, mode):
     params = params_from_numpy(*np_params(rng, cfg), "cuda")
     o, d = cuda_rays(rng, N_RAYS)
     t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
-    before = fused_nerf.launches
+    before = fused_nerf.launches["nerf_render_fwd"]
     got = fused_nerf.render_rays(params, o, d, t, dists, cfg)
     torch.cuda.synchronize()
-    assert fused_nerf.launches == before + 1
+    assert fused_nerf.launches["nerf_render_fwd"] == before + 1
     want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def grads_of(params, fn):
+    """(value, *grads) of the 0-d ``fn()`` w.r.t. every param."""
+    lv = [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+    out = fn()
+    return (out.detach(), *torch.autograd.grad(out, lv))
+
+
+def assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        atol = 3e-5 * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=atol)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_and_has_no_backward():
+@pytest.mark.parametrize("preset", ["small", "single64"])
+@pytest.mark.parametrize("mode", ["loma", "standard"])
+@pytest.mark.parametrize("n_rays", [N_RAYS, 64, 1])  # ragged, one full block, one ray
+def test_gradient_kernels_match_plain_and_repeat_exactly(preset, mode, n_rays):
+    need_card()
+    rng = np.random.default_rng(7)
+    cfg = dataclasses.replace(NeRFConfig.preset(preset), mode=mode)
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    o, d = cuda_rays(rng, n_rays)
+    t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    tgt = torch.from_numpy(rng.random((n_rays, 3)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.standard_normal((n_rays, 3)).astype(np.float32)).cuda()
+
+    def train(fn):
+        return grads_of(params, lambda: fn(params, o, d, t, dists, tgt, cfg))
+
+    def render_bwd(fn):
+        return grads_of(params, lambda: (fn(params, o, d, t, dists, cfg) * cot).sum())
+
+    before = dict(fused_nerf.launches)
+    k1, k2 = train(fused_nerf.nerf_train_loss), train(fused_nerf.nerf_train_loss)
+    b1, b2 = render_bwd(fused_nerf.render_rays), render_bwd(fused_nerf.render_rays)
+    torch.cuda.synchronize()
+    assert fused_nerf.launches["nerf_train"] == before["nerf_train"] + 2
+    assert fused_nerf.launches["nerf_render_bwd"] == before["nerf_render_bwd"] + 2
+    assert all(torch.equal(x, y) for x, y in zip(k1 + b1, k2 + b2))
+    p = train(fused_nerf.nerf_train_loss_reference)
+    torch.testing.assert_close(k1[0], p[0], rtol=1e-5, atol=0.0)
+    assert_grads_close(k1[1:], p[1:])
+    assert_grads_close(b1[1:], render_bwd(fused_nerf.render_rays_reference)[1:])
+
+
+@pytest.mark.cuda
+def test_train_loss_ray_inputs_get_no_gradient():
+    need_card()
+    rng = np.random.default_rng(3)
+    cfg = NeRFConfig.small()
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    o, d = (x.requires_grad_(True) for x in cuda_rays(rng, 100))
+    t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    for p in [*params["w"], *params["b"]]:
+        p.requires_grad_(True)
+    loss = fused_nerf.nerf_train_loss(params, o, d, t, dists, torch.zeros(100, 3).cuda(), cfg)
+    loss.backward()
+    assert o.grad is None and d.grad is None
+    assert all(p.grad is not None for p in params["w"])
+    fused_nerf.nerf_loss(params, o, d, t, dists, torch.zeros(100, 3).cuda(), cfg).backward()
+    assert o.grad is None and d.grad is None
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take():
     need_card()
     rng = np.random.default_rng(0)
     cfg = NeRFConfig.small()
     params = params_from_numpy(*np_params(rng, cfg), "cuda")
     o, d = cuda_rays(rng, 64)
+    tgt = torch.zeros(64, 3, device="cuda")
     t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
-    with pytest.raises(NotImplementedError, match="B1/B2"):
-        fused_nerf.render_rays(params, o, d, t.expand(64, -1), dists.expand(64, -1), cfg)
-    with pytest.raises(NotImplementedError, match="C1/C2"):
-        fused_nerf.render_rays(params, o, d, t, dists,
-                               dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    t2, d2 = t.expand(64, -1), dists.expand(64, -1)
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     wide = NeRFConfig(filter_size=128)
-    with pytest.raises(NotImplementedError, match="C2"):
-        fused_nerf.render_rays(params_from_numpy(*np_params(rng, wide), "cuda"),
-                               o, d, t, dists, wide)
-    for p in params["w"]:
-        p.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A2"):
-        fused_nerf.render_rays(params, o, d, t, dists, cfg).sum().backward()
+    wide_params = params_from_numpy(*np_params(rng, wide), "cuda")
+    with pytest.raises(NotImplementedError, match="B1/B2"):
+        fused_nerf.render_rays(params, o, d, t2, d2, cfg)
+    with pytest.raises(NotImplementedError, match="B1/B2"):
+        fused_nerf.nerf_train_loss(params, o, d, t2, d2, tgt, cfg)
+    with pytest.raises(NotImplementedError, match="C1/C2"):
+        fused_nerf.render_rays(params, o, d, t, dists, bf16)
+    with pytest.raises(NotImplementedError, match="C1/C2"):
+        fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, bf16)
+    with pytest.raises(NotImplementedError, match="C1/C2"):
+        fused_nerf.render_rays(wide_params, o, d, t, dists, wide)
+    with pytest.raises(NotImplementedError, match="C1/C2"):
+        fused_nerf.nerf_train_loss(wide_params, o, d, t, dists, tgt, wide)
 
 
 @pytest.mark.cuda

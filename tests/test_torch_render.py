@@ -158,7 +158,7 @@ def test_packed_layout_matches_plain_render(rng, layers, width, mode):
 
 
 def test_kernel_refuses_what_it_does_not_take(rng):
-    """Cases the CUDA kernel does not take raise, naming the ROADMAP item."""
+    """Cases the CUDA kernels do not take raise, naming the ROADMAP item."""
     small = NeRFConfig.small()
     ws, bs = np_params(rng, mlp_layer_sizes(33, 4, 3, 30))
     params = params_from_numpy(ws, bs, "cpu")
@@ -171,5 +171,8 @@ def test_kernel_refuses_what_it_does_not_take(rng):
     with pytest.raises(ValueError):  # the n=4 encoding gives 27 inputs, not 33
         fused_nerf._kernel_width(dataclasses.replace(small, num_encoding_functions=4),
                                  params)
-    with pytest.raises(NotImplementedError, match="A2"):
-        fused_nerf._RenderFwd.backward(None, torch.ones(2, 3))
+    o, t = torch.zeros(4, 3), torch.linspace(2.0, 6.0, 30)
+    with pytest.raises(NotImplementedError, match="B1/B2"):  # per-ray (N, S) depths
+        fused_nerf._check_cuda_inputs(o, o, t.expand(4, -1), t.expand(4, -1), small, params)
+    with pytest.raises(ValueError):  # targets of another ray count
+        fused_nerf._check_cuda_inputs(o, o, t, t, small, params, torch.zeros(5, 3))
