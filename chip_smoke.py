@@ -28,18 +28,32 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    steps on ``NeRFModel.loss``, whose backward is the render backward kernel;
 6. times the train step at the bench's shape (small, 262,144 rays, Adam)
    through the kernel and through the plain backend, in turns, and each
-   gradient kernel's own call against its plain version.
+   gradient kernel's own call against its plain version;
+7. holds the wide kernels (the 8x256 flagship's render forward, train step
+   and render backward) against their plain versions on the card, at
+   ``full()`` (bf16) and at an f32 4x128/S=32 MLP in both modes on 1037
+   rays, with repeat launches bit-identical, and the train kernel at the
+   flagship's bench batch (16,384 rays);
+8. trains through ``train_nerf.main --preset full`` (300 Adam steps of 4096
+   rays on the same scene): one wide train-kernel launch per step, evals
+   through the wide render, eval PSNR >= 20 dB after 300 steps and 8 dB
+   above step 0; renders a 4-frame 128x128 orbit of the trained flagship;
+   10 steps on ``NeRFModel.loss`` through the wide render backward;
+9. times the flagship train step (16,384 rays, Adam) and one 800x800
+   ``full`` frame through the kernels and the plain version, in turns, and
+   each wide entry point's own call against its plain version.
 
-Phases 2-3 (serving), 5 (training, the render backward's steps) are the
-main paths: each kernel's launch count is reset before its path and read
-after it.  The last lines are the card's name and power limit, a JSON line
-of the kernels, and ``{"ok": true, "device": ...}``.  It exits non-zero,
-before printing any result, without a CUDA device or outside a checkout of
-the repository; any failing phase raises.
+Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps) are
+the main paths: each kernel's launch count is reset before its path and
+read after it.  The last lines are the card's name and power limit, a JSON
+line of the six kernels, and ``{"ok": true, "device": ...}``.  It exits
+non-zero, before printing any result, without a CUDA device or outside a
+checkout of the repository; any failing phase raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -78,11 +92,31 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                    "lomanerf_tpu/ops/fused_nerf.py:1108"),
     "nerf_render_bwd": ("lomanerf_tpu_torch/ops/csrc/nerf_render_bwd.cu",
                         "lomanerf_tpu/ops/fused_nerf.py:1339"),
+    "nerf_wide_train": ("lomanerf_tpu_torch/ops/csrc/nerf_wide_train.cu",
+                        "lomanerf_tpu/ops/fused_nerf.py:1477"),
+    "nerf_wide_render_fwd": ("lomanerf_tpu_torch/ops/csrc/nerf_wide_render_fwd.cu",
+                             "lomanerf_tpu/ops/fused_nerf.py:1515"),
+    "nerf_wide_render_bwd": ("lomanerf_tpu_torch/ops/csrc/nerf_wide_render_bwd.cu",
+                             "lomanerf_tpu/ops/fused_nerf.py:1537"),
 }
+WIDE = ("nerf_wide_train", "nerf_wide_render_fwd", "nerf_wide_render_bwd")
+FLAGSHIP_RAYS = 16384  # the flagship rung's train batch (bench.py:334)
+FLAGSHIP_STEPS = 300
+# the JAX run of the flagship driver: 8.08 -> 21.74 -> 24.09 dB at steps 0,
+# 100, 300 (artifacts/convergence_full/metrics.jsonl)
+JAX_CURVE_FULL = os.path.join(ROOT, "artifacts", "convergence_full", "metrics.jsonl")
+FLAGSHIP_PSNR_DB = 20.0
+# full(): MACs per sample, forward 33*256 + 6*256^2 + 256*4; a train step
+# adds d_h = d_z W^T (6*256^2 + 256*4) and dW = h^T d_z (the forward's)
+FULL_MACS_FWD = 402688
+FULL_MACS_TRAIN = 2 * FULL_MACS_FWD + 394240
+FRAME_ROUNDS = 2  # 800x800 full frames: 1 warm-up, then 2 rounds in turns (4 each)
 
 
 def seeded_params(rng, cfg):
-    """He-scaled numpy params of ``cfg``'s MLP, as CUDA tensors."""
+    """He-scaled numpy params of ``cfg``'s MLP, as CUDA tensors; with
+    ``cfg.init == "nerf"`` the biases are zero and the head is scaled by 0.1
+    with a +0.5 density bias, as ``init_mlp(init="nerf")`` draws them."""
     sizes = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) \
         + [cfg.out_channels]
     params = {"w": [], "b": []}
@@ -92,6 +126,10 @@ def seeded_params(rng, cfg):
             dtype=torch.float32, device="cuda"))
         params["b"].append(torch.tensor(
             rng.standard_normal(fo) * 0.5, dtype=torch.float32, device="cuda"))
+    if cfg.init == "nerf":
+        params["b"] = [torch.zeros_like(b) for b in params["b"]]
+        params["w"][-1] *= 0.1
+        params["b"][-1][3] = 0.5
     return params
 
 
@@ -417,6 +455,330 @@ def phase_bench_step(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_s
     return out
 
 
+def wide_tolerances(cfg):
+    """(colour atol, loss rtol, grad bound of the leaf's largest entry) of a
+    wide kernel against its plain version.  f32: the narrow kernels' bounds.
+    bf16: both sides round the same values at the same places, but a sum in
+    another order (here the tensor cores' 32-deep k-steps) can move a value
+    across a bf16 rounding boundary and the flip propagates;
+    tests/test_torch_wide.py measured such flips between the plain version
+    and the JAX kernels up to 5.5e-4 on colours, 1.75e-5 on the loss and
+    1.1e-2 of a leaf's largest gradient entry at 20 rays.  The first card
+    runs of full() at 1037 rays gave 5.9e-5, 5.9e-7 and 1.5e-3."""
+    if cfg.compute_dtype == "bfloat16":
+        return 2e-3, 1e-4, 1e-2
+    return ATOL, 1e-5, None
+
+
+def wide_grads_close(got, want, what, cfg):
+    _, _, rel = wide_tolerances(cfg)
+    if rel is None:
+        return grads_close(got, want, what, GRAD_RTOL, grad_atol)
+    return grads_close(got, want, what, 0.0, lambda w: rel * w.abs().max().item())
+
+
+def phase_wide_kernels(fused_nerf, NeRFConfig, seed=7):
+    """Phase 7: the wide kernels (#7-#9) against their plain versions on the
+    card: ``full()`` exactly (8x256, S=128, bf16, standard) and an f32
+    4x128/S=32 MLP in both modes, on 1037 rays; the render forward, the train
+    loss and dW/db and the render backward against autograd of the plain
+    version; repeat launches bit-identical; then the train kernel against
+    the plain version at the flagship's bench batch (16,384 rays).  Returns
+    the worst |kernel - plain| per entry point."""
+    rng = np.random.default_rng(seed)
+    worst = dict.fromkeys(WIDE, 0.0)
+    f32 = NeRFConfig(num_layers=4, filter_size=128, num_samples=32)
+    for cfg in (NeRFConfig.full(), dataclasses.replace(f32, mode="loma"),
+                dataclasses.replace(f32, mode="standard")):
+        params = seeded_params(rng, cfg)
+        leaves = leaves_of(params)
+        o, d, t, dists, tgt = bench_batch(rng, cfg, N_CHECK)
+        cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
+                           device="cuda")
+        col_atol, loss_rtol, _ = wide_tolerances(cfg)
+        what = f"{cfg.num_layers}x{cfg.filter_size} S={cfg.num_samples} " \
+               f"{cfg.compute_dtype} {cfg.mode}"
+
+        def train(loss_fn):
+            loss = loss_fn(params, o, d, t, dists, tgt, cfg)
+            return (loss.detach(), *torch.autograd.grad(loss, leaves))
+
+        def render_bwd(render_fn):
+            out = render_fn(params, o, d, t, dists, cfg)
+            return torch.autograd.grad((out * cot).sum(), leaves)
+
+        with torch.no_grad():
+            c1 = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+            c2 = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+            cp = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+        k1, k2 = train(fused_nerf.nerf_train_loss), train(fused_nerf.nerf_train_loss)
+        p = train(fused_nerf.nerf_train_loss_reference)
+        b1, b2 = render_bwd(fused_nerf.render_rays), render_bwd(fused_nerf.render_rays)
+        q = render_bwd(fused_nerf.render_rays_reference)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip((c1, *k1, *b1), (c2, *k2, *b2))):
+            raise AssertionError(f"{what}: repeat launches differ")
+        e_fwd = (c1 - cp).abs().max().item()
+        torch.testing.assert_close(c1, cp, atol=col_atol, rtol=RTOL)
+        loss_err = abs(k1[0].item() - p[0].item())
+        torch.testing.assert_close(k1[0], p[0], rtol=loss_rtol, atol=0.0)
+        e_tr = wide_grads_close(k1[1:], p[1:], f"nerf_wide_train {what}", cfg)
+        e_bw = wide_grads_close(b1, q, f"nerf_wide_render_bwd {what}", cfg)
+        worst["nerf_wide_render_fwd"] = max(worst["nerf_wide_render_fwd"], e_fwd)
+        worst["nerf_wide_train"] = max(worst["nerf_wide_train"], e_tr, loss_err)
+        worst["nerf_wide_render_bwd"] = max(worst["nerf_wide_render_bwd"], e_bw)
+        print(f"phase 7 {what} N={N_CHECK}: max|kernel-plain| render {e_fwd:.3e}; loss "
+              f"{k1[0].item():.6e} (|kernel-plain| {loss_err:.3e}); dW,db train "
+              f"{e_tr:.3e}, render bwd {e_bw:.3e}; repeat launches bit-identical")
+
+    cfg = NeRFConfig.full()
+    params = seeded_params(np.random.default_rng(0), cfg)
+    leaves = leaves_of(params)
+    batch = bench_batch(np.random.default_rng(0), cfg, FLAGSHIP_RAYS)
+    out = []
+    for fn in (fused_nerf.nerf_train_loss, fused_nerf.nerf_train_loss_reference):
+        loss = fn(params, *batch, cfg)
+        out.append((loss.detach(), *torch.autograd.grad(loss, leaves)))
+    (k, p) = out
+    _, loss_rtol, rel = wide_tolerances(cfg)
+    torch.testing.assert_close(k[0], p[0], rtol=loss_rtol, atol=0.0)
+    e = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k[1:], p[1:]))
+    wide_grads_close(k[1:], p[1:], "nerf_wide_train at the flagship bench batch", cfg)
+    print(f"phase 7 flagship bench batch ({FLAGSHIP_RAYS} rays): loss kernel "
+          f"{k[0].item():.6e} plain {p[0].item():.6e}; max|dW,db kernel-plain| "
+          f"{e:.3e} of the leaf's largest entry (bound {rel})")
+    return worst
+
+
+def phase_flagship_driver(train_nerf, fused_nerf, CheckpointManager, NeRFModel,
+                          NeRFConfig, synthetic_views, normalized_intrinsics, psnr,
+                          render_orbit, rays, tmp):
+    """Phase 8: the flagship's main paths.  ``train_nerf.main --preset full``
+    (300 Adam steps of 4096 rays on the 16-view 64x64 synthetic scene, evals
+    every 50 steps through the wide render); the eval PSNR after the last
+    step from the checkpoint the run wrote; ``render_orbit`` of the trained
+    model (4 frames at 128x128); 10 Adam steps on ``NeRFModel.loss`` (the
+    wide render backward).  Returns each wide kernel's launches on these
+    paths."""
+    flags = ["--device", "cuda", "--data", "synthetic", "--preset", "full",
+             "--img-size", "64", "--rays-per-batch", "4096", "--eval-every", "50",
+             "--optimizer", "adam", "--lr", "5e-4", "--log-dir", os.path.join(tmp, "logs_full"),
+             "--ckpt-dir", os.path.join(tmp, "ck_full"), "--ckpt-every", "0",
+             "--steps", str(FLAGSHIP_STEPS)]
+    reset_launches(fused_nerf)
+    t0 = time.perf_counter()
+    out = train_nerf.main(flags)
+    train_s = time.perf_counter() - t0
+    counts = dict(fused_nerf.launches)
+    if counts["nerf_wide_train"] != FLAGSHIP_STEPS:
+        raise AssertionError(f"wide train kernel launched {counts['nerf_wide_train']} "
+                             f"times in {FLAGSHIP_STEPS} steps")
+    if counts["nerf_wide_render_fwd"] < 1:
+        raise AssertionError("the evals made no wide render kernel launch")
+    if not np.all(np.isfinite(out["losses"])) or len(out["losses"]) != FLAGSHIP_STEPS:
+        raise AssertionError("the run stopped or its loss is not finite")
+    images, poses, focal = synthetic_views(16, 64, device="cuda")
+    K = normalized_intrinsics(focal, device="cuda")
+    model = NeRFModel(NeRFConfig.full(), device="cuda")
+    step = CheckpointManager(os.path.join(tmp, "ck_full")).restore(model)
+    with torch.no_grad():
+        img = model.render_image(K, poses[2], 64)
+    curve = dict(out["psnr"])
+    curve[step] = psnr(images[2], img).item()
+    with open(JAX_CURVE_FULL) as f:
+        jax_curve = {r["step"]: r["psnr"] for r in map(json.loads, f) if r["step"] <= step}
+    with open(os.path.join(tmp, "logs_full", "metrics.jsonl")) as f:
+        stamps = {r["step"]: r["time"] for r in map(json.loads, f)}
+    a, b = sorted(stamps)[1:3]  # the evals at steps 50 and 100
+    step_ms = (stamps[b] - stamps[a]) / (b - a) * 1e3
+    print(f"phase 8 train_nerf --preset full: {FLAGSHIP_STEPS} steps x 4096 rays in "
+          f"{train_s:.2f} s host time (evals, checkpoint and set-up included; "
+          f"{step_ms:.3f} ms/step between the evals at steps {a} and {b}); launches "
+          f"{counts}; final loss {out['losses'][-1]:.4f}")
+    print("  eval PSNR dB, port (this run) | JAX (artifacts/convergence_full, another "
+          "init): " + ", ".join(f"step {k}: {curve[k]:.2f} | "
+                                f"{jax_curve.get(k, float('nan')):.2f}" for k in sorted(curve)))
+    if step != FLAGSHIP_STEPS or curve[step] < FLAGSHIP_PSNR_DB \
+            or curve[step] < curve[0] + PSNR_GAIN_DB:
+        raise AssertionError(f"PSNR {curve} after {step} steps: need >= {FLAGSHIP_PSNR_DB} "
+                             f"dB and {PSNR_GAIN_DB} dB above step 0")
+    launches = {"nerf_wide_train": counts["nerf_wide_train"]}
+
+    before = fused_nerf.launches["nerf_wide_render_fwd"]
+    t0 = time.perf_counter()
+    frames = render_orbit(model, focal, 4.0, 4, 128)
+    orbit_s = time.perf_counter() - t0
+    launches["nerf_wide_render_fwd"] = fused_nerf.launches["nerf_wide_render_fwd"]
+    if launches["nerf_wide_render_fwd"] <= before:
+        raise AssertionError("render_orbit made no wide render kernel launch")
+    if frames.shape != (4, 128, 128, 3) or frames.dtype != np.uint8 or frames.std() < 1.0:
+        raise AssertionError(f"orbit frames {frames.shape} {frames.dtype} blank or malformed")
+    print(f"phase 8 render_orbit of the trained flagship: 4 frames at 128x128 in "
+          f"{orbit_s:.2f} s host time; wide render launches on the train and serve "
+          f"paths: {launches['nerf_wide_render_fwd']}")
+
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    cfg = model.config
+    o, d = rays.get_rays(64, 64, K, poses[5])
+    t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    tgt = images[5].reshape(-1, 3)
+    losses = []
+    reset_launches(fused_nerf)
+    for _ in range(10):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(o, d, t, dists, tgt)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    launches["nerf_wide_render_bwd"] = fused_nerf.launches["nerf_wide_render_bwd"]
+    if launches["nerf_wide_render_bwd"] != 10 or not np.all(np.isfinite(losses)) \
+            or losses[-1] >= losses[0]:
+        raise AssertionError(f"flagship render-loss steps: "
+                             f"{launches['nerf_wide_render_bwd']} backward launches, "
+                             f"losses {losses}")
+    print(f"phase 8 NeRFModel.loss (full): 10 steps on view 5, loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}; launches {dict(fused_nerf.launches)}")
+    return launches
+
+
+def timed_turns(fns, rounds):
+    """``{name: [ms...]}`` of CUDA-event timings, in turns: for each round,
+    a, b, b, a over the two named callables."""
+    (na, fa), (nb, fb) = fns.items()
+    times = {na: [], nb: []}
+    for _ in range(rounds):
+        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+            times[name].append(cuda_ms(fn)[0])
+    return times
+
+
+def spread(ts):
+    return f"median {statistics.median(ts):.3f} ms (min {min(ts):.3f}, max " \
+           f"{max(ts):.3f}, n={len(ts)})"
+
+
+def phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
+                          make_single_chip_train_step, normalized_intrinsics, rays,
+                          smi):
+    """Phase 9: timing by CUDA events, median with min/max, kernel and plain
+    in turns.  The flagship train step (``full``, 16,384 rays, Adam 5e-4,
+    bench.py's numpy-seeded batches); one 800x800 ``full`` frame (the plain
+    version chunked as the kernel path is); each wide entry point's own call
+    against its plain version.  Returns ``{kernel: (ms, plain_ms)}``."""
+    cfg = NeRFConfig.full()
+    rng = np.random.default_rng(0)
+    batches = [bench_batch(rng, cfg, FLAGSHIP_RAYS) for _ in range(2)]
+    steps, losses, calls = {}, {"auto": [], "plain": []}, {"auto": 0, "plain": 0}
+    for backend in ("auto", "plain"):
+        model = NeRFModel(cfg, device="cuda")
+        model.init(torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        steps[backend] = (model, make_single_chip_train_step(cfg, opt, backend))
+
+    def run(backend):
+        model, step = steps[backend]
+        loss = step(model, *batches[calls[backend] % 2])
+        calls[backend] += 1
+        losses[backend].append(loss)
+        return loss
+
+    run("auto"), run("plain")  # warm-up
+    times = timed_turns({"plain": lambda: run("plain"), "auto": lambda: run("auto")}, 3)
+    losses = {k: [x.item() for x in v] for k, v in losses.items()}
+    if not all(np.all(np.isfinite(v)) for v in losses.values()):
+        raise AssertionError(f"non-finite loss at the flagship shape: {losses}")
+    rel = abs(losses["auto"][0] - losses["plain"][0]) / losses["plain"][0]
+    flops = FLAGSHIP_RAYS * cfg.num_samples * FULL_MACS_TRAIN * 2
+    print(f"phase 9 flagship train step, full, {FLAGSHIP_RAYS} rays x {cfg.num_samples} "
+          f"samples, Adam 5e-4, on {smi} (first-step loss kernel {losses['auto'][0]:.6e} "
+          f"plain {losses['plain'][0]:.6e}, rel diff {rel:.2e}; {flops / 1e12:.2f} TFLOP "
+          "per step):")
+    for backend, name in (("auto", "kernel"), ("plain", "plain ")):
+        med = statistics.median(times[backend])
+        print(f"  {name}: {spread(times[backend])}/step, {FLAGSHIP_RAYS / med * 1e3:.4e} "
+              f"rays/s, {flops / med / 1e9:.2f} TFLOP/s")
+    out = {"nerf_wide_train": statistics.median(times["auto"])}
+
+    # one 800x800 frame: the kernel path (render_image) against the plain
+    # version over the same 65,536-ray chunks
+    model = steps["auto"][0]
+    K = normalized_intrinsics(1.1106, device="cuda")
+    pose = torch.eye(4, device="cuda")
+    pose[2, 3] = 4.0
+    chunk = fused_nerf.render_chunk_rays(cfg, model.params)
+
+    def plain_frame():
+        o, d = rays.get_rays(SERVE_SIZE, SERVE_SIZE, K, pose)
+        tv, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+        return torch.cat([fused_nerf.render_rays_reference(model.params, oc, dc, tv,
+                                                           dists, cfg)
+                          for oc, dc in zip(o.split(chunk), d.split(chunk))]
+                         ).reshape(SERVE_SIZE, SERVE_SIZE, 3)
+
+    def kernel_frame():
+        return model.render_image(K, pose, SERVE_SIZE)
+
+    with torch.no_grad():
+        _, img_k = cuda_ms(kernel_frame)  # warm-up
+        _, img_p = cuda_ms(plain_frame)
+        err = (img_k - img_p).abs().max().item()
+        if not torch.isfinite(img_k).all():
+            raise AssertionError("non-finite pixels")
+        torch.testing.assert_close(img_k, img_p, atol=wide_tolerances(cfg)[0], rtol=RTOL)
+        frame = timed_turns({"plain": plain_frame, "kernel": kernel_frame}, FRAME_ROUNDS)
+    n_rays = SERVE_SIZE * SERVE_SIZE
+    flops = n_rays * cfg.num_samples * FULL_MACS_FWD * 2
+    print(f"phase 9 800x800 full frame ({n_rays} rays x {cfg.num_samples} samples, "
+          f"{flops / 1e12:.2f} TFLOP, chunks of {chunk} rays), max|kernel-plain| = "
+          f"{err:.3e}; on {smi}:")
+    for name in ("kernel", "plain"):
+        med = statistics.median(frame[name])
+        print(f"  {name:6s}: {spread(frame[name])}/frame, {n_rays / med * 1e3:.4e} rays/s, "
+              f"{flops / med / 1e9:.2f} TFLOP/s")
+    out["nerf_wide_render_fwd"] = statistics.median(frame["kernel"])
+    plain = {"nerf_wide_train": statistics.median(times["plain"]),
+             "nerf_wide_render_fwd": statistics.median(frame["plain"])}
+
+    # each wide entry point's own call against its plain version
+    params = seeded_params(np.random.default_rng(0), cfg)
+    lv = leaves_of(params)
+    o, d, t, dists, tgt = batches[0]
+    W, b = fused_nerf.pack_wide_params(params, 256, cfg.compute_dtype)
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((FLAGSHIP_RAYS, 3)),
+                       dtype=torch.float32, device="cuda")
+    o64, d64 = seeded_rays(np.random.default_rng(2), chunk)
+    plain_out = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+    alone = {
+        "nerf_wide_train": (
+            lambda: fused_nerf._launch_wide_grad("nerf_wide_train", W, b, t, dists, o, d,
+                                                 tgt, cfg),
+            lambda: torch.autograd.grad(fused_nerf.nerf_train_loss_reference(
+                params, o, d, t, dists, tgt, cfg), lv),
+            f"loss + dW/db, {FLAGSHIP_RAYS} rays"),
+        "nerf_wide_render_bwd": (
+            lambda: fused_nerf._launch_wide_grad("nerf_wide_render_bwd", W, b, t, dists,
+                                                 o, d, cot, cfg),
+            lambda: torch.autograd.grad(plain_out, lv, cot, retain_graph=True),
+            f"dW/db from a colour cotangent, {FLAGSHIP_RAYS} rays (plain: the "
+            "backward pass only)"),
+        "nerf_wide_render_fwd": (
+            lambda: fused_nerf._launch_wide_render(W, b, t, dists, o64, d64, cfg),
+            lambda: fused_nerf.render_rays_reference(params, o64, d64, t, dists, cfg),
+            f"one {chunk}-ray render chunk"),
+    }
+    for name, (kernel, plain_fn, what) in alone.items():
+        with torch.no_grad() if name == "nerf_wide_render_fwd" else contextlib.nullcontext():
+            kernel(), plain_fn()  # warm-up
+            ts = timed_turns({"plain": plain_fn, "kernel": kernel}, 2)
+        print(f"  {name} alone, {what}: kernel {spread(ts['kernel'])} vs plain "
+              f"{spread(ts['plain'])}")
+        if name == "nerf_wide_render_bwd":
+            out[name] = statistics.median(ts["kernel"])
+            plain[name] = statistics.median(ts["plain"])
+    del plain_out
+    return {k: (out[k], plain[k]) for k in out}
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -543,6 +905,20 @@ def main() -> None:
     # ---- phase 6: the train step at the bench's shape ----
     timing.update(phase_bench_step(fused_nerf, NeRFConfig, NeRFModel,
                                    make_single_chip_train_step, smi))
+
+    # ---- phase 7: the wide kernels against their plain versions ----
+    worst.update(phase_wide_kernels(fused_nerf, NeRFConfig))
+
+    # ---- phase 8: the flagship's train and serve paths ----
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(phase_flagship_driver(
+            train_nerf, fused_nerf, CheckpointManager, NeRFModel, NeRFConfig,
+            synthetic_views, normalized_intrinsics, psnr, render_orbit, rays, tmp))
+
+    # ---- phase 9: flagship timing ----
+    timing.update(phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
+                                        make_single_chip_train_step,
+                                        normalized_intrinsics, rays, smi))
 
     print(smi)
     print(json.dumps({"kernels": [{

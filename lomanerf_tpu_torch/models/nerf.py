@@ -7,7 +7,8 @@ loma compositing; ``single_view_64()`` — 4 x 64, 64 samples; ``full()`` —
 
 ``NeRFModel`` is an ``nn.Module`` that owns its MLP parameters; the device
 of those parameters decides the path: CUDA renders (and differentiates the
-render) through the hand-written kernels (``ops.fused_nerf``), CPU through
+render) through the hand-written kernels (``ops.fused_nerf``: the narrow
+ones for ``small``/``single64``, the wide ones for ``full``), CPU through
 the plain PyTorch version.
 """
 
@@ -36,7 +37,7 @@ class NeRFConfig:
     mode: str = "loma"  # transmittance mode: "loma" (reference parity) | "standard"
     init: str = "he"
     dtype: torch.dtype = torch.float32  # parameter dtype
-    compute_dtype: str = "float32"  # kernel compute dtype ("bfloat16": not ported)
+    compute_dtype: str = "float32"  # kernel compute dtype; "bfloat16" runs on the wide kernels
     precision: str = "highest"  # TPU matmul tier; every tier is f32 on the card
 
     @property
@@ -139,15 +140,18 @@ class NeRFModel(nn.Module):
         return fused_nerf.nerf_loss(self.params, origins, directions, t_vals,
                                     dists, target, self.config)
 
-    def render_image(self, K, c2w, img_size: int, chunk: int = 1 << 20) -> torch.Tensor:
+    def render_image(self, K, c2w, img_size: int, chunk: Optional[int] = None) -> torch.Tensor:
         """``(img_size, img_size, 3)`` render of pose ``c2w`` on the
         parameters' device.  ``chunk`` rays per render call only bounds
-        memory: each ray's colour does not depend on it.  The default keeps
-        frames up to 1024x1024 in one kernel launch."""
+        memory: each ray's colour does not depend on it.  The default comes
+        from a byte budget (``fused_nerf.render_chunk_rays``): about 4 GB per
+        activation buffer, 65,536 rays for ``full`` and 2^20 (frames up to
+        1024x1024 in one call) for the narrow presets."""
         dev = self.device
         K = torch.as_tensor(K, dtype=torch.float32).to(dev)
         c2w = torch.as_tensor(c2w, dtype=torch.float32).to(dev)
         o, d = rays.get_rays(img_size, img_size, K, c2w)
+        chunk = chunk or fused_nerf.render_chunk_rays(self.config, self.params)
         cols = [render_chunk(self.config, self.params, oc, dc)
                 for oc, dc in zip(o.split(chunk), d.split(chunk))]
         return torch.cat(cols).reshape(img_size, img_size, 3)

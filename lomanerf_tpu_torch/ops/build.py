@@ -24,10 +24,16 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# (pk, pk_floats, G, origins, directions, target or dcol, partials, out,
-#  n_rays, S, L, in_dim, num_functions, width, loma, stream)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the narrow gradient kernels (nerf_grad.cuh): (pk, pk_floats, G, origins,
+# directions, target or dcol, partials, out, n_rays, S, L, in_dim,
+# num_functions, width, loma, stream)
 _GRAD = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# the wide gradient sequence (nerf_wide_chain.cuh): (W, b, ts, ds, origins,
+# directions, target or dcol, acts, dz, dz_head, partials, n_parts,
+# ray_loss, dW, db, loss, n_rays, chunk_rays, S, L, pw, kc, num_functions,
+# loma, bf16, stream)
+_WIDE_GRAD = [_P] * 11 + [_LL] + [_P] * 4 + [_I] * 9 + [_P]
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # (pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim,
@@ -35,6 +41,11 @@ SIGNATURES = {
     "nerf_render_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nerf_train": _GRAD,
     "nerf_render_bwd": _GRAD,
+    # (W, b, ts, ds, origins, directions, out, acts, n_rays, chunk_rays, S,
+    #  L, pw, kc, num_functions, loma, bf16, stream)
+    "nerf_wide_render_fwd": [_P] * 8 + [_I] * 9 + [_P],
+    "nerf_wide_train": _WIDE_GRAD,
+    "nerf_wide_render_bwd": _WIDE_GRAD,
 }
 
 

@@ -1,0 +1,185 @@
+// The launch sequences of the wide NeRF kernels, on one stream, over ray
+// chunks: the forward (encoding, then one GEMM + bias + ReLU per hidden
+// layer) and the gradient sequence shared by the train step
+// (nerf_wide_train.cu) and the render backward (nerf_wide_render_bwd.cu).
+//
+// Gradient sequence per ray chunk (rows = chunk rays * S):
+//   1. the forward, saving every layer's input H_0..H_{L-1} in CDT;
+//   2. composite_kernel: the head, compositing, the loss (train) and its
+//      adjoint, writing the head's d_z (rows, 4) and d_z of layer L-2;
+//   3. layer by layer in reverse, l = L-1 .. 0:
+//        dW_l += H_l^T rnd(d_z_l)     split-K over kRowChunk rows, partials
+//                                     added in a fixed order
+//        db_l += colsum(d_z_l)        the same, from the unrounded f32 d_z
+//        d_z_{l-1} = (rnd(d_z_l) W_l^T) masked by H_l > 0   (l >= 1)
+// dW/db are zeroed once, then every chunk adds to them in chunk order; the
+// loss is the fixed-order sum of the per-ray squared errors.  Nothing is
+// allocated here: the wrapper passes every buffer.
+
+#pragma once
+
+#include <algorithm>
+
+#include "nerf_wide_gemm.cuh"
+
+namespace wide {
+namespace {
+
+#define WIDE_TRY(expr)                         \
+  do {                                         \
+    const cudaError_t err_ = (expr);           \
+    if (err_ != cudaSuccess) return err_;      \
+  } while (0)
+
+struct Net {
+  const void* W;  // (L, pw, pw) CDT
+  const float* b;  // (L, pw) f32
+  const float* ts;  // (S,) depths
+  const float* ds;  // (S,) steps
+  int S, L, pw, kc, nf, loma;
+};
+
+// The encoding and the hidden layers of rays [0, n) of this chunk.  Slot l
+// of `acts` (chunk_rows x pw CDT each) receives H_l; with pingpong the
+// slots alternate between two buffers (nothing is saved).  Returns
+// H_{L-1}'s slot.
+template <typename CDT>
+cudaError_t forward_layers(const Net& net, const float* origins,
+                           const float* directions, int n, CDT* acts,
+                           size_t chunk_rows, bool pingpong, CDT** last,
+                           cudaStream_t stream) {
+  const int rows = n * net.S, pw = net.pw;
+  const CDT* W = static_cast<const CDT*>(net.W);
+  auto slot = [&](int l) {
+    return acts + static_cast<size_t>(pingpong ? (l & 1) : l) * chunk_rows * pw;
+  };
+  encode_kernel<CDT><<<(rows + 255) / 256, 256, 0, stream>>>(
+      origins, directions, net.ts, slot(0), rows, net.S, pw, net.kc, net.nf);
+  WIDE_TRY(cudaGetLastError());
+  for (int l = 0; l < net.L - 1; ++l) {
+    WIDE_TRY((gemm<CDT, CDT, CDT, false, false, kEpiBiasRelu>(
+        slot(l), pw, W + static_cast<size_t>(l) * pw * pw, pw, rows, pw,
+        l == 0 ? net.kc : pw, l == 0 ? net.kc : pw, net.b + l * pw, nullptr,
+        slot(l + 1), pw, stream)));
+  }
+  *last = slot(net.L - 1);
+  return cudaSuccess;
+}
+
+template <typename CDT, int kMode>
+cudaError_t composite(const Net& net, const CDT* H, const float* cot,
+                      float* out, float* dz_head, float* dz_prev, int n,
+                      cudaStream_t stream) {
+  const int L = net.L, pw = net.pw;
+  const size_t smem = sizeof(float) * (4 * static_cast<size_t>(pw) +
+                                       static_cast<size_t>(kCompWarps) * 8 * net.S);
+  if (smem > 48 * 1024) {  // above 227 KB this refuses with an error
+    WIDE_TRY(cudaFuncSetAttribute(composite_kernel<CDT, kMode>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem)));
+  }
+  composite_kernel<CDT, kMode><<<(n + kCompWarps - 1) / kCompWarps,
+                                 kCompWarps * 32, smem, stream>>>(
+      H, static_cast<const CDT*>(net.W) + static_cast<size_t>(L - 1) * pw * pw,
+      net.b + (L - 1) * pw, net.ts, net.ds, cot, out, dz_head, dz_prev, n,
+      net.S, pw, net.loma);
+  return cudaGetLastError();
+}
+
+// Render forward of n rays in chunks of chunk_rays; acts holds two
+// chunk-sized slots.
+template <typename CDT>
+cudaError_t render_forward(const Net& net, const float* origins,
+                           const float* directions, float* out, CDT* acts,
+                           int n_rays, int chunk_rays, cudaStream_t stream) {
+  const size_t chunk_rows = static_cast<size_t>(chunk_rays) * net.S;
+  for (int r0 = 0; r0 < n_rays; r0 += chunk_rays) {
+    const int n = std::min(chunk_rays, n_rays - r0);
+    CDT* H;
+    WIDE_TRY(forward_layers<CDT>(net, origins + 3 * r0, directions + 3 * r0, n,
+                                 acts, chunk_rows, true, &H, stream));
+    WIDE_TRY((composite<CDT, 0>(net, H, nullptr, out + 3 * r0, nullptr,
+                                nullptr, n, stream)));
+  }
+  return cudaSuccess;
+}
+
+// Scratch the gradient sequence reads and writes (f32 unless noted):
+struct GradScratch {
+  void* acts;       // L slots of chunk_rows x pw, CDT
+  float* dz;        // 2 x chunk_rows x pw
+  float* dz_head;   // chunk_rows x 4
+  float* partials;  // n_parts floats, n_parts >= parts_needed(...)
+  size_t n_parts;
+  float* ray_loss;  // n_rays (train)
+};
+
+inline size_t parts_needed(int chunk_rays, int S, int pw) {
+  const size_t rows = static_cast<size_t>(chunk_rays) * S;
+  return (rows + kRowChunk - 1) / kRowChunk * static_cast<size_t>(pw) * pw;
+}
+
+// kMode 1: train (cot = targets, loss = the masked sum-MSE); 2: render
+// backward (cot = the colour cotangent, loss = 0).  dW (L, pw, pw) and db
+// (L, pw) receive the gradients.
+template <typename CDT, int kMode>
+cudaError_t grad_sequence(const Net& net, const float* origins,
+                          const float* directions, const float* cot,
+                          const GradScratch& sc, float* dW, float* db,
+                          float* loss, int n_rays, int chunk_rays,
+                          cudaStream_t stream) {
+  const int L = net.L, pw = net.pw;
+  if (sc.n_parts < parts_needed(chunk_rays, net.S, pw)) return cudaErrorInvalidValue;
+  const CDT* W = static_cast<const CDT*>(net.W);
+  const size_t chunk_rows = static_cast<size_t>(chunk_rays) * net.S;
+  CDT* acts = static_cast<CDT*>(sc.acts);
+  WIDE_TRY(cudaMemsetAsync(dW, 0, sizeof(float) * L * pw * pw, stream));
+  WIDE_TRY(cudaMemsetAsync(db, 0, sizeof(float) * L * pw, stream));
+  for (int r0 = 0; r0 < n_rays; r0 += chunk_rays) {
+    const int n = std::min(chunk_rays, n_rays - r0);
+    const int rows = n * net.S;
+    const int n_rc = (rows + kRowChunk - 1) / kRowChunk;
+    CDT* H;
+    WIDE_TRY(forward_layers<CDT>(net, origins + 3 * r0, directions + 3 * r0, n,
+                                 acts, chunk_rows, false, &H, stream));
+    auto slot = [&](int l) { return acts + static_cast<size_t>(l) * chunk_rows * pw; };
+    float* dz = sc.dz;  // d_z of the current layer's output
+    float* dz_next = sc.dz + chunk_rows * pw;
+    WIDE_TRY((composite<CDT, kMode>(net, H, cot + 3 * r0,
+                                    kMode == 1 ? sc.ray_loss + r0 : nullptr,
+                                    sc.dz_head, dz, n, stream)));
+    // the head: dW_{L-1} (pw x 4) and db_{L-1} from the head's d_z
+    WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
+        H, pw, sc.dz_head, kHead, pw, kHead, rows, kRowChunk, nullptr, nullptr,
+        sc.partials, kHead, stream)));
+    WIDE_TRY(sum_partials(sc.partials, n_rc, pw, kHead,
+                          dW + static_cast<size_t>(L - 1) * pw * pw, pw, stream));
+    WIDE_TRY(column_sums(sc.dz_head, kHead, rows, kHead, sc.partials,
+                         db + (L - 1) * pw, stream));
+    for (int l = L - 2; l >= 0; --l) {
+      const int in_cols = l == 0 ? net.kc : pw;
+      WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
+          slot(l), pw, dz, pw, in_cols, pw, rows, kRowChunk, nullptr, nullptr,
+          sc.partials, pw, stream)));
+      WIDE_TRY(sum_partials(sc.partials, n_rc, in_cols, pw,
+                            dW + static_cast<size_t>(l) * pw * pw, pw, stream));
+      WIDE_TRY(column_sums(dz, pw, rows, pw, sc.partials, db + l * pw, stream));
+      if (l >= 1) {
+        WIDE_TRY((gemm<float, CDT, CDT, false, true, kEpiMask>(
+            dz, pw, W + static_cast<size_t>(l) * pw * pw, pw, rows, pw, pw, pw,
+            nullptr, slot(l), dz_next, pw, stream)));
+        float* tmp = dz;
+        dz = dz_next;
+        dz_next = tmp;
+      }
+    }
+  }
+  if (kMode == 1) {
+    loss_sum_kernel<<<1, 256, 0, stream>>>(sc.ray_loss, n_rays, loss);
+    return cudaGetLastError();
+  }
+  return cudaMemsetAsync(loss, 0, sizeof(float), stream);
+}
+
+}  // namespace
+}  // namespace wide

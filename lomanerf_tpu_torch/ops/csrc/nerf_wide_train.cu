@@ -1,0 +1,57 @@
+// Wide NeRF train step for Hopper (sm_90a): loss and parameter gradients in
+// one call.
+//
+// Replaces the TPU kernel lomanerf_tpu/ops/fused_nerf.py:_nerf_train_kernel_W
+// (the s-major single-pass Pallas train step for hidden widths above 64,
+// with its backward _bwd_from_dcol): the render forward of
+// nerf_wide_render_fwd.cu, the sum-MSE against the (N, 3) targets over the
+// runtime n_rays, the colour cotangent 2(col - tgt), the compositing
+// adjoint and the MLP backward, dW/db summed over every ray and sample.
+//
+// What bounds it on this card: arithmetic, then memory.  A step does about
+// 1.2 M MACs per sample for the flagship (forward, d_h = d_z W^T and
+// dW = h^T d_z): about 5.0 TFLOP for 16,384 rays x 128 samples.  The TPU's
+// single pass keeps every activation of a tile in VMEM; that does not fit
+// a Hopper block (see nerf_wide_render_fwd.cu), so the saved activations
+// live in device memory: 16,384 x 128 x 256 x 2 B = 1.07 GB per layer in
+// bf16, ~7.5 GB for the flagship's seven hidden layers.
+//
+// What the design does about it (nerf_wide_chain.cuh): the forward's
+// GEMMs save each layer's input in the compute dtype; one warp per ray
+// runs the head, compositing, the loss and its adjoint and the head's
+// backward; then, layer by layer in reverse, a split-K GEMM for dW (per
+// 8192-row partials, added in a fixed order) with db from the f32 d_z, and
+// a GEMM for d_h with the ReLU mask from the stored activation in its
+// epilogue.  Every sum has a fixed order: repeat launches are bit-identical.
+
+#include "nerf_wide_chain.cuh"
+
+// C entry point, bound with ctypes.  Arguments as nerf_wide_render_fwd's,
+// with the (N, 3) targets and the scratch of the gradient sequence: acts
+// (L * chunk_rays * S * pw, compute dtype), dz (2 * chunk_rays * S * pw
+// f32), dz_head (chunk_rays * S * 4 f32), partials (n_parts f32, at least
+// ceil(chunk_rays * S / 8192) * pw * pw), ray_loss (n_rays f32).  Writes dW
+// (L, pw, pw), db (L, pw) and the loss (one float).
+extern "C" int nerf_wide_train(const void* W, const float* b, const float* ts,
+                               const float* ds, const float* origins,
+                               const float* directions, const float* target,
+                               void* acts, float* dz, float* dz_head,
+                               float* partials, long long n_parts,
+                               float* ray_loss, float* dW, float* db,
+                               float* loss, int n_rays, int chunk_rays, int S,
+                               int L, int pw, int kc, int num_functions,
+                               int loma, int bf16, void* stream) {
+  if (L < 2 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const wide::Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma};
+  const wide::GradScratch sc{acts, dz, dz_head, partials,
+                             static_cast<size_t>(n_parts), ray_loss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    return static_cast<int>(wide::grad_sequence<__nv_bfloat16, 1>(
+        net, origins, directions, target, sc, dW, db, loss, n_rays, chunk_rays, st));
+  }
+  return static_cast<int>(wide::grad_sequence<float, 1>(
+      net, origins, directions, target, sc, dW, db, loss, n_rays, chunk_rays, st));
+}

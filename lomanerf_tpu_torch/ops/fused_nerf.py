@@ -1,6 +1,8 @@
 """Fused NeRF render and train loss (port of ``lomanerf_tpu.ops.fused_nerf``).
 
-Three hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel:
+Six hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel.
+Narrow MLPs (every width, the 33 inputs and 4 outputs included, padded to
+8, at most 64), one thread per ray:
 
 * ``csrc/nerf_render_fwd.cu`` — ``_nerf_forward_kernel_S``: :func:`render_rays`;
 * ``csrc/nerf_render_bwd.cu`` — ``_nerf_backward_kernel_S``: the backward of
@@ -8,9 +10,20 @@ Three hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel:
 * ``csrc/nerf_train.cu`` — ``_nerf_train_kernel_S``: :func:`nerf_train_loss`,
   the loss and its parameter gradients in one call.
 
-On CUDA tensors each function launches its kernel or raises; on CPU tensors
-it runs the plain PyTorch version (:func:`render_rays_reference` under
-autograd).  No case falls back quietly from one to the other.
+Wide MLPs (padded width above 64, hidden widths up to 256, f32 or bf16
+compute, e.g. the 8x256 flagship), layer-by-layer tiled GEMMs around a
+one-warp-per-ray compositing kernel:
+
+* ``csrc/nerf_wide_render_fwd.cu`` — ``_nerf_forward_kernel_W``;
+* ``csrc/nerf_wide_render_bwd.cu`` — ``_nerf_backward_kernel_W``
+  (``_WideRender.backward``);
+* ``csrc/nerf_wide_train.cu`` — ``_nerf_train_kernel_W`` (``_WideTrainLoss``).
+
+Dispatch follows the JAX package's rule (:func:`_route`).  On CUDA tensors
+each function launches its kernel or raises, naming the ROADMAP item of
+what it does not take; on CPU tensors it runs the plain PyTorch version
+(:func:`render_rays_reference` under autograd).  No case falls back quietly
+from one to the other.
 
 Like the JAX package, the render and the losses differentiate params only:
 the ray inputs are detached, so their gradients come back ``None``.
@@ -20,41 +33,72 @@ from __future__ import annotations
 
 import torch
 
+from lomanerf_tpu_torch.core.composite import EPS
+from lomanerf_tpu_torch.core.encoding import positional_encoding
 from lomanerf_tpu_torch.core.losses import sum_mse
 from lomanerf_tpu_torch.core.mlp import Params
 from lomanerf_tpu_torch.core.pipeline import nerf_render_rays
 
 # kernel launches per C entry point; a run resets them and reads them to
 # show that its render and train steps went through the kernels
-launches = {"nerf_render_fwd": 0, "nerf_render_bwd": 0, "nerf_train": 0}
+launches = {"nerf_render_fwd": 0, "nerf_render_bwd": 0, "nerf_train": 0,
+            "nerf_wide_render_fwd": 0, "nerf_wide_render_bwd": 0,
+            "nerf_wide_train": 0}
 
-MAX_WIDTH = 64  # widest hidden layer the kernels' register arrays take
+MAX_WIDTH = 64  # widest padded width the narrow kernels' register arrays take
+MAX_WIDE_WIDTH = 256  # widest hidden layer the wide kernels take
 _HEAD = 4  # rgba channels the render reads
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
 GRAD_THREADS = 64  # rays per block of the gradient kernels (nerf_grad.cuh)
 _STRIDE = GRAD_THREADS + 1  # their staging row stride
+WIDE_ROW_CHUNK = 8192  # rows per split-K partial (nerf_wide_common.cuh)
+# scratch budgets of the wide kernels: one activation buffer of a render
+# chunk, and all of a gradient call's buffers
+WIDE_BUFFER_BYTES = 4 << 30
+WIDE_GRAD_BYTES = 16 << 30
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _kernel_width(config, params: Params) -> int:
-    """Padded activation width (32 or 64) after checking that the kernels
-    take this case; raises for the cases they do not."""
-    if getattr(config, "compute_dtype", "float32") == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' has no CUDA kernel yet "
-            "(ROADMAP queue 2, C1/C2: the bf16 wide path)")
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _padded_width(config, params: Params) -> int:
+    """ps: the widest layer, inputs and outputs included, padded to 8
+    (``fused_nerf.py:1845-1849`` of the JAX package)."""
+    widths = [config.in_channels] + [w.shape[1] for w in params["w"]]
+    return _round_up(max(max(widths), 8), 8)
+
+
+def _route(config, params: Params):
+    """``("narrow", W)`` with W the narrow kernels' register width (32 or
+    64), or ``("wide", pw)`` with pw the wide kernels' padded width (a
+    multiple of 128), after checking that a kernel takes this case; raises
+    for the cases none takes.  The JAX rule: narrow if ps <= 64, else wide."""
     ws = params["w"]
-    hidden = [w.shape[1] for w in ws[:-1]]
-    if max(hidden, default=0) > MAX_WIDTH:
-        raise NotImplementedError(
-            f"layer width {max(hidden)} > {MAX_WIDTH} has no CUDA kernel "
-            "yet (ROADMAP queue 2, C1/C2: the wide train step and render)")
     in_dim = 3 * (1 + 2 * config.num_encoding_functions)
     if ws[0].shape[0] != in_dim:
         raise ValueError(f"first layer takes {ws[0].shape[0]} inputs, the "
                          f"n={config.num_encoding_functions} encoding gives {in_dim}")
     if ws[-1].shape[1] < _HEAD:
         raise ValueError("render needs an rgba head (>= 4 output channels)")
-    return 32 if max(hidden, default=0) <= 32 else 64
+    hidden = max((w.shape[1] for w in ws[:-1]), default=0)
+    bf16 = getattr(config, "compute_dtype", "float32") == "bfloat16"
+    ps = _padded_width(config, params)
+    if ps <= MAX_WIDTH:
+        if bf16:
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' on a narrow MLP (padded width <= 64) "
+                "has no CUDA kernel yet (ROADMAP queue 2, A4)")
+        return "narrow", 32 if hidden <= 32 else 64
+    if hidden > MAX_WIDE_WIDTH:
+        raise NotImplementedError(
+            f"layer width {hidden} > {MAX_WIDE_WIDTH} has no CUDA kernel yet "
+            "(ROADMAP queue 2, C4)")
+    if len(ws) < 2:
+        raise NotImplementedError(
+            "a one-layer wide MLP has no CUDA kernel yet (ROADMAP queue 2, C4)")
+    return "wide", _round_up(max(ps, 128), 128)
 
 
 def _blocks(params: Params, width: int):
@@ -117,7 +161,7 @@ def _check_cuda_inputs(origins, directions, t_vals, dists, config, params, *extr
     if t_vals.ndim != 1 or dists.ndim != 1:
         raise NotImplementedError(
             "per-ray (N, S) depths have no CUDA kernel yet "
-            "(ROADMAP queue 2, B1/B2)")
+            "(ROADMAP queue 2, B1/B2 for narrow MLPs, C3 for wide ones)")
     if t_vals.shape[0] != config.num_samples or dists.shape != t_vals.shape:
         raise ValueError(f"depths {tuple(t_vals.shape)}/{tuple(dists.shape)} do "
                          f"not match num_samples={config.num_samples}")
@@ -236,6 +280,252 @@ class _TrainLoss(torch.autograd.Function):
         return (None,) * 7 + tuple(g * x for x in ctx.saved_tensors)
 
 
+# ---------------------------------------------------------------------------
+# The wide kernels (padded width above 64)
+# ---------------------------------------------------------------------------
+
+
+def pack_wide_params(params: Params, pw: int, compute_dtype: str = "float32"):
+    """The wide kernels' parameter stacks, on the params' device: ``W``
+    (L, pw, pw) in the compute dtype, layer l's (in, out) weight
+    zero-padded, and ``b`` (L, pw) in f32 (the counterpart of the JAX
+    package's ``pallas_utils.stack_padded_params``; zero padding keeps the
+    padded lanes inert)."""
+    ws, bs = params["w"], params["b"]
+    W = ws[0].new_zeros((len(ws), pw, pw), dtype=torch.float32)
+    b = ws[0].new_zeros((len(ws), pw), dtype=torch.float32)
+    for l, (w, bl) in enumerate(zip(ws, bs)):
+        W[l, : w.shape[0], : w.shape[1]] = w.detach()
+        b[l, : bl.shape[0]] = bl.detach()
+    return W.to(_DTYPES[compute_dtype]).contiguous(), b.contiguous()
+
+
+def unpack_wide_grads(dW: torch.Tensor, db: torch.Tensor, params: Params):
+    """(L, pw, pw) / (L, pw) gradient stacks back to the params' exact
+    shapes: ``(dW_0.., db_0..)``."""
+    ws, bs = params["w"], params["b"]
+    return (*(dW[l, : w.shape[0], : w.shape[1]].to(w.dtype) for l, w in enumerate(ws)),
+            *(db[l, : b.shape[0]].to(b.dtype) for l, b in enumerate(bs)))
+
+
+def _itemsize(config) -> int:
+    return 2 if getattr(config, "compute_dtype", "float32") == "bfloat16" else 4
+
+
+def wide_chunk_rays(config, pw: int) -> int:
+    """Rays per chunk of the wide render: one (rays x S, pw) activation
+    buffer in the compute dtype within ``WIDE_BUFFER_BYTES`` (65,536 rays
+    for the flagship)."""
+    return max(1, WIDE_BUFFER_BYTES // (config.num_samples * pw * _itemsize(config)))
+
+
+def wide_grad_chunk_rays(config, pw: int, L: int) -> int:
+    """Rays per chunk of a wide gradient call: L activation buffers in the
+    compute dtype, two f32 d_z buffers and the head's d_z within
+    ``WIDE_GRAD_BYTES`` (21,788 rays for the flagship)."""
+    per_ray = config.num_samples * (pw * (L * _itemsize(config) + 8) + 4 * _HEAD)
+    return max(1, WIDE_GRAD_BYTES // per_ray)
+
+
+def render_chunk_rays(config, params: Params) -> int:
+    """Default rays per ``render_rays`` call of a frame: one activation
+    buffer of about ``WIDE_BUFFER_BYTES`` (the kernel's for a wide MLP, the
+    plain version's f32 one for a narrow one), at most 2^20."""
+    ps = _padded_width(config, params)
+    if ps > MAX_WIDTH:
+        pw = _round_up(max(ps, 128), 128)
+        return min(1 << 20, wide_chunk_rays(config, pw))
+    return min(1 << 20, WIDE_BUFFER_BYTES // (config.num_samples * _round_up(ps, 32) * 4))
+
+
+def _wide_args(config, pw: int, L: int):
+    """The ints every wide entry point takes after its pointers."""
+    return (config.num_samples, L, pw, _round_up(config.in_channels, 8),
+            config.num_encoding_functions, int(config.mode == "loma"),
+            int(_itemsize(config) == 2))
+
+
+def _launch_wide_render(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
+    """One call of ``nerf_wide_render_fwd`` (all chunks of the rays);
+    counted in ``launches``."""
+    from lomanerf_tpu_torch.ops import build
+
+    L, pw = W.shape[0], W.shape[1]
+    n = origins.shape[0]
+    chunk = max(1, min(n, wide_chunk_rays(config, pw)))
+    acts = torch.empty(2 * chunk * config.num_samples * pw, dtype=W.dtype,
+                       device=origins.device)
+    out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    err = build.load().nerf_wide_render_fwd(
+        W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), out.data_ptr(), acts.data_ptr(),
+        n, chunk, *_wide_args(config, pw, L), stream)
+    if err != 0:
+        raise RuntimeError(f"nerf_wide_render_fwd launch failed: cudaError {err}")
+    launches["nerf_wide_render_fwd"] += 1
+    return out
+
+
+def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
+                      config):
+    """One call of ``nerf_wide_train`` (cot: targets) or
+    ``nerf_wide_render_bwd`` (cot: the colour cotangent), with its scratch;
+    returns ``(loss (1,), dW (L, pw, pw), db (L, pw))``.  Counted in
+    ``launches``."""
+    from lomanerf_tpu_torch.ops import build
+
+    L, pw = W.shape[0], W.shape[1]
+    n, S, dev = origins.shape[0], config.num_samples, origins.device
+    chunk = max(1, min(n, wide_grad_chunk_rays(config, pw, L)))
+    rows = chunk * S
+    n_parts = -(-rows // WIDE_ROW_CHUNK) * pw * pw
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    acts = torch.empty(L * rows * pw, dtype=W.dtype, device=dev)
+    dz, dz_head, partials = f32(2 * rows * pw), f32(rows * _HEAD), f32(n_parts)
+    ray_loss, dW, db, loss = f32(max(n, 1)), f32(L, pw, pw), f32(L, pw), f32(1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(build.load(), entry)(
+        W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), cot.data_ptr(), acts.data_ptr(),
+        dz.data_ptr(), dz_head.data_ptr(), partials.data_ptr(), n_parts,
+        ray_loss.data_ptr(), dW.data_ptr(), db.data_ptr(), loss.data_ptr(), n, chunk,
+        *_wide_args(config, pw, L), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    launches[entry] += 1
+    return loss, dW, db
+
+
+class _WideRender(torch.autograd.Function):
+    """The wide render kernel behind autograd: forward launches
+    ``nerf_wide_render_fwd``; backward launches ``nerf_wide_render_bwd``
+    with the colour cotangent.  Rays, depths and config get no gradient."""
+
+    @staticmethod
+    def forward(ctx, origins, directions, t_vals, dists, config, pw, *wb):
+        W, b = pack_wide_params(_params_of(wb), pw, config.compute_dtype)
+        ctx.save_for_backward(origins, directions, t_vals, dists, W, b, *wb)
+        ctx.config = config
+        return _launch_wide_render(W, b, t_vals, dists, origins, directions, config)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        origins, directions, t_vals, dists, W, b, *wb = ctx.saved_tensors
+        _, dW, db = _launch_wide_grad("nerf_wide_render_bwd", W, b, t_vals, dists,
+                                      origins, directions, _f32(grad_out), ctx.config)
+        return (None,) * 6 + unpack_wide_grads(dW, db, _params_of(wb))
+
+
+class _WideTrainLoss(torch.autograd.Function):
+    """The wide train kernel behind autograd: forward makes one
+    ``nerf_wide_train`` call, which returns the loss and dW/db together, and
+    keeps the gradients; backward scales them by the loss's cotangent."""
+
+    @staticmethod
+    def forward(ctx, origins, directions, t_vals, dists, target, config, pw, *wb):
+        params = _params_of(wb)
+        W, b = pack_wide_params(params, pw, config.compute_dtype)
+        loss, dW, db = _launch_wide_grad("nerf_wide_train", W, b, t_vals, dists,
+                                         origins, directions, target, config)
+        ctx.save_for_backward(*unpack_wide_grads(dW, db, params))
+        return loss[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) * 7 + tuple(g * x for x in ctx.saved_tensors)
+
+
+def _rnd(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """x rounded to the compute dtype, as f32."""
+    return x if cdt == torch.float32 else x.to(cdt).to(torch.float32)
+
+
+def _wide_plain_forward(ws, bs, origins, directions, t_vals, dists, config,
+                        keep: bool = True):
+    """The wide kernels' function in plain PyTorch, rounding plan included:
+    the encoding, each weight, each stored activation and the rgba head
+    output rounded to the compute dtype; products in f32 (TF32 off);
+    compositing in f32.  Returns the ``(N, 3)`` colours and what the
+    backward reads (every layer's input only with ``keep``)."""
+    cdt = _DTYPES[config.compute_dtype]
+    pts = origins[:, None, :] + directions[:, None, :] * t_vals[..., None]
+    n, S = pts.shape[:2]
+    h = _rnd(positional_encoding(pts, config.num_encoding_functions).reshape(n * S, -1),
+             cdt)
+    acts = [h.to(cdt)]  # each layer's input, stored in the compute dtype
+    for w, b in zip(ws[:-1], bs[:-1]):
+        h = _rnd(torch.relu(h @ _rnd(w, cdt) + b), cdt)
+        acts = acts + [h.to(cdt)] if keep else []
+    z = h @ _rnd(ws[-1][:, :_HEAD], cdt) + bs[-1][:_HEAD]
+    rgba = _rnd(torch.cat([torch.sigmoid(z[:, :3]), torch.relu(z[:, 3:])], 1), cdt)
+    rgb, sigma = rgba[:, :3].reshape(n, S, 3), rgba[:, 3].reshape(n, S)
+    e = torch.exp(-sigma * dists)
+    alpha, c = 1.0 - e, e + EPS
+    P = torch.cumprod(c, dim=-1)
+    T = torch.cat([torch.ones_like(P[:, :1]),
+                   P[:, 1:] if config.mode == "loma" else P[:, :-1]], dim=-1)
+    w = alpha * T
+    col = torch.sum(w[..., None] * rgb, dim=1)
+    return col, (*acts, rgb, sigma, alpha, c, P, T, w)
+
+
+def _wide_plain_backward(ws, bs, saved, dcol, dists, config):
+    """The adjoint of :func:`_wide_plain_forward` as the TPU kernel's
+    ``_bwd_from_dcol`` computes it: ``d_c = suffix_sum / c`` with P kept per
+    sample, sigmoid' from the rounded rgb, each d_z rounded to the compute
+    dtype before both of its products, db from the unrounded d_z, the ReLU
+    mask from the stored activation."""
+    cdt = _DTYPES[config.compute_dtype]
+    L = len(ws)
+    acts, (rgb, sigma, alpha, c, P, T, w) = saved[:L], saved[L:]
+    d_w = torch.sum(dcol[:, None, :] * rgb, dim=-1)
+    d_T = d_w * alpha
+    if config.mode == "loma":
+        d_P = torch.cat([torch.zeros_like(d_T[:, :1]), d_T[:, 1:]], dim=-1)
+    else:
+        d_P = torch.cat([d_T[:, 1:], torch.zeros_like(d_T[:, :1])], dim=-1)
+    suf = torch.flip(torch.cumsum(torch.flip(d_P * P, [-1]), dim=-1), [-1])
+    d_sigma = (d_w * T - suf / c) * dists * (1.0 - alpha)
+    dz = torch.cat([dcol[:, None, :] * w[..., None] * rgb * (1.0 - rgb),
+                    torch.where(sigma > 0, d_sigma, 0.0)[..., None]], dim=-1)
+    dz = dz.reshape(-1, _HEAD)
+    gws, gbs = [torch.zeros_like(x) for x in ws], [torch.zeros_like(x) for x in bs]
+    for l in range(L - 1, -1, -1):
+        dzc = _rnd(dz, cdt)
+        wl = _rnd(ws[l][:, : dz.shape[1]], cdt)
+        gws[l][:, : dz.shape[1]] = acts[l].to(torch.float32).T @ dzc
+        gbs[l][: dz.shape[1]] = dz.sum(0)
+        if l > 0:
+            dz = (dzc @ wl.T) * (acts[l] > 0)
+    return gws, gbs
+
+
+class _WidePlain(torch.autograd.Function):
+    """Plain version of the wide kernels under autograd: forward
+    :func:`_wide_plain_forward`, backward :func:`_wide_plain_backward`."""
+
+    @staticmethod
+    def forward(ctx, origins, directions, t_vals, dists, config, *wb):
+        L = len(wb) // 2
+        col, saved = _wide_plain_forward(wb[:L], wb[L:], origins, directions,
+                                         t_vals, dists, config)
+        ctx.save_for_backward(dists, *wb, *saved)
+        ctx.config, ctx.L = config, L
+        return col
+
+    @staticmethod
+    def backward(ctx, dcol):
+        dists, *rest = ctx.saved_tensors
+        L = ctx.L
+        gws, gbs = _wide_plain_backward(rest[:L], rest[L:2 * L], rest[2 * L:],
+                                        dcol.to(torch.float32), dists, ctx.config)
+        return (None,) * 5 + (*gws, *gbs)
+
+
 def render_rays(params: Params, origins, directions, t_vals, dists, config) -> torch.Tensor:
     """Fused render of ``(N, 3)`` rays at ``(S,)`` shared depths to ``(N, 3)``
     colours, with the JAX signature.  Differentiable w.r.t. params only."""
@@ -246,15 +536,25 @@ def render_rays(params: Params, origins, directions, t_vals, dists, config) -> t
     if origins.device.type != "cuda":
         raise NotImplementedError(f"no render for device {origins.device}")
     _check_cuda_inputs(origins, directions, t_vals, dists, config, params)
-    width = _kernel_width(config, params)
-    return _RenderFwd.apply(_f32(origins), _f32(directions), t_vals, dists,
-                            config, width, *params["w"], *params["b"])
+    kind, width = _route(config, params)
+    fn = _WideRender if kind == "wide" else _RenderFwd
+    return fn.apply(_f32(origins), _f32(directions), _f32(t_vals), _f32(dists),
+                    config, width, *params["w"], *params["b"])
 
 
 def render_rays_reference(params: Params, origins, directions, t_vals, dists,
                           config) -> torch.Tensor:
-    """Plain PyTorch version of :func:`render_rays` (the core pipeline).
-    Takes ``(S,)`` or per-ray ``(N, S)`` depths."""
+    """Plain PyTorch version of :func:`render_rays`: for a wide MLP (padded
+    width above 64) the wide kernels' function with their rounding plan
+    (:class:`_WidePlain`), else the core pipeline in f32.  Takes ``(S,)`` or
+    per-ray ``(N, S)`` depths."""
+    if _padded_width(config, params) > MAX_WIDTH:
+        if not torch.is_grad_enabled():  # nothing to save for a backward
+            return _wide_plain_forward(params["w"], params["b"], origins, directions,
+                                       t_vals, dists, config, keep=False)[0]
+        return _WidePlain.apply(
+            origins.detach(), directions.detach(), t_vals.detach(), dists.detach(),
+            config, *params["w"], *params["b"])
     return nerf_render_rays(
         params, origins.detach(), directions.detach(), t_vals.detach(),
         dists.detach(), num_functions=config.num_encoding_functions,
@@ -264,9 +564,10 @@ def render_rays_reference(params: Params, origins, directions, t_vals, dists,
 
 def nerf_train_loss(params: Params, origins, directions, t_vals, dists, target,
                     config) -> torch.Tensor:
-    """Sum-MSE train loss whose gradient comes from the single fused train
-    kernel, with the JAX signature: a 0-d tensor, differentiable w.r.t.
-    params only (the ray inputs are detached; their gradients are ``None``).
+    """Sum-MSE train loss whose gradient comes from one call of a fused
+    train kernel (narrow or wide, by :func:`_route`), with the JAX
+    signature: a 0-d tensor, differentiable w.r.t. params only (the ray
+    inputs are detached; their gradients are ``None``).
     ``n_rays`` is the rays' count at run time: nothing is fixed when the
     kernels are built.  On CPU tensors, the plain version
     (:func:`nerf_train_loss_reference`)."""
@@ -278,9 +579,10 @@ def nerf_train_loss(params: Params, origins, directions, t_vals, dists, target,
     if origins.device.type != "cuda":
         raise NotImplementedError(f"no train loss for device {origins.device}")
     _check_cuda_inputs(origins, directions, t_vals, dists, config, params, target)
-    width = _kernel_width(config, params)
-    return _TrainLoss.apply(_f32(origins), _f32(directions), t_vals, dists,
-                            _f32(target), config, width, *params["w"], *params["b"])
+    kind, width = _route(config, params)
+    fn = _WideTrainLoss if kind == "wide" else _TrainLoss
+    return fn.apply(_f32(origins), _f32(directions), _f32(t_vals), _f32(dists),
+                    _f32(target), config, width, *params["w"], *params["b"])
 
 
 def nerf_train_loss_reference(params: Params, origins, directions, t_vals, dists,

@@ -8,6 +8,10 @@ Run:
         --orbit 8 --img-size 800 --out orbit.mp4
     python -m lomanerf_tpu_torch.train.make_video \
         --ckpt-dir checkpoints/train_nerf --preset small --orbit 60 --out orbit.mp4
+    python -m lomanerf_tpu_torch.train.make_video \
+        --ckpt-dir checkpoints/train_nerf --preset full --orbit 8 --img-size 800
+
+``--preset full`` renders through the wide kernels (65,536-ray chunks).
 """
 
 from __future__ import annotations

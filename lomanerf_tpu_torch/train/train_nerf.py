@@ -15,6 +15,8 @@ Not ported yet (ROADMAP queue 1, item 10): ``--tp``, ``--coordinator``,
 ``--pipeline native|numpy`` and the mesh-sharded eval.
 
 Run: ``python -m lomanerf_tpu_torch.train.train_nerf --preset small --steps 500``
+(the narrow kernels) or ``--preset full --steps 300`` (the 8x256 bf16
+flagship on the wide kernels; ~4 GB of saved activations per 4096-ray step).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-The render kernel is held to its plain PyTorch version at atol/rtol 1e-4:
+The narrow render kernel is held to its plain PyTorch version at atol/rtol 1e-4:
 both are float32 and differ in the order of their sums and in sin/cos/exp.
 The gradient kernels (train step #3, render backward #2) are held to
 autograd of the plain version at the JAX test's bound for its fused train
@@ -131,6 +131,9 @@ def test_train_loss_ray_inputs_get_no_gradient():
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take():
+    """Widths in (64, 256] and wide bf16 launch the wide kernels; widths
+    above 256, narrow bf16 and per-ray (N, S) depths raise, each naming its
+    ROADMAP item."""
     need_card()
     rng = np.random.default_rng(0)
     cfg = NeRFConfig.small()
@@ -140,20 +143,31 @@ def test_kernels_refuse_what_they_do_not_take():
     t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
     t2, d2 = t.expand(64, -1), dists.expand(64, -1)
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    wide = NeRFConfig(filter_size=128)
-    wide_params = params_from_numpy(*np_params(rng, wide), "cuda")
     with pytest.raises(NotImplementedError, match="B1/B2"):
         fused_nerf.render_rays(params, o, d, t2, d2, cfg)
     with pytest.raises(NotImplementedError, match="B1/B2"):
         fused_nerf.nerf_train_loss(params, o, d, t2, d2, tgt, cfg)
-    with pytest.raises(NotImplementedError, match="C1/C2"):
+    with pytest.raises(NotImplementedError, match="A4"):
         fused_nerf.render_rays(params, o, d, t, dists, bf16)
-    with pytest.raises(NotImplementedError, match="C1/C2"):
+    with pytest.raises(NotImplementedError, match="A4"):
         fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, bf16)
-    with pytest.raises(NotImplementedError, match="C1/C2"):
+    for wide in (NeRFConfig(filter_size=128),
+                 NeRFConfig(filter_size=256, compute_dtype="bfloat16")):
+        wide_params = params_from_numpy(*np_params(rng, wide), "cuda")
+        before = dict(fused_nerf.launches)
         fused_nerf.render_rays(wide_params, o, d, t, dists, wide)
-    with pytest.raises(NotImplementedError, match="C1/C2"):
         fused_nerf.nerf_train_loss(wide_params, o, d, t, dists, tgt, wide)
+        torch.cuda.synchronize()
+        assert fused_nerf.launches["nerf_wide_render_fwd"] == before["nerf_wide_render_fwd"] + 1
+        assert fused_nerf.launches["nerf_wide_train"] == before["nerf_wide_train"] + 1
+        with pytest.raises(NotImplementedError, match="C3"):
+            fused_nerf.render_rays(wide_params, o, d, t2, d2, wide)
+    too_wide = NeRFConfig(filter_size=320)
+    too_wide_params = params_from_numpy(*np_params(rng, too_wide), "cuda")
+    with pytest.raises(NotImplementedError, match="C4"):
+        fused_nerf.render_rays(too_wide_params, o, d, t, dists, too_wide)
+    with pytest.raises(NotImplementedError, match="C4"):
+        fused_nerf.nerf_train_loss(too_wide_params, o, d, t, dists, tgt, too_wide)
 
 
 @pytest.mark.cuda
@@ -169,4 +183,23 @@ def test_render_image_chunks_give_identical_pixels():
     with torch.no_grad():
         whole = model.render_image(K, pose, 40)
         chunked = model.render_image(K, pose, 40, chunk=333)
+    assert torch.equal(whole, chunked)
+
+
+@pytest.mark.cuda
+def test_wide_render_image_chunks_give_identical_pixels():
+    """The wide kernels compute each row on its own (GEMM rows, one warp per
+    ray): a flagship-width frame is the same whatever the chunking."""
+    need_card()
+    cfg = dataclasses.replace(NeRFConfig.full(), num_layers=4, num_samples=32)
+    rng = np.random.default_rng(1)
+    model = NeRFModel.from_numpy(cfg, *np_params(rng, cfg), device="cuda")
+    K = torch.tensor([[1.1106, 0, 0.5], [0, 1.1106, 0.5], [0, 0, 1]], device="cuda")
+    pose = torch.eye(4, device="cuda")
+    pose[2, 3] = 4.0
+    before = fused_nerf.launches["nerf_wide_render_fwd"]
+    with torch.no_grad():
+        whole = model.render_image(K, pose, 40)
+        chunked = model.render_image(K, pose, 40, chunk=333)
+    assert fused_nerf.launches["nerf_wide_render_fwd"] == before + 1 + 5
     assert torch.equal(whole, chunked)

@@ -145,7 +145,7 @@ def test_packed_layout_matches_plain_render(rng, layers, width, mode):
     ws, bs = np_params(rng, mlp_layer_sizes(33, 5, layers, width))  # 5 ch: extra ignored
     params = params_from_numpy(ws, bs, "cpu")
     t, dists = uniform_depths(2.0, 6.0, S, "cpu")
-    W = fused_nerf._kernel_width(cfg, params)
+    W = fused_nerf._route(cfg, params)[1]
     assert W == (32 if width <= 32 else 64)
     pk = fused_nerf.pack_params(params, t, dists, W)
     assert pk.dtype == torch.float32 and pk.numel() % 4 == 0
@@ -158,21 +158,28 @@ def test_packed_layout_matches_plain_render(rng, layers, width, mode):
 
 
 def test_kernel_refuses_what_it_does_not_take(rng):
-    """Cases the CUDA kernels do not take raise, naming the ROADMAP item."""
+    """The JAX dispatch rule routes each MLP to the narrow kernels (every
+    width padded to 8 at most 64) or the wide ones (hidden widths up to 256,
+    f32 or bf16); the cases no CUDA kernel takes raise, naming the ROADMAP
+    item."""
     small = NeRFConfig.small()
     ws, bs = np_params(rng, mlp_layer_sizes(33, 4, 3, 30))
     params = params_from_numpy(ws, bs, "cpu")
-    assert fused_nerf._kernel_width(small, params) == 32
-    with pytest.raises(NotImplementedError, match="C1/C2"):
-        fused_nerf._kernel_width(dataclasses.replace(small, compute_dtype="bfloat16"), params)
-    wide = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, 3, 65)), "cpu")
-    with pytest.raises(NotImplementedError, match="C2"):
-        fused_nerf._kernel_width(small, wide)
+    assert fused_nerf._route(small, params) == ("narrow", 32)
+    with pytest.raises(NotImplementedError, match="A4"):  # narrow bf16
+        fused_nerf._route(dataclasses.replace(small, compute_dtype="bfloat16"), params)
+    for width, pw in ((65, 128), (128, 128), (160, 256), (256, 256)):
+        wide = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, 3, width)), "cpu")
+        for cdt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(small, filter_size=width, compute_dtype=cdt)
+            assert fused_nerf._route(cfg, wide) == ("wide", pw)
+    too_wide = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, 3, 257)), "cpu")
+    with pytest.raises(NotImplementedError, match="C4"):
+        fused_nerf._route(small, too_wide)
     with pytest.raises(ValueError):  # the n=4 encoding gives 27 inputs, not 33
-        fused_nerf._kernel_width(dataclasses.replace(small, num_encoding_functions=4),
-                                 params)
+        fused_nerf._route(dataclasses.replace(small, num_encoding_functions=4), params)
     o, t = torch.zeros(4, 3), torch.linspace(2.0, 6.0, 30)
-    with pytest.raises(NotImplementedError, match="B1/B2"):  # per-ray (N, S) depths
+    with pytest.raises(NotImplementedError, match="B1/B2.*C3"):  # per-ray (N, S) depths
         fused_nerf._check_cuda_inputs(o, o, t.expand(4, -1), t.expand(4, -1), small, params)
     with pytest.raises(ValueError):  # targets of another ray count
         fused_nerf._check_cuda_inputs(o, o, t, t, small, params, torch.zeros(5, 3))

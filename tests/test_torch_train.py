@@ -243,7 +243,7 @@ def test_grad_kernel_algorithm_matches_autograd(rng, layers, width, mode, train)
     params = tcore.params_from_numpy(ws, bs, "cpu")
     o, d, t, dists, tgt = batch(rng, n, S)
     cot = tgt if train else rng.standard_normal((n, 3)).astype(np.float32)
-    W = fused_nerf._kernel_width(cfg, params)
+    W = fused_nerf._route(cfg, params)[1]
     pk = fused_nerf.pack_params(params, torch.from_numpy(t), torch.from_numpy(dists), W)
     G = fused_nerf.grad_floats(params, W)
     flat, loss = grad_walk(pk.numpy(), o.astype(np.float64), d.astype(np.float64),
@@ -273,7 +273,7 @@ def test_gradient_kernels_fit_shared_memory(rng):
         cfg = NeRFConfig.preset(name)
         params = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(
             33, 4, cfg.num_layers, cfg.filter_size)), "cpu")
-        W = fused_nerf._kernel_width(cfg, params)
+        W = fused_nerf._route(cfg, params)[1]
         G = fused_nerf.grad_floats(params, W)
         pk_floats = G + 2 * cfg.num_samples  # G and 2S are multiples of 4 here
         assert fused_nerf.grad_smem_bytes(pk_floats, G, cfg.num_samples,
