@@ -41,12 +41,28 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    10 steps on ``NeRFModel.loss`` through the wide render backward;
 9. times the flagship train step (16,384 rays, Adam) and one 800x800
    ``full`` frame through the kernels and the plain version, in turns, and
-   each wide entry point's own call against its plain version.
+   each wide entry point's own call against its plain version;
+10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``) against the
+    plain version and autograd at the ``small`` and ``hires`` widths on
+    1037 pixels, with repeat launches bit-identical and no coords gradient,
+    and at the full 1024x1024 ``hires`` image;
+11. fits images through ``fit_image.main`` on the synthetic target: the
+    ``small`` field at 256x256, 301 Adam steps (one launch of each kernel
+    per step, eval PSNR >= 22 dB at step 300 and 10 dB above step 0), then
+    ``--resume``; the ``hires`` field at 1024x1024, 200 steps, within 0.3
+    dB of the same run on the plain backend;
+12. times the image-fit step (``small`` at 256x256, ``hires`` at
+    1024x1024, Adam 1e-3, two uniform targets cycled) through the kernels
+    and the plain backend in turns, the device's busy share of the
+    ``small`` step, one 1024x1024 ``hires`` render, and each field
+    kernel's own call against its plain version.
 
-Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps) are
-the main paths: each kernel's launch count is reset before its path and
-read after it.  The last lines are the card's name and power limit, a JSON
-line of the six kernels, and ``{"ok": true, "device": ...}``.  It exits
+Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps) and
+11 (the image fit) are the main paths: each kernel's launch count is reset
+before its path and read after it.  The last lines are the card's name and
+power limit, a JSON line of the eight kernels (with each one's least time
+on the card for its work, ``bound_ms``), and ``{"ok": true, "device":
+...}``.  It exits
 non-zero, before printing any result, without a CUDA device or outside a
 checkout of the repository; any failing phase raises.
 """
@@ -111,6 +127,26 @@ FLAGSHIP_PSNR_DB = 20.0
 FULL_MACS_FWD = 402688
 FULL_MACS_TRAIN = 2 * FULL_MACS_FWD + 394240
 FRAME_ROUNDS = 2  # 800x800 full frames: 1 warm-up, then 2 rounds in turns (4 each)
+KERNELS.update({
+    "field_fwd": ("lomanerf_tpu_torch/ops/csrc/field_fwd.cu",
+                  "lomanerf_tpu/ops/fused_mlp.py:45"),
+    "field_bwd": ("lomanerf_tpu_torch/ops/csrc/field_bwd.cu",
+                  "lomanerf_tpu/ops/fused_mlp.py:51"),
+})
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+# f32 outside the tensor cores, bf16 on them, device memory
+PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+FIT_STEPS = 301
+# the small field's eval PSNR at steps 0, 100, 200, 300 of the same flags:
+# the JAX driver on the CPU (PRNGKey(215) init) and the port's --device cpu
+# run (torch seed 215)
+FIT_JAX_CURVE = (8.30, 17.01, 22.91, 26.21)
+FIT_CPU_CURVE = (6.93, 18.43, 23.63, 27.09)
+FIT_PSNR_DB, FIT_GAIN_DB = 22.0, 10.0
+HIRES_STEPS, HIRES_GAIN_DB, HIRES_PLAIN_DB = 200, 8.0, 0.3
+# field_bwd vs autograd at the whole 1024x1024 hires image, of the leaf's
+# largest entry: a few ReLU-mask flips (phase 10) above the 1e-4 of phase 4
+FIELD_IMAGE_GRAD = 5e-3
 
 
 def seeded_params(rng, cfg):
@@ -657,6 +693,22 @@ def spread(ts):
            f"{max(ts):.3f}, n={len(ts)})"
 
 
+def bound(macs, peak, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    ``macs`` multiply-adds at ``peak`` FLOP/s and ``nbytes`` of device
+    memory traffic (each input read once, each output written once)."""
+    ops_ms, bytes_ms = 2.0 * macs / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def mlp_macs(sizes):
+    """(forward, backward) multiply-adds of one MLP row with layer
+    ``sizes``: the backward is the forward again (its activations), dW (the
+    forward's count) and d_h of every layer but the first."""
+    fwd = sum(fi * fo for fi, fo in sizes)
+    return fwd, 2 * fwd + sum(fi * fo for fi, fo in sizes[1:])
+
+
 def phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
                           make_single_chip_train_step, normalized_intrinsics, rays,
                           smi):
@@ -779,6 +831,312 @@ def phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
     return {k: (out[k], plain[k]) for k in out}
 
 
+def field_configs(ImageFieldConfig):
+    return {"small": ImageFieldConfig.small(), "hires": ImageFieldConfig.hires()}
+
+
+def field_grads(fn, params, coords, cot, nf):
+    """``(out, dW/db, coords gradient)`` of ``(fn(params, coords) * cot).sum()``."""
+    leaves = leaves_of(params)
+    c = coords.clone().requires_grad_(True)
+    out = fn(params, c, nf)
+    grads = torch.autograd.grad((out * cot).sum(), [*leaves, c], allow_unused=True)
+    return out.detach(), grads[:-1], grads[-1]
+
+
+def phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords, seed=11):
+    """Phase 10: the field kernels (#13 forward, #14 backward) against the
+    plain version and autograd of it on the card, at the ``small`` and
+    ``hires`` widths on 1037 pixels (the f32 bounds of phases 1 and 4),
+    repeat launches bit-identical, no coords gradient; then the whole
+    1024x1024 ``hires`` image, where both sides sum 1 M pixels in other
+    orders: dW/db rtol 1e-3 with atol 1e-4 of the leaf's largest entry, as
+    phase 4 at the bench batch.  Returns the worst |kernel - plain| per
+    kernel."""
+    rng = np.random.default_rng(seed)
+    worst = {"field_fwd": 0.0, "field_bwd": 0.0}
+    for name, cfg in field_configs(ImageFieldConfig).items():
+        nf = cfg.num_encoding_functions
+        params = seeded_params(rng, cfg)
+        coords = torch.tensor(rng.random((N_CHECK, 2)), dtype=torch.float32, device="cuda")
+        cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
+                           device="cuda")
+        k1 = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
+        k2 = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
+        p = field_grads(fused_mlp.field_forward_reference, params, coords, cot, nf)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((k1[0], *k1[1]), (k2[0], *k2[1]))):
+            raise AssertionError(f"field {name}: repeat launches differ")
+        if k1[2] is not None:
+            raise AssertionError(f"field {name}: the coords got a gradient")
+        e_f = (k1[0] - p[0]).abs().max().item()
+        torch.testing.assert_close(k1[0], p[0], atol=ATOL, rtol=RTOL)
+        e_b = grads_close(k1[1], p[1], f"field_bwd {name}", GRAD_RTOL, grad_atol)
+        worst["field_fwd"] = max(worst["field_fwd"], e_f)
+        worst["field_bwd"] = max(worst["field_bwd"], e_b)
+        widths = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) + [3]
+        print(f"phase 10 field {name} ({'->'.join(map(str, widths))}, n={nf}) N={N_CHECK}: "
+              f"max|kernel-plain| forward {e_f:.3e}, dW/db {e_b:.3e}; repeat launches "
+              "bit-identical; coords gradient None")
+
+    cfg = ImageFieldConfig.hires()
+    n_px = cfg.img_size ** 2
+    params = seeded_params(np.random.default_rng(0), cfg)
+    coords = image_grid_coords(cfg.img_size, "cuda")
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, 3)),
+                       dtype=torch.float32, device="cuda")
+    k = field_grads(fused_mlp.field_forward, params, coords, cot, cfg.num_encoding_functions)
+    p = field_grads(fused_mlp.field_forward_reference, params, coords, cot,
+                    cfg.num_encoding_functions)
+    e_f = (k[0] - p[0]).abs().max().item()
+    torch.testing.assert_close(k[0], p[0], atol=ATOL, rtol=RTOL)
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k[1], p[1]))
+    # where a hidden pre-activation lies within f32 rounding of 0, the two
+    # sums can take the ReLU mask apart and move that pixel's whole term
+    # out of one unit's dW/db column (one flip measured 9e-4 of the leaf's
+    # largest entry at this image); list the columns beyond phase 4's bound
+    flips = [(i, sorted(set(torch.nonzero(
+        (a - b).abs() > 1e-3 * b.abs() + 1e-4 * b.abs().max())[:, -1].tolist())))
+        for i, (a, b) in enumerate(zip(k[1], p[1]))]
+    grads_close(k[1], p[1], "field_bwd at 1024x1024", 0.0,
+                lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
+    worst["field_fwd"] = max(worst["field_fwd"], e_f)
+    print(f"phase 10 field hires, the whole {cfg.img_size}x{cfg.img_size} image: "
+          f"max|kernel-plain| forward {e_f:.3e}; max|dW,db kernel-plain| {rel:.3e} of the "
+          f"leaf's largest entry (bound {FIELD_IMAGE_GRAD}); (leaf, columns) beyond rtol "
+          f"1e-3 + 1e-4 of the largest entry: {[f for f in flips if f[1]]}")
+    return worst
+
+
+def phase_field_driver(fit_image, fused_mlp, tmp):
+    """Phase 11: the image-fit path through its entry point,
+    ``fit_image.main``, on the synthetic target.  The ``small`` field at
+    256x256, 301 Adam steps at lr 3e-3, an eval every 100 steps; then 10
+    more steps with ``--resume``; then the ``hires`` field at 1024x1024,
+    200 Adam steps at lr 1e-3, on the kernels and on the plain backend from
+    the same init.  Returns each field kernel's launches in the 301-step
+    run."""
+    base = ["--device", "cuda", "--img", "synthetic", "--optimizer", "adam",
+            "--ckpt-every", "0"]
+    logs = os.path.join(tmp, "logs_fit")
+    small = [*base, "--img-size", "256", "--lr", "3e-3", "--log-every", "100",
+             "--log-dir", logs, "--ckpt-dir", os.path.join(tmp, "ck_fit")]
+    reset_launches(fused_mlp)
+    t0 = time.perf_counter()
+    out = fit_image.main([*small, "--steps", str(FIT_STEPS)])
+    fit_s = time.perf_counter() - t0
+    counts = dict(fused_mlp.launches)
+    if counts["field_bwd"] != FIT_STEPS or counts["field_fwd"] < FIT_STEPS:
+        raise AssertionError(f"field kernels launched {counts} times in {FIT_STEPS} steps")
+    if len(out["losses"]) != FIT_STEPS or not np.all(np.isfinite(out["losses"])):
+        raise AssertionError("the fit stopped or its loss is not finite")
+    if not os.path.exists(os.path.join(logs, f"iter_{FIT_STEPS}.png")):
+        raise AssertionError("the fit wrote no final image")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        stamps = {r["step"]: r["time"] for r in map(json.loads, f)}
+    step_ms = (stamps[199] - stamps[150]) / 49 * 1e3  # no eval in between
+    curve = out["psnr"]
+    last = FIT_STEPS - 1
+    print(f"phase 11 fit_image small, 256x256, {FIT_STEPS} Adam steps (lr 3e-3): "
+          f"{fit_s:.2f} s host time (evals, PNGs and set-up included; {step_ms:.3f} ms/step "
+          f"between steps 150 and 199); launches {counts}; final loss {out['losses'][-1]:.4f}")
+    print("  eval PSNR dB, port on the card (torch seed 215) | port --device cpu | JAX on "
+          "the CPU (PRNGKey(215)): " + ", ".join(
+              f"step {s}: {curve[s]:.2f} | {c:.2f} | {j:.2f}"
+              for s, c, j in zip(sorted(curve), FIT_CPU_CURVE, FIT_JAX_CURVE)))
+    if curve[last] < FIT_PSNR_DB or curve[last] < curve[0] + FIT_GAIN_DB:
+        raise AssertionError(f"PSNR {curve}: need >= {FIT_PSNR_DB} dB at step {last} and "
+                             f"{FIT_GAIN_DB} dB above step 0")
+    reset_launches(fused_mlp)
+    more = fit_image.main([*small, "--steps", str(FIT_STEPS + 10), "--resume"])
+    if fused_mlp.launches["field_bwd"] != 10 or len(more["losses"]) != 10 \
+            or not np.all(np.isfinite(more["losses"])):
+        raise AssertionError(f"--resume took {len(more['losses'])} steps, launches "
+                             f"{fused_mlp.launches}")
+    print(f"phase 11 --resume: 10 more steps from step {FIT_STEPS}, loss "
+          f"{more['losses'][-1]:.4f}, PSNR {more['final_psnr']:.2f} dB")
+
+    hires = [*base, "--img-size", "1024", "--layers", "4", "--width", "128",
+             "--enc-functions", "8", "--lr", "1e-3", "--log-every", "50",
+             "--steps", str(HIRES_STEPS)]
+    runs = {}
+    for backend in ("auto", "plain"):
+        reset_launches(fused_mlp)
+        t0 = time.perf_counter()
+        runs[backend] = fit_image.main([
+            *hires, "--backend", backend, "--log-dir", os.path.join(tmp, f"logs_{backend}"),
+            "--ckpt-dir", os.path.join(tmp, f"ck_{backend}")])
+        secs = time.perf_counter() - t0
+        n = dict(fused_mlp.launches)
+        if backend == "auto" and n["field_bwd"] != HIRES_STEPS:
+            raise AssertionError(f"hires fit: launches {n} in {HIRES_STEPS} steps")
+        if backend == "plain" and any(n.values()):
+            raise AssertionError(f"the plain backend launched kernels: {n}")
+        r = runs[backend]
+        print(f"phase 11 fit_image hires, 1024x1024, {HIRES_STEPS} Adam steps (lr 1e-3), "
+              f"backend {backend}: {secs:.2f} s host time; launches {n}; eval PSNR dB "
+              + ", ".join(f"step {s}: {v:.2f}" for s, v in sorted(r["psnr"].items()))
+              + f", final {r['final_psnr']:.2f}")
+    k, p = runs["auto"], runs["plain"]
+    gain = k["final_psnr"] - k["psnr"][0]
+    diff = abs(k["final_psnr"] - p["final_psnr"])
+    print(f"  hires: {gain:.2f} dB above step 0; final PSNR kernel - plain = "
+          f"{k['final_psnr'] - p['final_psnr']:+.4f} dB")
+    if gain < HIRES_GAIN_DB or diff > HIRES_PLAIN_DB:
+        raise AssertionError(f"hires fit: gain {gain:.2f} dB (need {HIRES_GAIN_DB}), "
+                             f"|kernel - plain| {diff:.3f} dB (need <= {HIRES_PLAIN_DB})")
+    return counts
+
+
+def device_ms_per_call(fn, calls=20):
+    """Device time per call of ``fn`` over ``calls`` calls, by torch.profiler
+    (the sum of the kernels' and memsets' own device times), or None where
+    the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls / 1e3 if total > 0 else None
+
+
+def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_coords,
+                       make_image_fit_step, mlp_layer_sizes, smi):
+    """Phase 12: timing by CUDA events, median with min/max, kernel and plain
+    backend in turns, in the shape of the JAX bench's fit rungs
+    (``bench.py:116-178``): the whole image per step, ``Adam(1e-3)``, two
+    uniform numpy-``default_rng(0)`` targets cycled; ``small`` at 256x256
+    (with the device's busy share of its step, by torch.profiler) and
+    ``hires`` at 1024x1024; then one 1024x1024 ``hires`` render and each
+    field kernel's own call against its plain version at that image.
+    Returns ``{kernel: (ms, plain_ms, bound_ms, bound_by)}``."""
+    out = {}
+    for name, cfg in field_configs(ImageFieldConfig).items():
+        size, nf = cfg.img_size, cfg.num_encoding_functions
+        n_px = size * size
+        coords = image_grid_coords(size, "cuda")
+        rng = np.random.default_rng(0)
+        targets = [torch.tensor(rng.random((n_px, 3)), dtype=torch.float32, device="cuda")
+                   for _ in range(2)]
+        steps, calls, losses = {}, {"auto": 0, "plain": 0}, {"auto": [], "plain": []}
+        for backend in ("auto", "plain"):
+            model = ImageFieldModel(cfg, device="cuda", backend=backend)
+            model.init(torch.Generator().manual_seed(0))
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            steps[backend] = (model, make_image_fit_step(cfg, opt, backend))
+
+        def run(backend):
+            model, step = steps[backend]
+            losses[backend].append(step(model, coords, targets[calls[backend] % 2]))
+            calls[backend] += 1
+
+        for _ in range(2):  # warm-up
+            run("auto"), run("plain")
+        times = timed_turns({"plain": lambda: run("plain"), "auto": lambda: run("auto")},
+                            10 if name == "small" else 3)
+        first = {k: v[0].item() for k, v in losses.items()}
+        if not all(np.isfinite([x.item() for v in losses.values() for x in v])):
+            raise AssertionError(f"non-finite loss in the {name} fit step")
+        fwd, bwd = mlp_macs(mlp_layer_sizes(cfg.in_channels, cfg.out_channels,
+                                            cfg.num_layers, cfg.filter_size))
+        macs = n_px * (fwd + bwd)
+        step_bound, by = bound(macs, PEAK_F32, n_px * 4 * (2 + 3 + 3))
+        print(f"phase 12 image-fit step, {name} ({fwd + bwd} MACs/px: one field_fwd and one "
+              f"field_bwd launch), {size}x{size} = {n_px} px, Adam 1e-3, on {smi} "
+              f"(first-step loss kernel {first['auto']:.6e} plain {first['plain']:.6e}); "
+              f"bound {step_bound:.4f} ms ({by}, f32 peak):")
+        for backend, label in (("auto", "kernel"), ("plain", "plain ")):
+            med = statistics.median(times[backend])
+            print(f"  {label}: {spread(times[backend])}/step, {n_px / med * 1e3:.4e} px/s, "
+                  f"{2 * macs / med / 1e9:.3f} TFLOP/s, {step_bound / med:.1%} of the f32 bound")
+        if name == "small":
+            busy = device_ms_per_call(lambda: run("auto"))
+            med = statistics.median(times["auto"])
+            print("  kernel step, device busy (torch.profiler, 20 steps): " + (
+                "not measured (the profiler saw no device time)" if busy is None else
+                f"{busy:.4f} ms/step, {busy / med:.1%} of the median step"))
+            continue
+
+        # one 1024x1024 render of the trained hires model, kernel vs plain
+        model = steps["auto"][0]
+        n_fwd = n_px * fwd
+        fwd_bound = bound(n_fwd, PEAK_F32, n_px * 4 * (2 + 3))
+
+        def plain_render():
+            return fused_mlp.field_forward_reference(model.params, coords, nf).reshape(
+                size, size, 3)
+
+        with torch.no_grad():
+            img_k, img_p = model.render(), plain_render()
+            err = (img_k - img_p).abs().max().item()
+            torch.testing.assert_close(img_k, img_p, atol=ATOL, rtol=RTOL)
+            frame = timed_turns({"plain": plain_render, "kernel": model.render}, 3)
+        print(f"phase 12 hires {size}x{size} render (ImageFieldModel.render, {n_fwd * 2 / 1e9:.2f} "
+              f"GFLOP, bound {fwd_bound[0]:.4f} ms), max|kernel-plain| {err:.3e}:")
+        for label in ("kernel", "plain"):
+            med = statistics.median(frame[label])
+            print(f"  {label:6s}: {spread(frame[label])}/render, {n_px / med * 1e3:.4e} px/s, "
+                  f"{2 * n_fwd / med / 1e9:.3f} TFLOP/s, {fwd_bound[0] / med:.1%} of the f32 bound")
+
+        # each kernel's own call at the whole image, against its plain version
+        params = seeded_params(np.random.default_rng(0), cfg)
+        lv = leaves_of(params)
+        width = fused_mlp.kernel_width(params, 2, nf, 3)
+        pk = fused_mlp.pack_field_params(params, width)
+        G = fused_mlp.grad_floats(params, width)
+        dims = (cfg.num_layers, cfg.in_channels, width, nf, 3)
+        cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, 3)),
+                           dtype=torch.float32, device="cuda")
+        plain_out = fused_mlp.field_forward_reference(params, coords, nf)
+        alone = {
+            "field_fwd": (lambda: fused_mlp._launch_fwd(pk, coords, *dims),
+                          lambda: fused_mlp.field_forward_reference(params, coords, nf),
+                          fwd_bound, "the forward"),
+            "field_bwd": (lambda: fused_mlp._launch_bwd(pk, G, coords, cot, *dims),
+                          lambda: torch.autograd.grad(plain_out, lv, cot, retain_graph=True),
+                          bound(n_px * bwd, PEAK_F32, n_px * 4 * (2 + 3) + 4 * G),
+                          "dW/db from a cotangent (plain: the backward pass only)"),
+        }
+        for kname, (kernel, plain_fn, kb, what) in alone.items():
+            with torch.no_grad() if kname == "field_fwd" else contextlib.nullcontext():
+                kernel(), plain_fn()  # warm-up
+                ts = timed_turns({"plain": plain_fn, "kernel": kernel}, 3)
+            med = statistics.median(ts["kernel"])
+            out[kname] = (med, statistics.median(ts["plain"]), *kb)
+            print(f"  {kname} alone, {what}, {n_px} px: kernel {spread(ts['kernel'])} vs plain "
+                  f"{spread(ts['plain'])}; bound {kb[0]:.4f} ms ({kb[1]}), "
+                  f"{2 * (n_px * (fwd if kname == 'field_fwd' else bwd)) / med / 1e9:.3f} "
+                  f"TFLOP/s, {kb[0] / med:.1%} of the bound")
+        del plain_out
+    return out
+
+
+def nerf_bounds(NeRFConfig, mlp_layer_sizes):
+    """bound() of each NeRF kernel's timed work: #1 an 800x800 ``small``
+    frame, #2 and #3 a 262,144-ray ``small`` call (f32 peak); #8 an 800x800
+    ``full`` frame, #7 the 16,384-ray flagship step, #9 a 16,384-ray call
+    (bf16 peak).  A ray reads 24 B and writes 12 B (train: the target
+    instead of the colour)."""
+    out = {}
+    for cfg, n_grad, names, peak in (
+            (NeRFConfig.small(), BENCH_RAYS,
+             ("nerf_render_fwd", "nerf_train", "nerf_render_bwd"), PEAK_F32),
+            (NeRFConfig.full(), FLAGSHIP_RAYS,
+             ("nerf_wide_render_fwd", "nerf_wide_train", "nerf_wide_render_bwd"), PEAK_BF16)):
+        fwd, bwd = mlp_macs(mlp_layer_sizes(cfg.in_channels, cfg.out_channels,
+                                            cfg.num_layers, cfg.filter_size))
+        n_frame, S = SERVE_SIZE * SERVE_SIZE, cfg.num_samples
+        render, train, back = names
+        out[render] = bound(n_frame * S * fwd, peak, n_frame * 36)
+        out[train] = out[back] = bound(n_grad * S * bwd, peak, n_grad * 36)
+    return out
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -803,14 +1161,15 @@ def main() -> None:
 
     if os.path.dirname(os.path.dirname(os.path.abspath(lomanerf_tpu_torch.__file__))) != ROOT:
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
-    from lomanerf_tpu_torch.core import normalized_intrinsics, psnr, rays
+    from lomanerf_tpu_torch.core import mlp_layer_sizes, normalized_intrinsics, psnr, rays
     from lomanerf_tpu_torch.data import synthetic_views
-    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
-    from lomanerf_tpu_torch.ops import build, fused_nerf
-    from lomanerf_tpu_torch.train import train_nerf
+    from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
+                                           NeRFModel, image_grid_coords)
+    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf
+    from lomanerf_tpu_torch.train import fit_image, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
     from lomanerf_tpu_torch.train.make_video import render_orbit
-    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
+    from lomanerf_tpu_torch.train.steps import make_image_fit_step, make_single_chip_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -920,11 +1279,28 @@ def main() -> None:
                                         make_single_chip_train_step,
                                         normalized_intrinsics, rays, smi))
 
+    # ---- phase 10: the 2D field's kernels against their plain versions ----
+    worst.update(phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords))
+
+    # ---- phase 11: the image-fit path (fit_image) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(phase_field_driver(fit_image, fused_mlp, tmp))
+
+    # ---- phase 12: image-fit timing ----
+    field_timing = phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel,
+                                      image_grid_coords, make_image_fit_step,
+                                      mlp_layer_sizes, smi)
+    timing.update({k: v[:2] for k, v in field_timing.items()})
+    bounds = nerf_bounds(NeRFConfig, mlp_layer_sizes)
+    bounds.update({k: v[2:] for k, v in field_timing.items()})
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": worst[name],
         "ms": timing[name][0], "plain_ms": timing[name][1],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": None,  # no one PyTorch call computes any of these fused functions
     } for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ is easy to find; public functions keep its layouts (params
 * ``core``   — plain PyTorch semantic ops (the port's oracle layer)
 * ``ops``    — hand-written CUDA kernels for sm_90a, their plain PyTorch
                versions, and the nvcc/ctypes build
-* ``models`` — ``NeRFConfig`` and ``NeRFModel`` (an ``nn.Module``)
+* ``models`` — ``NeRFConfig``/``NeRFModel`` and ``ImageFieldConfig``/
+               ``ImageFieldModel`` (``nn.Module``s)
 * ``data``   — camera poses, the synthetic scene, the Blender loader
 * ``train``  — optimizers, the train step, checkpoints, logging, the
-               ``train_nerf`` driver and the orbit renderer
+               ``train_nerf`` and ``fit_image`` drivers and the orbit
+               renderer
 
 Tensors are made on the device of a function's inputs, or on the ``device``
 it is given; randomness comes from a ``torch.Generator`` argument.

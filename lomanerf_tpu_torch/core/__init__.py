@@ -15,6 +15,8 @@ from lomanerf_tpu_torch.core.mlp import (  # noqa: F401
     params_from_numpy,
 )
 from lomanerf_tpu_torch.core.pipeline import (  # noqa: F401
+    image_fit_loss,
+    image_fit_pred,
     nerf_loss,
     nerf_loss_rays,
     nerf_render,

@@ -13,6 +13,17 @@ from lomanerf_tpu_torch.core.losses import sum_mse
 from lomanerf_tpu_torch.core.mlp import Params, mlp_apply
 
 
+def image_fit_pred(params: Params, coords_encoded: torch.Tensor) -> torch.Tensor:
+    """MLP prediction for the 2D image fit (sigmoid head on all channels)."""
+    return mlp_apply(params, coords_encoded, head="sigmoid")
+
+
+def image_fit_loss(params: Params, coords_encoded: torch.Tensor,
+                   target: torch.Tensor) -> torch.Tensor:
+    """Sum-MSE of the sigmoid MLP against target pixels."""
+    return sum_mse(image_fit_pred(params, coords_encoded), target)
+
+
 def nerf_render(
     params: Params,
     points_encoded: torch.Tensor,

@@ -3,5 +3,8 @@
 ``fused_nerf`` — the narrow render forward (``csrc/nerf_render_fwd.cu``),
 its backward (``csrc/nerf_render_bwd.cu``) and the fused train loss
 (``csrc/nerf_train.cu``), sharing ``csrc/nerf_common.cuh`` and
-``csrc/nerf_grad.cuh``; ``build`` — nvcc at first use, bound with ctypes.
+``csrc/nerf_grad.cuh``, and the wide flagship kernels
+(``csrc/nerf_wide_*``); ``fused_mlp`` — the 2D image field's forward
+(``csrc/field_fwd.cu``) and its backward (``csrc/field_bwd.cu``), sharing
+``csrc/field_common.cuh``; ``build`` — nvcc at first use, bound with ctypes.
 """

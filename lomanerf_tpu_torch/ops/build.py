@@ -46,6 +46,14 @@ SIGNATURES = {
     "nerf_wide_render_fwd": [_P] * 8 + [_I] * 9 + [_P],
     "nerf_wide_train": _WIDE_GRAD,
     "nerf_wide_render_bwd": _WIDE_GRAD,
+    # the 2D field (field_common.cuh): (pk, coords, out, n, L, in_dim, width,
+    #  num_functions, out_ch, stream)
+    "field_fwd": [_P, _P, _P] + [_I] * 6 + [_P],
+    # (pk, G, coords, dout, partials, n_blocks, out, n, L, in_dim, width,
+    #  num_functions, out_ch, stream)
+    "field_bwd": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
+    # (L, in_dim, width, num_functions, out_ch) -> blocks the card holds at once
+    "field_bwd_blocks": [_I] * 5,
 }
 
 

@@ -30,6 +30,7 @@
 
 #pragma once
 
+#include "block_sum.cuh"
 #include "nerf_common.cuh"
 
 namespace nerf {
@@ -38,7 +39,6 @@ namespace {  // each kernel source gets its own copy
 constexpr int kGradThreads = 64;           // rays per block
 constexpr int kStride = kGradThreads + 1;  // staging row stride: rows j and
                                            // j+1 land in different banks
-constexpr int kSumWarps = 32;              // block of the partials' sum
 
 // Dynamic shared memory of the gradient kernel, in floats: the packed
 // parameters, the dW/db accumulator, P_s per sample and ray, the staged
@@ -257,30 +257,6 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
     float total = 0.0f;
     for (int r = 0; r < kGradThreads; ++r) total += lossbuf[r];
     part[G] = total;
-  }
-}
-
-// out[p] = sum over blocks b of part[b * P + p], in a fixed order: warp w
-// sums blocks w, w + kSumWarps, ... in turn, then warp 0 adds the warps'
-// sums in order.  32 consecutive entries per block, so loads coalesce.
-__global__ void __launch_bounds__(kSumWarps * 32)
-sum_block_partials(const float* __restrict__ part, int n_blocks, int P,
-                   float* __restrict__ out) {
-  __shared__ float red[kSumWarps][33];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * 32 + lane;
-  float s = 0.0f;
-  if (p < P) {
-    for (int b = warp; b < n_blocks; b += kSumWarps) {
-      s += part[static_cast<size_t>(b) * P + p];
-    }
-  }
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && p < P) {
-    float total = 0.0f;
-    for (int w = 0; w < kSumWarps; ++w) total += red[w][lane];
-    out[p] = total;
   }
 }
 

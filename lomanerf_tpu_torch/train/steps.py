@@ -1,8 +1,8 @@
-"""Single-device NeRF train step (port of ``lomanerf_tpu.train.steps``).
+"""Single-device train steps for both model families (port of
+``lomanerf_tpu.train.steps``).
 
-PyTorch runs eagerly: there is no ``jit`` and no buffer donation.  The step
+PyTorch runs eagerly: there is no ``jit`` and no buffer donation.  A step
 updates the parameters in place through the optimizer built over them.
-``make_image_fit_step`` waits for the 2D field's kernels (ROADMAP D1).
 """
 
 from __future__ import annotations
@@ -11,17 +11,20 @@ from typing import Callable
 
 import torch
 
+from lomanerf_tpu_torch.core.encoding import positional_encoding
+from lomanerf_tpu_torch.core.losses import sum_mse
 from lomanerf_tpu_torch.core.mlp import Params
-from lomanerf_tpu_torch.core.pipeline import nerf_loss_rays
+from lomanerf_tpu_torch.core.pipeline import image_fit_loss, nerf_loss_rays
 
 BACKENDS = ("auto", "plain")
 
 
 def resolve_backend(cfg, backend: str = "auto") -> str:
-    """``"auto"`` is ``"fused"``: ``ops.fused_nerf.nerf_train_loss``, which
-    runs the train kernel on CUDA params and its plain version on CPU params,
-    so the params' device decides.  ``"plain"`` (autograd through the core
-    pipeline) exists for comparisons only."""
+    """``"auto"`` is ``"fused"``: ``ops.fused_nerf.nerf_train_loss`` (or, for
+    the image field, ``ops.fused_mlp.field_forward``), which runs the kernels
+    on CUDA params and their plain version on CPU params, so the params'
+    device decides.  ``"plain"`` (autograd through the core pipeline) exists
+    for comparisons only."""
     del cfg
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -58,6 +61,49 @@ def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
         loss = nerf_loss_fn(params, origins, directions, t_vals, dists, target,
                             cfg, backend)
         loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def image_fit_loss_fn(params: Params, coords, target, cfg,
+                      backend: str = "fused") -> torch.Tensor:
+    """The sum-MSE of the image field on raw ``(N, 2)`` coords,
+    differentiable w.r.t. params."""
+    if backend == "fused":
+        # the field kernel forward; its backward is the field's backward kernel
+        from lomanerf_tpu_torch.ops import fused_mlp
+
+        pred = fused_mlp.field_forward(params, coords, cfg.num_encoding_functions,
+                                       cfg.out_channels)
+        return sum_mse(pred, target)
+    if backend == "plain":
+        return image_fit_loss(params, positional_encoding(coords, cfg.num_encoding_functions),
+                              target)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def make_image_fit_step(cfg, optimizer: torch.optim.Optimizer,
+                        backend: str = "auto") -> Callable:
+    """2D-fit step: ``step(model_or_params, coords, target, seed=None) ->
+    loss``.  Takes raw ``(N, 2)`` pixel coords (encoded on the device, inside
+    the kernel on CUDA).  Zero the gradients, the loss, its backward seeded
+    with ``seed`` (1 if None; the previous loss reproduces the reference's
+    adjoint-seeding quirk, fit_img.py:497), one ``optimizer.step()``;
+    returns the loss of the parameters before the update, detached."""
+    backend = resolve_backend(cfg, backend)
+
+    def step(model_or_params, coords, target, seed=None):
+        params = (model_or_params.params if isinstance(model_or_params, torch.nn.Module)
+                  else model_or_params)
+        optimizer.zero_grad(set_to_none=True)
+        loss = image_fit_loss_fn(params, coords, target, cfg, backend)
+        if seed is None:
+            loss.backward()
+        else:
+            loss.backward(gradient=torch.as_tensor(seed, dtype=loss.dtype,
+                                                   device=loss.device))
         optimizer.step()
         return loss.detach()
 

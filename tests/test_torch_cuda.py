@@ -11,7 +11,8 @@ The gradient kernels (train step #3, render backward #2) are held to
 autograd of the plain version at the JAX test's bound for its fused train
 kernel (loss rtol 1e-5; grads rtol 3e-4, atol 3e-5 scaled by the leaf's
 largest entry where that is above 1, since these sums run over 1037 rays,
-not 20), and two launches on the same inputs must agree bit for bit.
+not 20), and two launches on the same inputs must agree bit for bit.  The
+2D field's kernels (#13, #14) are held to the same bounds.
 """
 
 import dataclasses
@@ -21,8 +22,10 @@ import pytest
 import torch
 
 from lomanerf_tpu_torch.core import mlp_layer_sizes, params_from_numpy, uniform_depths
-from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
-from lomanerf_tpu_torch.ops import fused_nerf
+from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
+                                       NeRFModel, image_grid_coords)
+from lomanerf_tpu_torch.ops import fused_mlp, fused_nerf
+from lomanerf_tpu_torch.train.steps import make_image_fit_step
 
 N_RAYS = 1037  # not a multiple of the kernel's 128-ray block
 
@@ -203,3 +206,85 @@ def test_wide_render_image_chunks_give_identical_pixels():
         chunked = model.render_image(K, pose, 40, chunk=333)
     assert fused_nerf.launches["nerf_wide_render_fwd"] == before + 1 + 5
     assert torch.equal(whole, chunked)
+
+
+# ---------------------------------------------------------------------------
+# The 2D image field (ops/fused_mlp.py: field_fwd.cu, field_bwd.cu)
+# ---------------------------------------------------------------------------
+
+FIELDS = {"small": ImageFieldConfig.small(), "hires": ImageFieldConfig.hires()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", list(FIELDS))
+@pytest.mark.parametrize("n_px", [1037, 64, 1])  # ragged, one full tile, one pixel
+def test_field_kernels_match_plain_and_repeat_exactly(preset, n_px):
+    """field_fwd vs the plain version at atol/rtol 1e-4; field_bwd vs
+    autograd of the plain version at rtol 3e-4, atol 3e-5 of max(1, the
+    leaf's largest entry); two launches agree bit for bit; coords get no
+    gradient."""
+    need_card()
+    rng = np.random.default_rng(11)
+    cfg = FIELDS[preset]
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    coords = torch.from_numpy(rng.random((n_px, 2)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.standard_normal((n_px, 3)).astype(np.float32)).cuda()
+    nf = cfg.num_encoding_functions
+
+    def run(fn):
+        c = coords.clone().requires_grad_(True)
+        out = fn(params, c, nf)
+        return (out.detach(), *grads_of(params, lambda: (fn(params, c, nf) * cot).sum())[1:])
+
+    before = dict(fused_mlp.launches)
+    k1, k2 = run(fused_mlp.field_forward), run(fused_mlp.field_forward)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches["field_fwd"] == before["field_fwd"] + 4
+    assert fused_mlp.launches["field_bwd"] == before["field_bwd"] + 2
+    assert all(torch.equal(x, y) for x, y in zip(k1, k2))
+    p = run(fused_mlp.field_forward_reference)
+    torch.testing.assert_close(k1[0], p[0], atol=1e-4, rtol=1e-4)
+    assert_grads_close(k1[1:], p[1:])
+    c = coords.clone().requires_grad_(True)
+    fused_mlp.field_forward(params, c, nf).sum().backward()
+    assert c.grad is None
+
+
+@pytest.mark.cuda
+def test_field_kernels_refuse_what_they_do_not_take():
+    """Widths above 128, heads above 4 channels and fields whose tile does
+    not fit shared memory raise, naming D2."""
+    need_card()
+    rng = np.random.default_rng(0)
+    coords = torch.rand(64, 2, device="cuda")
+    for cfg, out in ((ImageFieldConfig(filter_size=200), 3),
+                     (ImageFieldConfig(out_channels=5), 5),
+                     (ImageFieldConfig(num_layers=8, filter_size=128,
+                                       num_encoding_functions=8), 3)):
+        params = params_from_numpy(*np_params(rng, cfg), "cuda")
+        with pytest.raises(NotImplementedError, match="D2"):
+            fused_mlp.field_forward(params, coords, cfg.num_encoding_functions, out)
+
+
+@pytest.mark.cuda
+def test_image_fit_steps_on_card_follow_the_plain_backend():
+    """5 Adam steps of the small field at 64x64 through the kernels and
+    through the plain backend, from the same numpy init: one launch of each
+    kernel per step, and losses within rtol 1e-4."""
+    need_card()
+    cfg = ImageFieldConfig(img_size=64)
+    rng = np.random.default_rng(5)
+    ws, bs = np_params(rng, cfg)
+    coords = image_grid_coords(64, "cuda")
+    target = torch.from_numpy(rng.random((64 * 64, 3)).astype(np.float32)).cuda()
+    losses = {}
+    for backend in ("auto", "plain"):
+        model = ImageFieldModel.from_numpy(cfg, ws, bs, device="cuda", backend=backend)
+        step = make_image_fit_step(cfg, torch.optim.Adam(model.parameters(), lr=1e-3),
+                                   backend)
+        before = dict(fused_mlp.launches)
+        losses[backend] = [step(model, coords, target).item() for _ in range(5)]
+        if backend == "auto":
+            assert fused_mlp.launches["field_bwd"] == before["field_bwd"] + 5
+            assert fused_mlp.launches["field_fwd"] == before["field_fwd"] + 5
+    np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=1e-4)
