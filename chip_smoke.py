@@ -55,14 +55,33 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     1024x1024, Adam 1e-3, two uniform targets cycled) through the kernels
     and the plain backend in turns, the device's busy share of the
     ``small`` step, one 1024x1024 ``hires`` render, and each field
-    kernel's own call against its plain version.
+    kernel's own call against its plain version;
+13. holds the per-ray (N, S) depth instances of the six NeRF kernels
+    (``*_rays``: the counterparts of #4-#6 and #10-#12) against their plain
+    versions on jittered depths from ``NeRFModel.sample(generator=...)``,
+    at six MLPs (the narrow presets, a one- and a two-layer MLP, ``full()``
+    and an f32 4x128) in both modes on 1037 rays and on one, with repeat
+    launches bit-identical and (S,) depths broadcast through them
+    bit-identical to the shared-depth kernels; then at the timed steps'
+    batches (``small`` 262,144 rays, ``single64`` 65,536, ``full``
+    16,384); then the wide ones over many ray chunks (scratch budgets cut),
+    bit-identical to one chunk where the chunks align with the split-K
+    partials;
+14. drives the stratified path: the train step on per-ray depths at the
+    ``small`` (262,144 rays), ``single64`` (65,536) and ``full`` (16,384)
+    rungs, in turns with the same step at shared depths and on the plain
+    backend; 500 ``small`` steps of 4096 rays with fresh jittered depths
+    (eval PSNR >= 19 dB and 8 dB above step 0) and 30 ``full`` steps; 10
+    ``NeRFModel.loss`` steps each for ``small`` and ``full``; and each
+    per-ray kernel's own call against the shared-depth kernel and its
+    plain version.
 
-Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps) and
-11 (the image fit) are the main paths: each kernel's launch count is reset
-before its path and read after it.  The last lines are the card's name and
-power limit, a JSON line of the eight kernels (with each one's least time
-on the card for its work, ``bound_ms``), and ``{"ok": true, "device":
-...}``.  It exits
+Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
+(the image fit) and 14 (the stratified runs) are the main paths: each
+kernel's launch count is reset before its path and read after it.  The
+last lines are the card's name and power limit, a JSON line of the
+fourteen kernels (with each one's least time on the card for its work,
+``bound_ms``), and ``{"ok": true, "device": ...}``.  It exits
 non-zero, before printing any result, without a CUDA device or outside a
 checkout of the repository; any failing phase raises.
 """
@@ -147,6 +166,19 @@ HIRES_STEPS, HIRES_GAIN_DB, HIRES_PLAIN_DB = 200, 8.0, 0.3
 # field_bwd vs autograd at the whole 1024x1024 hires image, of the leaf's
 # largest entry: a few ReLU-mask flips (phase 10) above the 1e-4 of phase 4
 FIELD_IMAGE_GRAD = 5e-3
+# the per-ray (N, S) depth instances of the six NeRF kernels (phases 13-14)
+_CSRC, _TPU = "lomanerf_tpu_torch/ops/csrc/", "lomanerf_tpu/ops/fused_nerf.py:"
+KERNELS.update({
+    "nerf_render_fwd_rays": (_CSRC + "nerf_render_fwd.cu", _TPU + "706"),
+    "nerf_train_rays": (_CSRC + "nerf_train_rays.cu", _TPU + "474"),
+    "nerf_render_bwd_rays": (_CSRC + "nerf_render_bwd_rays.cu", _TPU + "745"),
+    "nerf_wide_render_fwd_rays": (_CSRC + "nerf_wide_render_fwd.cu", _TPU + "140"),
+    "nerf_wide_train_rays": (_CSRC + "nerf_wide_train.cu", _TPU + "248"),
+    "nerf_wide_render_bwd_rays": (_CSRC + "nerf_wide_render_bwd.cu", _TPU + "223"),
+})
+PERRAY = tuple(name for name in KERNELS if name.endswith("_rays"))
+SINGLE64_RAYS = 65536  # the bench's single64 rung (bench.py:334)
+STRAT_STEPS, STRAT_FULL_STEPS = 500, 30
 
 
 def seeded_params(rng, cfg):
@@ -470,11 +502,13 @@ def phase_bench_step(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_s
     plain_out = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
     calls = {
         "nerf_train": (
-            lambda: fused_nerf._launch_grad("nerf_train", pk, G, o, d, tgt, cfg, 3, 32),
+            lambda: fused_nerf._launch_grad("nerf_train", pk, G, t, dists, o, d, tgt, cfg,
+                                            3, 32),
             lambda: torch.autograd.grad(fused_nerf.nerf_train_loss_reference(
                 params, o, d, t, dists, tgt, cfg), lv)),
         "nerf_render_bwd": (
-            lambda: fused_nerf._launch_grad("nerf_render_bwd", pk, G, o, d, cot, cfg, 3, 32),
+            lambda: fused_nerf._launch_grad("nerf_render_bwd", pk, G, t, dists, o, d, cot,
+                                            cfg, 3, 32),
             lambda: torch.autograd.grad(plain_out, lv, cot, retain_graph=True)),
     }
     out = {}
@@ -678,12 +712,12 @@ def phase_flagship_driver(train_nerf, fused_nerf, CheckpointManager, NeRFModel,
 
 
 def timed_turns(fns, rounds):
-    """``{name: [ms...]}`` of CUDA-event timings, in turns: for each round,
-    a, b, b, a over the two named callables."""
-    (na, fa), (nb, fb) = fns.items()
-    times = {na: [], nb: []}
+    """``{name: [ms...]}`` of CUDA-event timings over the named callables in
+    turns: each round runs them in order, then in reverse (a, b, b, a)."""
+    times = {name: [] for name in fns}
+    order = list(fns.items())
     for _ in range(rounds):
-        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        for name, fn in order + order[::-1]:
             times[name].append(cuda_ms(fn)[0])
     return times
 
@@ -1116,6 +1150,587 @@ def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-14: per-ray (N, S) depths, the stratified sampler's
+# ---------------------------------------------------------------------------
+
+
+def perray_configs(NeRFConfig):
+    """Phase 13's MLPs: the narrow presets, a one- and a two-layer narrow
+    MLP, the flagship and an f32 4x128 wide MLP."""
+    f32 = NeRFConfig(num_layers=4, filter_size=128, num_samples=32)
+    return {"small": NeRFConfig.small(), "single64": NeRFConfig.single_view_64(),
+            "1x(33->4)": NeRFConfig(num_layers=1), "2x48": NeRFConfig(num_layers=2,
+                                                                     filter_size=48),
+            "full": NeRFConfig.full(), "4x128 f32": f32}
+
+
+def either_grads_close(got, want, want64, what, cfg, rtol=GRAD_RTOL, atol_of=grad_atol):
+    """``(worst |got - reference|, [(leaf, |got - f64|, |want - f64|), ...])``
+    for phase 13, each leaf's reference being the one it is held to, the
+    last two of the leaf's largest f64 entry, for each leaf held to the f64
+    version.  Wide
+    (``want64`` None): phase 7's bound against ``want`` (the wide plain
+    version follows the kernels' rounding plan, in f32 only).  Narrow:
+    ``rtol`` and ``atol_of`` (phase 4's bound by default) against the plain
+    version in f32 (``want``) or, for a leaf that misses it, in f64 (the
+    leaves ``want64()`` returns, computed once and only then).  Where a
+    hidden pre-activation lies within f32 rounding of 0, two f32
+    evaluations that sum in other orders can mask it apart and move that
+    sample's whole term (the forward barely moves); this is the inferred
+    cause of the misses at single64 on 1037 rays x 64 samples, where the
+    kernel then agrees with the f64 version."""
+    if want64 is None:
+        return wide_grads_close(got, want, what, cfg), []
+    worst, by64, leaves64 = 0.0, [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.allclose(g, w, rtol=rtol, atol=atol_of(w)):
+            if not leaves64:
+                leaves64 = list(want64())
+            w64 = leaves64[i].float()
+            scale = w64.abs().max().item()
+            by64.append((i, (g - w64).abs().max().item() / scale,
+                         (w - w64).abs().max().item() / scale))
+            w = w64
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol_of(w),
+                                       msg=lambda m, i=i: f"{what}, leaf {i} (against the "
+                                       f"plain version in f32, then in f64): {m}")
+        worst = max(worst, (g - w).abs().max().item())
+    return worst, by64
+
+
+def f64_note(kind, by64):
+    """The phase-13 line's account of the leaves held to the f64 version:
+    each one's max |kernel - f64| and |plain f32 - f64|, of the leaf's
+    largest entry."""
+    if not by64:
+        return ""
+    return (f"; {kind} leaves held to the plain version in f64 (leaf: |kernel-f64|, "
+            f"|plain f32-f64| of its largest entry): "
+            + ", ".join(f"{i}: {a:.2e}, {b:.2e}" for i, a, b in by64))
+
+
+def stratified_depths(model, o, d, seed):
+    """Per-bin jittered (N, S) depths and steps from ``NeRFModel.sample``
+    with a CUDA generator."""
+    _, t, dists = model.sample(o, d, generator=torch.Generator("cuda").manual_seed(seed))
+    S = model.config.num_samples
+    if t.shape != (o.shape[0], S) or dists.shape != t.shape or not t.is_cuda:
+        raise AssertionError(f"sample gave depths {tuple(t.shape)} {t.device}")
+    return t, dists
+
+
+def phase_perray_kernels(fused_nerf, NeRFConfig, NeRFModel, seed=13):
+    """Phase 13: the six ``*_rays`` entry points (#4-#6, #10-#12) against
+    autograd of their plain versions on jittered (N, S) depths from
+    ``NeRFModel.sample``, at every ``perray_configs`` MLP in both modes on
+    1037 rays and on one ray: the colours, the train loss and dW/db, and
+    the render backward's dW/db for a random colour cotangent, at phases 1,
+    4 and 7's bounds; repeat launches bit-identical; (S,) depths broadcast
+    to (N, S) through the ``*_rays`` kernels bit-identical to the
+    shared-depth kernels.  A narrow dW/db leaf is held to the plain version
+    in f32 or, if it misses that, in f64 (``either_grads_close``).
+    Returns the worst |kernel - plain| per entry point, each leaf against
+    the version it is held to."""
+    rng = np.random.default_rng(seed)
+    worst = dict.fromkeys(PERRAY, 0.0)
+    reset_launches(fused_nerf)
+    for name, base in perray_configs(NeRFConfig).items():
+        for mode in ("loma", "standard"):
+            cfg = dataclasses.replace(base, mode=mode)
+            params = seeded_params(rng, cfg)
+            leaves = leaves_of(params)
+            model = NeRFModel(cfg)
+            wide = fused_nerf._route(cfg, params)[0] == "wide"
+            col_atol, loss_rtol, _ = wide_tolerances(cfg) if wide else (ATOL, 1e-5, None)
+            pre = "nerf_wide_" if wide else "nerf_"
+            for n in (N_CHECK, 1):
+                o, d = seeded_rays(rng, n)
+                t, dists = stratified_depths(model, o, d, int(rng.integers(1 << 30)))
+                tgt = torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")
+                cot = torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                                   device="cuda")
+
+                def run(render, train, tv, dv, dt=torch.float32):
+                    """(colours, (loss, *dW/db), render-backward dW/db) from
+                    params and inputs in ``dt``."""
+                    prm = params if dt == torch.float32 else {
+                        k: [x.detach().to(dt) for x in v] for k, v in params.items()}
+                    lv = leaves if dt == torch.float32 else leaves_of(prm)
+                    o_, d_, tv, dv, tgt_, cot_ = (x.to(dt) for x in (o, d, tv, dv, tgt, cot))
+                    with torch.no_grad():
+                        col = render(prm, o_, d_, tv, dv, cfg)
+                    loss = train(prm, o_, d_, tv, dv, tgt_, cfg)
+                    k = (loss.detach(), *torch.autograd.grad(loss, lv))
+                    b = torch.autograd.grad((render(prm, o_, d_, tv, dv, cfg) * cot_).sum(), lv)
+                    return col, k, b
+
+                kernel = (fused_nerf.render_rays, fused_nerf.nerf_train_loss)
+                plain = (fused_nerf.render_rays_reference, fused_nerf.nerf_train_loss_reference)
+                c1, k1, b1 = run(*kernel, t, dists)
+                c2, k2, b2 = run(*kernel, t, dists)
+                cp, kp, bp = run(*plain, t, dists)
+                kp64 = bp64 = None  # the wide plain version: f32/bf16 rounding plan only
+                if not wide:
+                    kp64 = lambda: run(*plain, t, dists, torch.float64)[1][1:]
+                    bp64 = lambda: run(*plain, t, dists, torch.float64)[2]
+                torch.cuda.synchronize()
+                what = f"{name} {cfg.compute_dtype} {mode} S={cfg.num_samples} N={n}"
+                if not all(torch.equal(x, y) for x, y in zip((c1, *k1, *b1), (c2, *k2, *b2))):
+                    raise AssertionError(f"{what}: repeat launches differ")
+                e_fwd = (c1 - cp).abs().max().item()
+                torch.testing.assert_close(c1, cp, atol=col_atol, rtol=RTOL)
+                loss_err = abs(k1[0].item() - kp[0].item())
+                torch.testing.assert_close(k1[0], kp[0], rtol=loss_rtol, atol=0.0)
+                e_tr, f_tr = either_grads_close(k1[1:], kp[1:], kp64,
+                                                f"{pre}train_rays {what}", cfg)
+                e_bw, f_bw = either_grads_close(b1, bp, bp64, f"{pre}render_bwd_rays {what}",
+                                                cfg)
+
+                # broadcast (S,) depths: the *_rays kernels against the shared ones
+                tu, du = uniform_depths(cfg)
+                shared = run(*kernel, tu, du)
+                bcast = run(*kernel, tu.expand(n, -1), du.expand(n, -1))
+                torch.cuda.synchronize()
+                shared, bcast = ((r[0], *r[1], *r[2]) for r in (shared, bcast))
+                if not all(torch.equal(x, y) for x, y in zip(shared, bcast)):
+                    diff = max((x - y).abs().max().item() for x, y in zip(shared, bcast))
+                    raise AssertionError(f"{what}: broadcast depths through the *_rays "
+                                         f"kernels differ from the shared-depth kernels "
+                                         f"by {diff:.3e}")
+                for k, e in (("render_fwd_rays", e_fwd), ("train_rays", max(e_tr, loss_err)),
+                             ("render_bwd_rays", e_bw)):
+                    worst[pre + k] = max(worst[pre + k], e)
+                flips = f64_note("train", f_tr) + f64_note("render bwd", f_bw)
+                print(f"phase 13 {what}: max|kernel-plain| render {e_fwd:.3e}; loss "
+                      f"{k1[0].item():.6e} (|kernel-plain| {loss_err:.3e}); dW,db train "
+                      f"{e_tr:.3e}, render bwd {e_bw:.3e}; repeats and broadcast (S,) "
+                      f"depths vs the shared-depth kernels bit-identical{flips}")
+    moved = {k: fused_nerf.launches[k] for k in PERRAY}
+    if not all(moved.values()):
+        raise AssertionError(f"phase 13: a per-ray kernel was not launched: {moved}")
+    print(f"phase 13 per-ray launches: {moved}")
+    return worst
+
+
+def phase_perray_batches(fused_nerf, NeRFConfig, NeRFModel):
+    """Phase 13 at the timed steps' batches: the six ``*_rays`` entry points
+    on jittered depths from ``NeRFModel.sample`` and bench.py-style rays
+    and targets, ``small`` at 262,144 rays, ``single64`` at 65,536 and
+    ``full`` at 16,384, against autograd of their plain versions: the
+    colours (phases 1/7's bounds), the train loss and dW/db, and the render
+    backward's dW/db under the sum-MSE loss, as ``NeRFModel.loss`` runs it
+    (``nerf_loss``: the render forward, then the render backward with the
+    loss's colour cotangent), against the same plain gradient.  Narrow:
+    phase 4's bench-batch bounds (loss rtol 1e-4; each leaf rtol 1e-3 with
+    atol 1e-4 of the leaf's largest plain entry), a leaf that misses against
+    the plain version in f32 held to it in f64 (``either_grads_close``);
+    wide: phase 7's.  Phase 13's random colour cotangent stays at 1037
+    rays: over millions of samples its random signs cancel each dW entry
+    to a small part of its terms, and one sample whose hidden
+    pre-activation lies within f32 rounding of 0, masked apart by two f32
+    evaluations, moves an entry by that sample's whole term, more than a
+    bound relative to the cancelled leaf allows.  Returns the worst
+    |kernel - plain| per entry point."""
+    worst = dict.fromkeys(PERRAY, 0.0)
+    for name, n in (("small", BENCH_RAYS), ("single64", SINGLE64_RAYS),
+                    ("full", FLAGSHIP_RAYS)):
+        cfg = NeRFConfig.preset(name)
+        params = seeded_params(np.random.default_rng(0), cfg)
+        leaves = leaves_of(params)
+        o, d, _, _, tgt = bench_batch(np.random.default_rng(0), cfg, n)
+        t, dists = stratified_depths(NeRFModel(cfg), o, d, 21)
+        wide = fused_nerf._route(cfg, params)[0] == "wide"
+        col_atol, loss_rtol, _ = wide_tolerances(cfg) if wide else (ATOL, 1e-4, None)
+
+        def loss_grads(loss_fn, dt=torch.float32):
+            """(loss, *dW/db) of ``loss_fn`` on the batch, in ``dt``."""
+            prm = params if dt == torch.float32 else {
+                k: [x.detach().to(dt) for x in v] for k, v in params.items()}
+            lv = leaves if dt == torch.float32 else leaves_of(prm)
+            loss = loss_fn(prm, *(x.to(dt) for x in (o, d, t, dists, tgt)), cfg)
+            return (loss.detach(), *torch.autograd.grad(loss, lv))
+
+        with torch.no_grad():
+            ck = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+            cp = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+        kk = loss_grads(fused_nerf.nerf_train_loss)
+        bk = loss_grads(fused_nerf.nerf_loss)
+        kp = loss_grads(fused_nerf.nerf_train_loss_reference)
+        kp64 = None
+        if not wide:
+            kp64 = lambda: loss_grads(fused_nerf.nerf_train_loss_reference, torch.float64)[1:]
+        torch.cuda.synchronize()
+        what = f"{name} at {n} rays x {cfg.num_samples} jittered samples"
+        e_fwd = (ck - cp).abs().max().item()
+        torch.testing.assert_close(ck, cp, atol=col_atol, rtol=RTOL)
+        loss_err = abs(kk[0].item() - kp[0].item())
+        torch.testing.assert_close(kk[0], kp[0], rtol=loss_rtol, atol=0.0)
+        torch.testing.assert_close(bk[0], kp[0], rtol=loss_rtol, atol=0.0)
+        bounds = (1e-3, lambda w: 1e-4 * w.abs().max().item())
+        pre = "nerf_wide_" if wide else "nerf_"
+        e_tr, f_tr = either_grads_close(kk[1:], kp[1:], kp64, f"{pre}train_rays, {what}",
+                                        cfg, *bounds)
+        e_bw, f_bw = either_grads_close(bk[1:], kp[1:], kp64,
+                                        f"{pre}render_bwd_rays (loss cotangent), {what}", cfg,
+                                        *bounds)
+        rel = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip((*kk[1:], *bk[1:]), (*kp[1:], *kp[1:])))
+        for k, e in (("render_fwd_rays", e_fwd), ("train_rays", max(e_tr, loss_err)),
+                     ("render_bwd_rays", e_bw)):
+            worst[pre + k] = max(worst[pre + k], e)
+        flips = f64_note("train", f_tr) + f64_note("render bwd", f_bw)
+        print(f"phase 13 {what}: max|kernel-plain| render {e_fwd:.3e}; loss kernel "
+              f"{kk[0].item():.6e} plain {kp[0].item():.6e}; max|dW,db kernel-plain| train "
+              f"{e_tr:.3e}, render bwd under the loss {e_bw:.3e} (against the f32 plain "
+              f"version, {rel:.3e} of the leaf's largest entry at most){flips}")
+        del ck, cp, kk, bk, kp
+    return worst
+
+
+def phase_perray_wide_chunks(fused_nerf, NeRFConfig, NeRFModel, seed=17):
+    """Phase 13, the wide chain's ray chunks (``Net::from_ray`` offsets the
+    per-ray depths by each chunk's first ray): ``full()`` and the f32 4x128
+    MLP on 1037 jittered rays, with ``wide_chunk_rays`` and
+    ``wide_grad_chunk_rays`` cut so that one call walks many chunks.
+    Render chunks of 100 rays with gradient chunks of 8192 / S rays (one
+    split-K partial each, so the fixed-order sums add the same terms in the
+    same order) are bit-identical to the one-chunk calls; gradient chunks
+    of 300 rays (partials split at other rows) meet phase 7's bounds
+    against the plain version."""
+    rng = np.random.default_rng(seed)
+    for cfg in (NeRFConfig.full(), NeRFConfig(num_layers=4, filter_size=128,
+                                              num_samples=32)):
+        params = seeded_params(rng, cfg)
+        leaves = leaves_of(params)
+        o, d = seeded_rays(rng, N_CHECK)
+        t, dists = stratified_depths(NeRFModel(cfg), o, d, int(rng.integers(1 << 30)))
+        tgt = torch.tensor(rng.random((N_CHECK, 3)), dtype=torch.float32, device="cuda")
+        cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
+                           device="cuda")
+
+        def run(render, train):
+            """(colours, loss, *dW/db, *render-backward dW/db)."""
+            with torch.no_grad():
+                col = render(params, o, d, t, dists, cfg)
+            loss = train(params, o, d, t, dists, tgt, cfg)
+            k = (loss.detach(), *torch.autograd.grad(loss, leaves))
+            return (col, *k, *torch.autograd.grad(
+                (render(params, o, d, t, dists, cfg) * cot).sum(), leaves))
+
+        kernel = (fused_nerf.render_rays, fused_nerf.nerf_train_loss)
+        whole = run(*kernel)
+        aligned = fused_nerf.WIDE_ROW_CHUNK // cfg.num_samples
+        saved = fused_nerf.wide_chunk_rays, fused_nerf.wide_grad_chunk_rays
+        chunked = {}
+        try:
+            fused_nerf.wide_chunk_rays = lambda config, pw: 100
+            for rays in (aligned, 300):
+                fused_nerf.wide_grad_chunk_rays = lambda config, pw, L, r=rays: r
+                chunked[rays] = run(*kernel)
+        finally:
+            fused_nerf.wide_chunk_rays, fused_nerf.wide_grad_chunk_rays = saved
+        plain = run(fused_nerf.render_rays_reference, fused_nerf.nerf_train_loss_reference)
+        torch.cuda.synchronize()
+        what = (f"{cfg.num_layers}x{cfg.filter_size} {cfg.compute_dtype} S={cfg.num_samples} "
+                f"N={N_CHECK}")
+        if not all(torch.equal(x, y) for x, y in zip(whole, chunked[aligned])):
+            diff = max((x - y).abs().max().item() for x, y in zip(whole, chunked[aligned]))
+            raise AssertionError(f"{what}: render chunks of 100 rays and gradient chunks of "
+                                 f"{aligned} differ from one chunk by {diff:.3e}")
+        ragged = chunked[300]
+        if not torch.equal(ragged[0], whole[0]):
+            raise AssertionError(f"{what}: render chunks of 100 rays differ from one chunk")
+        _, loss_rtol, _ = wide_tolerances(cfg)
+        torch.testing.assert_close(ragged[1], plain[1], rtol=loss_rtol, atol=0.0)
+        nl = len(leaves)  # (colours, loss, train dW/db, render-backward dW/db)
+        e_tr = wide_grads_close(ragged[2:2 + nl], plain[2:2 + nl],
+                                f"nerf_wide_train_rays, {what}, chunks of 300 rays", cfg)
+        e_bw = wide_grads_close(ragged[2 + nl:], plain[2 + nl:],
+                                f"nerf_wide_render_bwd_rays, {what}, chunks of 300 rays", cfg)
+        print(f"phase 13 wide ray chunks, {what}: render chunks of 100 rays and gradient "
+              f"chunks of {aligned} rays ({-(-N_CHECK // aligned)} chunks) bit-identical to "
+              f"one chunk; gradient chunks of 300 rays vs plain: loss |kernel-plain| "
+              f"{abs(ragged[1].item() - plain[1].item()):.3e}, max|dW,db kernel-plain| train "
+              f"{e_tr:.3e}, render bwd {e_bw:.3e}")
+
+
+def phase_stratified_steps(fused_nerf, NeRFConfig, NeRFModel,
+                           make_single_chip_train_step, smi):
+    """Phase 14, the timed steps: ``make_single_chip_train_step`` (Adam
+    5e-4) at the bench's rungs, ``small`` 262,144 rays x 30, ``single64``
+    65,536 x 64 and ``full`` 16,384 x 128, on bench.py-style numpy-seeded
+    rays and targets (two batches cycled), in turns: per-ray jittered
+    depths from ``NeRFModel.sample`` through the ``*_rays`` kernels, the
+    same rays at (S,) shared depths through the shared-depth kernels, and
+    the per-ray batch on the plain backend; each from the same init.  The
+    depths are drawn before the timing (one ``sample`` call is timed on its
+    own).  Returns ``{preset: per-ray train-kernel launches}``."""
+    launches = {}
+    for name, n, rounds in (("small", BENCH_RAYS, 5), ("single64", SINGLE64_RAYS, 3),
+                            ("full", FLAGSHIP_RAYS, 2)):
+        cfg = NeRFConfig.preset(name)
+        rng = np.random.default_rng(0)
+        sampler = NeRFModel(cfg)
+        batches = {"perray": [], "shared": []}
+        for i in range(2):
+            o, d, t, dists, tgt = bench_batch(rng, cfg, n)
+            batches["shared"].append((o, d, t, dists, tgt))
+            batches["perray"].append((o, d, *stratified_depths(sampler, o, d, i), tgt))
+        sample_ms, _ = cuda_ms(lambda: sampler.sample(
+            o, d, generator=torch.Generator("cuda").manual_seed(9)))
+        steps, losses, calls = {}, {}, {}
+        for kind, backend in (("perray", "auto"), ("shared", "auto"), ("plain", "plain")):
+            model = NeRFModel(cfg)
+            model.init(torch.Generator().manual_seed(0))
+            opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+            steps[kind] = (model, make_single_chip_train_step(cfg, opt, backend),
+                           batches["shared" if kind == "shared" else "perray"])
+            losses[kind], calls[kind] = [], 0
+
+        def run(kind):
+            model, step, bs = steps[kind]
+            loss = step(model, *bs[calls[kind] % 2])
+            calls[kind] += 1
+            losses[kind].append(loss)
+
+        for kind in steps:  # warm-up
+            run(kind)
+        reset_launches(fused_nerf)
+        times = timed_turns({k: (lambda k=k: run(k)) for k in steps}, rounds)
+        train = ("nerf_wide_train" if cfg.filter_size > 64 else "nerf_train") + "_rays"
+        launches[name] = fused_nerf.launches[train]
+        if launches[name] != 2 * rounds or fused_nerf.launches[train[:-5]] != 2 * rounds:
+            raise AssertionError(f"{name}: launches {dict(fused_nerf.launches)} in "
+                                 f"{2 * rounds} steps per backend")
+        lv = {k: [x.item() for x in v] for k, v in losses.items()}
+        if not all(np.all(np.isfinite(v)) for v in lv.values()):
+            raise AssertionError(f"non-finite loss in the {name} stratified step: {lv}")
+        rel = abs(lv["perray"][0] - lv["plain"][0]) / lv["plain"][0]
+        # the first step's loss against the kernels' plain version (for full,
+        # its bf16 rounding plan; the plain backend runs the f32 pipeline)
+        init = NeRFModel(cfg)
+        init.init(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            want = fused_nerf.nerf_train_loss_reference(init.params, *batches["perray"][0],
+                                                        cfg).item()
+        loss_rtol = wide_tolerances(cfg)[1] if cfg.filter_size > 64 else 1e-4
+        ref_rel = abs(lv["perray"][0] - want) / want
+        if ref_rel > loss_rtol:
+            raise AssertionError(f"{name}: first-step loss {lv['perray'][0]} against the "
+                                 f"plain version's {want}: rel {ref_rel:.2e} > {loss_rtol}")
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"phase 14 train step, {name}, {n} rays x {cfg.num_samples} samples, Adam "
+              f"5e-4, on {smi} (first-step loss per-ray kernel {lv['perray'][0]:.6e}, plain "
+              f"version {want:.6e}, rel diff {ref_rel:.2e} (bound {loss_rtol}); plain "
+              f"backend {lv['plain'][0]:.6e}, rel diff {rel:.2e}; one NeRFModel.sample of "
+              f"the batch {sample_ms:.3f} ms, not in the step):")
+        for kind, label in (("perray", "per-ray (N, S), *_rays kernel"),
+                            ("shared", "shared (S,), shared-depth kernel"),
+                            ("plain", "per-ray (N, S), plain backend")):
+            print(f"  {label}: {spread(times[kind])}/step, {n / med[kind] * 1e3:.4e} rays/s")
+        print(f"  per-ray / shared = {med['perray'] / med['shared']:.4f}")
+    return launches
+
+
+def stratified_run(fused_nerf, NeRFModel, NeRFConfig, make_single_chip_train_step,
+                   synthetic_views, normalized_intrinsics, psnr, rays, preset, n_steps,
+                   eval_every):
+    """A training loop on stratified depths, as ``train_nerf.main`` runs one
+    (16 in-memory 64x64 synthetic views, 4096 rays per step drawn from
+    ``default_rng(215)``, Adam 5e-4, torch seed 215), with fresh per-bin
+    jittered (N, S) depths from ``NeRFModel.sample`` every step; the eval
+    view rendered unjittered (``render_image``) every ``eval_every`` steps
+    and after the last.  Returns ``(losses, {step: PSNR dB}, seconds)``."""
+    images, poses, focal = synthetic_views(16, 64, device="cuda")
+    K = normalized_intrinsics(focal, device="cuda")
+    all_rays = [rays.get_rays(64, 64, K, p) for p in poses]
+    all_o = torch.stack([o for o, _ in all_rays])
+    all_d = torch.stack([d for _, d in all_rays])
+    all_t = images.reshape(16, -1, 3)
+    model = NeRFModel(NeRFConfig.preset(preset))
+    model.init(torch.Generator().manual_seed(215))
+    step = make_single_chip_train_step(model.config,
+                                       torch.optim.Adam(model.parameters(), lr=5e-4))
+    rng = np.random.default_rng(215)
+    gen = torch.Generator("cuda").manual_seed(215)
+    losses, curve = [], {}
+
+    def evaluate(i):
+        with torch.no_grad():
+            curve[i] = psnr(images[2], model.render_image(K, poses[2], 64)).item()
+
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        v = int(rng.integers(16))
+        idx = torch.from_numpy(rng.integers(64 * 64, size=4096)).cuda()
+        o, d = all_o[v, idx], all_d[v, idx]
+        _, t, dists = model.sample(o, d, generator=gen)
+        losses.append(float(step(model, o, d, t, dists, all_t[v, idx])))
+        if i % eval_every == 0:
+            evaluate(i)
+    evaluate(n_steps)
+    return losses, curve, time.perf_counter() - t0
+
+
+def phase_stratified_paths(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_step,
+                           synthetic_views, normalized_intrinsics, psnr, rays):
+    """Phase 14, the main paths on per-ray depths (every count reset just
+    before its path, read just after): 500 ``small`` steps of
+    ``stratified_run`` (one ``nerf_train_rays`` launch per step; eval PSNR
+    >= 19 dB and 8 dB above step 0, phase 5's floors); 30 ``full`` steps
+    (one ``nerf_wide_train_rays`` launch per step, the loss falling); 10
+    Adam steps on ``NeRFModel.loss`` for ``small`` and for ``full`` over
+    one view's 4096 rays at jittered depths (the ``*_rays`` render forward
+    and backward, the loss falling).  Returns each per-ray kernel's
+    launches on these paths."""
+    args = (fused_nerf, NeRFModel, NeRFConfig, make_single_chip_train_step,
+            synthetic_views, normalized_intrinsics, psnr, rays)
+    launches = {}
+    reset_launches(fused_nerf)
+    losses, curve, secs = stratified_run(*args, "small", STRAT_STEPS, 250)
+    launches["nerf_train_rays"] = fused_nerf.launches["nerf_train_rays"]
+    print(f"phase 14 stratified small run: {STRAT_STEPS} steps x 4096 rays in {secs:.2f} s "
+          f"host time (evals included); launches {dict(fused_nerf.launches)}; final loss "
+          f"{losses[-1]:.4f}; eval PSNR dB (unjittered render): "
+          + ", ".join(f"step {k}: {v:.2f}" for k, v in sorted(curve.items())))
+    if launches["nerf_train_rays"] != STRAT_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"stratified run: {launches} launches in {STRAT_STEPS} steps")
+    if curve[STRAT_STEPS] < PSNR_FLOOR_DB or curve[STRAT_STEPS] < curve[0] + PSNR_GAIN_DB:
+        raise AssertionError(f"stratified PSNR {curve}: need >= {PSNR_FLOOR_DB} dB and "
+                             f"{PSNR_GAIN_DB} dB above step 0")
+
+    reset_launches(fused_nerf)
+    losses, curve, secs = stratified_run(*args, "full", STRAT_FULL_STEPS, STRAT_FULL_STEPS)
+    launches["nerf_wide_train_rays"] = fused_nerf.launches["nerf_wide_train_rays"]
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"phase 14 stratified full run: {STRAT_FULL_STEPS} steps x 4096 rays in "
+          f"{secs:.2f} s host time; launches {dict(fused_nerf.launches)}; mean loss of the "
+          f"first 5 steps {head:.4f}, last 5 {tail:.4f}; eval PSNR dB "
+          + ", ".join(f"step {k}: {v:.2f}" for k, v in sorted(curve.items())))
+    if launches["nerf_wide_train_rays"] != STRAT_FULL_STEPS or not tail < head:
+        raise AssertionError(f"stratified full run: launches {launches}, loss {head} -> {tail}")
+
+    images, poses, focal = synthetic_views(16, 64, device="cuda")
+    o, d = rays.get_rays(64, 64, normalized_intrinsics(focal, device="cuda"), poses[2])
+    for preset in ("small", "full"):
+        model = NeRFModel(NeRFConfig.preset(preset))
+        model.init(torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        gen = torch.Generator("cuda").manual_seed(1)
+        losses = []
+        reset_launches(fused_nerf)
+        for _ in range(10):
+            _, t, dists = model.sample(o, d, generator=gen)
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss(o, d, t, dists, images[2].reshape(-1, 3))
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        pre = "nerf_wide_" if preset == "full" else "nerf_"
+        for k in ("render_fwd_rays", "render_bwd_rays"):
+            launches[pre + k] = fused_nerf.launches[pre + k]
+        if launches[pre + "render_bwd_rays"] != 10 or launches[pre + "render_fwd_rays"] != 10 \
+                or not np.all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+            raise AssertionError(f"{preset} NeRFModel.loss on per-ray depths: launches "
+                                 f"{dict(fused_nerf.launches)}, losses {losses}")
+        print(f"phase 14 NeRFModel.loss ({preset}) on jittered depths: 10 steps, loss "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}; launches {dict(fused_nerf.launches)}")
+    return launches
+
+
+def perray_bound(cfg, n, mlp_layer_sizes, kind):
+    """bound() of one per-ray kernel call on ``n`` rays: the forward's MACs
+    (``kind`` "fwd") or the gradient kernels' (forward again, dW, d_h) per
+    sample, at the f32 peak (narrow) or the bf16 peak (the flagship); bytes:
+    origins, directions and targets (or colours, or the cotangent) per ray,
+    and the (N, S) f32 depths and steps."""
+    fwd, bwd = mlp_macs(mlp_layer_sizes(cfg.in_channels, cfg.out_channels,
+                                        cfg.num_layers, cfg.filter_size))
+    peak = PEAK_BF16 if cfg.compute_dtype == "bfloat16" else PEAK_F32
+    S = cfg.num_samples
+    return bound(n * S * (fwd if kind == "fwd" else bwd), peak, n * (36 + 8 * S))
+
+
+def phase_perray_kernel_timing(fused_nerf, NeRFConfig, NeRFModel, mlp_layer_sizes, smi):
+    """Phase 14, each per-ray kernel's own call: at the ``small`` bench batch
+    (262,144 rays, narrow) and the flagship batch (16,384 rays, wide), on
+    jittered depths, in turns with the shared-depth kernel on the same rays
+    at (S,) depths and with the plain version of the same work (CUDA events,
+    median).  Returns ``{kernel: (ms, plain_ms, bound_ms, bound_by)}``."""
+    out = {}
+    for preset, n, width, rounds in (("small", BENCH_RAYS, 32, 3),
+                                     ("full", FLAGSHIP_RAYS, 256, 2)):
+        cfg = NeRFConfig.preset(preset)
+        params = seeded_params(np.random.default_rng(0), cfg)
+        lv = leaves_of(params)
+        o, d, tu, du, tgt = bench_batch(np.random.default_rng(0), cfg, n)
+        t, dists = stratified_depths(NeRFModel(cfg), o, d, 3)
+        cot = torch.tensor(np.random.default_rng(1).standard_normal((n, 3)),
+                           dtype=torch.float32, device="cuda")
+        plain_out = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+        if preset == "small":
+            L, G = cfg.num_layers, fused_nerf.grad_floats(params, width)
+            pk_r = fused_nerf.pack_params(params, t, dists, width)
+            pk_s = fused_nerf.pack_params(params, tu, du, width)
+            calls = {
+                "nerf_render_fwd_rays": (
+                    lambda: fused_nerf._launch(pk_r, t, dists, o, d, cfg, L, width),
+                    lambda: fused_nerf._launch(pk_s, tu, du, o, d, cfg, L, width)),
+                "nerf_train_rays": (
+                    lambda: fused_nerf._launch_grad("nerf_train", pk_r, G, t, dists, o, d,
+                                                    tgt, cfg, L, width),
+                    lambda: fused_nerf._launch_grad("nerf_train", pk_s, G, tu, du, o, d, tgt,
+                                                    cfg, L, width)),
+                "nerf_render_bwd_rays": (
+                    lambda: fused_nerf._launch_grad("nerf_render_bwd", pk_r, G, t, dists, o,
+                                                    d, cot, cfg, L, width),
+                    lambda: fused_nerf._launch_grad("nerf_render_bwd", pk_s, G, tu, du, o, d,
+                                                    cot, cfg, L, width)),
+            }
+        else:
+            W, b = fused_nerf.pack_wide_params(params, width, cfg.compute_dtype)
+            calls = {
+                "nerf_wide_render_fwd_rays": (
+                    lambda: fused_nerf._launch_wide_render(W, b, t, dists, o, d, cfg),
+                    lambda: fused_nerf._launch_wide_render(W, b, tu, du, o, d, cfg)),
+                "nerf_wide_train_rays": (
+                    lambda: fused_nerf._launch_wide_grad("nerf_wide_train", W, b, t, dists,
+                                                         o, d, tgt, cfg),
+                    lambda: fused_nerf._launch_wide_grad("nerf_wide_train", W, b, tu, du,
+                                                         o, d, tgt, cfg)),
+                "nerf_wide_render_bwd_rays": (
+                    lambda: fused_nerf._launch_wide_grad("nerf_wide_render_bwd", W, b, t,
+                                                         dists, o, d, cot, cfg),
+                    lambda: fused_nerf._launch_wide_grad("nerf_wide_render_bwd", W, b, tu,
+                                                         du, o, d, cot, cfg)),
+            }
+        plains = {
+            "render_fwd": lambda: fused_nerf.render_rays_reference(params, o, d, t, dists, cfg),
+            "train": lambda: torch.autograd.grad(fused_nerf.nerf_train_loss_reference(
+                params, o, d, t, dists, tgt, cfg), lv),
+            "render_bwd": lambda: torch.autograd.grad(plain_out, lv, cot, retain_graph=True),
+        }
+        for name, (per_ray, shared) in calls.items():
+            kind = name.split("nerf_")[-1].replace("wide_", "")[:-5]
+            plain = plains[kind]
+            with torch.no_grad() if kind == "render_fwd" else contextlib.nullcontext():
+                per_ray(), shared(), plain()  # warm-up
+                ts = timed_turns({"per-ray": per_ray, "shared": shared, "plain": plain},
+                                 rounds)
+            med = {k: statistics.median(v) for k, v in ts.items()}
+            kb = perray_bound(cfg, n, mlp_layer_sizes, "fwd" if kind == "render_fwd" else "grad")
+            out[name] = (med["per-ray"], med["plain"], *kb)
+            print(f"phase 14 {name} alone, {preset}, {n} rays x {cfg.num_samples} samples, on "
+                  f"{smi}: per-ray {spread(ts['per-ray'])}, shared-depth kernel "
+                  f"{spread(ts['shared'])} (per-ray / shared {med['per-ray'] / med['shared']:.4f})"
+                  f", plain {spread(ts['plain'])}"
+                  + (" (backward pass only)" if kind == "render_bwd" else "")
+                  + f"; bound {kb[0]:.4f} ms ({kb[1]}), {kb[0] / med['per-ray']:.1%} of it")
+        del plain_out
+    return out
+
+
 def nerf_bounds(NeRFConfig, mlp_layer_sizes):
     """bound() of each NeRF kernel's timed work: #1 an 800x800 ``small``
     frame, #2 and #3 a 262,144-ray ``small`` call (f32 peak); #8 an 800x800
@@ -1293,6 +1908,23 @@ def main() -> None:
     timing.update({k: v[:2] for k, v in field_timing.items()})
     bounds = nerf_bounds(NeRFConfig, mlp_layer_sizes)
     bounds.update({k: v[2:] for k, v in field_timing.items()})
+
+    # ---- phase 13: the per-ray (N, S) depth kernels against their plain versions ----
+    worst.update(phase_perray_kernels(fused_nerf, NeRFConfig, NeRFModel))
+    for k, e in phase_perray_batches(fused_nerf, NeRFConfig, NeRFModel).items():
+        worst[k] = max(worst[k], e)
+    phase_perray_wide_chunks(fused_nerf, NeRFConfig, NeRFModel)
+
+    # ---- phase 14: the stratified path: timed steps, main paths, each kernel ----
+    phase_stratified_steps(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_step,
+                           smi)
+    launches.update(phase_stratified_paths(
+        fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_step, synthetic_views,
+        normalized_intrinsics, psnr, rays))
+    perray_timing = phase_perray_kernel_timing(fused_nerf, NeRFConfig, NeRFModel,
+                                               mlp_layer_sizes, smi)
+    timing.update({k: v[:2] for k, v in perray_timing.items()})
+    bounds.update({k: v[2:] for k, v in perray_timing.items()})
 
     print(smi)
     print(json.dumps({"kernels": [{

@@ -63,12 +63,13 @@ def image_grid_coords(img_size: int, device: torch.device | str = "cpu") -> torc
 class ImageFieldModel(nn.Module):
     """Image-field MLP parameters plus the predict / render entry points.
 
-    Built with zero weights on ``device``; fill them with :meth:`init`
+    Built with zero weights on ``device`` (the card unless the caller asks
+    for the CPU); fill them with :meth:`init`
     (random, from a ``torch.Generator``) or build with :meth:`from_numpy`.
     ``backend="plain"`` runs the plain version on any device (for
     comparisons); ``"auto"`` lets the device decide."""
 
-    def __init__(self, config: ImageFieldConfig, device: torch.device | str = "cpu",
+    def __init__(self, config: ImageFieldConfig, device: torch.device | str = "cuda",
                  backend: str = "auto"):
         super().__init__()
         if backend not in ("auto", "plain"):

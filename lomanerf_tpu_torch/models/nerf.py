@@ -75,11 +75,12 @@ class NeRFConfig:
 class NeRFModel(nn.Module):
     """Radiance-field MLP parameters plus the render entry points.
 
-    Built with zero weights on ``device``; fill them with :meth:`init`
+    Built with zero weights on ``device`` (the card unless the caller asks
+    for the CPU); fill them with :meth:`init`
     (random, from a ``torch.Generator``) or build with :meth:`from_numpy`
     (e.g. the JAX package's trained params)."""
 
-    def __init__(self, config: NeRFConfig, device: torch.device | str = "cpu"):
+    def __init__(self, config: NeRFConfig, device: torch.device | str = "cuda"):
         super().__init__()
         self.config = config
         c = config
@@ -126,6 +127,10 @@ class NeRFModel(nn.Module):
         return self.params
 
     def sample(self, origins, directions, generator: Optional[torch.Generator] = None):
+        """``(points, t_vals, dists)`` along the rays: ``(S,)`` shared depths,
+        or with ``generator`` per-bin stratified ``(N, S)`` ones, which
+        :meth:`render_rays` and :meth:`loss` take as they are (the ``*_rays``
+        kernels on the card)."""
         c = self.config
         return rays.sample_along_rays(origins, directions, c.near, c.far,
                                       c.num_samples, generator=generator)

@@ -29,23 +29,35 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # directions, target or dcol, partials, out, n_rays, S, L, in_dim,
 # num_functions, width, loma, stream)
 _GRAD = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# their per-ray instances: t and dists ((N, S) pointers) after G
+_GRAD_RAYS = _GRAD[:3] + [_P, _P] + _GRAD[3:]
 # the wide gradient sequence (nerf_wide_chain.cuh): (W, b, ts, ds, origins,
 # directions, target or dcol, acts, dz, dz_head, partials, n_parts,
 # ray_loss, dW, db, loss, n_rays, chunk_rays, S, L, pw, kc, num_functions,
 # loma, bf16, stream)
 _WIDE_GRAD = [_P] * 11 + [_LL] + [_P] * 4 + [_I] * 9 + [_P]
+# (pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim,
+#  num_functions, width, loma, stream)
+_RENDER = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# (W, b, ts, ds, origins, directions, out, acts, n_rays, chunk_rays, S, L,
+#  pw, kc, num_functions, loma, bf16, stream); ts, ds (S,) or, for the
+#  *_rays instances, (N, S)
+_WIDE_RENDER = [_P] * 8 + [_I] * 9 + [_P]
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    # (pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim,
-    #  num_functions, width, loma, stream)
-    "nerf_render_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "nerf_render_fwd": _RENDER,
     "nerf_train": _GRAD,
     "nerf_render_bwd": _GRAD,
-    # (W, b, ts, ds, origins, directions, out, acts, n_rays, chunk_rays, S,
-    #  L, pw, kc, num_functions, loma, bf16, stream)
-    "nerf_wide_render_fwd": [_P] * 8 + [_I] * 9 + [_P],
+    # the per-ray depth instances of the narrow kernels
+    "nerf_render_fwd_rays": _RENDER[:2] + [_P, _P] + _RENDER[2:],
+    "nerf_train_rays": _GRAD_RAYS,
+    "nerf_render_bwd_rays": _GRAD_RAYS,
+    "nerf_wide_render_fwd": _WIDE_RENDER,
     "nerf_wide_train": _WIDE_GRAD,
     "nerf_wide_render_bwd": _WIDE_GRAD,
+    "nerf_wide_render_fwd_rays": _WIDE_RENDER,
+    "nerf_wide_train_rays": _WIDE_GRAD,
+    "nerf_wide_render_bwd_rays": _WIDE_GRAD,
     # the 2D field (field_common.cuh): (pk, coords, out, n, L, in_dim, width,
     #  num_functions, out_ch, stream)
     "field_fwd": [_P, _P, _P] + [_I] * 6 + [_P],

@@ -4,10 +4,17 @@
 // Packed parameter buffer (floats, built by ops/fused_nerf.py), per layer l:
 //   W_l padded to (rows_l, cols_l) row-major, then b_l padded to cols_l,
 // where rows_0 = in_dim, rows_l = W for l >= 1, cols_l = W for l < L-1 and
-// cols_{L-1} = 4; then t[0..S) and dist[0..S), padded to a multiple of 4
-// floats.  Every block is a multiple of 4 floats, so each layer starts
-// 16-byte aligned.  The gradient buffers the backward kernels write use the
-// same per-layer layout without t/dist (G floats), followed by the loss.
+// cols_{L-1} = 4; then, for depths shared by every ray, t[0..S) and
+// dist[0..S); padded to a multiple of 4 floats.  Every block is a multiple
+// of 4 floats, so each layer starts 16-byte aligned.  The gradient buffers
+// the backward kernels write use the same per-layer layout without t/dist
+// (G floats), followed by the loss.
+//
+// Depth source (template flag kPerRay of every kernel): shared depths come
+// from the packed buffer's tail (Layout::ts/ds); per-ray depths from row
+// `ray` of two (N, S) f32 arrays in device memory (ray_depths), and the
+// packed buffer then has no tail.  Only the source differs: a ray's
+// arithmetic is the same either way.
 //
 // Exactness: built without fast-math, so expf and sincosf stay IEEE-accurate;
 // the 1e-10 epsilon in c = e + 1e-10 is kept, and sigma = 0 against the 1e8
@@ -56,8 +63,8 @@ struct Layout {
   const float* w_first;   // layer 0: (in_dim, l0_cols) then bias
   const float* w_hidden;  // layers 1..L-2: (W, W) then bias, each
   const float* w_head;    // layer L-1 (L >= 2): (W, 4) then bias
-  const float* ts;        // t[0..S)
-  const float* ds;        // dist[0..S)
+  const float* ts;        // shared t[0..S) (past the weights; absent per-ray)
+  const float* ds;        // shared dist[0..S)
 
   __device__ Layout(const float* base, int L_, int W_, int in_dim_, int nf_,
                     int S_)
@@ -79,6 +86,25 @@ struct Layout {
   __device__ int rows(int l) const { return l == 0 ? in_dim : W; }
   __device__ int cols(int l) const { return l == L - 1 ? kHead : W; }
 };
+
+// The depths and steps one ray reads: the shared ones of the packed buffer,
+// or row `ray` of the (N, S) arrays t_rays / d_rays (a stride of S floats
+// across a warp: uncoalesced, read once per sample and pass).
+template <bool kPerRay>
+__device__ __forceinline__ void ray_depths(const Layout& lay,
+                                           const float* __restrict__ t_rays,
+                                           const float* __restrict__ d_rays,
+                                           int ray, const float** ts,
+                                           const float** ds) {
+  if (kPerRay) {
+    const size_t row = static_cast<size_t>(ray) * lay.S;
+    *ts = t_rays + row;
+    *ds = d_rays + row;
+  } else {
+    *ts = lay.ts;
+    *ds = lay.ds;
+  }
+}
 
 // The sample point o + d*t, rounded as the reference rounds it.
 __device__ __forceinline__ void sample_point(const float (&o)[3],

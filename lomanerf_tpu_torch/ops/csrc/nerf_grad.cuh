@@ -1,8 +1,9 @@
 // The reverse walk shared by the train kernel (nerf_train.cu) and the render
-// backward (nerf_render_bwd.cu): per ray, the forward, then the compositing
-// adjoint and the MLP backward sample by sample in reverse, with dW/db
-// reduced across the block's rays in shared memory and across blocks by a
-// second, fixed-order kernel.
+// backward (nerf_render_bwd.cu), and by their per-ray depth instances
+// (nerf_train_rays.cu, nerf_render_bwd_rays.cu): per ray, the forward, then
+// the compositing adjoint and the MLP backward sample by sample in reverse,
+// with dW/db reduced across the block's rays in shared memory and across
+// blocks by a second, fixed-order kernel.
 //
 // Per ray (one thread), from the colour cotangent dcol (train: 2(col - tgt)
 // for valid rays; render backward: the given (N, 3) cotangent):
@@ -24,7 +25,8 @@
 //   the dW/db entries over the block's rays (sum_r h_l[i][r] d_z_l[j][r])
 //   into the block's shared-memory accumulator, and a barrier again.
 // Pad rays (ray >= n_rays) run every loop and barrier with zero rays and a
-// zero cotangent, so they add exact zeros: no thread leaves early.
+// zero cotangent, so they add exact zeros: no thread leaves early.  With
+// per-ray depths (kPerRay) they read ray 0's row, never one past n_rays.
 // Every sum has a fixed order, so two launches on the same inputs give
 // bit-identical gradients and loss.
 
@@ -135,9 +137,11 @@ __device__ __forceinline__ void accumulate_block(const Layout& lay,
 // masked sum-MSE is the loss.  Otherwise `cot` is the (N, 3) colour
 // cotangent and the loss slot is 0.  Writes this block's G gradient floats
 // and its loss to partials[blockIdx.x * (G + 1) ...].
-template <int W, bool kTrain>
+template <int W, bool kTrain, bool kPerRay>
 __global__ void __launch_bounds__(kGradThreads)
 nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
+                 const float* __restrict__ t_rays,
+                 const float* __restrict__ d_rays,
                  const float* __restrict__ origins,
                  const float* __restrict__ directions,
                  const float* __restrict__ cot, float* __restrict__ partials,
@@ -160,6 +164,8 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
   const Layout lay(smem, L, W, in_dim, nf, S);
   const int ray = blockIdx.x * kGradThreads + tid;
   const bool valid = ray < n_rays;  // the runtime ray count masks pad rays
+  const float *ts, *ds;
+  ray_depths<kPerRay>(lay, t_rays, d_rays, valid ? ray : 0, &ts, &ds);
   float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
   float y[3] = {0.0f, 0.0f, 0.0f};
   if (valid) {
@@ -176,11 +182,11 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
   float col[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < S; ++s) {
     float p[3];
-    sample_point(o, d, lay.ts[s], p);
+    sample_point(o, d, ts[s], p);
     float rgba[kHead];
     mlp_rgba<W, false>(p, lay, rgba, nullptr, 0);
     float alpha, c;
-    sample_alpha(rgba[3], lay.ds[s], &alpha, &c);
+    sample_alpha(rgba[3], ds[s], &alpha, &c);
     const float wgt = alpha * transmittance(&P, c, s, loma);
     pbuf[s * kGradThreads + tid] = P;
 #pragma unroll
@@ -206,11 +212,11 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
   float carry = 0.0f;  // standard mode: d_w_{s+1} alpha_{s+1}
   for (int s = S - 1; s >= 0; --s) {
     float p[3];
-    sample_point(o, d, lay.ts[s], p);
+    sample_point(o, d, ts[s], p);
     float raw[kHead];
     mlp_rgba<W, true>(p, lay, raw, my_act, kStride);
     float alpha, c;
-    sample_alpha(raw[3], lay.ds[s], &alpha, &c);
+    sample_alpha(raw[3], ds[s], &alpha, &c);
     const float Ps = pbuf[s * kGradThreads + tid];
     const float Ts = (s == 0) ? 1.0f
                      : loma   ? Ps
@@ -233,7 +239,7 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
     suf = fmaf(d_P, Ps, suf);
     const float d_c = suf / c;
     const float d_alpha = d_w * Ts - d_c;
-    const float d_sigma = d_alpha * lay.ds[s] * (1.0f - alpha);
+    const float d_sigma = d_alpha * ds[s] * (1.0f - alpha);
 
     float dz_head[kHead];
 #pragma unroll
@@ -262,8 +268,9 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
 
 // The gradient kernel, then the fixed-order sum of its partials into
 // out[0..G] (G gradient floats, then the loss), both on `stream`.
-template <int W, bool kTrain>
+template <int W, bool kTrain, bool kPerRay>
 cudaError_t launch_grad(const float* pk, int pk_floats, int G,
+                        const float* t_rays, const float* d_rays,
                         const float* origins, const float* directions,
                         const float* cot, float* partials, float* out,
                         int n_rays, int S, int L, int in_dim, int nf, int loma,
@@ -275,14 +282,14 @@ cudaError_t launch_grad(const float* pk, int pk_floats, int G,
       grad_smem_floats(pk_floats, G, S, L, in_dim, W) * sizeof(float);
   if (smem > 48 * 1024) {  // above 227 KB this refuses with an error
     cudaError_t err = cudaFuncSetAttribute(
-        nerf_grad_kernel<W, kTrain>,
+        nerf_grad_kernel<W, kTrain, kPerRay>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (n_rays + kGradThreads - 1) / kGradThreads;
-  nerf_grad_kernel<W, kTrain><<<blocks, kGradThreads, smem, stream>>>(
-      pk, pk_floats, G, origins, directions, cot, partials, n_rays, S, L,
-      in_dim, nf, loma);
+  nerf_grad_kernel<W, kTrain, kPerRay><<<blocks, kGradThreads, smem, stream>>>(
+      pk, pk_floats, G, t_rays, d_rays, origins, directions, cot, partials,
+      n_rays, S, L, in_dim, nf, loma);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int P = G + 1;
@@ -291,21 +298,24 @@ cudaError_t launch_grad(const float* pk, int pk_floats, int G,
   return cudaGetLastError();
 }
 
-template <bool kTrain>
-int dispatch_grad(const float* pk, int pk_floats, int G, const float* origins,
+// t_rays / d_rays: the (N, S) per-ray depths and steps with kPerRay, else
+// unread (the shared ones travel at the end of pk).
+template <bool kTrain, bool kPerRay>
+int dispatch_grad(const float* pk, int pk_floats, int G, const float* t_rays,
+                  const float* d_rays, const float* origins,
                   const float* directions, const float* cot, float* partials,
                   float* out, int n_rays, int S, int L, int in_dim, int nf,
                   int width, int loma, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (width) {
     case 32:
-      return static_cast<int>(launch_grad<32, kTrain>(
-          pk, pk_floats, G, origins, directions, cot, partials, out, n_rays,
-          S, L, in_dim, nf, loma, st));
+      return static_cast<int>(launch_grad<32, kTrain, kPerRay>(
+          pk, pk_floats, G, t_rays, d_rays, origins, directions, cot,
+          partials, out, n_rays, S, L, in_dim, nf, loma, st));
     case 64:
-      return static_cast<int>(launch_grad<64, kTrain>(
-          pk, pk_floats, G, origins, directions, cot, partials, out, n_rays,
-          S, L, in_dim, nf, loma, st));
+      return static_cast<int>(launch_grad<64, kTrain, kPerRay>(
+          pk, pk_floats, G, t_rays, d_rays, origins, directions, cot,
+          partials, out, n_rays, S, L, in_dim, nf, loma, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

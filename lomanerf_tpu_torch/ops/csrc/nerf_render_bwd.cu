@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel lomanerf_tpu/ops/fused_nerf.py:_nerf_backward_kernel_S
 // (the remat backward of _nerf_forward_kernel_S, wired through
-// pallas_utils.render_vjp): per ray, the render forward again, then the
-// compositing adjoint and the MLP backward from the given (N, 3) cotangent
-// dcol, with dW/db summed over rays and samples.  Writes G gradient floats
-// (the packed parameter layout of nerf_common.cuh) and a zero loss slot.
+// pallas_utils.render_vjp; nerf_render_bwd_rays.cu is the per-ray instance):
+// per ray, the render forward again, then the compositing adjoint and the MLP backward
+// from the given (N, 3) cotangent dcol, with dW/db summed over rays and
+// samples.  Writes G gradient floats (the packed parameter layout of
+// nerf_common.cuh) and a zero loss slot.
 //
 // What bounds it on this card, and the design: the same as nerf_train.cu,
 // whose reverse walk it shares (nerf_grad.cuh) — arithmetic and shared
@@ -25,7 +26,7 @@ extern "C" int nerf_render_bwd(const float* pk, int pk_floats, int G,
                                int n_rays, int S, int L, int in_dim,
                                int num_functions, int width, int loma,
                                void* stream) {
-  return nerf::dispatch_grad<false>(pk, pk_floats, G, origins, directions,
-                                    dcol, partials, out, n_rays, S, L, in_dim,
-                                    num_functions, width, loma, stream);
+  return nerf::dispatch_grad<false, false>(
+      pk, pk_floats, G, nullptr, nullptr, origins, directions, dcol, partials,
+      out, n_rays, S, L, in_dim, num_functions, width, loma, stream);
 }

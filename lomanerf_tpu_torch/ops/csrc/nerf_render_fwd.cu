@@ -1,8 +1,10 @@
 // Narrow NeRF render forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel lomanerf_tpu/ops/fused_nerf.py:_nerf_forward_kernel_S
-// (the s-major Pallas render forward): per ray, sample points o + d*t[s] at S
-// shared depths, positional encoding (n octaves, block layout
+// Replaces the TPU kernels lomanerf_tpu/ops/fused_nerf.py:_nerf_forward_kernel_S
+// (the s-major Pallas render forward, S depths shared by every ray) and,
+// through nerf_render_fwd_rays, _nerf_forward_kernel_T (the ray-major one on
+// per-ray (N, S) depths, the stratified case): per ray, sample points
+// o + d*t[s] (t[ray, s] per-ray), positional encoding (n octaves, block layout
 // [x | sin 2^0 x | cos 2^0 x | ...]), an L-layer MLP (ReLU hidden layers,
 // rgba head: sigmoid rgb, ReLU density on channel 3), and front-to-back
 // compositing in loma mode (T[0] = 1, inclusive transmittance after) or
@@ -20,7 +22,9 @@
 //     blocks, s-major row order, stride-R lane-roll scans and suffix-sum
 //     gather are not carried over; the segmented cumprod is a running
 //     product;
-//   * all weights, biases and the S depths/steps sit in shared memory; every
+//   * all weights, biases and shared depths/steps sit in shared memory
+//     (per-ray depths are read from device memory, S floats apart across a
+//     warp: uncoalesced, a later PR may stage them); every
 //     thread of a warp reads the same weight at the same time (a broadcast,
 //     no bank conflicts), four at a time as float4;
 //   * activations are register arrays templated on the padded width W (32 or
@@ -37,9 +41,11 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <int W>
+template <int W, bool kPerRay>
 __global__ void __launch_bounds__(kThreads)
 nerf_render_fwd_kernel(const float* __restrict__ pk, int pk_floats,
+                       const float* __restrict__ t_rays,
+                       const float* __restrict__ d_rays,
                        const float* __restrict__ origins,
                        const float* __restrict__ directions,
                        float* __restrict__ out, int n_rays, int S, int L,
@@ -57,6 +63,8 @@ nerf_render_fwd_kernel(const float* __restrict__ pk, int pk_floats,
   if (ray >= n_rays) return;
 
   const nerf::Layout lay(smem, L, W, in_dim, nf, S);
+  const float *ts, *ds;
+  nerf::ray_depths<kPerRay>(lay, t_rays, d_rays, ray, &ts, &ds);
   const float o[3] = {origins[3 * ray], origins[3 * ray + 1], origins[3 * ray + 2]};
   const float d[3] = {directions[3 * ray], directions[3 * ray + 1],
                       directions[3 * ray + 2]};
@@ -65,11 +73,11 @@ nerf_render_fwd_kernel(const float* __restrict__ pk, int pk_floats,
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < S; ++s) {
     float p[3];
-    nerf::sample_point(o, d, lay.ts[s], p);
+    nerf::sample_point(o, d, ts[s], p);
     float rgba[nerf::kHead];
     nerf::mlp_rgba<W, false>(p, lay, rgba, nullptr, 0);
     float alpha, c;
-    nerf::sample_alpha(rgba[3], lay.ds[s], &alpha, &c);
+    nerf::sample_alpha(rgba[3], ds[s], &alpha, &c);
     const float wgt = alpha * nerf::transmittance(&P, c, s, loma);
 #pragma unroll
     for (int k = 0; k < 3; ++k) acc[k] = fmaf(wgt, nerf::sigmoidf(rgba[k]), acc[k]);
@@ -78,45 +86,75 @@ nerf_render_fwd_kernel(const float* __restrict__ pk, int pk_floats,
   for (int k = 0; k < 3; ++k) out[3 * ray + k] = acc[k];
 }
 
-template <int W>
-cudaError_t launch(const float* pk, int pk_floats, const float* origins,
+template <int W, bool kPerRay>
+cudaError_t launch(const float* pk, int pk_floats, const float* t_rays,
+                   const float* d_rays, const float* origins,
                    const float* directions, float* out, int n_rays, int S,
                    int L, int in_dim, int nf, int loma, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(pk_floats) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        nerf_render_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        nerf_render_fwd_kernel<W, kPerRay>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (n_rays + kThreads - 1) / kThreads;
-  nerf_render_fwd_kernel<W><<<blocks, kThreads, smem, stream>>>(
-      pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim, nf, loma);
+  nerf_render_fwd_kernel<W, kPerRay><<<blocks, kThreads, smem, stream>>>(
+      pk, pk_floats, t_rays, d_rays, origins, directions, out, n_rays, S, L,
+      in_dim, nf, loma);
   return cudaGetLastError();
+}
+
+template <bool kPerRay>
+int dispatch(const float* pk, int pk_floats, const float* t_rays,
+             const float* d_rays, const float* origins,
+             const float* directions, float* out, int n_rays, int S, int L,
+             int in_dim, int nf, int width, int loma, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 32:
+      return static_cast<int>(launch<32, kPerRay>(pk, pk_floats, t_rays, d_rays,
+                                                  origins, directions, out,
+                                                  n_rays, S, L, in_dim, nf,
+                                                  loma, st));
+    case 64:
+      return static_cast<int>(launch<64, kPerRay>(pk, pk_floats, t_rays, d_rays,
+                                                  origins, directions, out,
+                                                  n_rays, S, L, in_dim, nf,
+                                                  loma, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes.  width is the padded hidden width (32 or
-// 64); pk_floats a multiple of 4; pk 16-byte aligned.  Returns the launch's
-// cudaGetLastError() (0 on success); does not synchronise.
+// C entry points, bound with ctypes.  width is the padded hidden width (32
+// or 64); pk_floats a multiple of 4; pk 16-byte aligned.  Return the
+// launch's cudaGetLastError() (0 on success); do not synchronise.
+//
+// nerf_render_fwd: the S depths shared by every ray at the end of pk.
 extern "C" int nerf_render_fwd(const float* pk, int pk_floats,
                                const float* origins, const float* directions,
                                float* out, int n_rays, int S, int L,
                                int in_dim, int num_functions, int width,
                                int loma, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 32:
-      return static_cast<int>(launch<32>(pk, pk_floats, origins, directions,
-                                         out, n_rays, S, L, in_dim,
-                                         num_functions, loma, st));
-    case 64:
-      return static_cast<int>(launch<64>(pk, pk_floats, origins, directions,
-                                         out, n_rays, S, L, in_dim,
-                                         num_functions, loma, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(pk, pk_floats, nullptr, nullptr, origins, directions,
+                         out, n_rays, S, L, in_dim, num_functions, width, loma,
+                         stream);
+}
+
+// nerf_render_fwd_rays: per-ray (N, S) depths t and steps dist, row-major
+// f32 (the counterpart of _nerf_forward_kernel_T); pk has no depth tail.
+extern "C" int nerf_render_fwd_rays(const float* pk, int pk_floats,
+                                    const float* t, const float* dist,
+                                    const float* origins,
+                                    const float* directions, float* out,
+                                    int n_rays, int S, int L, int in_dim,
+                                    int num_functions, int width, int loma,
+                                    void* stream) {
+  return dispatch<true>(pk, pk_floats, t, dist, origins, directions, out,
+                        n_rays, S, L, in_dim, num_functions, width, loma,
+                        stream);
 }

@@ -2,7 +2,8 @@
 // in one call.
 //
 // Replaces the TPU kernel lomanerf_tpu/ops/fused_nerf.py:_nerf_train_kernel_S
-// (with its backward helper _bwd_from_dcol_T): per ray, the render forward of
+// (with its backward helper _bwd_from_dcol_T; S depths shared by every ray;
+// nerf_train_rays.cu is the per-ray instance): per ray, the render forward of
 // nerf_render_fwd.cu, the masked sum-MSE against the (N, 3) targets (rays at
 // or past the runtime n_rays add nothing), the colour cotangent 2(col - tgt),
 // the compositing adjoint and the MLP backward, with dW/db summed over every
@@ -34,16 +35,17 @@
 
 // C entry point, bound with ctypes.  width is the padded hidden width (32 or
 // 64); pk 16-byte aligned with pk_floats a multiple of 4, G the floats of
-// its weights and biases; partials holds ceil(n_rays / 64) * (G + 1) floats
-// of scratch; out receives G gradient floats, then the loss.  Returns the
-// launches' cudaGetLastError() (0 on success); does not synchronise.
+// its weights and biases, the S shared depths at its end; partials holds
+// ceil(n_rays / 64) * (G + 1) floats of scratch; out receives G gradient
+// floats, then the loss.  Returns the launches' cudaGetLastError() (0 on
+// success); does not synchronise.
 extern "C" int nerf_train(const float* pk, int pk_floats, int G,
                           const float* origins, const float* directions,
                           const float* target, float* partials, float* out,
                           int n_rays, int S, int L, int in_dim,
                           int num_functions, int width, int loma,
                           void* stream) {
-  return nerf::dispatch_grad<true>(pk, pk_floats, G, origins, directions,
-                                   target, partials, out, n_rays, S, L, in_dim,
-                                   num_functions, width, loma, stream);
+  return nerf::dispatch_grad<true, false>(
+      pk, pk_floats, G, nullptr, nullptr, origins, directions, target,
+      partials, out, n_rays, S, L, in_dim, num_functions, width, loma, stream);
 }

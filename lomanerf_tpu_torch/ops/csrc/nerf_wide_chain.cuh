@@ -1,7 +1,8 @@
 // The launch sequences of the wide NeRF kernels, on one stream, over ray
 // chunks: the forward (encoding, then one GEMM + bias + ReLU per hidden
 // layer) and the gradient sequence shared by the train step
-// (nerf_wide_train.cu) and the render backward (nerf_wide_render_bwd.cu).
+// (nerf_wide_train.cu) and the render backward (nerf_wide_render_bwd.cu),
+// with the body of their entry points (grad_entry).
 //
 // Gradient sequence per ray chunk (rows = chunk rays * S):
 //   1. the forward, saving every layer's input H_0..H_{L-1} in CDT;
@@ -34,9 +35,20 @@ namespace {
 struct Net {
   const void* W;  // (L, pw, pw) CDT
   const float* b;  // (L, pw) f32
-  const float* ts;  // (S,) depths
-  const float* ds;  // (S,) steps
+  const float* ts;  // depths: (S,) shared, or (N, S) with per_ray
+  const float* ds;  // steps, as ts
   int S, L, pw, kc, nf, loma;
+  bool per_ray;
+
+  // the net as a chunk starting at ray r0 sees it: per-ray depths offset
+  Net from_ray(int r0) const {
+    Net net = *this;
+    if (per_ray) {
+      net.ts += static_cast<size_t>(r0) * S;
+      net.ds += static_cast<size_t>(r0) * S;
+    }
+    return net;
+  }
 };
 
 // The encoding and the hidden layers of rays [0, n) of this chunk.  Slot l
@@ -53,8 +65,14 @@ cudaError_t forward_layers(const Net& net, const float* origins,
   auto slot = [&](int l) {
     return acts + static_cast<size_t>(pingpong ? (l & 1) : l) * chunk_rows * pw;
   };
-  encode_kernel<CDT><<<(rows + 255) / 256, 256, 0, stream>>>(
-      origins, directions, net.ts, slot(0), rows, net.S, pw, net.kc, net.nf);
+  const int blocks = (rows + 255) / 256;
+  if (net.per_ray) {
+    encode_kernel<CDT, true><<<blocks, 256, 0, stream>>>(
+        origins, directions, net.ts, slot(0), rows, net.S, pw, net.kc, net.nf);
+  } else {
+    encode_kernel<CDT, false><<<blocks, 256, 0, stream>>>(
+        origins, directions, net.ts, slot(0), rows, net.S, pw, net.kc, net.nf);
+  }
   WIDE_TRY(cudaGetLastError());
   for (int l = 0; l < net.L - 1; ++l) {
     WIDE_TRY((gemm<CDT, CDT, CDT, false, false, kEpiBiasRelu>(
@@ -66,24 +84,35 @@ cudaError_t forward_layers(const Net& net, const float* origins,
   return cudaSuccess;
 }
 
-template <typename CDT, int kMode>
-cudaError_t composite(const Net& net, const CDT* H, const float* cot,
-                      float* out, float* dz_head, float* dz_prev, int n,
-                      cudaStream_t stream) {
+template <typename CDT, int kMode, bool kPerRay>
+cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
+                         float* out, float* dz_head, float* dz_prev, int n,
+                         cudaStream_t stream) {
   const int L = net.L, pw = net.pw;
   const size_t smem = sizeof(float) * (4 * static_cast<size_t>(pw) +
                                        static_cast<size_t>(kCompWarps) * 8 * net.S);
   if (smem > 48 * 1024) {  // above 227 KB this refuses with an error
-    WIDE_TRY(cudaFuncSetAttribute(composite_kernel<CDT, kMode>,
+    WIDE_TRY(cudaFuncSetAttribute(composite_kernel<CDT, kMode, kPerRay>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(smem)));
   }
-  composite_kernel<CDT, kMode><<<(n + kCompWarps - 1) / kCompWarps,
-                                 kCompWarps * 32, smem, stream>>>(
+  composite_kernel<CDT, kMode, kPerRay><<<(n + kCompWarps - 1) / kCompWarps,
+                                          kCompWarps * 32, smem, stream>>>(
       H, static_cast<const CDT*>(net.W) + static_cast<size_t>(L - 1) * pw * pw,
-      net.b + (L - 1) * pw, net.ts, net.ds, cot, out, dz_head, dz_prev, n,
-      net.S, pw, net.loma);
+      net.b + (L - 1) * pw, net.ds, cot, out, dz_head, dz_prev, n, net.S, pw,
+      net.loma);
   return cudaGetLastError();
+}
+
+template <typename CDT, int kMode>
+cudaError_t composite(const Net& net, const CDT* H, const float* cot,
+                      float* out, float* dz_head, float* dz_prev, int n,
+                      cudaStream_t stream) {
+  return net.per_ray
+             ? composite_as<CDT, kMode, true>(net, H, cot, out, dz_head,
+                                              dz_prev, n, stream)
+             : composite_as<CDT, kMode, false>(net, H, cot, out, dz_head,
+                                               dz_prev, n, stream);
 }
 
 // Render forward of n rays in chunks of chunk_rays; acts holds two
@@ -95,10 +124,11 @@ cudaError_t render_forward(const Net& net, const float* origins,
   const size_t chunk_rows = static_cast<size_t>(chunk_rays) * net.S;
   for (int r0 = 0; r0 < n_rays; r0 += chunk_rays) {
     const int n = std::min(chunk_rays, n_rays - r0);
+    const Net cn = net.from_ray(r0);
     CDT* H;
-    WIDE_TRY(forward_layers<CDT>(net, origins + 3 * r0, directions + 3 * r0, n,
+    WIDE_TRY(forward_layers<CDT>(cn, origins + 3 * r0, directions + 3 * r0, n,
                                  acts, chunk_rows, true, &H, stream));
-    WIDE_TRY((composite<CDT, 0>(net, H, nullptr, out + 3 * r0, nullptr,
+    WIDE_TRY((composite<CDT, 0>(cn, H, nullptr, out + 3 * r0, nullptr,
                                 nullptr, n, stream)));
   }
   return cudaSuccess;
@@ -139,13 +169,14 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
     const int n = std::min(chunk_rays, n_rays - r0);
     const int rows = n * net.S;
     const int n_rc = (rows + kRowChunk - 1) / kRowChunk;
+    const Net cn = net.from_ray(r0);
     CDT* H;
-    WIDE_TRY(forward_layers<CDT>(net, origins + 3 * r0, directions + 3 * r0, n,
+    WIDE_TRY(forward_layers<CDT>(cn, origins + 3 * r0, directions + 3 * r0, n,
                                  acts, chunk_rows, false, &H, stream));
     auto slot = [&](int l) { return acts + static_cast<size_t>(l) * chunk_rows * pw; };
     float* dz = sc.dz;  // d_z of the current layer's output
     float* dz_next = sc.dz + chunk_rows * pw;
-    WIDE_TRY((composite<CDT, kMode>(net, H, cot + 3 * r0,
+    WIDE_TRY((composite<CDT, kMode>(cn, H, cot + 3 * r0,
                                     kMode == 1 ? sc.ray_loss + r0 : nullptr,
                                     sc.dz_head, dz, n, stream)));
     // the head: dW_{L-1} (pw x 4) and db_{L-1} from the head's d_z
@@ -179,6 +210,33 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
     return cudaGetLastError();
   }
   return cudaMemsetAsync(loss, 0, sizeof(float), stream);
+}
+
+// The body of the gradient entry points (kMode as grad_sequence's): checks
+// the arguments, then runs the sequence in the compute dtype; ts/ds are
+// (S,) shared or, with per_ray, (N, S) row-major.
+template <int kMode>
+int grad_entry(bool per_ray, const void* W, const float* b, const float* ts,
+               const float* ds, const float* origins, const float* directions,
+               const float* cot, void* acts, float* dz, float* dz_head,
+               float* partials, long long n_parts, float* ray_loss, float* dW,
+               float* db, float* loss, int n_rays, int chunk_rays, int S, int L,
+               int pw, int kc, int num_functions, int loma, int bf16,
+               void* stream) {
+  if (L < 2 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma, per_ray};
+  const GradScratch sc{acts, dz, dz_head, partials,
+                       static_cast<size_t>(n_parts), ray_loss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    return static_cast<int>(grad_sequence<__nv_bfloat16, kMode>(
+        net, origins, directions, cot, sc, dW, db, loss, n_rays, chunk_rays,
+        st));
+  }
+  return static_cast<int>(grad_sequence<float, kMode>(
+      net, origins, directions, cot, sc, dW, db, loss, n_rays, chunk_rays, st));
 }
 
 }  // namespace

@@ -10,7 +10,11 @@
 //     fills columns [0, kc) of its buffer (kc: the encoded width padded to
 //     8, at most pw), the rest is never read;
 //   d_z buffers (rows, pw) f32 (rounded to CDT where a product reads them,
-//     summed unrounded for db), the head's d_z (rows, 4) f32.
+//     summed unrounded for db), the head's d_z (rows, 4) f32;
+//   depths and steps (template flag kPerRay): (S,) f32 shared by every ray,
+//     or per-ray (N, S) f32 row-major, read at [ray * S + s] (the pointers
+//     start at the chunk's first ray).  Only the source differs: a row's
+//     arithmetic is the same either way.
 //
 // Rounding plan (the TPU kernels' _mlp_forward / _bwd_from_dcol): the
 // encoding, each weight, each stored activation, the rgba head output and
@@ -70,9 +74,10 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // Encoding of the sample point o + d*t for row `row` (ray row / S, sample
-// row % S): [p | sin 2^0 p | cos 2^0 p | ... | sin 2^(nf-1) p | cos ...],
-// zeros up to kc, rounded to CDT.  One thread per row.
-template <typename CDT>
+// row % S; t = ts[row] per-ray, ts[row % S] shared):
+// [p | sin 2^0 p | cos 2^0 p | ... | sin 2^(nf-1) p | cos ...], zeros up to
+// kc, rounded to CDT.  One thread per row.
+template <typename CDT, bool kPerRay>
 __global__ void __launch_bounds__(256)
 encode_kernel(const float* __restrict__ origins,
               const float* __restrict__ directions,
@@ -81,7 +86,7 @@ encode_kernel(const float* __restrict__ origins,
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   const int ray = row / S, s = row - ray * S;
-  const float t = ts[s];
+  const float t = ts[kPerRay ? row : s];
   float p[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -121,12 +126,12 @@ encode_kernel(const float* __restrict__ origins,
 // (rnd(d_z_head) . W_head^T) masked by h_{L-1} > 0, written in f32.
 //
 // Shared memory: the head weights (pw x 4, rounded) and 8 floats per sample
-// per warp.
-template <typename CDT, int kMode>
+// per warp.  ds: the (S,) shared steps, or with kPerRay the chunk's (n, S).
+template <typename CDT, int kMode, bool kPerRay>
 __global__ void __launch_bounds__(kCompWarps * 32)
 composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
-                 const float* __restrict__ b_head, const float* __restrict__ ts,
-                 const float* __restrict__ ds, const float* __restrict__ cot,
+                 const float* __restrict__ b_head, const float* __restrict__ ds,
+                 const float* __restrict__ cot,
                  float* __restrict__ out, float* __restrict__ dz_head,
                  float* __restrict__ dz_prev, int n_rays, int S, int pw,
                  int loma) {
@@ -149,6 +154,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
   __syncthreads();
   const int ray = blockIdx.x * kCompWarps + warp;
   if (ray >= n_rays) return;  // no block-wide barrier follows
+  const float* dr = kPerRay ? ds + static_cast<size_t>(ray) * S : ds;
 
   for (int s = lane; s < S; s += 32) {
     const CDT* h = H + (static_cast<size_t>(ray) * S + s) * pw;
@@ -170,7 +176,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
     rgb2[s] = rnd<CDT>(sigmoidf(z[2]));
     const float sigma = rnd<CDT>(fmaxf(z[3], 0.0f));
     sig[s] = sigma;
-    const float e = expf(__fmul_rn(-sigma, ds[s]));
+    const float e = expf(__fmul_rn(-sigma, dr[s]));
     alp[s] = 1.0f - e;
     cc[s] = e + 1e-10f;
   }
@@ -234,7 +240,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
       }
       suf = fmaf(d_P, Pp[s], suf);
       const float d_alpha = d_w * Ts - suf / cc[s];
-      aux[s] = d_alpha * ds[s] * (1.0f - alpha);  // d_sigma
+      aux[s] = d_alpha * dr[s] * (1.0f - alpha);  // d_sigma
       alp[s] = alpha * Ts;  // alpha_s is read only here: it becomes w_s
     }
   }

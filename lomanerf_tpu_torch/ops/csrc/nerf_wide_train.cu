@@ -1,9 +1,11 @@
 // Wide NeRF train step for Hopper (sm_90a): loss and parameter gradients in
 // one call.
 //
-// Replaces the TPU kernel lomanerf_tpu/ops/fused_nerf.py:_nerf_train_kernel_W
+// Replaces the TPU kernels lomanerf_tpu/ops/fused_nerf.py:_nerf_train_kernel_W
 // (the s-major single-pass Pallas train step for hidden widths above 64,
-// with its backward _bwd_from_dcol): the render forward of
+// with its backward _bwd_from_dcol; S depths shared by every ray) and,
+// through nerf_wide_train_rays, _nerf_train_kernel (the packed row-major one
+// on per-ray (N, S) depths, the stratified case): the render forward of
 // nerf_wide_render_fwd.cu, the sum-MSE against the (N, 3) targets over the
 // runtime n_rays, the colour cotangent 2(col - tgt), the compositing
 // adjoint and the MLP backward, dW/db summed over every ray and sample.
@@ -26,7 +28,7 @@
 
 #include "nerf_wide_chain.cuh"
 
-// C entry point, bound with ctypes.  Arguments as nerf_wide_render_fwd's,
+// C entry points, bound with ctypes.  Arguments as nerf_wide_render_fwd's,
 // with the (N, 3) targets and the scratch of the gradient sequence: acts
 // (L * chunk_rays * S * pw, compute dtype), dz (2 * chunk_rays * S * pw
 // f32), dz_head (chunk_rays * S * 4 f32), partials (n_parts f32, at least
@@ -41,17 +43,27 @@ extern "C" int nerf_wide_train(const void* W, const float* b, const float* ts,
                                float* loss, int n_rays, int chunk_rays, int S,
                                int L, int pw, int kc, int num_functions,
                                int loma, int bf16, void* stream) {
-  if (L < 2 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const wide::Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma};
-  const wide::GradScratch sc{acts, dz, dz_head, partials,
-                             static_cast<size_t>(n_parts), ray_loss};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return static_cast<int>(wide::grad_sequence<__nv_bfloat16, 1>(
-        net, origins, directions, target, sc, dW, db, loss, n_rays, chunk_rays, st));
-  }
-  return static_cast<int>(wide::grad_sequence<float, 1>(
-      net, origins, directions, target, sc, dW, db, loss, n_rays, chunk_rays, st));
+  return wide::grad_entry<1>(
+      false, W, b, ts, ds, origins, directions, target, acts, dz, dz_head,
+      partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
+      pw, kc, num_functions, loma, bf16, stream);
+}
+
+// nerf_wide_train_rays: ts, ds per-ray (N, S) f32, row-major (the
+// counterpart of _nerf_train_kernel).
+extern "C" int nerf_wide_train_rays(const void* W, const float* b,
+                                    const float* ts, const float* ds,
+                                    const float* origins,
+                                    const float* directions,
+                                    const float* target, void* acts, float* dz,
+                                    float* dz_head, float* partials,
+                                    long long n_parts, float* ray_loss,
+                                    float* dW, float* db, float* loss,
+                                    int n_rays, int chunk_rays, int S, int L,
+                                    int pw, int kc, int num_functions, int loma,
+                                    int bf16, void* stream) {
+  return wide::grad_entry<1>(
+      true, W, b, ts, ds, origins, directions, target, acts, dz, dz_head,
+      partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
+      pw, kc, num_functions, loma, bf16, stream);
 }

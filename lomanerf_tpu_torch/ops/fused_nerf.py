@@ -1,25 +1,39 @@
 """Fused NeRF render and train loss (port of ``lomanerf_tpu.ops.fused_nerf``).
 
-Six hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel.
-Narrow MLPs (every width, the 33 inputs and 4 outputs included, padded to
-8, at most 64), one thread per ray:
+Twelve hand-written CUDA entry points, each the Hopper counterpart of a TPU
+kernel: six kernels, each in two instances, one for depths shared by every
+ray (``(S,)``, the unjittered sampler's) and one for per-ray ``(N, S)``
+depths (the stratified sampler's, ``NeRFModel.sample(generator=...)``).
+The ``*_rays`` entry points read the per-ray depths; a ray's arithmetic is
+the same in both.  Narrow MLPs (every width, the 33 inputs and 4 outputs
+included, padded to 8, at most 64), one thread per ray:
 
-* ``csrc/nerf_render_fwd.cu`` — ``_nerf_forward_kernel_S``: :func:`render_rays`;
-* ``csrc/nerf_render_bwd.cu`` — ``_nerf_backward_kernel_S``: the backward of
-  :func:`render_rays` (``_RenderFwd.backward``);
-* ``csrc/nerf_train.cu`` — ``_nerf_train_kernel_S``: :func:`nerf_train_loss`,
-  the loss and its parameter gradients in one call.
+* ``csrc/nerf_render_fwd.cu`` — ``nerf_render_fwd`` (``_nerf_forward_kernel_S``)
+  and ``nerf_render_fwd_rays`` (``_nerf_forward_kernel_T``): :func:`render_rays`;
+* ``csrc/nerf_render_bwd.cu`` — ``nerf_render_bwd`` (``_nerf_backward_kernel_S``)
+  and ``csrc/nerf_render_bwd_rays.cu`` — ``nerf_render_bwd_rays``
+  (``_nerf_backward_kernel_T``): the backward of :func:`render_rays`
+  (``_RenderFwd.backward``);
+* ``csrc/nerf_train.cu`` — ``nerf_train`` (``_nerf_train_kernel_S``) and
+  ``csrc/nerf_train_rays.cu`` — ``nerf_train_rays`` (``_nerf_train_kernel_T``):
+  :func:`nerf_train_loss`, the loss and its parameter gradients in one call.
 
 Wide MLPs (padded width above 64, hidden widths up to 256, f32 or bf16
 compute, e.g. the 8x256 flagship), layer-by-layer tiled GEMMs around a
 one-warp-per-ray compositing kernel:
 
-* ``csrc/nerf_wide_render_fwd.cu`` — ``_nerf_forward_kernel_W``;
-* ``csrc/nerf_wide_render_bwd.cu`` — ``_nerf_backward_kernel_W``
-  (``_WideRender.backward``);
-* ``csrc/nerf_wide_train.cu`` — ``_nerf_train_kernel_W`` (``_WideTrainLoss``).
+* ``csrc/nerf_wide_render_fwd.cu`` — ``nerf_wide_render_fwd``
+  (``_nerf_forward_kernel_W``) and ``nerf_wide_render_fwd_rays``
+  (``_nerf_forward_kernel``);
+* ``csrc/nerf_wide_render_bwd.cu`` — ``nerf_wide_render_bwd``
+  (``_nerf_backward_kernel_W``) and ``nerf_wide_render_bwd_rays``
+  (``_nerf_backward_kernel``), behind ``_WideRender.backward``;
+* ``csrc/nerf_wide_train.cu`` — ``nerf_wide_train`` (``_nerf_train_kernel_W``)
+  and ``nerf_wide_train_rays`` (``_nerf_train_kernel``), behind
+  ``_WideTrainLoss``.
 
-Dispatch follows the JAX package's rule (:func:`_route`).  On CUDA tensors
+Dispatch follows the JAX package's rule (:func:`_route`) for the width and
+the depths' shape for the instance.  On CUDA tensors
 each function launches its kernel or raises, naming the ROADMAP item of
 what it does not take; on CPU tensors it runs the plain PyTorch version
 (:func:`render_rays_reference` under autograd).  No case falls back quietly
@@ -41,9 +55,9 @@ from lomanerf_tpu_torch.core.pipeline import nerf_render_rays
 
 # kernel launches per C entry point; a run resets them and reads them to
 # show that its render and train steps went through the kernels
-launches = {"nerf_render_fwd": 0, "nerf_render_bwd": 0, "nerf_train": 0,
-            "nerf_wide_render_fwd": 0, "nerf_wide_render_bwd": 0,
-            "nerf_wide_train": 0}
+_ENTRIES = ("nerf_render_fwd", "nerf_render_bwd", "nerf_train", "nerf_wide_render_fwd",
+            "nerf_wide_render_bwd", "nerf_wide_train")
+launches = {name + suffix: 0 for suffix in ("", "_rays") for name in _ENTRIES}
 
 MAX_WIDTH = 64  # widest padded width the narrow kernels' register arrays take
 MAX_WIDE_WIDTH = 256  # widest hidden layer the wide kernels take
@@ -113,7 +127,9 @@ def pack_params(params: Params, t_vals: torch.Tensor, dists: torch.Tensor,
     """The kernels' flat f32 buffer, on the params' device: per layer, W_l
     zero-padded to (rows_l, cols_l) then b_l padded to cols_l
     (rows_0 = in_dim, rows_l = width after; cols = width, 4 for the last
-    layer), then t[0..S) and dists[0..S), padded to a multiple of 4 floats."""
+    layer), then, for ``(S,)`` shared depths, t[0..S) and dists[0..S);
+    padded to a multiple of 4 floats.  Per-ray ``(N, S)`` depths stay out
+    of it: the ``*_rays`` kernels read them from device memory."""
     blocks = []
     for (rows, cols), w, b in zip(_blocks(params, width), params["w"], params["b"]):
         wp = w.new_zeros((rows, cols), dtype=torch.float32)
@@ -121,7 +137,8 @@ def pack_params(params: Params, t_vals: torch.Tensor, dists: torch.Tensor,
         bp = b.new_zeros((cols,), dtype=torch.float32)
         bp[: min(b.shape[0], cols)] = b[:cols]
         blocks += [wp.reshape(-1), bp]
-    blocks += [t_vals.to(torch.float32), dists.to(torch.float32)]
+    if t_vals.ndim == 1:
+        blocks += [t_vals.to(torch.float32), dists.to(torch.float32)]
     flat = torch.cat(blocks)
     return torch.nn.functional.pad(flat, (0, (-flat.numel()) % 4)).contiguous()
 
@@ -151,21 +168,22 @@ def unpack_grads(flat: torch.Tensor, params: Params, width: int):
 def grad_smem_bytes(pk_floats: int, G: int, S: int, L: int, in_dim: int,
                     width: int) -> int:
     """Shared memory one block of the gradient kernels takes (the formula of
-    ``nerf_grad.cuh:grad_smem_floats``)."""
+    ``nerf_grad.cuh:grad_smem_floats``); ``pk_floats`` counts the depth tail
+    only for shared depths (:func:`pack_params`)."""
     return 4 * (pk_floats + G + S * GRAD_THREADS
                 + (in_dim + (L - 1) * width) * _STRIDE
                 + ((L - 1) * width + _HEAD) * _STRIDE + GRAD_THREADS)
 
 
 def _check_cuda_inputs(origins, directions, t_vals, dists, config, params, *extra):
-    if t_vals.ndim != 1 or dists.ndim != 1:
-        raise NotImplementedError(
-            "per-ray (N, S) depths have no CUDA kernel yet "
-            "(ROADMAP queue 2, B1/B2 for narrow MLPs, C3 for wide ones)")
-    if t_vals.shape[0] != config.num_samples or dists.shape != t_vals.shape:
-        raise ValueError(f"depths {tuple(t_vals.shape)}/{tuple(dists.shape)} do "
-                         f"not match num_samples={config.num_samples}")
-    n = origins.shape[0]
+    """Depths and steps both ``(S,)`` (shared by every ray) or both
+    ``(N, S)`` (per ray), ray inputs ``(N, 3)``, all on one device; raises
+    ``ValueError`` otherwise."""
+    n, S = origins.shape[0], config.num_samples
+    if dists.shape != t_vals.shape or tuple(t_vals.shape) not in ((S,), (n, S)):
+        raise ValueError(f"depths {tuple(t_vals.shape)} and steps {tuple(dists.shape)}: "
+                         f"need both ({S},) or both ({n}, {S}) for {n} rays and "
+                         f"num_samples={S}")
     for x in (origins, directions, *extra):
         if tuple(x.shape) != (n, 3):
             raise ValueError(f"ray input of shape {tuple(x.shape)}, expected ({n}, 3)")
@@ -178,8 +196,16 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
-def _launch(pk, origins, directions, config, L, width) -> torch.Tensor:
-    """One launch of the render forward; counted in ``launches``."""
+def _suffix(t_vals: torch.Tensor) -> str:
+    """The entry-point suffix of a depth source: ``""`` for ``(S,)`` depths
+    shared by every ray, ``"_rays"`` for per-ray ``(N, S)`` ones."""
+    return "_rays" if t_vals.ndim == 2 else ""
+
+
+def _launch(pk, t_vals, dists, origins, directions, config, L, width) -> torch.Tensor:
+    """One launch of the render forward (``nerf_render_fwd``, or
+    ``nerf_render_fwd_rays`` for per-ray depths, whose pointers it passes:
+    shared ones travel in ``pk``); counted in ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
     n = origins.shape[0]
@@ -187,26 +213,33 @@ def _launch(pk, origins, directions, config, L, width) -> torch.Tensor:
         raise NotImplementedError(
             f"params need {pk.numel() * 4} B of shared memory, over the "
             f"{_SMEM_LIMIT} B a block has (streamed weights: a later PR)")
+    suffix = _suffix(t_vals)
+    entry = "nerf_render_fwd" + suffix
+    ptrs = (t_vals.data_ptr(), dists.data_ptr()) if suffix else ()
     out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
-    err = build.load().nerf_render_fwd(
-        pk.data_ptr(), pk.numel(), origins.data_ptr(), directions.data_ptr(),
+    err = getattr(build.load(), entry)(
+        pk.data_ptr(), pk.numel(), *ptrs, origins.data_ptr(), directions.data_ptr(),
         out.data_ptr(), n, config.num_samples, L, config.in_channels,
         config.num_encoding_functions, width, int(config.mode == "loma"), stream,
     )
     if err != 0:
-        raise RuntimeError(f"nerf_render_fwd launch failed: cudaError {err}")
-    launches["nerf_render_fwd"] += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    launches[entry] += 1
     return out
 
 
-def _launch_grad(entry: str, pk, G, origins, directions, cot, config, L,
-                 width) -> torch.Tensor:
-    """One call of a gradient kernel (``nerf_train`` or ``nerf_render_bwd``)
-    and its fixed-order block sum: G gradient floats, then the loss.
-    Counted in ``launches``."""
+def _launch_grad(entry: str, pk, G, t_vals, dists, origins, directions, cot, config,
+                 L, width) -> torch.Tensor:
+    """One call of a gradient kernel (``nerf_train`` or ``nerf_render_bwd``;
+    their ``*_rays`` instance for per-ray depths, as :func:`_launch`) and
+    its fixed-order block sum: G gradient floats, then the loss.  Counted in
+    ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
+    suffix = _suffix(t_vals)
+    entry += suffix
+    ptrs = (t_vals.data_ptr(), dists.data_ptr()) if suffix else ()
     n, S = origins.shape[0], config.num_samples
     smem = grad_smem_bytes(pk.numel(), G, S, L, config.in_channels, width)
     if smem > _SMEM_LIMIT:
@@ -219,7 +252,7 @@ def _launch_grad(entry: str, pk, G, origins, directions, cot, config, L,
     out = torch.empty((G + 1,), dtype=torch.float32, device=origins.device)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
     err = getattr(build.load(), entry)(
-        pk.data_ptr(), pk.numel(), G, origins.data_ptr(), directions.data_ptr(),
+        pk.data_ptr(), pk.numel(), G, *ptrs, origins.data_ptr(), directions.data_ptr(),
         cot.data_ptr(), partials.data_ptr(), out.data_ptr(), n, S, L,
         config.in_channels, config.num_encoding_functions, width,
         int(config.mode == "loma"), stream,
@@ -237,41 +270,45 @@ def _params_of(wb):
 
 class _RenderFwd(torch.autograd.Function):
     """The render kernel behind autograd: forward launches
-    ``nerf_render_fwd``; backward launches ``nerf_render_bwd`` with the
-    colour cotangent (the counterpart of ``pallas_utils.render_vjp``).
+    ``nerf_render_fwd`` (``nerf_render_fwd_rays`` on per-ray depths);
+    backward launches ``nerf_render_bwd`` (``nerf_render_bwd_rays``) with
+    the colour cotangent (the counterpart of ``pallas_utils.render_vjp``).
     Rays, depths and config get no gradient."""
 
     @staticmethod
     def forward(ctx, origins, directions, t_vals, dists, config, width, *wb):
         params = _params_of(wb)
         pk = pack_params(params, t_vals, dists, width)
-        ctx.save_for_backward(pk, origins, directions, *wb)
+        ctx.save_for_backward(pk, origins, directions, t_vals, dists, *wb)
         ctx.config, ctx.width = config, width
-        return _launch(pk, origins, directions, config, len(wb) // 2, width)
+        return _launch(pk, t_vals, dists, origins, directions, config, len(wb) // 2,
+                       width)
 
     @staticmethod
     def backward(ctx, grad_out):
-        pk, origins, directions, *wb = ctx.saved_tensors
+        pk, origins, directions, t_vals, dists, *wb = ctx.saved_tensors
         params = _params_of(wb)
         G = grad_floats(params, ctx.width)
-        out = _launch_grad("nerf_render_bwd", pk, G, origins, directions,
-                           _f32(grad_out), ctx.config, len(wb) // 2, ctx.width)
+        out = _launch_grad("nerf_render_bwd", pk, G, t_vals, dists, origins,
+                           directions, _f32(grad_out), ctx.config, len(wb) // 2,
+                           ctx.width)
         return (None,) * 6 + unpack_grads(out[:G], params, ctx.width)
 
 
 class _TrainLoss(torch.autograd.Function):
     """The train kernel behind autograd (the counterpart of
-    ``pallas_utils.train_loss_vjp``): forward makes one ``nerf_train`` call,
-    which returns the loss and dW/db together, and keeps the gradients;
-    backward scales them by the loss's cotangent."""
+    ``pallas_utils.train_loss_vjp``): forward makes one ``nerf_train`` call
+    (``nerf_train_rays`` on per-ray depths), which returns the loss and
+    dW/db together, and keeps the gradients; backward scales them by the
+    loss's cotangent."""
 
     @staticmethod
     def forward(ctx, origins, directions, t_vals, dists, target, config, width, *wb):
         params = _params_of(wb)
         pk = pack_params(params, t_vals, dists, width)
         G = grad_floats(params, width)
-        out = _launch_grad("nerf_train", pk, G, origins, directions, target,
-                           config, len(wb) // 2, width)
+        out = _launch_grad("nerf_train", pk, G, t_vals, dists, origins, directions,
+                           target, config, len(wb) // 2, width)
         ctx.save_for_backward(*unpack_grads(out[:G], params, width))
         return out[G]
 
@@ -346,10 +383,12 @@ def _wide_args(config, pw: int, L: int):
 
 
 def _launch_wide_render(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
-    """One call of ``nerf_wide_render_fwd`` (all chunks of the rays);
-    counted in ``launches``."""
+    """One call of ``nerf_wide_render_fwd`` (``nerf_wide_render_fwd_rays``
+    for per-ray ``(N, S)`` depths), all chunks of the rays; counted in
+    ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
+    entry = "nerf_wide_render_fwd" + _suffix(t_vals)
     L, pw = W.shape[0], W.shape[1]
     n = origins.shape[0]
     chunk = max(1, min(n, wide_chunk_rays(config, pw)))
@@ -357,24 +396,26 @@ def _launch_wide_render(W, b, t_vals, dists, origins, directions, config) -> tor
                        device=origins.device)
     out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
-    err = build.load().nerf_wide_render_fwd(
+    err = getattr(build.load(), entry)(
         W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
         origins.data_ptr(), directions.data_ptr(), out.data_ptr(), acts.data_ptr(),
         n, chunk, *_wide_args(config, pw, L), stream)
     if err != 0:
-        raise RuntimeError(f"nerf_wide_render_fwd launch failed: cudaError {err}")
-    launches["nerf_wide_render_fwd"] += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    launches[entry] += 1
     return out
 
 
 def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
                       config):
     """One call of ``nerf_wide_train`` (cot: targets) or
-    ``nerf_wide_render_bwd`` (cot: the colour cotangent), with its scratch;
+    ``nerf_wide_render_bwd`` (cot: the colour cotangent), or of its
+    ``*_rays`` instance for per-ray ``(N, S)`` depths, with its scratch;
     returns ``(loss (1,), dW (L, pw, pw), db (L, pw))``.  Counted in
     ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
+    entry += _suffix(t_vals)
     L, pw = W.shape[0], W.shape[1]
     n, S, dev = origins.shape[0], config.num_samples, origins.device
     chunk = max(1, min(n, wide_grad_chunk_rays(config, pw, L)))
@@ -403,7 +444,8 @@ def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
 class _WideRender(torch.autograd.Function):
     """The wide render kernel behind autograd: forward launches
     ``nerf_wide_render_fwd``; backward launches ``nerf_wide_render_bwd``
-    with the colour cotangent.  Rays, depths and config get no gradient."""
+    with the colour cotangent (their ``*_rays`` instances on per-ray
+    depths).  Rays, depths and config get no gradient."""
 
     @staticmethod
     def forward(ctx, origins, directions, t_vals, dists, config, pw, *wb):
@@ -422,8 +464,9 @@ class _WideRender(torch.autograd.Function):
 
 class _WideTrainLoss(torch.autograd.Function):
     """The wide train kernel behind autograd: forward makes one
-    ``nerf_wide_train`` call, which returns the loss and dW/db together, and
-    keeps the gradients; backward scales them by the loss's cotangent."""
+    ``nerf_wide_train`` call (``nerf_wide_train_rays`` on per-ray depths),
+    which returns the loss and dW/db together, and keeps the gradients;
+    backward scales them by the loss's cotangent."""
 
     @staticmethod
     def forward(ctx, origins, directions, t_vals, dists, target, config, pw, *wb):
@@ -527,8 +570,10 @@ class _WidePlain(torch.autograd.Function):
 
 
 def render_rays(params: Params, origins, directions, t_vals, dists, config) -> torch.Tensor:
-    """Fused render of ``(N, 3)`` rays at ``(S,)`` shared depths to ``(N, 3)``
-    colours, with the JAX signature.  Differentiable w.r.t. params only."""
+    """Fused render of ``(N, 3)`` rays to ``(N, 3)`` colours, with the JAX
+    signature: depths and steps ``(S,)`` shared by every ray or per-ray
+    ``(N, S)`` (the stratified sampler's), each on its own kernel instance.
+    Differentiable w.r.t. params only."""
     origins, directions, t_vals, dists = (
         x.detach() for x in (origins, directions, t_vals, dists))
     if origins.device.type == "cpu":

@@ -12,7 +12,12 @@ autograd of the plain version at the JAX test's bound for its fused train
 kernel (loss rtol 1e-5; grads rtol 3e-4, atol 3e-5 scaled by the leaf's
 largest entry where that is above 1, since these sums run over 1037 rays,
 not 20), and two launches on the same inputs must agree bit for bit.  The
-2D field's kernels (#13, #14) are held to the same bounds.
+per-ray depth instances (``*_rays``: #4-#6, #10-#12) are held to the same
+bounds (the wide bf16 ones to chip_smoke.py's; an f32 leaf that a ReLU-mask
+flip moves off the plain version in f32 to the plain version in f64), and
+on broadcast (S,) depths to the shared-depth kernels bit for bit, the wide
+ones over many ray chunks to the one-chunk call.  The 2D field's kernels
+(#13, #14) are held to the same bounds as the narrow ones.
 """
 
 import dataclasses
@@ -134,9 +139,10 @@ def test_train_loss_ray_inputs_get_no_gradient():
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take():
-    """Widths in (64, 256] and wide bf16 launch the wide kernels; widths
-    above 256, narrow bf16 and per-ray (N, S) depths raise, each naming its
-    ROADMAP item."""
+    """Widths in (64, 256] and wide bf16 launch the wide kernels, per-ray
+    (N, S) depths their *_rays instances; widths above 256 and narrow bf16
+    raise, each naming its ROADMAP item; depths of mismatched shapes raise
+    ValueError."""
     need_card()
     rng = np.random.default_rng(0)
     cfg = NeRFConfig.small()
@@ -146,10 +152,15 @@ def test_kernels_refuse_what_they_do_not_take():
     t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
     t2, d2 = t.expand(64, -1), dists.expand(64, -1)
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="B1/B2"):
-        fused_nerf.render_rays(params, o, d, t2, d2, cfg)
-    with pytest.raises(NotImplementedError, match="B1/B2"):
-        fused_nerf.nerf_train_loss(params, o, d, t2, d2, tgt, cfg)
+    before = dict(fused_nerf.launches)
+    fused_nerf.render_rays(params, o, d, t2, d2, cfg)
+    fused_nerf.nerf_train_loss(params, o, d, t2, d2, tgt, cfg)
+    assert fused_nerf.launches["nerf_render_fwd_rays"] == before["nerf_render_fwd_rays"] + 1
+    assert fused_nerf.launches["nerf_train_rays"] == before["nerf_train_rays"] + 1
+    with pytest.raises(ValueError):
+        fused_nerf.render_rays(params, o, d, t2, dists, cfg)
+    with pytest.raises(ValueError):
+        fused_nerf.nerf_train_loss(params, o[:10], d[:10], t2, d2, tgt[:10], cfg)
     with pytest.raises(NotImplementedError, match="A4"):
         fused_nerf.render_rays(params, o, d, t, dists, bf16)
     with pytest.raises(NotImplementedError, match="A4"):
@@ -163,14 +174,136 @@ def test_kernels_refuse_what_they_do_not_take():
         torch.cuda.synchronize()
         assert fused_nerf.launches["nerf_wide_render_fwd"] == before["nerf_wide_render_fwd"] + 1
         assert fused_nerf.launches["nerf_wide_train"] == before["nerf_wide_train"] + 1
-        with pytest.raises(NotImplementedError, match="C3"):
-            fused_nerf.render_rays(wide_params, o, d, t2, d2, wide)
+        fused_nerf.render_rays(wide_params, o, d, t2, d2, wide)
+        assert fused_nerf.launches["nerf_wide_render_fwd_rays"] == \
+            before["nerf_wide_render_fwd_rays"] + 1
     too_wide = NeRFConfig(filter_size=320)
     too_wide_params = params_from_numpy(*np_params(rng, too_wide), "cuda")
     with pytest.raises(NotImplementedError, match="C4"):
         fused_nerf.render_rays(too_wide_params, o, d, t, dists, too_wide)
     with pytest.raises(NotImplementedError, match="C4"):
         fused_nerf.nerf_train_loss(too_wide_params, o, d, t, dists, tgt, too_wide)
+
+
+PERRAY = {  # the narrow presets, and two wide MLPs (f32, and the bf16 flagship's plan)
+    "small": NeRFConfig.small(),
+    "single64": NeRFConfig.single_view_64(),
+    "wide-f32": NeRFConfig(num_layers=4, filter_size=128, num_samples=32),
+    "wide-bf16": dataclasses.replace(NeRFConfig.full(), num_layers=4, num_samples=32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", list(PERRAY))
+@pytest.mark.parametrize("mode", ["loma", "standard"])
+@pytest.mark.parametrize("n_rays", [N_RAYS, 1])
+def test_perray_kernels_match_plain_and_shared(preset, mode, n_rays):
+    """The *_rays kernels on jittered (N, S) depths (NeRFModel.sample with a
+    CUDA generator): colours, train loss and dW/db, render-backward dW/db
+    against autograd of the plain version (chip_smoke.py phase 13's bounds:
+    phases 1/4/7's; an f32 leaf that misses them against the plain version
+    in f32, by a ReLU-mask flip, is held to it in f64);
+    repeats bit-identical; broadcast (S,) depths through them equal the
+    shared-depth kernels bit for bit."""
+    need_card()
+    rng = np.random.default_rng(13)
+    cfg = dataclasses.replace(PERRAY[preset], mode=mode)
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    o, d = cuda_rays(rng, n_rays)
+    model = NeRFModel(cfg)  # on the card by default
+    _, t, dists = model.sample(o, d, generator=torch.Generator("cuda").manual_seed(5))
+    assert t.shape == (n_rays, cfg.num_samples) and t.is_cuda
+    tgt = torch.from_numpy(rng.random((n_rays, 3)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.standard_normal((n_rays, 3)).astype(np.float32)).cuda()
+    wide = fused_nerf._route(cfg, params)[0] == "wide"
+    bf16 = cfg.compute_dtype == "bfloat16"
+    col_atol = 2e-3 if bf16 else 1e-4
+
+    def run(render, train, tv, dv):
+        """(colours, loss, *dW/db, *render-backward dW/db)."""
+        with torch.no_grad():
+            col = render(params, o, d, tv, dv, cfg)
+        k = grads_of(params, lambda: train(params, o, d, tv, dv, tgt, cfg))
+        b = grads_of(params, lambda: (render(params, o, d, tv, dv, cfg) * cot).sum())
+        return (col, *k, *b[1:])
+
+    pre = "nerf_wide_" if wide else "nerf_"
+    names = [pre + x + "_rays" for x in ("render_fwd", "train", "render_bwd")]
+    before = dict(fused_nerf.launches)
+    k1 = run(fused_nerf.render_rays, fused_nerf.nerf_train_loss, t, dists)
+    k2 = run(fused_nerf.render_rays, fused_nerf.nerf_train_loss, t, dists)
+    torch.cuda.synchronize()
+    assert [fused_nerf.launches[x] - before[x] for x in names] == [4, 2, 2]
+    assert all(torch.equal(x, y) for x, y in zip(k1, k2))
+    p = run(fused_nerf.render_rays_reference, fused_nerf.nerf_train_loss_reference, t, dists)
+    params64 = {k: [x.detach().double() for x in v] for k, v in params.items()}
+    torch.testing.assert_close(k1[0], p[0], atol=col_atol, rtol=1e-4)
+    torch.testing.assert_close(k1[1], p[1], rtol=1e-4 if bf16 else 1e-5, atol=0.0)
+    if bf16:
+        for g, w in zip(k1[2:], p[2:]):
+            assert (g - w).abs().max() <= 1e-2 * w.abs().max()
+    elif wide:
+        assert_grads_close(k1[2:], p[2:])
+    else:  # a leaf may miss against f32 by a ReLU-mask flip: then against f64
+        k64 = grads_of(params64, lambda: fused_nerf.nerf_train_loss_reference(
+            params64, o.double(), d.double(), t.double(), dists.double(), tgt.double(), cfg))
+        b64 = grads_of(params64, lambda: (fused_nerf.render_rays_reference(
+            params64, o.double(), d.double(), t.double(), dists.double(), cfg)
+            * cot.double()).sum())
+        for g, w, w64 in zip(k1[2:], p[2:], (*k64[1:], *b64[1:])):
+            if not torch.allclose(g, w, rtol=3e-4, atol=3e-5 * max(1.0, w.abs().max().item())):
+                assert_grads_close([g.double()], [w64])
+
+    tu, du = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    shared = run(fused_nerf.render_rays, fused_nerf.nerf_train_loss, tu, du)
+    rays = run(fused_nerf.render_rays, fused_nerf.nerf_train_loss,
+               tu.expand(n_rays, -1), du.expand(n_rays, -1))
+    assert all(torch.equal(x, y) for x, y in zip(shared, rays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["wide-f32", "wide-bf16"])
+def test_wide_perray_kernels_over_many_ray_chunks(preset, monkeypatch):
+    """The wide *_rays kernels walk ray chunks, each reading the per-ray
+    depths from its first ray on: with the scratch budgets cut so that 1037
+    rays span many chunks, render chunks of 100 rays and gradient chunks of
+    8192 / S rays (one split-K partial each, summed in the same order) equal
+    the one-chunk call bit for bit; gradient chunks of 300 rays meet the
+    plain version at the unchunked test's bounds."""
+    need_card()
+    rng = np.random.default_rng(17)
+    cfg = PERRAY[preset]
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    o, d = cuda_rays(rng, N_RAYS)
+    _, t, dists = NeRFModel(cfg).sample(o, d, generator=torch.Generator("cuda").manual_seed(3))
+    tgt = torch.from_numpy(rng.random((N_RAYS, 3)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.standard_normal((N_RAYS, 3)).astype(np.float32)).cuda()
+    bf16 = cfg.compute_dtype == "bfloat16"
+
+    def run(render, train):
+        """(colours, loss, *dW/db, *render-backward dW/db)."""
+        with torch.no_grad():
+            col = render(params, o, d, t, dists, cfg)
+        k = grads_of(params, lambda: train(params, o, d, t, dists, tgt, cfg))
+        b = grads_of(params, lambda: (render(params, o, d, t, dists, cfg) * cot).sum())
+        return (col, *k, *b[1:])
+
+    kernel = (fused_nerf.render_rays, fused_nerf.nerf_train_loss)
+    whole = run(*kernel)
+    aligned = fused_nerf.WIDE_ROW_CHUNK // cfg.num_samples
+    monkeypatch.setattr(fused_nerf, "wide_chunk_rays", lambda config, pw: 100)
+    monkeypatch.setattr(fused_nerf, "wide_grad_chunk_rays", lambda config, pw, L: aligned)
+    assert all(torch.equal(x, y) for x, y in zip(whole, run(*kernel)))
+    monkeypatch.setattr(fused_nerf, "wide_grad_chunk_rays", lambda config, pw, L: 300)
+    ragged = run(*kernel)
+    p = run(fused_nerf.render_rays_reference, fused_nerf.nerf_train_loss_reference)
+    assert torch.equal(ragged[0], whole[0])
+    torch.testing.assert_close(ragged[1], p[1], rtol=1e-4 if bf16 else 1e-5, atol=0.0)
+    if bf16:
+        for g, w in zip(ragged[2:], p[2:]):
+            assert (g - w).abs().max() <= 1e-2 * w.abs().max()
+    else:
+        assert_grads_close(ragged[2:], p[2:])
 
 
 @pytest.mark.cuda

@@ -115,15 +115,30 @@ def test_params_from_numpy_round_trips(rng):
 
 def test_model_init_and_count_params():
     cfg = NeRFConfig.small()
-    model = NeRFModel(cfg)
+    model = NeRFModel(cfg, device="cpu")
     p1 = model.init(torch.Generator().manual_seed(1))
     jm = jmodels.NeRFModel(jmodels.NeRFConfig.small(), "jnp")
     assert count_params(p1) == model.count_params() == jmodels.count_params(
         jm.init(jax.random.PRNGKey(0)))
     assert float(torch.cat([w.detach().reshape(-1) for w in p1["w"]]).abs().max()) > 0
-    p2 = NeRFModel(cfg).init(torch.Generator().manual_seed(1))
+    p2 = NeRFModel(cfg, device="cpu").init(torch.Generator().manual_seed(1))
     for a, b in zip(p1["w"] + p1["b"], p2["w"] + p2["b"]):
         assert torch.equal(a, b)
+
+
+def test_models_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: both model classes default to ``device="cuda"`` (read from the
+    signatures, so no tensor is built here)."""
+    import inspect
+
+    from lomanerf_tpu_torch.models import ImageFieldModel
+
+    for cls in (NeRFModel, ImageFieldModel):
+        assert inspect.signature(cls.__init__).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():  # torch's own error, not a CPU model
+        with pytest.raises((AssertionError, RuntimeError)):
+            NeRFModel(NeRFConfig.small())
 
 
 @pytest.mark.parametrize("name", ["small", "single64", "full"])

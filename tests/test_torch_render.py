@@ -91,16 +91,24 @@ def test_render_rays_cpu_grads_params_only(rng):
     assert o.grad is None
 
 
-def kernel_walk(pk, origins, directions, S, L, in_dim, nf, W, loma):
+def kernel_walk(pk, origins, directions, S, L, in_dim, nf, W, loma, depths=None):
     """numpy re-statement of nerf_render_fwd.cu's per-ray loop, reading the
-    packed buffer with the kernel's own offsets (f64 arithmetic)."""
+    packed buffer with the kernel's own offsets (f64 arithmetic): the
+    shared depths from its tail, or, with ``depths = (t, dists)`` (N, S),
+    row r for ray r (nerf_render_fwd_rays: the buffer then ends with the
+    weights)."""
     pk = pk.astype(np.float64)
     l0_cols = 4 if L == 1 else W
     w_first = 0
     w_hidden = w_first + in_dim * l0_cols + l0_cols
     w_head = w_hidden + (L - 2) * (W * W + W) if L >= 2 else 0
     ts = w_hidden if L == 1 else w_head + W * 4 + 4
-    t, dist = pk[ts:ts + S], pk[ts + S:ts + 2 * S]
+    if depths is None:
+        t_rays = np.broadcast_to(pk[ts:ts + S], (origins.shape[0], S))
+        d_rays = np.broadcast_to(pk[ts + S:ts + 2 * S], (origins.shape[0], S))
+    else:
+        assert pk.size == -(-ts // 4) * 4  # no depth tail
+        t_rays, d_rays = depths
 
     def layer(x, off, rows, cols):
         w = pk[off:off + rows * cols].reshape(rows, cols)
@@ -108,6 +116,7 @@ def kernel_walk(pk, origins, directions, S, L, in_dim, nf, W, loma):
 
     out = np.zeros((origins.shape[0], 3))
     for r in range(origins.shape[0]):
+        t, dist = t_rays[r], d_rays[r]
         P, acc = 1.0, np.zeros(3)
         for s in range(S):
             p = origins[r] + directions[r] * t[s]
@@ -133,25 +142,46 @@ def kernel_walk(pk, origins, directions, S, L, in_dim, nf, W, loma):
     return out
 
 
+def jittered_depths(seed, n, S, near=2.0, far=6.0):
+    """Per-bin stratified (N, S) depths and steps, as NeRFModel.sample draws
+    them (core.rays.sample_along_rays with a torch.Generator)."""
+    from lomanerf_tpu_torch.core import sample_along_rays
+
+    o = torch.zeros(n, 3)
+    _, t, dists = sample_along_rays(o, o, near, far, S,
+                                    generator=torch.Generator().manual_seed(seed))
+    assert t.shape == dists.shape == (n, S)
+    return t, dists
+
+
+@pytest.mark.parametrize("depths", ["shared", "perray"])
 @pytest.mark.parametrize("layers,width,mode", [
     (3, 30, "loma"),       # small: W = 32
     (4, 64, "standard"),   # single64: W = 64
     (1, 30, "loma"),       # one layer: layer 0 is the head
     (2, 17, "standard"),   # no hidden-to-hidden layer
 ])
-def test_packed_layout_matches_plain_render(rng, layers, width, mode):
-    S = 7
+def test_packed_layout_matches_plain_render(rng, layers, width, mode, depths):
+    """The render kernel's walk over the packed buffer equals the plain
+    render: shared (S,) depths from the buffer's tail (nerf_render_fwd), or
+    jittered per-ray (N, S) depths beside it (nerf_render_fwd_rays)."""
+    S, n = 7, 9
     cfg = NeRFConfig(num_layers=layers, filter_size=width, num_samples=S, mode=mode)
     ws, bs = np_params(rng, mlp_layer_sizes(33, 5, layers, width))  # 5 ch: extra ignored
     params = params_from_numpy(ws, bs, "cpu")
-    t, dists = uniform_depths(2.0, 6.0, S, "cpu")
+    if depths == "shared":
+        t, dists = uniform_depths(2.0, 6.0, S, "cpu")
+    else:
+        t, dists = jittered_depths(layers, n, S)
     W = fused_nerf._route(cfg, params)[1]
     assert W == (32 if width <= 32 else 64)
     pk = fused_nerf.pack_params(params, t, dists, W)
     assert pk.dtype == torch.float32 and pk.numel() % 4 == 0
-    o, d = rays(rng, 9)
+    o, d = rays(rng, n)
     got = kernel_walk(pk.numpy(), o.astype(np.float64), d.astype(np.float64), S,
-                      layers, 33, 5, W, mode == "loma")
+                      layers, 33, 5, W, mode == "loma",
+                      None if depths == "shared" else (t.double().numpy(),
+                                                       dists.double().numpy()))
     want = fused_nerf.render_rays_reference(params, torch.from_numpy(o),
                                             torch.from_numpy(d), t, dists, cfg)
     np.testing.assert_allclose(got, want.numpy(), rtol=RTOL, atol=ATOL)
@@ -161,7 +191,8 @@ def test_kernel_refuses_what_it_does_not_take(rng):
     """The JAX dispatch rule routes each MLP to the narrow kernels (every
     width padded to 8 at most 64) or the wide ones (hidden widths up to 256,
     f32 or bf16); the cases no CUDA kernel takes raise, naming the ROADMAP
-    item."""
+    item.  Depths of either shape pass the input check; mismatched shapes
+    or ray counts raise ValueError."""
     small = NeRFConfig.small()
     ws, bs = np_params(rng, mlp_layer_sizes(33, 4, 3, 30))
     params = params_from_numpy(ws, bs, "cpu")
@@ -178,8 +209,14 @@ def test_kernel_refuses_what_it_does_not_take(rng):
         fused_nerf._route(small, too_wide)
     with pytest.raises(ValueError):  # the n=4 encoding gives 27 inputs, not 33
         fused_nerf._route(dataclasses.replace(small, num_encoding_functions=4), params)
+    # depths: both (S,) or both per-ray (N, S) pass; any other pair raises
     o, t = torch.zeros(4, 3), torch.linspace(2.0, 6.0, 30)
-    with pytest.raises(NotImplementedError, match="B1/B2.*C3"):  # per-ray (N, S) depths
-        fused_nerf._check_cuda_inputs(o, o, t.expand(4, -1), t.expand(4, -1), small, params)
+    t2 = t.expand(4, -1)
+    fused_nerf._check_cuda_inputs(o, o, t, t, small, params, o)
+    fused_nerf._check_cuda_inputs(o, o, t2, t2, small, params, o)
+    for bad_t, bad_d in ((t2, t), (t, t2), (t.expand(5, -1), t.expand(5, -1)),
+                         (t[:8], t[:8]), (t2[:, :8], t2[:, :8]), (t2[None], t2[None])):
+        with pytest.raises(ValueError):
+            fused_nerf._check_cuda_inputs(o, o, bad_t, bad_d, small, params)
     with pytest.raises(ValueError):  # targets of another ray count
         fused_nerf._check_cuda_inputs(o, o, t, t, small, params, torch.zeros(5, 3))

@@ -154,16 +154,26 @@ def test_stratified_offset_equals_perray_depths(rng, mode):
     close_grads(got, want)
 
 
-def grad_walk(pk, origins, directions, cot, S, L, in_dim, nf, W, loma, train):
+def grad_walk(pk, origins, directions, cot, S, L, in_dim, nf, W, loma, train,
+              depths=None):
     """numpy (f64) re-statement of nerf_grad.cuh: per ray, the forward keeping
     P_s, then the reverse walk with the scalar suffix sum, accumulating into
-    the packed gradient layout.  Returns (G gradient floats, loss)."""
+    the packed gradient layout.  Depths: the shared ones of the buffer's
+    tail, or with ``depths = (t, dists)`` (N, S) row r for ray r (the
+    ``*_rays`` kernels; the buffer then ends with the weights).  Returns
+    (G gradient floats, loss)."""
     pk = pk.astype(np.float64)
     rows = [in_dim] + [W] * (L - 1)
     cols = [W] * (L - 1) + [4]
     offs = np.cumsum([0] + [r * c + c for r, c in zip(rows, cols)])
     G = int(offs[-1])
-    t, dist = pk[G:G + S], pk[G + S:G + 2 * S]
+    n = origins.shape[0]
+    if depths is None:
+        t_rays = np.broadcast_to(pk[G:G + S], (n, S))
+        d_rays = np.broadcast_to(pk[G + S:G + 2 * S], (n, S))
+    else:
+        assert pk.size == -(-G // 4) * 4  # no depth tail
+        t_rays, d_rays = depths
     grad, loss = np.zeros(G), 0.0
 
     def layer(l):
@@ -182,8 +192,9 @@ def grad_walk(pk, origins, directions, cot, S, L, in_dim, nf, W, loma, train):
                 ins.append(np.maximum(z, 0.0))
         return ins, z
 
-    for r in range(origins.shape[0]):
+    for r in range(n):
         o, d = origins[r], directions[r]
+        t, dist = t_rays[r], d_rays[r]
         P, Ps, col = 1.0, [], np.zeros(3)
         for s in range(S):
             _, raw = forward(o + d * t[s])
@@ -226,6 +237,7 @@ def grad_walk(pk, origins, directions, cot, S, L, in_dim, nf, W, loma, train):
     return grad, loss
 
 
+@pytest.mark.parametrize("depths", ["shared", "perray"])
 @pytest.mark.parametrize("layers,width,mode", [
     (3, 30, "loma"),       # small: W = 32
     (4, 64, "standard"),   # single64: W = 64
@@ -233,22 +245,31 @@ def grad_walk(pk, origins, directions, cot, S, L, in_dim, nf, W, loma, train):
     (2, 17, "loma"),       # no hidden-to-hidden layer
 ])
 @pytest.mark.parametrize("train", [True, False])
-def test_grad_kernel_algorithm_matches_autograd(rng, layers, width, mode, train):
+def test_grad_kernel_algorithm_matches_autograd(rng, layers, width, mode, train, depths):
     """The gradient kernels' reverse walk, restated in numpy over the packed
     buffer, unpacked by the wrapper's unpack_grads, equals autograd of the
-    plain version: the train loss (#3) or (render * cot).sum() (#2)."""
+    plain version: the train loss (#3, or #6 on per-ray depths) or
+    (render * cot).sum() (#2, or #5): shared (S,) depths, or jittered
+    per-ray (N, S) ones from the stratified sampler."""
     S, n = 7, 9
     cfg = NeRFConfig(num_layers=layers, filter_size=width, num_samples=S, mode=mode)
     ws, bs = np_params(rng, tcore.mlp_layer_sizes(33, 5, layers, width))  # ch 4 unread
     params = tcore.params_from_numpy(ws, bs, "cpu")
     o, d, t, dists, tgt = batch(rng, n, S)
+    if depths == "perray":
+        _, t_rays, d_rays = tcore.sample_along_rays(
+            torch.zeros(n, 3), torch.zeros(n, 3), 2.0, 6.0, S,
+            generator=torch.Generator().manual_seed(layers))
+        t, dists = t_rays.numpy(), d_rays.numpy()
+        assert t.shape == (n, S)
     cot = tgt if train else rng.standard_normal((n, 3)).astype(np.float32)
     W = fused_nerf._route(cfg, params)[1]
     pk = fused_nerf.pack_params(params, torch.from_numpy(t), torch.from_numpy(dists), W)
     G = fused_nerf.grad_floats(params, W)
     flat, loss = grad_walk(pk.numpy(), o.astype(np.float64), d.astype(np.float64),
                            cot.astype(np.float64), S, layers, 33, 5, W, mode == "loma",
-                           train)
+                           train, None if depths == "shared" else
+                           (t.astype(np.float64), dists.astype(np.float64)))
     assert flat.shape == (G,)
     got = fused_nerf.unpack_grads(torch.from_numpy(flat), params, W)
     args = [torch.from_numpy(x) for x in (o, d, t, dists)]
@@ -286,7 +307,7 @@ def test_gradient_kernels_fit_shared_memory(rng):
     o = torch.zeros(3, 3)
     with pytest.raises(NotImplementedError, match="shared memory"):
         fused_nerf._launch_grad("nerf_train", pk, fused_nerf.grad_floats(params, 64),
-                                o, o, o, deep, 8, 64)
+                                t, dists, o, o, o, deep, 8, 64)
 
 
 def test_generate_random_rays(rng):

@@ -139,7 +139,9 @@ def test_wide_bf16_matches_jax_kernels(rng, layers, width, S):
 def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
                     chunk_rays, row_chunk):
     """numpy (f64) re-statement of the CUDA gradient sequence
-    (nerf_wide_chain.cuh) over the packed stacks: per ray chunk, the encoding
+    (nerf_wide_chain.cuh) over the packed stacks, with ``t``/``dists``
+    shared (S,) or per-ray (N, S) (the ``*_rays`` entry points: each chunk
+    reads its own rows): per ray chunk, the encoding
     into the first kc columns of a (rows, pw) buffer whose other columns are
     NaN (never read), the layer GEMMs, the per-ray compositing walk and its
     adjoint, then in reverse the split-K dW partials of row_chunk rows and
@@ -156,10 +158,13 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
         for r0 in range(0, Z.shape[0], row_chunk):
             dst += Z[r0:r0 + row_chunk].sum(0)
 
+    t = np.broadcast_to(t, (o.shape[0], S))
+    dists = np.broadcast_to(dists, (o.shape[0], S))
     for c0 in range(0, o.shape[0], chunk_rays):
         oc, dc, yc = o[c0:c0 + chunk_rays], d[c0:c0 + chunk_rays], cot[c0:c0 + chunk_rays]
+        tc, distc = t[c0:c0 + chunk_rays], dists[c0:c0 + chunk_rays]
         n = oc.shape[0]
-        p = (oc[:, None, :] + dc[:, None, :] * t[None, :, None]).reshape(n * S, 3)
+        p = (oc[:, None, :] + dc[:, None, :] * tc[:, :, None]).reshape(n * S, 3)
         enc = np.full((n * S, pw), np.nan)
         feats = [p] + [f(2.0**i * p) for i in range(nf) for f in (np.sin, np.cos)]
         enc[:, :kc] = 0.0
@@ -173,7 +178,7 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
         dz_head = np.zeros((n * S, 4))
         for r in range(n):
             rows = slice(r * S, (r + 1) * S)
-            e = np.exp(-sig[rows] * dists)
+            e = np.exp(-sig[rows] * distc[r])
             alpha, c = 1.0 - e, e + 1e-10
             P, Ps, Ts, col = 1.0, [], [], np.zeros(3)
             for s in range(S):
@@ -198,7 +203,7 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
                 else:
                     d_P, carry = (carry if s < S - 1 else 0.0), d_w * alpha[s]
                 suf += d_P * Ps[s]
-                d_sigma = (d_w * Ts[s] - suf / c[s]) * dists[s] * (1.0 - alpha[s])
+                d_sigma = (d_w * Ts[s] - suf / c[s]) * distc[r, s] * (1.0 - alpha[s])
                 g = rgb[rows][s]
                 dz_head[r * S + s, :3] = dcol * alpha[s] * Ts[s] * g * (1.0 - g)
                 dz_head[r * S + s, 3] = d_sigma if sig[r * S + s] > 0 else 0.0
@@ -218,17 +223,21 @@ def bf16_round(x):
     return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).double().numpy()
 
 
+@pytest.mark.parametrize("depths", ["shared", "perray"])
 @pytest.mark.parametrize("compute_dtype,layers,width,mode,train", [
     ("float32", 3, 100, "loma", True),       # pw 128, ragged hidden width
     ("float32", 2, 130, "standard", False),  # pw 256, no hidden-to-hidden layer
     ("bfloat16", 4, 96, "standard", True),   # the flagship's rounding plan
     ("bfloat16", 3, 72, "loma", False),
 ])
-def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, train):
+def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, train,
+                                       depths):
     """The wide kernels' sequence, restated in numpy over pack_wide_params'
     stacks and unpacked by unpack_wide_grads, equals autograd of the plain
-    version: the train loss (#7) or (render * cot).sum() (#9).  Ray chunks
-    of 4 and split-K chunks of 7 rows make every sum cross a chunk edge."""
+    version: the train loss (#7, or #12 on per-ray depths) or
+    (render * cot).sum() (#9, or #11), at shared (S,) depths or jittered
+    per-ray (N, S) ones from the stratified sampler.  Ray chunks of 4 and
+    split-K chunks of 7 rows make every sum cross a chunk edge."""
     S, n = 5, 9
     cfg = NeRFConfig(num_layers=layers, filter_size=width, num_samples=S, mode=mode,
                      compute_dtype=compute_dtype)
@@ -237,6 +246,11 @@ def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, 
     kind, pw = fused_nerf._route(cfg, params)
     assert kind == "wide" and pw == (128 if width <= 128 else 256)
     o, d, t, dists, tgt = batch(rng, n, S)
+    if depths == "perray":
+        _, t_rays, d_rays = tcore.sample_along_rays(
+            torch.zeros(n, 3), torch.zeros(n, 3), 2.0, 6.0, S,
+            generator=torch.Generator().manual_seed(layers))
+        t, dists = t_rays.numpy(), d_rays.numpy()
     cot = tgt if train else rng.standard_normal((n, 3)).astype(np.float32)
     W, b = fused_nerf.pack_wide_params(params, pw, compute_dtype)
     assert W.shape == (layers, pw, pw) and W.dtype == fused_nerf._DTYPES[compute_dtype]
@@ -362,7 +376,7 @@ def test_flagship_init_density_alive():
     time)."""
     cfg = NeRFConfig.full()
     assert cfg.init == "nerf"
-    model = NeRFModel(cfg)
+    model = NeRFModel(cfg, device="cpu")
     model.init(torch.Generator().manual_seed(0))
     o, d, t, dists, tgt = (torch.from_numpy(x) for x in batch(np.random.default_rng(0), 8,
                                                               cfg.num_samples))
