@@ -54,8 +54,8 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
 12. times the image-fit step (``small`` at 256x256, ``hires`` at
     1024x1024, Adam 1e-3, two uniform targets cycled) through the kernels
     and the plain backend in turns, the device's busy share of the
-    ``small`` step, one 1024x1024 ``hires`` render, and each field
-    kernel's own call against its plain version;
+    ``small`` step (``utils.profiling.trace``), one 1024x1024 ``hires``
+    render, and each field kernel's own call against its plain version;
 13. holds the per-ray (N, S) depth instances of the six NeRF kernels
     (``*_rays``: the counterparts of #4-#6 and #10-#12) against their plain
     versions on jittered depths from ``NeRFModel.sample(generator=...)``,
@@ -74,13 +74,35 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     (eval PSNR >= 19 dB and 8 dB above step 0) and 30 ``full`` steps; 10
     ``NeRFModel.loss`` steps each for ``small`` and ``full``; and each
     per-ray kernel's own call against the shared-depth kernel and its
-    plain version.
+    plain version;
+15. runs narrow MLPs whose 64-ray block exceeds the narrow kernels' shared
+    memory (5x64 and 8x64 at S=64) through ``_route``'s wide f32 route, on
+    1037 rays and a 65,536-ray batch, against their plain versions (only
+    wide launches), and times the ``single64`` step on its narrow kernel
+    and forced through the wide route, in turns;
+16. runs ``make_video.main`` end to end (``--params`` with the fixture, 4
+    frames at 128x128), then ``--frames`` on numbered PNGs of them, and
+    says whether PIL and imageio import here;
+17. counts, as a diagnostic, the rays of the ``small`` batch (jittered and
+    uniform depths) whose render-backward dW/db misses the f64 plain
+    version through the kernel or through the plain version in f32, by
+    bisecting ray chunks, and lists their near-zero hidden
+    pre-activations;
+18. holds ``seg_scans`` (#15) against numpy, its plain version and the
+    library call at R=4/S=6, S=128 down to 1e-10 and the main path's
+    262,144 x 30 column (timed), and checks the SHA-256 digests of the
+    twelve NeRF entry points' outputs against those before their scans
+    moved onto ``seg_scan.cuh``;
+19. runs the grid-overhead sweep (#16,
+    ``lomanerf_tpu_torch.scripts.grid_overhead``) at 7,864,320 rows, then
+    ``grid_sum`` alone against its plain version and ``torch.sum``.
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
-(the image fit) and 14 (the stratified runs) are the main paths: each
-kernel's launch count is reset before its path and read after it.  The
-last lines are the card's name and power limit, a JSON line of the
-fourteen kernels (with each one's least time on the card for its work,
+(the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
+scans at the main path's column) and 19 (the sweep) are the main paths:
+each kernel's launch count is reset before its path and read after it.
+The last lines are the card's name and power limit, a JSON line of the
+sixteen kernels (with each one's least time on the card for its work,
 ``bound_ms``), and ``{"ok": true, "device": ...}``.  It exits
 non-zero, before printing any result, without a CUDA device or outside a
 checkout of the repository; any failing phase raises.
@@ -177,6 +199,10 @@ KERNELS.update({
     "nerf_wide_render_bwd_rays": (_CSRC + "nerf_wide_render_bwd.cu", _TPU + "223"),
 })
 PERRAY = tuple(name for name in KERNELS if name.endswith("_rays"))
+KERNELS.update({  # the last two TPU kernels: the seg-scan harness, the grid-overhead probe
+    "seg_scans": (_CSRC + "seg_scans.cu", "tests/test_pallas_kernels.py:46"),
+    "grid_sum": (_CSRC + "grid_sum.cu", "scripts/tpu_grid_overhead.py:36"),
+})
 SINGLE64_RAYS = 65536  # the bench's single64 rung (bench.py:334)
 STRAT_STEPS, STRAT_FULL_STEPS = 500, 30
 
@@ -263,6 +289,14 @@ def phase_trained_field(fx, model, normalized_intrinsics, psnr):
 
 def leaves_of(params):
     return [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+
+
+def cast_params(params, leaves, dt):
+    """``(params, leaves)`` in ``dt``: the f32 originals, or detached copies."""
+    if dt == torch.float32:
+        return params, leaves
+    prm = {k: [x.detach().to(dt) for x in v] for k, v in params.items()}
+    return prm, leaves_of(prm)
 
 
 def grads_close(got, want, what, rtol, atol_of):
@@ -1022,33 +1056,33 @@ def phase_field_driver(fit_image, fused_mlp, tmp):
     return counts
 
 
-def device_ms_per_call(fn, calls=20):
-    """Device time per call of ``fn`` over ``calls`` calls, by torch.profiler
-    (the sum of the kernels' and memsets' own device times), or None where
-    the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms_per_call(trace, fn, log_dir, calls=20):
+    """Device time per call of ``fn`` over ``calls`` calls, from the Chrome
+    trace ``utils.profiling.trace`` writes (torch.profiler: the sum of the
+    kernels', memsets' and copies' device times), or None where the trace
+    holds no device time.  The run's only profiler session: a second one in
+    the same process recorded no kernels on the card."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(log_dir):
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    total = sum(e.get("dur", 0.0) for e in events
+                if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
     return total / calls / 1e3 if total > 0 else None
 
 
 def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_coords,
-                       make_image_fit_step, mlp_layer_sizes, smi):
+                       make_image_fit_step, mlp_layer_sizes, trace, smi, tmp):
     """Phase 12: timing by CUDA events, median with min/max, kernel and plain
     backend in turns, in the shape of the JAX bench's fit rungs
     (``bench.py:116-178``): the whole image per step, ``Adam(1e-3)``, two
     uniform numpy-``default_rng(0)`` targets cycled; ``small`` at 256x256
-    (with the device's busy share of its step, by torch.profiler) and
-    ``hires`` at 1024x1024; then one 1024x1024 ``hires`` render and each
-    field kernel's own call against its plain version at that image.
-    Returns ``{kernel: (ms, plain_ms, bound_ms, bound_by)}``."""
+    (with the device's busy share of its step, from the trace of
+    ``utils.profiling.trace``) and ``hires`` at 1024x1024; then one
+    1024x1024 ``hires`` render and each field kernel's own call against its
+    plain version at that image.  Returns ``{kernel: (ms, plain_ms, bound_ms, bound_by)}``."""
     out = {}
     for name, cfg in field_configs(ImageFieldConfig).items():
         size, nf = cfg.img_size, cfg.num_encoding_functions
@@ -1089,9 +1123,9 @@ def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_
             print(f"  {label}: {spread(times[backend])}/step, {n_px / med * 1e3:.4e} px/s, "
                   f"{2 * macs / med / 1e9:.3f} TFLOP/s, {step_bound / med:.1%} of the f32 bound")
         if name == "small":
-            busy = device_ms_per_call(lambda: run("auto"))
+            busy = device_ms_per_call(trace, lambda: run("auto"), os.path.join(tmp, "trace"))
             med = statistics.median(times["auto"])
-            print("  kernel step, device busy (torch.profiler, 20 steps): " + (
+            print("  kernel step, device busy (utils.profiling.trace, 20 steps): " + (
                 "not measured (the profiler saw no device time)" if busy is None else
                 f"{busy:.4f} ms/step, {busy / med:.1%} of the median step"))
             continue
@@ -1254,9 +1288,7 @@ def phase_perray_kernels(fused_nerf, NeRFConfig, NeRFModel, seed=13):
                 def run(render, train, tv, dv, dt=torch.float32):
                     """(colours, (loss, *dW/db), render-backward dW/db) from
                     params and inputs in ``dt``."""
-                    prm = params if dt == torch.float32 else {
-                        k: [x.detach().to(dt) for x in v] for k, v in params.items()}
-                    lv = leaves if dt == torch.float32 else leaves_of(prm)
+                    prm, lv = cast_params(params, leaves, dt)
                     o_, d_, tv, dv, tgt_, cot_ = (x.to(dt) for x in (o, d, tv, dv, tgt, cot))
                     with torch.no_grad():
                         col = render(prm, o_, d_, tv, dv, cfg)
@@ -1345,9 +1377,7 @@ def phase_perray_batches(fused_nerf, NeRFConfig, NeRFModel):
 
         def loss_grads(loss_fn, dt=torch.float32):
             """(loss, *dW/db) of ``loss_fn`` on the batch, in ``dt``."""
-            prm = params if dt == torch.float32 else {
-                k: [x.detach().to(dt) for x in v] for k, v in params.items()}
-            lv = leaves if dt == torch.float32 else leaves_of(prm)
+            prm, lv = cast_params(params, leaves, dt)
             loss = loss_fn(prm, *(x.to(dt) for x in (o, d, t, dists, tgt)), cfg)
             return (loss.detach(), *torch.autograd.grad(loss, lv))
 
@@ -1752,6 +1782,541 @@ def nerf_bounds(NeRFConfig, mlp_layer_sizes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-19: narrow MLPs past shared memory on the wide kernels, the
+# video path, the ReLU-mask flips, the segmented scans (#15) with the
+# kernels' output digests, and the grid-overhead probe (#16)
+# ---------------------------------------------------------------------------
+
+
+def wide_route_configs(NeRFConfig):
+    """Narrow MLPs (padded width 64) whose 64-ray block of the narrow
+    gradient kernels exceeds a block's shared memory at S = 64: ``_route``
+    sends them to the wide kernels at pw = 128 in f32."""
+    return {f"{L}x64": NeRFConfig(num_layers=L, filter_size=64, num_samples=64)
+            for L in (5, 8)}
+
+
+def phase_wide_route(fused_nerf, NeRFConfig, seed=19):
+    """Phase 15: 5x64 and 8x64 at S = 64 through ``_route``'s wide route
+    (``("wide", 128)``, f32), on 1037 rays and on a 65,536-ray batch: the
+    colours, the train loss and dW/db and the render backward against their
+    plain versions, at phase 4's bounds (1037 rays: a random colour
+    cotangent; the batch: phase 4's bench-batch bounds, the render backward
+    under the sum-MSE loss as ``NeRFModel.loss`` runs it), a leaf that
+    misses against the plain version in f32 held to it in f64
+    (``either_grads_close``).  Every launch must be a wide one.  Returns the
+    worst |kernel - plain| per wide entry point."""
+    rng = np.random.default_rng(seed)
+    worst = dict.fromkeys(WIDE, 0.0)
+    reset_launches(fused_nerf)
+    for name, cfg in wide_route_configs(NeRFConfig).items():
+        params = seeded_params(rng, cfg)
+        leaves = leaves_of(params)
+        route = fused_nerf._route(cfg, params)
+        if route != ("wide", 128):
+            raise AssertionError(f"{name} at S={cfg.num_samples}: route {route}")
+        for n in (N_CHECK, SINGLE64_RAYS):
+            o, d, t, dists, tgt = bench_batch(rng, cfg, n)
+            cot = torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                               device="cuda")
+
+            def loss_grads(fn, dt=torch.float32):
+                prm, lv = cast_params(params, leaves, dt)
+                loss = fn(prm, *(x.to(dt) for x in (o, d, t, dists, tgt)), cfg)
+                return (loss.detach(), *torch.autograd.grad(loss, lv))
+
+            def render_grads(fn, dt=torch.float32):
+                prm, lv = cast_params(params, leaves, dt)
+                out = fn(prm, *(x.to(dt) for x in (o, d, t, dists)), cfg)
+                return torch.autograd.grad((out * cot.to(dt)).sum(), lv)
+
+            plain = fused_nerf.nerf_train_loss_reference
+            with torch.no_grad():
+                ck = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+                cp = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+            kk, kp = loss_grads(fused_nerf.nerf_train_loss), loss_grads(plain)
+            kp64 = lambda: loss_grads(plain, torch.float64)[1:]
+            if n == N_CHECK:
+                bk, bp = render_grads(fused_nerf.render_rays), \
+                    render_grads(fused_nerf.render_rays_reference)
+                bp64 = lambda: render_grads(fused_nerf.render_rays_reference, torch.float64)
+                bounds, loss_rtol, under = (GRAD_RTOL, grad_atol), 1e-5, "a random cotangent"
+            else:
+                bk, bp, bp64 = loss_grads(fused_nerf.nerf_loss)[1:], kp[1:], kp64
+                bounds = (1e-3, lambda w: 1e-4 * w.abs().max().item())
+                loss_rtol, under = 1e-4, "the sum-MSE loss"
+            torch.cuda.synchronize()
+            what = f"{name} S={cfg.num_samples} N={n}"
+            e_fwd = (ck - cp).abs().max().item()
+            torch.testing.assert_close(ck, cp, atol=ATOL, rtol=RTOL)
+            loss_err = abs(kk[0].item() - kp[0].item())
+            torch.testing.assert_close(kk[0], kp[0], rtol=loss_rtol, atol=0.0)
+            e_tr, f_tr = either_grads_close(kk[1:], kp[1:], kp64,
+                                            f"nerf_wide_train {what}", cfg, *bounds)
+            e_bw, f_bw = either_grads_close(bk, bp, bp64, f"nerf_wide_render_bwd {what}",
+                                            cfg, *bounds)
+            for k, e in (("nerf_wide_render_fwd", e_fwd), ("nerf_wide_train",
+                                                           max(e_tr, loss_err)),
+                         ("nerf_wide_render_bwd", e_bw)):
+                worst[k] = max(worst[k], e)
+            print(f"phase 15 {what} on the wide route {route}: max|kernel-plain| render "
+                  f"{e_fwd:.3e}; loss {kk[0].item():.6e} (|kernel-plain| {loss_err:.3e}); "
+                  f"dW,db train {e_tr:.3e}, render bwd under {under} {e_bw:.3e}"
+                  + f64_note("train", f_tr) + f64_note("render bwd", f_bw))
+            del kk, kp, bk, bp
+    moved = {k: v for k, v in fused_nerf.launches.items() if v}
+    if not all(moved.get(k) for k in WIDE) or set(moved) - set(WIDE):
+        raise AssertionError(f"phase 15: launches {dict(fused_nerf.launches)}: need the "
+                             "three wide entry points and no other")
+    print(f"phase 15 launches: {moved}")
+    return worst
+
+
+@contextlib.contextmanager
+def forced_wide(fused_nerf):
+    """Within the block, ``_route`` sends every MLP to the wide kernels at
+    pw = 128 (a patch of the module's private function, for timing only)."""
+    saved = fused_nerf._route
+    fused_nerf._route = lambda config, params: ("wide", 128)
+    try:
+        yield
+    finally:
+        fused_nerf._route = saved
+
+
+def phase_single64_wide(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_step,
+                        smi):
+    """Phase 15, timing: the ``single64`` train step (65,536 rays x 64, Adam
+    5e-4, bench.py-style batches, two cycled) on its narrow kernel and
+    forced through the wide f32 route (:func:`forced_wide`), from one init,
+    in turns.  ``single64`` keeps its narrow route; the ratio is recorded
+    for the kernels' redesign.  Returns ``(narrow ms, wide ms)``."""
+    cfg = NeRFConfig.single_view_64()
+    rng = np.random.default_rng(0)
+    batches = [bench_batch(rng, cfg, SINGLE64_RAYS) for _ in range(2)]
+    steps = {}
+    for kind in ("narrow", "wide"):
+        model = NeRFModel(cfg)
+        model.init(torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        steps[kind] = (model, make_single_chip_train_step(cfg, opt), [0], [])
+
+    def run(kind):
+        model, step, calls, losses = steps[kind]
+        with forced_wide(fused_nerf) if kind == "wide" else contextlib.nullcontext():
+            losses.append(step(model, *batches[calls[0] % 2]))
+        calls[0] += 1
+
+    run("narrow"), run("wide")  # warm-up
+    reset_launches(fused_nerf)
+    times = timed_turns({"narrow": lambda: run("narrow"), "wide": lambda: run("wide")}, 3)
+    if fused_nerf.launches["nerf_train"] != 6 or fused_nerf.launches["nerf_wide_train"] != 6:
+        raise AssertionError(f"single64 narrow / wide steps: launches {fused_nerf.launches}")
+    first = {k: steps[k][3][0].item() for k in steps}
+    if not all(np.isfinite([x.item() for k in steps for x in steps[k][3]])):
+        raise AssertionError("non-finite loss in the single64 steps")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"phase 15 single64 train step, {SINGLE64_RAYS} rays x 64 samples, Adam 5e-4, on "
+          f"{smi} (first-step loss narrow {first['narrow']:.6e}, wide f32 "
+          f"{first['wide']:.6e}): narrow kernel {spread(times['narrow'])}/step, forced "
+          f"through the wide f32 route (pw 128) {spread(times['wide'])}/step; wide / narrow "
+          f"= {med['wide'] / med['narrow']:.4f}")
+    return med["narrow"], med["wide"]
+
+
+def phase_video(make_video, read_png, write_png, render_orbit, NeRFModel, NeRFConfig,
+                load_params_npz, fused_nerf, tmp):
+    """Phase 16: ``make_video.main`` end to end on the card: ``--params``
+    with the trained fixture, 4 frames at 128x128 (through the render
+    kernel), then ``--frames`` on numbered PNGs of those frames (the ones
+    it wrote where imageio is missing, else written here).  Returns the
+    render kernel's launches."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "imageio")}
+    print(f"phase 16 on this machine: PIL importable {have['PIL']}, imageio importable "
+          f"{have['imageio']}")
+    reset_launches(fused_nerf)
+    out = os.path.join(tmp, "orbit.mp4")
+    wrote = make_video.main(["--params", FIXTURE, "--preset", "small", "--orbit", "4",
+                             "--img-size", "128", "--out", out])
+    n = fused_nerf.launches["nerf_render_fwd"]
+    if n < 4 or not os.path.exists(wrote):
+        raise AssertionError(f"make_video --params: {n} render launches, wrote {wrote}")
+    if os.path.isdir(wrote):
+        frames_dir = wrote
+    else:
+        p = load_params_npz(FIXTURE)
+        model = NeRFModel.from_numpy(NeRFConfig.small(), p["w"], p["b"], device="cuda")
+        frames_dir = os.path.join(tmp, "frames")
+        for i, frame in enumerate(render_orbit(model, 1.1106, 4.0, 4, 128)):
+            write_png(os.path.join(frames_dir, f"{i}.png"), frame)
+    frames = np.stack([read_png(os.path.join(frames_dir, f))
+                       for f in sorted(os.listdir(frames_dir))])
+    if frames.shape != (4, 128, 128, 3) or frames.std() < 1.0:
+        raise AssertionError(f"frames {frames.shape}, std {frames.std():.2f}")
+    again = make_video.main(["--frames", frames_dir, "--out", os.path.join(tmp, "again.mp4")])
+    if os.path.isdir(again):
+        back = np.stack([read_png(os.path.join(again, f)) for f in sorted(os.listdir(again))])
+        if not np.array_equal(back, frames):
+            raise AssertionError("make_video --frames changed the frames")
+    elif os.path.getsize(again) == 0:
+        raise AssertionError(f"make_video --frames wrote an empty {again}")
+    print(f"phase 16 make_video --params (4 frames at 128x128, {n} render launches) wrote "
+          f"{os.path.relpath(wrote, tmp)}; --frames on {len(frames)} PNGs wrote "
+          f"{os.path.relpath(again, tmp)}")
+    return n
+
+
+def pre_activations(params, o, d, t, nf, dt):
+    """Each hidden layer's pre-activation z = h W + b of one ray's samples
+    (``(S, width)`` per layer) in ``dt``, as the plain version computes
+    them."""
+    from lomanerf_tpu_torch.core import positional_encoding
+
+    prm = {k: [x.detach().to(dt) for x in v] for k, v in params.items()}
+    pts = o.to(dt)[None, :] + d.to(dt)[None, :] * t.to(dt)[:, None]
+    h = positional_encoding(pts, nf)
+    zs = []
+    for w, b in zip(prm["w"][:-1], prm["b"][:-1]):
+        z = h @ w + b
+        zs.append(z)
+        h = torch.relu(z)
+    return zs
+
+
+MASK_CHUNK, MASK_MAX_RAYS = 1024, 40  # bisection's first chunks; rays listed at most
+
+
+def phase_mask_flips(fused_nerf, NeRFConfig, NeRFModel):
+    """Phase 17 (a diagnostic: it gates nothing but running to its end): at
+    phase 13's ``small`` batch (262,144 rays, its params and jittered
+    depths) and at the same rays' uniform (S,) depths, the rays whose
+    render-backward dW/db under a random colour cotangent differs from the
+    plain version in f64 by more than phase 4's bound, through the kernel
+    or through the plain version in f32, found by bisecting ray chunks by
+    kernel launches (1,024-ray chunks, then halves).  For each ray (the
+    first 40 listed): both distances to f64, and the samples whose hidden
+    pre-activation lies within 1e-5 of the layer's |z| scale (its largest
+    |z| over the ray's samples, f64) of 0, with its value in the plain
+    version in f32 and in f64.  Returns ``{depths: counts}``."""
+    cfg = NeRFConfig.small()
+    params = seeded_params(np.random.default_rng(0), cfg)
+    leaves = leaves_of(params)
+    o, d, tu, du, _ = bench_batch(np.random.default_rng(0), cfg, BENCH_RAYS)
+    tj, dj = stratified_depths(NeRFModel(cfg), o, d, 21)
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((BENCH_RAYS, 3)),
+                       dtype=torch.float32, device="cuda")
+    nf = cfg.num_encoding_functions
+
+    def grads(fn, lo, hi, t, dists, dt=torch.float32):
+        prm, lv = cast_params(params, leaves, dt)
+        tt, dd = (t, dists) if t.ndim == 1 else (t[lo:hi], dists[lo:hi])
+        out = fn(prm, *(x.to(dt) for x in (o[lo:hi], d[lo:hi], tt, dd)), cfg)
+        return torch.autograd.grad((out * cot[lo:hi].to(dt)).sum(), lv)
+
+    def misses(got, want):
+        return any(((g.double() - w).abs() > GRAD_RTOL * w.abs()
+                    + GRAD_ATOL * max(1.0, w.abs().max().item())).any().item()
+                   for g, w in zip(got, want))
+
+    def far(got, want):
+        """max over leaves of |got - want| / max|want|."""
+        return max(((g.double() - w).abs().max() / w.abs().max().clamp(min=1e-300)).item()
+                   for g, w in zip(got, want))
+
+    counts = {}
+    for label, t, dists in (("jittered", tj, dj), ("uniform", tu, du)):
+        checks, flagged = 0, []
+        todo = [(lo, min(lo + MASK_CHUNK, BENCH_RAYS))
+                for lo in range(0, BENCH_RAYS, MASK_CHUNK)]
+        while todo:
+            lo, hi = todo.pop()
+            k = grads(fused_nerf.render_rays, lo, hi, t, dists)
+            w32 = grads(fused_nerf.render_rays_reference, lo, hi, t, dists)
+            w64 = grads(fused_nerf.render_rays_reference, lo, hi, t, dists, torch.float64)
+            checks += 1
+            miss_k, miss_32 = misses(k, w64), misses(w32, w64)
+            if not (miss_k or miss_32):
+                continue
+            if hi - lo == 1:
+                flagged.append((lo, miss_k, miss_32, far(k, w64), far(w32, w64)))
+            else:
+                mid = (lo + hi) // 2
+                todo += [(mid, hi), (lo, mid)]
+        flagged.sort()
+        near_total = apart = 0
+        for i, (ray, miss_k, miss_32, dk, d32) in enumerate(flagged):
+            tr = t if t.ndim == 1 else t[ray]
+            z32 = pre_activations(params, o[ray], d[ray], tr, nf, torch.float32)
+            z64 = pre_activations(params, o[ray], d[ray], tr, nf, torch.float64)
+            near = []
+            for layer, (a, b) in enumerate(zip(z32, z64)):
+                scale = b.abs().max().item()
+                for s, j in torch.nonzero(b.abs() <= 1e-5 * scale).tolist():
+                    near.append((s, layer, j, a[s, j].item(), b[s, j].item()))
+            near_total += len(near)
+            apart += sum((a > 0) != (b > 0) for *_, a, b in near)
+            if i < MASK_MAX_RAYS:
+                who = "kernel and plain f32" if miss_k and miss_32 else (
+                    "kernel" if miss_k else "plain f32")
+                print(f"phase 17 {label} ray {ray}: {who} off f64; |kernel-f64| {dk:.2e}, "
+                      f"|plain f32-f64| {d32:.2e} of the leaf's largest entry; hidden "
+                      f"pre-activations within 1e-5 of the layer's scale of 0 (sample, "
+                      f"layer, unit, f32, f64): "
+                      + (", ".join(f"({s}, {layer}, {j}, {a:+.3e}, {b:+.3e})"
+                                   for s, layer, j, a, b in near) or "none"))
+        n_k = sum(f[1] for f in flagged)
+        n_32 = sum(f[2] for f in flagged)
+        counts[label] = {"kernel_off_f64": n_k, "plain_f32_off_f64": n_32,
+                         "near_zero": near_total, "signs_apart_f32_f64": apart,
+                         "checks": checks}
+        print(f"phase 17 {label} depths, {BENCH_RAYS} rays ({checks} chunk checks): dW/db off "
+              f"the f64 plain version by more than phase 4's bound on {n_k} rays through the "
+              f"kernel, on {n_32} through the plain version in f32; {near_total} near-zero "
+              f"hidden pre-activations on those rays, {apart} with f32 and f64 signs apart")
+    return counts
+
+
+SCAN_TINY = float(np.finfo(np.float32).tiny)  # smallest normal f32, 1.2e-38
+SCAN_RTOL = 1e-5  # test_pallas_kernels.py:57-66's bound
+
+
+def scan_inputs(rng, R, S, kind):
+    """An f32 column of R segments of S: uniform [0.5, 1.5) (the JAX test),
+    or in [1e-10, 1] (``10^(-10 u^6)``: mostly near 1, about one value in
+    nine below 1e-5, as c = exp(-sigma dist) + 1e-10 runs)."""
+    u = rng.random((R, S))
+    x = u + 0.5 if kind == "unit" else 10.0 ** (-10.0 * u ** 6)
+    return x.astype(np.float32)
+
+
+def scan_wants(x, fill):
+    """numpy f64 versions of the three scans of an (R, S) f32 array."""
+    x64 = x.astype(np.float64)
+    return {"cumprod": np.cumprod(x64, axis=1),
+            "suffix": np.cumsum(x64[:, ::-1], axis=1)[:, ::-1],
+            "shift": np.concatenate([np.full((x.shape[0], 1), fill), x64[:, :-1]], axis=1)}
+
+
+def scan_close(got, want, what):
+    """Relative error of ``got`` against ``want`` where ``want`` is a normal
+    f32 (both at most 1.2e-38 elsewhere: a product that underflows);
+    raises above SCAN_RTOL."""
+    g = got.double().cpu().numpy() if torch.is_tensor(got) else got.astype(np.float64)
+    w = want.double().cpu().numpy() if torch.is_tensor(want) else want
+    normal = np.abs(w) >= SCAN_TINY
+    rel = float((np.abs(g - w)[normal] / np.abs(w)[normal]).max()) if normal.any() else 0.0
+    if rel > SCAN_RTOL or np.any(np.abs(g[~normal]) > SCAN_TINY):
+        raise AssertionError(f"{what}: relative error {rel:.3e} (bound {SCAN_RTOL}), or a "
+                             "value above 1.2e-38 where the reference underflows")
+    return rel
+
+
+def phase_seg_scans(scans, smi, seed=29):
+    """Phase 18: ``seg_scans`` (#15) through ``scans.seg_*`` against numpy
+    (f64 of the same f32 inputs), its plain version and the library call:
+    cumprod and suffix sum within rtol 1e-5 where the f64 value is a normal
+    f32 (both at most 1.2e-38 where the product underflows), the shift
+    exact, at R = 4, S = 6 on [0.5, 1.5) (the JAX test's), fill 1 and 0;
+    R = 1024, S = 128 on [1e-10, 1]; and the main path's 262,144 x 30
+    column, then timed there (kernel, plain version, library call in
+    turns), its launches the main path's.  Returns ``(worst |kernel -
+    plain|, launches, {op: (ms, plain_ms, library_ms)}, bound)``."""
+    rng = np.random.default_rng(seed)
+    fns = {"cumprod": (scans.seg_inclusive_cumprod, scans.seg_inclusive_cumprod_reference),
+           "suffix": (scans.seg_suffix_sum, scans.seg_suffix_sum_reference),
+           "shift": (scans.seg_shift_down, scans.seg_shift_down_reference)}
+    worst = 0.0
+    main = None
+    for R, S, kind, fill in ((4, 6, "unit", 1.0), (4, 6, "unit", 0.0),
+                             (1024, 128, "tiny", 1.0), (BENCH_RAYS, 30, "tiny", 1.0)):
+        x = scan_inputs(rng, R, S, kind)
+        col = torch.from_numpy(x).cuda().reshape(-1, 1)
+        wants = scan_wants(x, fill)
+        line = []
+        for op, (kernel, plain) in fns.items():
+            args = (S, fill) if op == "shift" else (S,)
+            k1, k2, p = kernel(col, *args), kernel(col, *args), plain(col, *args)
+            torch.cuda.synchronize()
+            if k1.shape != col.shape or not torch.equal(k1, k2):
+                raise AssertionError(f"seg_scans {op} R={R} S={S}: shape {tuple(k1.shape)} "
+                                     "or repeat launches differ")
+            got = k1.reshape(R, S)
+            if op == "shift":
+                exact = np.array_equal(got.cpu().numpy(), wants[op].astype(np.float32)) \
+                    and torch.equal(k1, p)
+                if not exact:
+                    raise AssertionError(f"seg_shift_down R={R} S={S} fill={fill}: not exact")
+                line.append("shift exact")
+                continue
+            e_np = scan_close(got, wants[op], f"seg_scans {op} R={R} S={S} vs numpy")
+            e_pl = scan_close(k1, p, f"seg_scans {op} R={R} S={S} vs its plain version")
+            worst = max(worst, (k1 - p).abs().max().item())
+            line.append(f"{op} rel err {e_np:.2e} vs numpy f64, {e_pl:.2e} vs plain")
+        under = int((wants["cumprod"] < SCAN_TINY).sum())
+        print(f"phase 18 seg_scans R={R} S={S} on {kind} values, fill {fill}: "
+              + "; ".join(line) + f"; repeat launches bit-identical ({under} products "
+              "underflow)")
+        if R == BENCH_RAYS:
+            main = (col, S)
+
+    col, S = main
+    view = col.reshape(-1, S)
+    library = {"cumprod": lambda: torch.cumprod(view, dim=1),
+               "suffix": lambda: torch.flip(torch.cumsum(torch.flip(view, [1]), dim=1), [1])}
+    scans.launches["seg_scans"] = 0
+    timing = {}
+    for op, (kernel, plain) in fns.items():
+        args = (S, 1.0) if op == "shift" else (S,)
+        turns = {"plain": lambda: plain(col, *args), "kernel": lambda: kernel(col, *args)}
+        if op in library:
+            turns["library"] = library[op]
+        for fn in turns.values():
+            fn()  # warm-up
+        ts = timed_turns(turns, 5)
+        timing[op] = tuple(statistics.median(ts[k]) if k in ts else None
+                           for k in ("kernel", "plain", "library"))
+        print(f"phase 18 {op} at the main path's {BENCH_RAYS} x {S} column, on {smi}: "
+              + ", ".join(f"{k} {spread(v)}" for k, v in ts.items()))
+    launches = scans.launches["seg_scans"]
+    nbytes = 2 * col.numel() * 4
+    kb = bound(col.numel() / 2, PEAK_F32, nbytes)  # one operation per value
+    print(f"phase 18 seg_scans launches on the main path: {launches}; bound {kb[0]:.4f} ms "
+          f"({kb[1]}: {nbytes / 1e6:.1f} MB read and written), cumprod at "
+          f"{kb[0] / timing['cumprod'][0]:.1%} of it")
+    return worst, launches, timing, kb
+
+
+NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "nerf_wide_")
+               for k in ("render_fwd", "train", "render_bwd"))
+# SHA-256 of the twelve NeRF entry points' output bytes (kernel_digests) from
+# the kernels before their scans moved onto seg_scan.cuh; equal digests
+# after the move show it changed no bit
+PRE_LIFT_DIGESTS = {
+    "nerf_render_fwd":
+        "64ba1c0f42400d315d53444f6e0d3757183e1f452497a0006831db6639d28aff",
+    "nerf_train":
+        "fc4c85999f1f3941e3a61e0d181ba8d1a81c95687796309d5b16466efe1ba3ed",
+    "nerf_render_bwd":
+        "7e3e623e002bd74905a6ec696bfe97773ee8101c4b43a9d16a11809782e4fd5d",
+    "nerf_wide_render_fwd":
+        "cae4aee9c7bcb142ee574ceec9ad3de5603b31c08a848f7321b20ddfc188ade4",
+    "nerf_wide_train":
+        "6340eca60909ce631c29d4c8b29142afe1b7d7e5c1162e3cc76d9dd5fc2b4532",
+    "nerf_wide_render_bwd":
+        "9b5c38f0aad3c9041942595268b46fed3e9e6aae4c0211bdfe301915a3870ce9",
+    "nerf_render_fwd_rays":
+        "b28cdecd22d6d86784a68059e14aa54b1a1a54ea8bf1d2a96b6dc10b9a090d3b",
+    "nerf_train_rays":
+        "7e42c0699bb65afc0677bda6c03a06fa22bb746f76d1a20d3237f499a6f04820",
+    "nerf_render_bwd_rays":
+        "e18229536c2632fa4e91045d8e5b85f9fdffaacfb778ba7b9a4860f10c9c9060",
+    "nerf_wide_render_fwd_rays":
+        "e3ba605aa78eaf0b57608f6fcffcdef7eee5b2cc648fbaa5ecd5296fbf2975cc",
+    "nerf_wide_train_rays":
+        "9fae710293daea3a9ae043618baa31fbb99dad24a71ff2ed4e5c717f62a5641e",
+    "nerf_wide_render_bwd_rays":
+        "35a5f848581e0485550a88f32b09f284d1efeeaddb76502cef257118c46c3572",
+}
+
+
+def kernel_digests(fused_nerf, NeRFConfig, seed=23):
+    """SHA-256 of the output bytes of each NeRF entry point (#1-#12) at fixed
+    seeded inputs: phase 1 and 4's MLPs (``small``, ``single64``) and phase
+    7's (``full``, the f32 4x128/S=32) in both modes on 1037 rays, at uniform
+    (S,) depths and at numpy-jittered (N, S) ones; the colours, the train
+    loss and dW/db, and the render backward's dW/db for a fixed cotangent."""
+    import hashlib
+
+    rng = np.random.default_rng(seed)
+    digests = {name: hashlib.sha256() for name in NERF12}
+    f32 = NeRFConfig(num_layers=4, filter_size=128, num_samples=32)
+    for base in (NeRFConfig.small(), NeRFConfig.single_view_64(), NeRFConfig.full(), f32):
+        for mode in ("loma", "standard"):
+            cfg = dataclasses.replace(base, mode=mode)
+            params = seeded_params(rng, cfg)
+            leaves = leaves_of(params)
+            o, d = seeded_rays(rng, N_CHECK)
+            tgt = torch.tensor(rng.random((N_CHECK, 3)), dtype=torch.float32, device="cuda")
+            cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
+                               device="cuda")
+            S = cfg.num_samples
+            tj = np.sort(rng.uniform(cfg.near, cfg.far, (N_CHECK, S)), axis=1)
+            dj = np.concatenate([np.diff(tj, axis=1), np.full((N_CHECK, 1), 1e8)], axis=1)
+            jit = tuple(torch.tensor(x, dtype=torch.float32, device="cuda") for x in (tj, dj))
+            pre = "nerf_wide_" if fused_nerf._route(cfg, params)[0] == "wide" else "nerf_"
+            for (t, dists), suf in ((uniform_depths(cfg), ""), (jit, "_rays")):
+                with torch.no_grad():
+                    col = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+                loss = fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, cfg)
+                train = (loss.detach(), *torch.autograd.grad(loss, leaves))
+                back = torch.autograd.grad(
+                    (fused_nerf.render_rays(params, o, d, t, dists, cfg) * cot).sum(), leaves)
+                for k, outs in (("render_fwd", (col,)), ("train", train),
+                                ("render_bwd", back)):
+                    for x in outs:
+                        digests[pre + k + suf].update(x.detach().cpu().numpy().tobytes())
+    return {name: h.hexdigest() for name, h in digests.items()}
+
+
+def phase_digests(fused_nerf, NeRFConfig):
+    """Phase 18, the lift check: :func:`kernel_digests` against
+    ``PRE_LIFT_DIGESTS``."""
+    got = kernel_digests(fused_nerf, NeRFConfig)
+    for name, h in got.items():
+        print(f"phase 18 digest {name}: {h}")
+    if PRE_LIFT_DIGESTS and got != PRE_LIFT_DIGESTS:
+        apart = [k for k in got if got[k] != PRE_LIFT_DIGESTS.get(k)]
+        raise AssertionError(f"output digests differ from the kernels before the scans' "
+                             f"lift onto seg_scan.cuh: {apart}")
+    print("phase 18 digests of #1-#12 equal to those before the lift"
+          if PRE_LIFT_DIGESTS else "phase 18 digests printed (no earlier ones to compare)")
+    return got
+
+
+GRID_ROWS, GRID_BLOCK = 7864320, 3840  # 262,144 rays x 30; the JAX sweep's first block
+
+
+def phase_grid_overhead(probe, grid_overhead, smi):
+    """Phase 19: the grid-overhead probe (#16).  Its main path is the
+    sweep script's entry point, ``grid_overhead.main`` at 7,864,320 rows
+    and 8 reps (every sum within 1e-6 of the f64 sum of |x|, repeats
+    bit-identical: the script checks both); then ``grid_sum`` alone at the
+    sweep's first block against its f64 sum on the card, its plain version
+    and ``torch.sum`` in turns.  Returns ``(|kernel - plain|, launches,
+    (ms, plain_ms, library_ms), bound, sweep)``."""
+    probe.launches["grid_sum"] = 0
+    sweep = grid_overhead.main(["--rows", str(GRID_ROWS), "--reps", "8"])
+    launches = probe.launches["grid_sum"]
+    if len(sweep["A"]) != 5 or len(sweep["B"]) != 5 or not launches:
+        raise AssertionError(f"grid_overhead: {len(sweep['A'])} + {len(sweep['B'])} sweep "
+                             f"lines, {launches} launches")
+    x = torch.randn((8, GRID_ROWS), generator=torch.Generator("cuda").manual_seed(0),
+                    device="cuda")
+    ref64, abs64 = x.double().sum().item(), x.double().abs().sum().item()
+    k = [probe.grid_sum(x, GRID_BLOCK) for _ in range(3)]
+    p = probe.grid_sum_reference(x, GRID_BLOCK)
+    if not all(torch.equal(k[0], y) for y in k[1:]):
+        raise AssertionError("grid_sum: repeat launches differ")
+    err64 = abs(k[0].item() - ref64) / abs64
+    if err64 > 1e-6 or abs(p.item() - ref64) / abs64 > 1e-6:
+        raise AssertionError(f"grid_sum {k[0].item()} / plain {p.item()} vs f64 {ref64}")
+    err = abs(k[0].item() - p.item())
+    ts = timed_turns({"plain": lambda: probe.grid_sum_reference(x, GRID_BLOCK),
+                      "kernel": lambda: probe.grid_sum(x, GRID_BLOCK),
+                      "library": lambda: torch.sum(x)}, 5)
+    med = tuple(statistics.median(ts[n]) for n in ("kernel", "plain", "library"))
+    kb = bound(x.numel() / 2, PEAK_F32, x.numel() * 4)  # one add per value
+    print(f"phase 19 grid_sum alone, (8, {GRID_ROWS}) in {GRID_BLOCK}-column tiles, on {smi}: "
+          f"kernel {spread(ts['kernel'])}, plain {spread(ts['plain'])}, torch.sum "
+          f"{spread(ts['library'])}; bound {kb[0]:.4f} ms ({kb[1]}), {kb[0] / med[0]:.1%} of "
+          f"it; |kernel-f64|/sum|x| {err64:.2e}, |kernel-plain| {err:.3e}; launches on the "
+          f"main path (the sweep) {launches}")
+    return err, launches, med, kb, sweep
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -1780,11 +2345,14 @@ def main() -> None:
     from lomanerf_tpu_torch.data import synthetic_views
     from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
                                            NeRFModel, image_grid_coords)
-    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf
-    from lomanerf_tpu_torch.train import fit_image, train_nerf
+    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf, probe, scans
+    from lomanerf_tpu_torch.scripts import grid_overhead
+    from lomanerf_tpu_torch.train import fit_image, make_video, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
+    from lomanerf_tpu_torch.train.logging_utils import read_png, write_png
     from lomanerf_tpu_torch.train.make_video import render_orbit
     from lomanerf_tpu_torch.train.steps import make_image_fit_step, make_single_chip_train_step
+    from lomanerf_tpu_torch.utils import trace
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1902,9 +2470,10 @@ def main() -> None:
         launches.update(phase_field_driver(fit_image, fused_mlp, tmp))
 
     # ---- phase 12: image-fit timing ----
-    field_timing = phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel,
-                                      image_grid_coords, make_image_fit_step,
-                                      mlp_layer_sizes, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        field_timing = phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel,
+                                          image_grid_coords, make_image_fit_step,
+                                          mlp_layer_sizes, trace, smi, tmp)
     timing.update({k: v[:2] for k, v in field_timing.items()})
     bounds = nerf_bounds(NeRFConfig, mlp_layer_sizes)
     bounds.update({k: v[2:] for k, v in field_timing.items()})
@@ -1926,13 +2495,40 @@ def main() -> None:
     timing.update({k: v[:2] for k, v in perray_timing.items()})
     bounds.update({k: v[2:] for k, v in perray_timing.items()})
 
+    # ---- phase 15: narrow MLPs past shared memory, on the wide kernels ----
+    for k, e in phase_wide_route(fused_nerf, NeRFConfig).items():
+        worst[k] = max(worst[k], e)
+    phase_single64_wide(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_step, smi)
+
+    # ---- phase 16: the video path (make_video --params, then --frames) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_video(make_video, read_png, write_png, render_orbit, NeRFModel, NeRFConfig,
+                    load_params_npz, fused_nerf, tmp)
+
+    # ---- phase 17: the ReLU-mask flips at the small batch (a diagnostic) ----
+    phase_mask_flips(fused_nerf, NeRFConfig, NeRFModel)
+
+    # ---- phase 18: the segmented scans (#15), and #1-#12's output digests ----
+    library = {}
+    worst["seg_scans"], launches["seg_scans"], scan_timing, bounds["seg_scans"] = \
+        phase_seg_scans(scans, smi)
+    timing["seg_scans"], library["seg_scans"] = scan_timing["cumprod"][:2], \
+        scan_timing["cumprod"][2]
+    phase_digests(fused_nerf, NeRFConfig)
+
+    # ---- phase 19: the grid-overhead probe (#16) ----
+    worst["grid_sum"], launches["grid_sum"], grid_ms, bounds["grid_sum"], _ = \
+        phase_grid_overhead(probe, grid_overhead, smi)
+    timing["grid_sum"], library["grid_sum"] = grid_ms[:2], grid_ms[2]
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": worst[name],
         "ms": timing[name][0], "plain_ms": timing[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": None,  # no one PyTorch call computes any of these fused functions
+        # one PyTorch call computes the same function only for the scans and the sum
+        "library_ms": library.get(name),
     } for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

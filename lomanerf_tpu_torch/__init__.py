@@ -14,9 +14,24 @@ is easy to find; public functions keep its layouts (params
 * ``train``  — optimizers, the train step, checkpoints, logging, the
                ``train_nerf`` and ``fit_image`` drivers and the orbit
                renderer
+* ``utils``  — profiling hooks (``trace``, ``device_memory_stats``)
 
 Tensors are made on the device of a function's inputs, or on the ``device``
-it is given; randomness comes from a ``torch.Generator`` argument.
+it is given; randomness comes from a ``torch.Generator`` argument.  The
+core functions the JAX package's top level exports are exported here too.
 """
 
 __version__ = "0.1.0"
+
+from lomanerf_tpu_torch.core import (  # noqa: F401
+    accumulate_color,
+    get_rays,
+    init_mlp,
+    mlp_apply,
+    positional_encoding,
+    psnr,
+    render_weights,
+    sample_along_rays,
+    stratified_ray_offsets,
+    sum_mse,
+)

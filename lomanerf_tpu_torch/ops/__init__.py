@@ -6,5 +6,8 @@ its backward (``csrc/nerf_render_bwd.cu``) and the fused train loss
 ``csrc/nerf_grad.cuh``, and the wide flagship kernels
 (``csrc/nerf_wide_*``); ``fused_mlp`` — the 2D image field's forward
 (``csrc/field_fwd.cu``) and its backward (``csrc/field_bwd.cu``), sharing
-``csrc/field_common.cuh``; ``build`` — nvcc at first use, bound with ctypes.
+``csrc/field_common.cuh``; ``scans`` — the segmented scans every NeRF
+kernel composites with (``csrc/seg_scan.cuh``), alone
+(``csrc/seg_scans.cu``); ``probe`` — the grid-overhead probe's tile sum
+(``csrc/grid_sum.cu``); ``build`` — nvcc at first use, bound with ctypes.
 """

@@ -66,6 +66,12 @@ SIGNATURES = {
     "field_bwd": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
     # (L, in_dim, width, num_functions, out_ch) -> blocks the card holds at once
     "field_bwd_blocks": [_I] * 5,
+    # the segmented scans (seg_scans.cu, steps in seg_scan.cuh): (x, out,
+    #  n_rows, S, op: 0 cumprod / 1 suffix sum / 2 shift down, fill, stream)
+    "seg_scans": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
+    # the grid-overhead probe (grid_sum.cu): (x, ld, cols, block, partials,
+    #  out, dummies, n_dummy, stream); x (8, cols) with row stride ld
+    "grid_sum": [_P, _LL, _I, _I, _P, _P, _P, _I, _P],
 }
 
 

@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "seg_scan.cuh"
+
 namespace nerf {
 namespace {  // each kernel source gets its own copy
 
@@ -196,17 +198,18 @@ __device__ __forceinline__ void sample_alpha(float raw_sigma, float dist,
   *c = e + 1e-10f;
 }
 
-// Advance the running product P of c over the samples seen so far and
-// return this sample's transmittance: loma mode T[0] = 1 and T[s] = P after
-// the multiply (inclusive); standard mode T[s] = P before it (exclusive).
+// Advance the running product P of c over the samples seen so far (the
+// inclusive cumprod's step, seg_scan.cuh) and return this sample's
+// transmittance: loma mode T[0] = 1 and T[s] = P after the multiply
+// (inclusive); standard mode T[s] = P before it (the shift down, fill 1).
 __device__ __forceinline__ float transmittance(float* P, float c, int s,
                                                int loma) {
   if (loma) {
-    *P *= c;
+    seg::cumprod_step(*P, c);
     return (s == 0) ? 1.0f : *P;
   }
   const float T = *P;
-  *P *= c;
+  seg::cumprod_step(*P, c);
   return T;
 }
 

@@ -236,7 +236,7 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
       d_P = (s < S - 1) ? carry : 0.0f;
       carry = d_w * alpha;
     }
-    suf = fmaf(d_P, Ps, suf);
+    seg::suffix_step(suf, d_P, Ps);  // the suffix sum's step (seg_scan.cuh)
     const float d_c = suf / c;
     const float d_alpha = d_w * Ts - d_c;
     const float d_sigma = d_alpha * ds[s] * (1.0f - alpha);

@@ -28,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "seg_scan.cuh"
+
 namespace wide {
 namespace {  // each kernel source gets its own copy
 
@@ -185,14 +187,14 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
   float col[3] = {0.0f, 0.0f, 0.0f};
   if (lane == 0) {
     float P = 1.0f;
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < S; ++s) {  // the scans' steps: seg_scan.cuh
       float T;
       if (loma) {
-        P *= cc[s];
+        seg::cumprod_step(P, cc[s]);
         T = (s == 0) ? 1.0f : P;
       } else {
         T = P;
-        P *= cc[s];
+        seg::cumprod_step(P, cc[s]);
       }
       Pp[s] = P;
       const float w = alp[s] * T;
@@ -238,7 +240,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
         d_P = (s < S - 1) ? carry : 0.0f;
         carry = d_w * alpha;
       }
-      suf = fmaf(d_P, Pp[s], suf);
+      seg::suffix_step(suf, d_P, Pp[s]);
       const float d_alpha = d_w * Ts - suf / cc[s];
       aux[s] = d_alpha * dr[s] * (1.0f - alpha);  // d_sigma
       alp[s] = alpha * Ts;  // alpha_s is read only here: it becomes w_s

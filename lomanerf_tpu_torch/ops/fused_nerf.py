@@ -33,7 +33,13 @@ one-warp-per-ray compositing kernel:
   ``_WideTrainLoss``.
 
 Dispatch follows the JAX package's rule (:func:`_route`) for the width and
-the depths' shape for the instance.  On CUDA tensors
+the depths' shape for the instance.  A narrow MLP whose block does not fit
+one block's 227 KB of shared memory (the gradient kernels keep 64 rays'
+activations and d_z there beside the packed params: e.g. 5x64 at S = 64,
+~273 KB; ``single64``, 4x64 at S = 64, takes ~208 KB and stays narrow) runs
+on the wide kernels at pw = 128 in f32, as the JAX package sends it to its
+packed wide kernel at pw = 128; its forward, backward and train loss all
+take that route.  On CUDA tensors
 each function launches its kernel or raises, naming the ROADMAP item of
 what it does not take; on CPU tensors it runs the plain PyTorch version
 (:func:`render_rays_reference` under autograd).  No case falls back quietly
@@ -84,11 +90,42 @@ def _padded_width(config, params: Params) -> int:
     return _round_up(max(max(widths), 8), 8)
 
 
-def _route(config, params: Params):
+def _narrow_fits(config, params: Params, width: int) -> bool:
+    """Whether one block of the narrow kernels holds this MLP in shared
+    memory: the render forward's packed params and the gradient kernels'
+    64-ray block (:func:`grad_smem_bytes`), both counted with the shared
+    ``(S,)`` depths' tail (the larger packing), so that an MLP takes one
+    route whatever its depth source."""
+    G = grad_floats(params, width)
+    pk_floats = G + _round_up(2 * config.num_samples, 4)
+    grad = grad_smem_bytes(pk_floats, G, config.num_samples, len(params["w"]),
+                           config.in_channels, width)
+    return max(4 * pk_floats, grad) <= _SMEM_LIMIT
+
+
+def _plan(config, params: Params):
     """``("narrow", W)`` with W the narrow kernels' register width (32 or
     64), or ``("wide", pw)`` with pw the wide kernels' padded width (a
-    multiple of 128), after checking that a kernel takes this case; raises
-    for the cases none takes.  The JAX rule: narrow if ps <= 64, else wide."""
+    multiple of 128).  The JAX rule: narrow if ps <= 64 and the narrow
+    kernels' tile fits the chip's fast memory (here one block's shared
+    memory), else wide; a narrow MLP that does not fit (e.g. 5x64 at
+    S = 64) goes to the wide kernels at pw = 128, as the JAX package sends
+    it to the packed wide kernel at pw = 128 when its T-kernel tile misses
+    VMEM."""
+    ps = _padded_width(config, params)
+    if ps <= MAX_WIDTH:
+        hidden = max((w.shape[1] for w in params["w"][:-1]), default=0)
+        width = 32 if hidden <= 32 else 64
+        if _narrow_fits(config, params, width):
+            return "narrow", width
+    return "wide", _round_up(max(ps, 128), 128)
+
+
+def _route(config, params: Params):
+    """:func:`_plan` after checking that a kernel takes this case; raises
+    for the cases none takes.  The render forward, its backward and the
+    train loss all take this route, so a backward always runs on the
+    family of its forward."""
     ws = params["w"]
     in_dim = 3 * (1 + 2 * config.num_encoding_functions)
     if ws[0].shape[0] != in_dim:
@@ -98,13 +135,13 @@ def _route(config, params: Params):
         raise ValueError("render needs an rgba head (>= 4 output channels)")
     hidden = max((w.shape[1] for w in ws[:-1]), default=0)
     bf16 = getattr(config, "compute_dtype", "float32") == "bfloat16"
-    ps = _padded_width(config, params)
-    if ps <= MAX_WIDTH:
-        if bf16:
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' on a narrow MLP (padded width <= 64) "
-                "has no CUDA kernel yet (ROADMAP queue 2, A4)")
-        return "narrow", 32 if hidden <= 32 else 64
+    if bf16 and _padded_width(config, params) <= MAX_WIDTH:
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' on a narrow MLP (padded width <= 64) "
+            "has no CUDA kernel yet (ROADMAP queue 2, A4)")
+    kind, width = _plan(config, params)
+    if kind == "narrow":
+        return kind, width
     if hidden > MAX_WIDE_WIDTH:
         raise NotImplementedError(
             f"layer width {hidden} > {MAX_WIDE_WIDTH} has no CUDA kernel yet "
@@ -112,7 +149,7 @@ def _route(config, params: Params):
     if len(ws) < 2:
         raise NotImplementedError(
             "a one-layer wide MLP has no CUDA kernel yet (ROADMAP queue 2, C4)")
-    return "wide", _round_up(max(ps, 128), 128)
+    return kind, width
 
 
 def _blocks(params: Params, width: int):
@@ -212,7 +249,8 @@ def _launch(pk, t_vals, dists, origins, directions, config, L, width) -> torch.T
     if pk.numel() * 4 > _SMEM_LIMIT:
         raise NotImplementedError(
             f"params need {pk.numel() * 4} B of shared memory, over the "
-            f"{_SMEM_LIMIT} B a block has (streamed weights: a later PR)")
+            f"{_SMEM_LIMIT} B a block has; render_rays sends such MLPs to the "
+            "wide kernels (ROADMAP queue 2, A5)")
     suffix = _suffix(t_vals)
     entry = "nerf_render_fwd" + suffix
     ptrs = (t_vals.data_ptr(), dists.data_ptr()) if suffix else ()
@@ -245,7 +283,8 @@ def _launch_grad(entry: str, pk, G, t_vals, dists, origins, directions, cot, con
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"{entry} needs {smem} B of shared memory per block, over the "
-            f"{_SMEM_LIMIT} B a block has (streamed weights: a later PR)")
+            f"{_SMEM_LIMIT} B a block has; the losses and the render backward "
+            "send such MLPs to the wide kernels (ROADMAP queue 2, A5)")
     n_blocks = -(-n // GRAD_THREADS)
     partials = torch.empty((max(n_blocks, 1), G + 1), dtype=torch.float32,
                            device=origins.device)
@@ -368,10 +407,10 @@ def render_chunk_rays(config, params: Params) -> int:
     """Default rays per ``render_rays`` call of a frame: one activation
     buffer of about ``WIDE_BUFFER_BYTES`` (the kernel's for a wide MLP, the
     plain version's f32 one for a narrow one), at most 2^20."""
-    ps = _padded_width(config, params)
-    if ps > MAX_WIDTH:
-        pw = _round_up(max(ps, 128), 128)
+    kind, pw = _plan(config, params)
+    if kind == "wide":
         return min(1 << 20, wide_chunk_rays(config, pw))
+    ps = _padded_width(config, params)
     return min(1 << 20, WIDE_BUFFER_BYTES // (config.num_samples * _round_up(ps, 32) * 4))
 
 
@@ -589,11 +628,11 @@ def render_rays(params: Params, origins, directions, t_vals, dists, config) -> t
 
 def render_rays_reference(params: Params, origins, directions, t_vals, dists,
                           config) -> torch.Tensor:
-    """Plain PyTorch version of :func:`render_rays`: for a wide MLP (padded
-    width above 64) the wide kernels' function with their rounding plan
-    (:class:`_WidePlain`), else the core pipeline in f32.  Takes ``(S,)`` or
-    per-ray ``(N, S)`` depths."""
-    if _padded_width(config, params) > MAX_WIDTH:
+    """Plain PyTorch version of :func:`render_rays`: for an MLP the kernels
+    run wide (:func:`_plan`) the wide kernels' function with their rounding
+    plan (:class:`_WidePlain`), else the core pipeline in f32.  Takes
+    ``(S,)`` or per-ray ``(N, S)`` depths."""
+    if _plan(config, params)[0] == "wide":
         if not torch.is_grad_enabled():  # nothing to save for a backward
             return _wide_plain_forward(params["w"], params["b"], origins, directions,
                                        t_vals, dists, config, keep=False)[0]

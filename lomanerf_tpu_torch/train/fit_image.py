@@ -43,10 +43,11 @@ def synthetic_target(img_size: int) -> np.ndarray:
 
 
 def load_target(path: str, img_size: int) -> np.ndarray:
-    from PIL import Image
+    """The target image, resized and RGB in [0, 1] (``data.blender.load_rgb``:
+    PIL where installed, else the port's PNG reader)."""
+    from lomanerf_tpu_torch.data.blender import load_rgb
 
-    img = Image.open(path).resize((img_size, img_size)).convert("RGB")
-    return np.asarray(img, dtype=np.float32) / 255.0
+    return load_rgb(path, img_size)
 
 
 def _to_u8(img: torch.Tensor) -> np.ndarray:

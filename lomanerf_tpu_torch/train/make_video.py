@@ -1,6 +1,14 @@
-"""Render an orbit of a trained NeRF into a video (port of the ``--ckpt-dir``
-path of ``lomanerf_tpu.train.make_video``), from a params ``.npz`` or from
-the port's own checkpoints (``train_nerf --ckpt-dir``).
+"""Render an orbit of a trained NeRF into a video, or stitch numbered PNG
+frames into one (port of ``lomanerf_tpu.train.make_video``): the orbit from
+a params ``.npz`` or from the port's own checkpoints (``train_nerf
+--ckpt-dir``), the frames with ``--frames DIR`` (its ``*.png`` in the
+numeric order of the digits in their names, read by the port's zlib reader).
+
+The video goes through imageio (a gif where it has no ffmpeg backend).
+Where imageio is not installed, the frames are written as numbered PNGs
+into ``<out without its extension>_frames/`` next to ``--out`` instead, and
+the run says so; ``--frames`` on that directory makes the video where
+imageio is.
 
 Run:
     python -m lomanerf_tpu_torch.train.make_video \
@@ -11,12 +19,15 @@ Run:
     python -m lomanerf_tpu_torch.train.make_video \
         --ckpt-dir checkpoints/train_nerf --preset full --orbit 8 --img-size 800
 
+    python -m lomanerf_tpu_torch.train.make_video --frames orbit_frames --out orbit.mp4
+
 ``--preset full`` renders through the wide kernels (65,536-ray chunks).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 
 import numpy as np
@@ -24,6 +35,7 @@ import torch
 
 from lomanerf_tpu_torch.core import normalized_intrinsics
 from lomanerf_tpu_torch.data import sphere_poses
+from lomanerf_tpu_torch.train.logging_utils import read_png, write_png
 
 
 @torch.no_grad()
@@ -38,12 +50,49 @@ def render_orbit(model, focal: float, radius: float, n: int, img_size: int) -> n
     return np.stack(frames)
 
 
-def main(argv=None) -> None:
+def read_frames(directory: str) -> np.ndarray:
+    """The ``*.png`` of ``directory`` as ``(n, H, W, 3)`` uint8, in the
+    numeric order of the digits in their names (as the JAX driver sorts
+    them)."""
+    paths = sorted(glob.glob(os.path.join(directory, "*.png")), key=lambda p: int(
+        "".join(c for c in os.path.basename(p) if c.isdigit()) or 0))
+    if not paths:
+        raise SystemExit(f"no PNG frames in {directory}")
+    return np.stack([read_png(p)[..., :3] for p in paths])
+
+
+def write_video(frames: np.ndarray, out: str, fps: int) -> str:
+    """Write ``frames`` to ``out`` through imageio (a gif where it has no
+    ffmpeg backend) or, without imageio, as numbered PNGs into
+    ``<out without its extension>_frames/``; returns the path written."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        folder = os.path.splitext(out)[0] + "_frames"
+        for i, frame in enumerate(frames):
+            write_png(os.path.join(folder, f"{i:04d}.png"), frame)
+        print(f"imageio is not installed: wrote {len(frames)} numbered PNGs to {folder} "
+              f"(make_video --frames {folder} stitches them where imageio is)")
+        return folder
+    try:
+        imageio.mimsave(out, list(frames), fps=fps)
+    except (ValueError, OSError):
+        # no ffmpeg backend available: write a gif instead
+        out = os.path.splitext(out)[0] + ".gif"
+        imageio.mimsave(out, list(frames), fps=fps)
+    print(f"wrote {out} ({len(frames)} frames)")
+    return out
+
+
+def main(argv=None) -> str:
+    """Run the driver; returns the path of the video (or of the frames'
+    directory) it wrote."""
     from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
 
     ap = argparse.ArgumentParser()
     src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--frames", help="directory of numbered PNGs to stitch")
     src.add_argument("--params",
                      help="npz of w0.., b0.. params (scripts/export_torch_fixture.py)")
     src.add_argument("--ckpt-dir",
@@ -65,9 +114,8 @@ def main(argv=None) -> None:
                     help="torch device: cuda runs the CUDA kernel, cpu the plain version")
     ap.add_argument("--out", default="nerf.mp4")
     args = ap.parse_args(argv)
-
-    import imageio.v2 as imageio
-
+    if args.frames:
+        return write_video(read_frames(args.frames), args.out, args.fps)
     if args.preset:
         cfg = NeRFConfig.preset(args.preset)
     else:
@@ -83,14 +131,7 @@ def main(argv=None) -> None:
         print(f"restored step {step} from {args.ckpt_dir}")
     print(f"rendering {args.orbit}-frame orbit at {args.img_size}px on {args.device}")
     frames = render_orbit(model, args.focal, args.radius, args.orbit, args.img_size)
-    out = args.out
-    try:
-        imageio.mimsave(out, list(frames), fps=args.fps)
-    except (ValueError, OSError):
-        # no ffmpeg backend available: write a gif instead
-        out = os.path.splitext(out)[0] + ".gif"
-        imageio.mimsave(out, list(frames), fps=args.fps)
-    print(f"wrote {out} ({len(frames)} frames)")
+    return write_video(frames, args.out, args.fps)
 
 
 if __name__ == "__main__":

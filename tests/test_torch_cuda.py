@@ -17,7 +17,10 @@ bounds (the wide bf16 ones to chip_smoke.py's; an f32 leaf that a ReLU-mask
 flip moves off the plain version in f32 to the plain version in f64), and
 on broadcast (S,) depths to the shared-depth kernels bit for bit, the wide
 ones over many ray chunks to the one-chunk call.  The 2D field's kernels
-(#13, #14) are held to the same bounds as the narrow ones.
+(#13, #14) are held to the same bounds as the narrow ones, and so are
+narrow MLPs past one block's shared memory on the wide kernels.  The
+segmented scans (#15) and the grid-overhead probe's sum (#16) are held to
+numpy's f64 results and their plain versions.
 """
 
 import dataclasses
@@ -421,3 +424,101 @@ def test_image_fit_steps_on_card_follow_the_plain_backend():
             assert fused_mlp.launches["field_bwd"] == before["field_bwd"] + 5
             assert fused_mlp.launches["field_fwd"] == before["field_fwd"] + 5
     np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [5, 8])
+def test_narrow_mlps_past_shared_memory_run_on_the_wide_kernels(layers):
+    """5x64 and 8x64 at S = 64 exceed one narrow block's shared memory:
+    the render, the train loss and the render backward launch the wide
+    kernels (no narrow one) and meet the narrow kernels' bounds against the
+    plain version."""
+    need_card()
+    rng = np.random.default_rng(layers)
+    cfg = NeRFConfig(num_layers=layers, filter_size=64, num_samples=64)
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    assert fused_nerf._route(cfg, params) == ("wide", 128)
+    o, d = cuda_rays(rng, N_RAYS)
+    t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    tgt = torch.from_numpy(rng.random((N_RAYS, 3)).astype(np.float32)).cuda()
+    before = dict(fused_nerf.launches)
+    with torch.no_grad():
+        got = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+    k = grads_of(params, lambda: fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, cfg))
+    b = grads_of(params, lambda: fused_nerf.nerf_loss(params, o, d, t, dists, tgt, cfg))
+    p = grads_of(params, lambda: fused_nerf.nerf_train_loss_reference(params, o, d, t, dists,
+                                                                      tgt, cfg))
+    torch.cuda.synchronize()
+    moved = {n: fused_nerf.launches[n] - before[n] for n in before}
+    assert moved["nerf_wide_render_fwd"] == 2 and moved["nerf_wide_train"] == 1
+    assert moved["nerf_wide_render_bwd"] == 1
+    assert sum(moved.values()) == 4
+    torch.testing.assert_close(got, fused_nerf.render_rays_reference(params, o, d, t, dists,
+                                                                     cfg),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=0.0)
+    for x, y, w in zip(k[1:], b[1:], p[1:]):
+        atol = 3e-5 * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(x, w, rtol=3e-4, atol=atol)
+        torch.testing.assert_close(y, w, rtol=3e-4, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S,kind", [(4, 6, "unit"), (1024, 128, "tiny")])
+def test_seg_scans_kernel_matches_plain_and_numpy(R, S, kind):
+    """The seg_scans kernel (#15) against its plain version and numpy f64:
+    cumprod and suffix sum within rtol 1e-5 where the f64 value is a normal
+    f32 (both below 1.2e-38 where the product underflows), the shift exact,
+    repeat launches bit-identical, one launch counted per call."""
+    need_card()
+    from lomanerf_tpu_torch.ops import scans
+
+    tiny = float(np.finfo(np.float32).tiny)
+    rng = np.random.default_rng(R)
+    u = rng.random((R * S, 1))
+    x = (u + 0.5 if kind == "unit" else 10.0 ** (-10.0 * u ** 6)).astype(np.float32)
+    col = torch.from_numpy(x).cuda()
+    x64 = x.reshape(R, S).astype(np.float64)
+    wants = {"cumprod": np.cumprod(x64, axis=1),
+             "suffix": np.cumsum(x64[:, ::-1], axis=1)[:, ::-1]}
+    for op, fn, ref in (("cumprod", scans.seg_inclusive_cumprod,
+                         scans.seg_inclusive_cumprod_reference),
+                        ("suffix", scans.seg_suffix_sum, scans.seg_suffix_sum_reference)):
+        before = scans.launches["seg_scans"]
+        got, again = fn(col, S), fn(col, S)
+        assert scans.launches["seg_scans"] == before + 2
+        assert got.shape == col.shape and torch.equal(got, again)
+        for want in (wants[op], ref(col, S).double().cpu().numpy().reshape(R, S)):
+            g = got.double().cpu().numpy().reshape(R, S)
+            normal = np.abs(want) >= tiny
+            np.testing.assert_allclose(g[normal], want[normal], rtol=1e-5, atol=0.0)
+            assert np.all(np.abs(g[~normal]) <= tiny)
+    for fill in (0.0, 1.0):
+        got = scans.seg_shift_down(col, S, fill)
+        want = np.concatenate([np.full((R, 1), fill), x64[:, :-1]], axis=1)
+        np.testing.assert_array_equal(got.cpu().numpy().reshape(R, S), want.astype(np.float32))
+        assert torch.equal(got, scans.seg_shift_down_reference(col, S, fill))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,block,n_dummy", [(15360, 3840, 0), (16000, 3840, 2),
+                                                (16000, 15360, 0), (7864320, 122880, 0)])
+def test_grid_sum_kernel_matches_f64_and_repeats_exactly(rows, block, n_dummy):
+    """The grid_sum kernel (#16) within 1e-6 of the sum of |x| from the f64
+    sum of the first (rows // block) * block columns, bit-identical over
+    repeat launches, on a contiguous array and on strided column slices."""
+    need_card()
+    from lomanerf_tpu_torch.ops import probe
+
+    x = torch.randn((8, rows), generator=torch.Generator("cuda").manual_seed(rows),
+                    device="cuda")
+    for view in (x, x[:, rows // 4:], x[:, 1:]):  # float4 loads; scalar ones (unaligned)
+        cols = view.shape[1] // block * block
+        want = view[:, :cols].double().sum().item()
+        scale = view[:, :cols].double().abs().sum().item()
+        before = probe.launches["grid_sum"]
+        got = [probe.grid_sum(view, block, n_dummy) for _ in range(3)]
+        assert probe.launches["grid_sum"] == before + 3
+        assert all(torch.equal(got[0], g) for g in got[1:])
+        assert abs(got[0].item() - want) <= 1e-6 * max(scale, 1.0)
+        assert abs(probe.grid_sum_reference(view, block).item() - want) <= 1e-6 * max(scale, 1.0)

@@ -289,25 +289,26 @@ def test_grad_kernel_algorithm_matches_autograd(rng, layers, width, mode, train,
 
 def test_gradient_kernels_fit_shared_memory(rng):
     """Both presets fit one block's shared memory (small ~68 KB, single64
-    ~208 KB); a deeper 64-wide MLP is refused before any launch."""
+    ~208 KB) and take the narrow kernels; a 64-wide MLP whose block does not
+    fit (5x64 and 8x64 at S = 64, 4x64 at S = 160) takes the wide route at
+    pw = 128 instead, as the JAX package's dispatch does."""
     for name, limit in (("small", 70 * 1024), ("single64", 210 * 1024)):
         cfg = NeRFConfig.preset(name)
         params = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(
             33, 4, cfg.num_layers, cfg.filter_size)), "cpu")
-        W = fused_nerf._route(cfg, params)[1]
+        kind, W = fused_nerf._route(cfg, params)
+        assert kind == "narrow"
         G = fused_nerf.grad_floats(params, W)
         pk_floats = G + 2 * cfg.num_samples  # G and 2S are multiples of 4 here
         assert fused_nerf.grad_smem_bytes(pk_floats, G, cfg.num_samples,
                                           cfg.num_layers, 33, W) < limit
-    deep = NeRFConfig(num_layers=8, filter_size=64, num_samples=64)
-    params = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(33, 4, 8, 64)),
-                                     "cpu")
-    t, dists = tcore.uniform_depths(2.0, 6.0, 64, "cpu")
-    pk = fused_nerf.pack_params(params, t, dists, 64)
-    o = torch.zeros(3, 3)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        fused_nerf._launch_grad("nerf_train", pk, fused_nerf.grad_floats(params, 64),
-                                t, dists, o, o, o, deep, 8, 64)
+    for layers, S in ((5, 64), (8, 64), (4, 160)):
+        deep = NeRFConfig(num_layers=layers, filter_size=64, num_samples=S)
+        params = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(
+            33, 4, layers, 64)), "cpu")
+        G = fused_nerf.grad_floats(params, 64)
+        assert fused_nerf.grad_smem_bytes(G + 2 * S, G, S, layers, 33, 64) > 227 * 1024
+        assert fused_nerf._route(deep, params) == ("wide", 128)
 
 
 def test_generate_random_rays(rng):

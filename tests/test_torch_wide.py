@@ -279,6 +279,47 @@ def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, 
                 w.numpy()).max()
 
 
+@pytest.mark.parametrize("mode", ["loma", "standard"])
+@pytest.mark.parametrize("layers", [5, 8])
+def test_narrow_mlps_past_shared_memory_take_the_wide_route(rng, layers, mode):
+    """A 64-wide MLP whose 64-ray block of the narrow gradient kernels
+    exceeds a block's shared memory at S = 64 (5x64, 8x64) routes to the
+    wide kernels at pw = 128 in f32, as the JAX package sends it to its
+    packed wide kernel; single64 (4x64) fits and stays narrow.  On CPU
+    tensors the port's train loss and dW/db (the wide kernels' plain
+    version) match the JAX core (``nerf_loss_rays`` under ``jax.grad``, f32
+    HIGHEST), and the wide kernels' sequence restated in numpy at pw = 128
+    equals autograd of the plain version."""
+    S, n = 64, 5
+    cfg = NeRFConfig(num_layers=layers, filter_size=64, num_samples=S, mode=mode)
+    ws, bs = he_params(rng, tcore.mlp_layer_sizes(33, 4, layers, 64))
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    assert fused_nerf._route(cfg, params) == ("wide", 128)
+    single = NeRFConfig.single_view_64()
+    sp = tcore.params_from_numpy(*he_params(rng, tcore.mlp_layer_sizes(33, 4, 4, 64)), "cpu")
+    assert fused_nerf._route(single, sp) == ("narrow", 64)
+    o, d, t, dists, tgt = batch(rng, n, S)
+    jp = jcore.params_from_numpy(ws, bs)
+    j_loss, j_g = jax.value_and_grad(lambda p: jcore.nerf_loss_rays(
+        p, *(jnp.asarray(x) for x in (o, d, t, dists, tgt)), 5, mode))(jp)
+    lv = leaves(params)
+    args = [torch.from_numpy(x) for x in (o, d, t, dists)]
+    loss = fused_nerf.nerf_train_loss(params, *args, torch.from_numpy(tgt), cfg)
+    got = torch.autograd.grad(loss, lv)
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=LOSS_RTOL)
+    for a, b in zip(got, [*j_g["w"], *j_g["b"]]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    W, b = fused_nerf.pack_wide_params(params, 128)
+    dW, db, seq_loss = kernel_sequence(
+        W.double().numpy(), b.double().numpy(), t.astype(np.float64),
+        dists.astype(np.float64), o.astype(np.float64), d.astype(np.float64),
+        tgt.astype(np.float64), S, 40, 5, mode == "loma", lambda x: x, True, 3, 100)
+    np.testing.assert_allclose(seq_loss, loss.item(), rtol=LOSS_RTOL)
+    seq = fused_nerf.unpack_wide_grads(torch.from_numpy(dW), torch.from_numpy(db), params)
+    for a, b in zip(seq, got):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
 def test_full_params_cross_and_pack_round_trip(rng):
     """The JAX package's 8x256 full() parameters load into
     NeRFModel(NeRFConfig.full()) unchanged, route to the wide kernels at
