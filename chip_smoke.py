@@ -41,7 +41,14 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    10 steps on ``NeRFModel.loss`` through the wide render backward;
 9. times the flagship train step (16,384 rays, Adam) and one 800x800
    ``full`` frame through the kernels and the plain version, in turns, and
-   each wide entry point's own call against its plain version;
+   each wide entry point's own call against its plain version; splits the
+   step's device time by kernel family (``scripts/card_probe.py`` in a
+   process of its own: dW, d_h, forward, compositing, sums), with the
+   wgmma/TMA dW stage launched once per hidden layer; holds that stage
+   alone (``wide_dw.wide_dw_gemm``) to f64 and to the ``mma.sync`` kernel
+   it replaced at the flagship's 2,097,152 x 256 x 256, at layer 0's 40
+   columns and at 1037 x 128 ragged rows, and times it against that
+   kernel, ``torch.mm`` and its bound;
 10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``) against the
     plain version and autograd at the ``small`` and ``hires`` widths on
     1037 pixels, with repeat launches bit-identical and no coords gradient,
@@ -91,11 +98,12 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
 18. holds ``seg_scans`` (#15) against numpy, its plain version and the
     library call at R=4/S=6, S=128 down to 1e-10 and the main path's
     262,144 x 30 column (timed), and checks the SHA-256 digests of the
-    twelve NeRF entry points' outputs against those before their scans
-    moved onto ``seg_scan.cuh``;
+    twelve NeRF entry points' outputs against ``KERNEL_DIGESTS``;
 19. runs the grid-overhead sweep (#16,
     ``lomanerf_tpu_torch.scripts.grid_overhead``) at 7,864,320 rows, then
-    ``grid_sum`` alone against its plain version and ``torch.sum``.
+    ``grid_sum`` alone against its plain version and ``torch.sum``, and
+    splits one call into its event window, its kernel's device time (one
+    kernel a call, ``scripts/card_probe.py``) and the wrapper's host time.
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
@@ -634,6 +642,9 @@ def phase_wide_kernels(fused_nerf, NeRFConfig, seed=7):
         print(f"phase 7 {what} N={N_CHECK}: max|kernel-plain| render {e_fwd:.3e}; loss "
               f"{k1[0].item():.6e} (|kernel-plain| {loss_err:.3e}); dW,db train "
               f"{e_tr:.3e}, render bwd {e_bw:.3e}; repeat launches bit-identical")
+        if cfg.compute_dtype == "bfloat16":
+            print(f"  per leaf (dW_0.., db_0..), |kernel-plain| / max|plain|: train "
+                  f"{leaf_errors(k1[1:], p[1:])}; render bwd {leaf_errors(b1, q)}")
 
     cfg = NeRFConfig.full()
     params = seeded_params(np.random.default_rng(0), cfg)
@@ -650,8 +661,15 @@ def phase_wide_kernels(fused_nerf, NeRFConfig, seed=7):
     wide_grads_close(k[1:], p[1:], "nerf_wide_train at the flagship bench batch", cfg)
     print(f"phase 7 flagship bench batch ({FLAGSHIP_RAYS} rays): loss kernel "
           f"{k[0].item():.6e} plain {p[0].item():.6e}; max|dW,db kernel-plain| "
-          f"{e:.3e} of the leaf's largest entry (bound {rel})")
+          f"{e:.3e} of the leaf's largest entry (bound {rel}); per leaf "
+          f"{leaf_errors(k[1:], p[1:])}")
     return worst
+
+
+def leaf_errors(got, want):
+    """Each leaf's worst |got - want| over its largest |want|, as text."""
+    return " ".join(f"{((a - b).abs().max() / b.abs().max()).item():.2e}"
+                    for a, b in zip(got, want))
 
 
 def phase_flagship_driver(train_nerf, fused_nerf, CheckpointManager, NeRFModel,
@@ -897,6 +915,107 @@ def phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
             plain[name] = statistics.median(ts["plain"])
     del plain_out
     return {k: (out[k], plain[k]) for k in out}
+
+
+def card_probe(what, *args):
+    """The JSON result of ``lomanerf_tpu_torch.scripts.card_probe --what
+    <what>`` run in a process of its own (the profiler records the card's
+    kernels in a process's first session only), its other lines echoed."""
+    torch.cuda.empty_cache()
+    r = subprocess.run([sys.executable, "-m", "lomanerf_tpu_torch.scripts.card_probe",
+                        "--what", what, *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"card_probe --what {what} exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print("  " + line)
+    return json.loads(lines[-1])
+
+
+def phase_flagship_split(NeRFConfig):
+    """Phase 9, the flagship step's device time by kernel family (3 traced
+    steps, ``card_probe --what flagship``): the dW GEMMs must be the
+    wgmma/TMA stage once per hidden layer and the head's ``mma.sync`` one
+    once per step.  Returns the split."""
+    cfg = NeRFConfig.full()
+    split = card_probe("flagship", "--steps", "3")
+    dw = split["dw_launches_per_step"]
+    if dw.get("dw_wgmma_kernel") != cfg.num_layers - 1 or dw.get("gemm kEpiPartial") != 1:
+        raise AssertionError(f"flagship step: dW launches per step {dw}, need "
+                             f"{cfg.num_layers - 1} of dw_wgmma_kernel and the head's one")
+    print("phase 9 flagship step split (utils.profiling.trace, 3 steps): device "
+          f"{split['device_ms_per_step']:.3f} ms/step; " + ", ".join(
+              f"{k} {split['ms'][k]:.3f} ms ({split['share'][k]:.1%})"
+              for k in ("dW", "d_h", "forward", "compositing", "partial and column sums"))
+          + f"; dW launches per step {dw}")
+    return split
+
+
+DW_ROWS = FLAGSHIP_RAYS * 128  # one flagship gradient chunk: 2,097,152 rows
+DW_RTOL = 1e-6  # of the f64 sum of |products|: f32 sums of exact products
+
+
+def phase_dw_stage(wide_dw, smi):
+    """Phase 9, the dW stage alone: ``wide_dw.wide_dw_gemm`` (the
+    wgmma/TMA kernel #7, #9, #11 and #12 run for each hidden layer) at the
+    flagship's 2,097,152 x 256 x 256, at layer 0's 40 columns and at 1037 x
+    128 rows (a ragged last partial), on ReLU'd normal activations and
+    normal d_z x 1e-3 rounded to bf16: within ``DW_RTOL`` of the f64 sum of
+    |products| of the f64 product of the rounded operands, repeats
+    bit-identical, and within the same of the ``mma.sync`` kernel it
+    replaced (``wide_dw_gemm_mma``, from the f32 d_z).  Then both kernels
+    and ``torch.mm`` of the same bf16 operands (one 2,097,152-deep
+    product: a yardstick, never called by the port) in turns, beside the
+    stage's bound.  Returns ``{"ms", "old_ms", "mm_ms", "bound_ms"}``."""
+    g = torch.Generator("cuda").manual_seed(31)
+    out = {}
+    for rows, M, what in ((DW_ROWS, 256, "the flagship"), (DW_ROWS, 40, "layer 0's 40 columns"),
+                          (1037 * 128, 256, "1037 x 128 rows (a ragged last partial)")):
+        h = torch.relu(torch.randn((rows, 256), generator=g, device="cuda")).to(torch.bfloat16)
+        d32 = torch.randn((rows, 256), generator=g, device="cuda") * 1e-3
+        db = d32.to(torch.bfloat16)
+        new, again = wide_dw.wide_dw_gemm(h, db, M), wide_dw.wide_dw_gemm(h, db, M)
+        old = wide_dw.wide_dw_gemm_mma(h, d32, M)
+        n = new.shape[0]
+        hp = h.new_zeros((n * wide_dw.ROW_CHUNK, M), dtype=torch.float64)
+        dp = h.new_zeros((n * wide_dw.ROW_CHUNK, 256), dtype=torch.float64)
+        hp[:rows], dp[:rows] = h[:, :M].double(), db.double()
+        h3, d3 = hp.view(n, -1, M).transpose(1, 2), dp.view(n, -1, 256)
+        ref, scale = torch.bmm(h3, d3), torch.bmm(h3.abs(), d3.abs()).clamp_min(1e-30)
+        del hp, dp, h3, d3
+        e_new = ((new.double() - ref) / scale).abs().max().item()
+        e_old = ((old.double() - ref) / scale).abs().max().item()
+        e_pair = ((new.double() - old.double()) / scale).abs().max().item()
+        if not torch.equal(new, again):
+            raise AssertionError(f"wide_dw_gemm at {what}: repeat launches differ")
+        if max(e_new, e_pair) > DW_RTOL or not torch.isfinite(new).all():
+            raise AssertionError(f"wide_dw_gemm at {what}: {e_new:.3e} off f64, {e_pair:.3e} "
+                                 f"off the mma.sync kernel, of the sum of |products|")
+        print(f"phase 9 dW stage alone at {what} ({rows} x {M} x 256, {n} partials): "
+              f"|wgmma - f64| {e_new:.3e}, |mma.sync - f64| {e_old:.3e}, |wgmma - mma.sync| "
+              f"{e_pair:.3e} of the f64 sum of |products| (bound {DW_RTOL}); bit-identical to "
+              f"the mma.sync kernel: {torch.equal(new, old)}; repeats bit-identical")
+        del ref, scale, new, again, old
+        if rows == DW_ROWS and M == 256:
+            fns = {"old": lambda: wide_dw.wide_dw_gemm_mma(h, d32, 256),
+                   "wgmma": lambda: wide_dw.wide_dw_gemm(h, db, 256),
+                   "torch.mm": lambda: torch.mm(h.t(), db)}
+            for fn in fns.values():
+                fn()
+            ts = timed_turns(fns, 3)
+            kb = bound(rows * 256 * 256, PEAK_BF16,
+                       2 * h.numel() + 2 * db.numel() + 4 * n * 256 * 256)
+            out = {"ms": statistics.median(ts["wgmma"]), "old_ms": statistics.median(ts["old"]),
+                   "mm_ms": statistics.median(ts["torch.mm"]), "bound_ms": kb[0]}
+            print(f"phase 9 dW stage alone at the flagship, on {smi}: wgmma/TMA "
+                  f"{spread(ts['wgmma'])}, mma.sync (PR 3) {spread(ts['old'])}, torch.mm "
+                  f"{spread(ts['torch.mm'])}; bound {kb[0]:.4f} ms ({kb[1]}: H, the bf16 d_z "
+                  f"and the partials), the wgmma kernel at {kb[0] / out['ms']:.1%} of it")
+        del h, d32, db
+    torch.cuda.empty_cache()
+    return out
 
 
 def field_configs(ImageFieldConfig):
@@ -2191,10 +2310,14 @@ def phase_seg_scans(scans, smi, seed=29):
 
 NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "nerf_wide_")
                for k in ("render_fwd", "train", "render_bwd"))
-# SHA-256 of the twelve NeRF entry points' output bytes (kernel_digests) from
-# the kernels before their scans moved onto seg_scan.cuh; equal digests
-# after the move show it changed no bit
-PRE_LIFT_DIGESTS = {
+# SHA-256 of the twelve NeRF entry points' output bytes (kernel_digests).
+# They pin every bit of #1-#12: a kernel change that moves one fails phase
+# 18 until its entry is updated on purpose, with the reason here.  Taken
+# from the PR 5 kernels; unchanged by the scans' lift onto seg_scan.cuh and
+# by the bf16 dW stage's move onto wgmma/TMA (nerf_wide_dw.cuh: each 32-row
+# k-step's tensor-core sum and its f32 promotion give the mma.sync kernel's
+# bits, so the four wide gradient entries did not move either).
+KERNEL_DIGESTS = {
     "nerf_render_fwd":
         "64ba1c0f42400d315d53444f6e0d3757183e1f452497a0006831db6639d28aff",
     "nerf_train":
@@ -2262,17 +2385,15 @@ def kernel_digests(fused_nerf, NeRFConfig, seed=23):
 
 
 def phase_digests(fused_nerf, NeRFConfig):
-    """Phase 18, the lift check: :func:`kernel_digests` against
-    ``PRE_LIFT_DIGESTS``."""
+    """Phase 18, the bit check: :func:`kernel_digests` against
+    ``KERNEL_DIGESTS``."""
     got = kernel_digests(fused_nerf, NeRFConfig)
     for name, h in got.items():
         print(f"phase 18 digest {name}: {h}")
-    if PRE_LIFT_DIGESTS and got != PRE_LIFT_DIGESTS:
-        apart = [k for k in got if got[k] != PRE_LIFT_DIGESTS.get(k)]
-        raise AssertionError(f"output digests differ from the kernels before the scans' "
-                             f"lift onto seg_scan.cuh: {apart}")
-    print("phase 18 digests of #1-#12 equal to those before the lift"
-          if PRE_LIFT_DIGESTS else "phase 18 digests printed (no earlier ones to compare)")
+    if got != KERNEL_DIGESTS:
+        apart = [k for k in got if got[k] != KERNEL_DIGESTS.get(k)]
+        raise AssertionError(f"output digests differ from KERNEL_DIGESTS: {apart}")
+    print("phase 18 digests of #1-#12 equal to KERNEL_DIGESTS")
     return got
 
 
@@ -2314,6 +2435,30 @@ def phase_grid_overhead(probe, grid_overhead, smi):
           f"{spread(ts['library'])}; bound {kb[0]:.4f} ms ({kb[1]}), {kb[0] / med[0]:.1%} of "
           f"it; |kernel-f64|/sum|x| {err64:.2e}, |kernel-plain| {err:.3e}; launches on the "
           f"main path (the sweep) {launches}")
+
+    # the event window split: the host's enqueue (the clock around a call,
+    # nothing awaited) and the kernels' own device time (one trace session
+    # in a process of its own)
+    host = {}
+    for name, fn in (("kernel", lambda: probe.grid_sum(x, GRID_BLOCK)),
+                     ("torch.sum", lambda: torch.sum(x))):
+        host[name] = []
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    dev = card_probe("grid_sum", "--calls", "20")
+    per_call = dev["kernels_per_call"]
+    if list(per_call.values()) != [1.0]:
+        raise AssertionError(f"grid_sum: kernels per call {per_call}, need one launch")
+    print(f"phase 19 grid_sum split, on {smi}: event window {med[0]:.4f} ms (torch.sum "
+          f"{med[2]:.4f}); device {dev['device_ms_per_call']:.4f} ms per call "
+          f"(utils.profiling.trace, 20 calls, one kernel each; torch.sum "
+          f"{dev['torch_sum_device_ms']:.4f}), {kb[0] / dev['device_ms_per_call']:.1%} of "
+          f"the bound; host "
+          f"{spread(host['kernel'])} per wrapper call, torch.sum {spread(host['torch.sum'])}")
     return err, launches, med, kb, sweep
 
 
@@ -2345,7 +2490,7 @@ def main() -> None:
     from lomanerf_tpu_torch.data import synthetic_views
     from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
                                            NeRFModel, image_grid_coords)
-    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf, probe, scans
+    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf, probe, scans, wide_dw
     from lomanerf_tpu_torch.scripts import grid_overhead
     from lomanerf_tpu_torch.train import fit_image, make_video, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
@@ -2457,10 +2602,12 @@ def main() -> None:
             train_nerf, fused_nerf, CheckpointManager, NeRFModel, NeRFConfig,
             synthetic_views, normalized_intrinsics, psnr, render_orbit, rays, tmp))
 
-    # ---- phase 9: flagship timing ----
+    # ---- phase 9: flagship timing, its split, the dW stage alone ----
     timing.update(phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
                                         make_single_chip_train_step,
                                         normalized_intrinsics, rays, smi))
+    phase_flagship_split(NeRFConfig)
+    phase_dw_stage(wide_dw, smi)
 
     # ---- phase 10: the 2D field's kernels against their plain versions ----
     worst.update(phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords))

@@ -9,5 +9,8 @@ its backward (``csrc/nerf_render_bwd.cu``) and the fused train loss
 ``csrc/field_common.cuh``; ``scans`` — the segmented scans every NeRF
 kernel composites with (``csrc/seg_scan.cuh``), alone
 (``csrc/seg_scans.cu``); ``probe`` — the grid-overhead probe's tile sum
-(``csrc/grid_sum.cu``); ``build`` — nvcc at first use, bound with ctypes.
+(``csrc/grid_sum.cu``); ``wide_dw`` — the wide gradient sequence's bf16 dW
+stage alone (``csrc/nerf_wide_dw.cuh``: wgmma fed by TMA) and the
+``mma.sync`` kernel it replaced; ``build`` — nvcc at first use, bound with
+ctypes.
 """

@@ -32,10 +32,10 @@ _GRAD = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 # their per-ray instances: t and dists ((N, S) pointers) after G
 _GRAD_RAYS = _GRAD[:3] + [_P, _P] + _GRAD[3:]
 # the wide gradient sequence (nerf_wide_chain.cuh): (W, b, ts, ds, origins,
-# directions, target or dcol, acts, dz, dz_head, partials, n_parts,
+# directions, target or dcol, acts, dz, dzb, dz_head, partials, n_parts,
 # ray_loss, dW, db, loss, n_rays, chunk_rays, S, L, pw, kc, num_functions,
 # loma, bf16, stream)
-_WIDE_GRAD = [_P] * 11 + [_LL] + [_P] * 4 + [_I] * 9 + [_P]
+_WIDE_GRAD = [_P] * 12 + [_LL] + [_P] * 4 + [_I] * 9 + [_P]
 # (pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim,
 #  num_functions, width, loma, stream)
 _RENDER = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -58,6 +58,10 @@ SIGNATURES = {
     "nerf_wide_render_fwd_rays": _WIDE_RENDER,
     "nerf_wide_train_rays": _WIDE_GRAD,
     "nerf_wide_render_bwd_rays": _WIDE_GRAD,
+    # the wide sequence's bf16 dW stage alone (nerf_wide_dw.cuh) and the
+    #  mma.sync kernel it replaced: (H, Dz, ld, M, N, rows, partials, stream)
+    "wide_dw_gemm": [_P, _P] + [_I] * 4 + [_P, _P],
+    "wide_dw_gemm_mma": [_P, _P] + [_I] * 4 + [_P, _P],
     # the 2D field (field_common.cuh): (pk, coords, out, n, L, in_dim, width,
     #  num_functions, out_ch, stream)
     "field_fwd": [_P, _P, _P] + [_I] * 6 + [_P],
@@ -69,7 +73,7 @@ SIGNATURES = {
     # the segmented scans (seg_scans.cu, steps in seg_scan.cuh): (x, out,
     #  n_rows, S, op: 0 cumprod / 1 suffix sum / 2 shift down, fill, stream)
     "seg_scans": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
-    # the grid-overhead probe (grid_sum.cu): (x, ld, cols, block, partials,
+    # the grid-overhead probe (grid_sum.cu): (x, ld, cols, block, scratch,
     #  out, dummies, n_dummy, stream); x (8, cols) with row stride ld
     "grid_sum": [_P, _LL, _I, _I, _P, _P, _P, _I, _P],
 }

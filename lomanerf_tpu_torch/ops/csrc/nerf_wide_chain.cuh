@@ -10,9 +10,13 @@
 //      adjoint, writing the head's d_z (rows, 4) and d_z of layer L-2;
 //   3. layer by layer in reverse, l = L-1 .. 0:
 //        dW_l += H_l^T rnd(d_z_l)     split-K over kRowChunk rows, partials
-//                                     added in a fixed order
+//                                     added in a fixed order; for bf16 the
+//                                     hidden layers' on wgmma/TMA
+//                                     (nerf_wide_dw.cuh) from the bf16 copy
+//                                     of d_z its producers write
 //        db_l += colsum(d_z_l)        the same, from the unrounded f32 d_z
-//        d_z_{l-1} = (rnd(d_z_l) W_l^T) masked by H_l > 0   (l >= 1)
+//        d_z_{l-1} = (rnd(d_z_l) W_l^T) masked by H_l > 0   (l >= 1; for
+//                                     bf16 from the copy, writing the next)
 // dW/db are zeroed once, then every chunk adds to them in chunk order; the
 // loss is the fixed-order sum of the per-ray squared errors.  Nothing is
 // allocated here: the wrapper passes every buffer.
@@ -20,8 +24,10 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
+#include <utility>
 
-#include "nerf_wide_gemm.cuh"
+#include "nerf_wide_dw.cuh"
 
 namespace wide {
 namespace {
@@ -86,8 +92,8 @@ cudaError_t forward_layers(const Net& net, const float* origins,
 
 template <typename CDT, int kMode, bool kPerRay>
 cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
-                         float* out, float* dz_head, float* dz_prev, int n,
-                         cudaStream_t stream) {
+                         float* out, float* dz_head, float* dz_prev,
+                         CDT* dzc_prev, int n, cudaStream_t stream) {
   const int L = net.L, pw = net.pw;
   const size_t smem = sizeof(float) * (4 * static_cast<size_t>(pw) +
                                        static_cast<size_t>(kCompWarps) * 8 * net.S);
@@ -99,20 +105,20 @@ cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
   composite_kernel<CDT, kMode, kPerRay><<<(n + kCompWarps - 1) / kCompWarps,
                                           kCompWarps * 32, smem, stream>>>(
       H, static_cast<const CDT*>(net.W) + static_cast<size_t>(L - 1) * pw * pw,
-      net.b + (L - 1) * pw, net.ds, cot, out, dz_head, dz_prev, n, net.S, pw,
-      net.loma);
+      net.b + (L - 1) * pw, net.ds, cot, out, dz_head, dz_prev, dzc_prev, n,
+      net.S, pw, net.loma);
   return cudaGetLastError();
 }
 
 template <typename CDT, int kMode>
 cudaError_t composite(const Net& net, const CDT* H, const float* cot,
-                      float* out, float* dz_head, float* dz_prev, int n,
-                      cudaStream_t stream) {
+                      float* out, float* dz_head, float* dz_prev,
+                      CDT* dzc_prev, int n, cudaStream_t stream) {
   return net.per_ray
              ? composite_as<CDT, kMode, true>(net, H, cot, out, dz_head,
-                                              dz_prev, n, stream)
+                                              dz_prev, dzc_prev, n, stream)
              : composite_as<CDT, kMode, false>(net, H, cot, out, dz_head,
-                                               dz_prev, n, stream);
+                                               dz_prev, dzc_prev, n, stream);
 }
 
 // Render forward of n rays in chunks of chunk_rays; acts holds two
@@ -129,7 +135,7 @@ cudaError_t render_forward(const Net& net, const float* origins,
     WIDE_TRY(forward_layers<CDT>(cn, origins + 3 * r0, directions + 3 * r0, n,
                                  acts, chunk_rows, true, &H, stream));
     WIDE_TRY((composite<CDT, 0>(cn, H, nullptr, out + 3 * r0, nullptr,
-                                nullptr, n, stream)));
+                                nullptr, nullptr, n, stream)));
   }
   return cudaSuccess;
 }
@@ -138,6 +144,7 @@ cudaError_t render_forward(const Net& net, const float* origins,
 struct GradScratch {
   void* acts;       // L slots of chunk_rows x pw, CDT
   float* dz;        // 2 x chunk_rows x pw
+  void* dzb;        // bf16 only: 2 x chunk_rows x pw bf16, dz rounded
   float* dz_head;   // chunk_rows x 4
   float* partials;  // n_parts floats, n_parts >= parts_needed(...)
   size_t n_parts;
@@ -158,8 +165,11 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
                           const GradScratch& sc, float* dW, float* db,
                           float* loss, int n_rays, int chunk_rays,
                           cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<CDT, __nv_bfloat16>::value;
   const int L = net.L, pw = net.pw;
-  if (sc.n_parts < parts_needed(chunk_rays, net.S, pw)) return cudaErrorInvalidValue;
+  if (sc.n_parts < parts_needed(chunk_rays, net.S, pw) || (kBf16 && sc.dzb == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const CDT* W = static_cast<const CDT*>(net.W);
   const size_t chunk_rows = static_cast<size_t>(chunk_rays) * net.S;
   CDT* acts = static_cast<CDT*>(sc.acts);
@@ -176,9 +186,11 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
     auto slot = [&](int l) { return acts + static_cast<size_t>(l) * chunk_rows * pw; };
     float* dz = sc.dz;  // d_z of the current layer's output
     float* dz_next = sc.dz + chunk_rows * pw;
+    CDT* dzb = kBf16 ? static_cast<CDT*>(sc.dzb) : nullptr;  // its bf16 copy
+    CDT* dzb_next = kBf16 ? dzb + chunk_rows * pw : nullptr;
     WIDE_TRY((composite<CDT, kMode>(cn, H, cot + 3 * r0,
                                     kMode == 1 ? sc.ray_loss + r0 : nullptr,
-                                    sc.dz_head, dz, n, stream)));
+                                    sc.dz_head, dz, dzb, n, stream)));
     // the head: dW_{L-1} (pw x 4) and db_{L-1} from the head's d_z
     WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
         H, pw, sc.dz_head, kHead, pw, kHead, rows, kRowChunk, nullptr, nullptr,
@@ -189,19 +201,29 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
                          db + (L - 1) * pw, stream));
     for (int l = L - 2; l >= 0; --l) {
       const int in_cols = l == 0 ? net.kc : pw;
-      WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
-          slot(l), pw, dz, pw, in_cols, pw, rows, kRowChunk, nullptr, nullptr,
-          sc.partials, pw, stream)));
+      if constexpr (kBf16) {
+        WIDE_TRY(dw_gemm(slot(l), dzb, pw, in_cols, pw, rows, sc.partials, stream));
+      } else {
+        WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
+            slot(l), pw, dz, pw, in_cols, pw, rows, kRowChunk, nullptr, nullptr,
+            sc.partials, pw, stream)));
+      }
       WIDE_TRY(sum_partials(sc.partials, n_rc, in_cols, pw,
                             dW + static_cast<size_t>(l) * pw * pw, pw, stream));
       WIDE_TRY(column_sums(dz, pw, rows, pw, sc.partials, db + l * pw, stream));
       if (l >= 1) {
-        WIDE_TRY((gemm<float, CDT, CDT, false, true, kEpiMask>(
-            dz, pw, W + static_cast<size_t>(l) * pw * pw, pw, rows, pw, pw, pw,
-            nullptr, slot(l), dz_next, pw, stream)));
-        float* tmp = dz;
-        dz = dz_next;
-        dz_next = tmp;
+        const CDT* Wl = W + static_cast<size_t>(l) * pw * pw;
+        if constexpr (kBf16) {  // rnd(d_z) read from its copy; the next copy written
+          WIDE_TRY((gemm<CDT, CDT, CDT, false, true, kEpiMask>(
+              dzb, pw, Wl, pw, rows, pw, pw, pw, nullptr, slot(l), dz_next, pw,
+              stream, dzb_next)));
+        } else {
+          WIDE_TRY((gemm<float, CDT, CDT, false, true, kEpiMask>(
+              dz, pw, Wl, pw, rows, pw, pw, pw, nullptr, slot(l), dz_next, pw,
+              stream)));
+        }
+        std::swap(dz, dz_next);
+        std::swap(dzb, dzb_next);
       }
     }
   }
@@ -218,7 +240,7 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
 template <int kMode>
 int grad_entry(bool per_ray, const void* W, const float* b, const float* ts,
                const float* ds, const float* origins, const float* directions,
-               const float* cot, void* acts, float* dz, float* dz_head,
+               const float* cot, void* acts, float* dz, void* dzb, float* dz_head,
                float* partials, long long n_parts, float* ray_loss, float* dW,
                float* db, float* loss, int n_rays, int chunk_rays, int S, int L,
                int pw, int kc, int num_functions, int loma, int bf16,
@@ -227,7 +249,7 @@ int grad_entry(bool per_ray, const void* W, const float* b, const float* ts,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma, per_ray};
-  const GradScratch sc{acts, dz, dz_head, partials,
+  const GradScratch sc{acts, dz, dzb, dz_head, partials,
                        static_cast<size_t>(n_parts), ray_loss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {

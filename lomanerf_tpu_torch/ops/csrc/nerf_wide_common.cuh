@@ -10,7 +10,9 @@
 //     fills columns [0, kc) of its buffer (kc: the encoded width padded to
 //     8, at most pw), the rest is never read;
 //   d_z buffers (rows, pw) f32 (rounded to CDT where a product reads them,
-//     summed unrounded for db), the head's d_z (rows, 4) f32;
+//     summed unrounded for db) and, for bf16, their rounded copy (rows, pw)
+//     bf16 (the dW stage's operand, nerf_wide_dw.cuh); the head's d_z
+//     (rows, 4) f32;
 //   depths and steps (template flag kPerRay): (S,) f32 shared by every ray,
 //     or per-ray (N, S) f32 row-major, read at [ray * S + s] (the pointers
 //     start at the chunk's first ray).  Only the source differs: a row's
@@ -124,8 +126,10 @@ encode_kernel(const float* __restrict__ origins,
 // sum) and, for the adjoint, in reverse (the suffix sum as a scalar:
 // d_c = suf / c, never a later P divided by c).  Lanes again, per sample:
 // the head's d_z (sigmoid' from the rounded rgb, the density's ReLU mask
-// from the rounded density), then d_z of layer L-2's output,
-// (rnd(d_z_head) . W_head^T) masked by h_{L-1} > 0, written in f32.
+// from the rounded density).  Then the warp walks the samples, lanes
+// across the columns: d_z of layer L-2's output, (rnd(d_z_head) .
+// W_head^T) masked by h_{L-1} > 0, written in f32 and, where dzc_prev is
+// given, rounded to CDT beside it.
 //
 // Shared memory: the head weights (pw x 4, rounded) and 8 floats per sample
 // per warp.  ds: the (S,) shared steps, or with kPerRay the chunk's (n, S).
@@ -135,8 +139,8 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
                  const float* __restrict__ b_head, const float* __restrict__ ds,
                  const float* __restrict__ cot,
                  float* __restrict__ out, float* __restrict__ dz_head,
-                 float* __restrict__ dz_prev, int n_rays, int S, int pw,
-                 int loma) {
+                 float* __restrict__ dz_prev, CDT* __restrict__ dzc_prev,
+                 int n_rays, int S, int pw, int loma) {
   extern __shared__ __align__(16) float smem[];
   float4* wh = reinterpret_cast<float4*>(smem);  // pw rows of 4 columns
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -258,24 +262,31 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
     dz[3] = sig[s] > 0.0f ? aux[s] : 0.0f;
     *reinterpret_cast<float4*>(dz_head + row * kHead) =
         make_float4(dz[0], dz[1], dz[2], dz[3]);
-    float dzc[kHead];
-#pragma unroll
-    for (int k = 0; k < kHead; ++k) dzc[k] = rnd<CDT>(dz[k]);
+    // the rounded d_z for the product below, in this sample's slots (read
+    // above for the last time)
+    rgb0[s] = rnd<CDT>(dz[0]);
+    rgb1[s] = rnd<CDT>(dz[1]);
+    rgb2[s] = rnd<CDT>(dz[2]);
+    sig[s] = rnd<CDT>(dz[3]);
+  }
+  __syncwarp();
+
+  // the samples in turn, a row's columns across the lanes (coalesced)
+  for (int s = 0; s < S; ++s) {
+    const size_t row = static_cast<size_t>(ray) * S + s;
+    const float dzc[kHead] = {rgb0[s], rgb1[s], rgb2[s], sig[s]};
     const CDT* h = H + row * pw;
     float* g = dz_prev + row * pw;
-    for (int j = 0; j < pw; j += 4) {
-      float v[4], o4[4];
-      load4(h + j, v);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 wq = wh[j + q];
-        float dh = dzc[0] * wq.x;
-        dh = fmaf(dzc[1], wq.y, dh);
-        dh = fmaf(dzc[2], wq.z, dh);
-        dh = fmaf(dzc[3], wq.w, dh);
-        o4[q] = v[q] > 0.0f ? dh : 0.0f;
-      }
-      *reinterpret_cast<float4*>(g + j) = make_float4(o4[0], o4[1], o4[2], o4[3]);
+    CDT* gc = dzc_prev != nullptr ? dzc_prev + row * pw : nullptr;
+    for (int j = lane; j < pw; j += 32) {
+      const float4 wq = wh[j];
+      float dh = dzc[0] * wq.x;
+      dh = fmaf(dzc[1], wq.y, dh);
+      dh = fmaf(dzc[2], wq.z, dh);
+      dh = fmaf(dzc[3], wq.w, dh);
+      const float o = to_f32(h[j]) > 0.0f ? dh : 0.0f;
+      g[j] = o;
+      if (gc != nullptr) gc[j] = from_f32<CDT>(o);
     }
   }
 }

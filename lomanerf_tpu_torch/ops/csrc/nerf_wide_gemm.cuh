@@ -10,7 +10,8 @@
 // Epilogues:
 //   kEpiBiasRelu  C = CDT(ReLU(acc + bias[n]))            the forward layer
 //   kEpiMask      C = f32(mask[m, n] > 0 ? acc : 0)       d_h = d_z W^T (h > 0);
-//                 mask (CDT) has C's row stride ldc
+//                 mask (CDT) has C's row stride ldc; bf16 only, where Cb
+//                 is given, also Cb = bf16(C) (the copy the dW stage reads)
 //   kEpiPartial   C[z][m][n] = acc over rows chunk z       dW = h^T d_z, split-K
 //
 // Two tile kernels, chosen by CDT in gemm(): gemm_mma_kernel (bf16, below)
@@ -139,9 +140,10 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
 // of a warp hit 32 distinct banks.  Global loads move 4 elements a thread
 // (8 bytes of bf16 or 16 of f32, rounded to bf16 on the way: the rounding
 // plan's rnd), into registers for the next k-step while the current one
-// multiplies.  Operands stored k-major in device memory (A for dW = h^T d_z,
-// B for every forward layer's W and dW's d_z) are scattered into the
-// [m][k] / [n][k] order as they are stored; the mapping of vectors to
+// multiplies.  Operands stored k-major in device memory (A for the head's
+// dW = h^T d_z, B for every forward layer's W and the head's d_z) are
+// scattered into the [m][k] / [n][k] order as they are stored (the hidden
+// layers' dW runs on nerf_wide_dw.cuh); the mapping of vectors to
 // lanes puts a warp's 32 lanes on 32 different k, so those stores do not
 // conflict.  Needs M and N (the contiguous dims) and K-chunk edges at
 // multiples of 4, 8-byte aligned rows.  The products of two bf16 values
@@ -223,7 +225,7 @@ gemm_mma_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
                 int ldb, int M, int N, int K, int k_chunk,
                 const float* __restrict__ bias,
                 const __nv_bfloat16* __restrict__ mask, void* __restrict__ C,
-                int ldc) {
+                int ldc, __nv_bfloat16* __restrict__ Cb) {
   __shared__ __align__(16) __nv_bfloat16 As[kBM][kMLd];
   __shared__ __align__(16) __nv_bfloat16 Bs[kBN][kMLd];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -294,24 +296,34 @@ gemm_mma_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
     __syncthreads();
   }
 
+  // each thread holds column pairs (n, n + 1), n even: rows g and g + 8 of
+  // every mma tile; N is a multiple of 4, so n < N covers n + 1
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wm + mi * 16 + g + (r >= 2 ? 8 : 0);
-        const int n = n0 + wn + ni * 8 + tig * 2 + (r & 1);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + wm + mi * 16 + g + hr * 8;
+        const int n = n0 + wn + ni * 8 + tig * 2;
         if (m >= M || n >= N) continue;
-        const float v = acc[mi][ni][r];
+        const float v0 = acc[mi][ni][2 * hr], v1 = acc[mi][ni][2 * hr + 1];
+        const size_t at = static_cast<size_t>(m) * ldc + n;
         if (kEpi == kEpiBiasRelu) {
-          static_cast<__nv_bfloat16*>(C)[static_cast<size_t>(m) * ldc + n] =
-              __float2bfloat16_rn(fmaxf(v + bias[n], 0.0f));
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(C) + at) =
+              __floats2bfloat162_rn(fmaxf(v0 + bias[n], 0.0f), fmaxf(v1 + bias[n + 1], 0.0f));
         } else if (kEpi == kEpiMask) {
-          const float h = __bfloat162float(mask[static_cast<size_t>(m) * ldc + n]);
-          static_cast<float*>(C)[static_cast<size_t>(m) * ldc + n] = h > 0.0f ? v : 0.0f;
+          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(mask + at);
+          const float o0 = __low2float(h) > 0.0f ? v0 : 0.0f;
+          const float o1 = __high2float(h) > 0.0f ? v1 : 0.0f;
+          *reinterpret_cast<float2*>(static_cast<float*>(C) + at) = make_float2(o0, o1);
+          if (Cb != nullptr) {
+            *reinterpret_cast<__nv_bfloat162*>(Cb + at) = __floats2bfloat162_rn(o0, o1);
+          }
         } else {
-          static_cast<float*>(C)[(static_cast<size_t>(blockIdx.z) * M + m) * N + n] = v;
+          *reinterpret_cast<float2*>(static_cast<float*>(C) +
+                                     (static_cast<size_t>(blockIdx.z) * M + m) * N + n) =
+              make_float2(v0, v1);
         }
       }
     }
@@ -321,12 +333,13 @@ gemm_mma_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
 template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
 cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
                  int K, int k_chunk, const float* bias, const CDT* mask,
-                 void* C, int ldc, cudaStream_t stream) {
+                 void* C, int ldc, cudaStream_t stream,
+                 __nv_bfloat16* Cb = nullptr) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN,
                   (K + k_chunk - 1) / k_chunk);
   if constexpr (std::is_same<CDT, __nv_bfloat16>::value) {
     gemm_mma_kernel<TA, TB, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
-        A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc);
+        A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc, Cb);
   } else {
     gemm_kernel<TA, TB, CDT, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
         A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc);

@@ -24,7 +24,7 @@ extern "C" int nerf_wide_render_bwd(const void* W, const float* b,
                                     const float* ts, const float* ds,
                                     const float* origins,
                                     const float* directions, const float* dcol,
-                                    void* acts, float* dz, float* dz_head,
+                                    void* acts, float* dz, void* dzb, float* dz_head,
                                     float* partials, long long n_parts,
                                     float* ray_loss, float* dW, float* db,
                                     float* loss, int n_rays, int chunk_rays,
@@ -32,7 +32,7 @@ extern "C" int nerf_wide_render_bwd(const void* W, const float* b,
                                     int num_functions, int loma, int bf16,
                                     void* stream) {
   return wide::grad_entry<2>(
-      false, W, b, ts, ds, origins, directions, dcol, acts, dz, dz_head,
+      false, W, b, ts, ds, origins, directions, dcol, acts, dz, dzb, dz_head,
       partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }
@@ -44,7 +44,7 @@ extern "C" int nerf_wide_render_bwd_rays(const void* W, const float* b,
                                          const float* origins,
                                          const float* directions,
                                          const float* dcol, void* acts,
-                                         float* dz, float* dz_head,
+                                         float* dz, void* dzb, float* dz_head,
                                          float* partials, long long n_parts,
                                          float* ray_loss, float* dW, float* db,
                                          float* loss, int n_rays,
@@ -52,7 +52,7 @@ extern "C" int nerf_wide_render_bwd_rays(const void* W, const float* b,
                                          int kc, int num_functions, int loma,
                                          int bf16, void* stream) {
   return wide::grad_entry<2>(
-      true, W, b, ts, ds, origins, directions, dcol, acts, dz, dz_head,
+      true, W, b, ts, ds, origins, directions, dcol, acts, dz, dzb, dz_head,
       partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }

@@ -22,29 +22,32 @@
 // GEMMs save each layer's input in the compute dtype; one warp per ray
 // runs the head, compositing, the loss and its adjoint and the head's
 // backward; then, layer by layer in reverse, a split-K GEMM for dW (per
-// 8192-row partials, added in a fixed order) with db from the f32 d_z, and
+// 8192-row partials, added in a fixed order; for bf16 on wgmma fed by TMA,
+// nerf_wide_dw.cuh, from a bf16 copy of d_z) with db from the f32 d_z, and
 // a GEMM for d_h with the ReLU mask from the stored activation in its
-// epilogue.  Every sum has a fixed order: repeat launches are bit-identical.
+// epilogue, which also writes the next bf16 copy.  Every sum has a fixed
+// order: repeat launches are bit-identical.
 
 #include "nerf_wide_chain.cuh"
 
 // C entry points, bound with ctypes.  Arguments as nerf_wide_render_fwd's,
 // with the (N, 3) targets and the scratch of the gradient sequence: acts
 // (L * chunk_rays * S * pw, compute dtype), dz (2 * chunk_rays * S * pw
-// f32), dz_head (chunk_rays * S * 4 f32), partials (n_parts f32, at least
+// f32), dzb (bf16 only, else null: 2 * chunk_rays * S * pw bf16), dz_head
+// (chunk_rays * S * 4 f32), partials (n_parts f32, at least
 // ceil(chunk_rays * S / 8192) * pw * pw), ray_loss (n_rays f32).  Writes dW
 // (L, pw, pw), db (L, pw) and the loss (one float).
 extern "C" int nerf_wide_train(const void* W, const float* b, const float* ts,
                                const float* ds, const float* origins,
                                const float* directions, const float* target,
-                               void* acts, float* dz, float* dz_head,
+                               void* acts, float* dz, void* dzb, float* dz_head,
                                float* partials, long long n_parts,
                                float* ray_loss, float* dW, float* db,
                                float* loss, int n_rays, int chunk_rays, int S,
                                int L, int pw, int kc, int num_functions,
                                int loma, int bf16, void* stream) {
   return wide::grad_entry<1>(
-      false, W, b, ts, ds, origins, directions, target, acts, dz, dz_head,
+      false, W, b, ts, ds, origins, directions, target, acts, dz, dzb, dz_head,
       partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }
@@ -55,7 +58,7 @@ extern "C" int nerf_wide_train_rays(const void* W, const float* b,
                                     const float* ts, const float* ds,
                                     const float* origins,
                                     const float* directions,
-                                    const float* target, void* acts, float* dz,
+                                    const float* target, void* acts, float* dz, void* dzb,
                                     float* dz_head, float* partials,
                                     long long n_parts, float* ray_loss,
                                     float* dW, float* db, float* loss,
@@ -63,7 +66,33 @@ extern "C" int nerf_wide_train_rays(const void* W, const float* b,
                                     int pw, int kc, int num_functions, int loma,
                                     int bf16, void* stream) {
   return wide::grad_entry<1>(
-      true, W, b, ts, ds, origins, directions, target, acts, dz, dz_head,
+      true, W, b, ts, ds, origins, directions, target, acts, dz, dzb, dz_head,
       partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
+}
+
+// The dW stage alone, bf16: part[z][m][n] = the sum over the rows of
+// partial z (8192 each) of H[r][m] * Dz[r][n], m < M, n < N, for H and Dz
+// (rows, ld) row-major; part holds ceil(rows / 8192) * M * N floats.
+// wide_dw_gemm runs the wgmma/TMA kernel of the gradient sequence
+// (nerf_wide_dw.cuh) on a bf16 Dz; wide_dw_gemm_mma the mma.sync kernel it
+// replaced (gemm_mma_kernel, kEpiPartial) on an f32 Dz rounded to bf16 as
+// it is read, kept so that the card can compare the two.
+extern "C" int wide_dw_gemm(const void* H, const void* Dz, int ld, int M, int N,
+                            int rows, float* part, void* stream) {
+  return static_cast<int>(wide::dw_gemm(static_cast<const __nv_bfloat16*>(H),
+                                        static_cast<const __nv_bfloat16*>(Dz), ld, M,
+                                        N, rows, part, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int wide_dw_gemm_mma(const void* H, const float* Dz, int ld, int M, int N,
+                                int rows, float* part, void* stream) {
+  if (rows <= 0 || M <= 0 || N <= 0 || M > ld || N > ld || M % 4 != 0 || N % 4 != 0 ||
+      ld % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      wide::gemm<__nv_bfloat16, float, __nv_bfloat16, true, false, wide::kEpiPartial>(
+          static_cast<const __nv_bfloat16*>(H), ld, Dz, ld, M, N, rows, wide::kRowChunk,
+          nullptr, nullptr, part, N, static_cast<cudaStream_t>(stream)));
 }

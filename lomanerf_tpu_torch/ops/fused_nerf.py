@@ -20,7 +20,8 @@ included, padded to 8, at most 64), one thread per ray:
 
 Wide MLPs (padded width above 64, hidden widths up to 256, f32 or bf16
 compute, e.g. the 8x256 flagship), layer-by-layer tiled GEMMs around a
-one-warp-per-ray compositing kernel:
+one-warp-per-ray compositing kernel (in bf16, each hidden layer's dW on
+``csrc/nerf_wide_dw.cuh``: ``wgmma`` fed by TMA, alone in ``ops/wide_dw``):
 
 * ``csrc/nerf_wide_render_fwd.cu`` — ``nerf_wide_render_fwd``
   (``_nerf_forward_kernel_W``) and ``nerf_wide_render_fwd_rays``
@@ -397,9 +398,12 @@ def wide_chunk_rays(config, pw: int) -> int:
 
 def wide_grad_chunk_rays(config, pw: int, L: int) -> int:
     """Rays per chunk of a wide gradient call: L activation buffers in the
-    compute dtype, two f32 d_z buffers and the head's d_z within
-    ``WIDE_GRAD_BYTES`` (21,788 rays for the flagship)."""
-    per_ray = config.num_samples * (pw * (L * _itemsize(config) + 8) + 4 * _HEAD)
+    compute dtype, two f32 d_z buffers (and, for bf16, their two bf16
+    copies, which the dW stage reads) and the head's d_z within
+    ``WIDE_GRAD_BYTES`` (18,682 rays for the flagship)."""
+    isz = _itemsize(config)
+    per_ray = config.num_samples * (pw * (L * isz + 8 + (4 if isz == 2 else 0))
+                                    + 4 * _HEAD)
     return max(1, WIDE_GRAD_BYTES // per_ray)
 
 
@@ -466,12 +470,16 @@ def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
 
     acts = torch.empty(L * rows * pw, dtype=W.dtype, device=dev)
     dz, dz_head, partials = f32(2 * rows * pw), f32(rows * _HEAD), f32(n_parts)
+    # bf16: the rounded copies of the two d_z buffers, the dW stage's operand
+    dzb = torch.empty(2 * rows * pw, dtype=W.dtype, device=dev) \
+        if W.dtype == torch.bfloat16 else None
     ray_loss, dW, db, loss = f32(max(n, 1)), f32(L, pw, pw), f32(L, pw), f32(1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(build.load(), entry)(
         W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
         origins.data_ptr(), directions.data_ptr(), cot.data_ptr(), acts.data_ptr(),
-        dz.data_ptr(), dz_head.data_ptr(), partials.data_ptr(), n_parts,
+        dz.data_ptr(), None if dzb is None else dzb.data_ptr(), dz_head.data_ptr(),
+        partials.data_ptr(), n_parts,
         ray_loss.data_ptr(), dW.data_ptr(), db.data_ptr(), loss.data_ptr(), n, chunk,
         *_wide_args(config, pw, L), stream)
     if err != 0:

@@ -1,0 +1,271 @@
+"""Measurements on the card that need a process of their own, or that are
+run against another checkout of the port to compare two trees.
+
+* ``--what flagship``: device time by kernel family of ``--steps`` flagship
+  train steps (``NeRFConfig.full()``, 16,384 rays x 128 samples, Adam 5e-4,
+  ``make_single_chip_train_step``, numpy-seeded batches) after two warm-up
+  steps, from one ``utils.profiling.trace`` session (``torch.profiler``:
+  only the first session of a process records the card's kernels).  Each
+  kernel of the trace is put in a family by its name: the dW GEMMs (the
+  wgmma/TMA stage, ``dw_wgmma_kernel``, and ``gemm*_kernel`` with the
+  ``kEpiPartial`` epilogue), the ``d_h`` GEMMs (``kEpiMask``), the forward
+  GEMMs (``kEpiBiasRelu``), compositing, the partials' and column sums, the
+  encoding, the loss sum, memsets and copies, and the rest (Adam, the
+  parameter packing).  Prints ms per step and the share of the device time.
+* ``--what grid_sum``: one call of ``probe.grid_sum`` on an ``(8,
+  7,864,320)`` f32 array in 3,840-column tiles split three ways, beside
+  ``torch.sum`` of the same array: the device time of its kernels per call
+  over ``--calls`` calls (one trace session, after a warm-up call) and its
+  kernels per call; from an idle card, in turns with ``torch.sum``, the
+  event window of one call (the host's enqueue and the card's work) and
+  the host time of the call alone.
+* ``--what leaves``: each wide leaf's worst |kernel - plain| of the
+  flagship's train-loss gradients, over the leaf's largest entry, on the
+  inputs of ``chip_smoke.py`` phase 7 (``full()`` on 1037 rays, numpy seed
+  7; the 16,384-ray bench batch, seed 0), and of the render backward's for
+  the 1037-ray cotangent.
+
+The last line is one JSON object with the numbers.  Run:
+
+    python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3
+    python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
+    python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import statistics
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+FAMILIES = ("dW", "d_h", "forward", "compositing", "partial and column sums", "encoding",
+            "loss sum", "memset and copy", "other")
+_EPILOGUE = {0: "forward", 1: "d_h", 2: "dW"}  # nerf_wide_gemm.cuh's kEpi values
+
+
+def family(name: str, cat: str) -> str:
+    """The family of a kernel (or memset / copy) by its trace name."""
+    if cat != "kernel":
+        return "memset and copy"
+    if "dw_wgmma_kernel" in name:
+        return "dW"
+    gemm = re.search(r"gemm(?:_mma)?_kernel<([^>]*)>", name)
+    if gemm:
+        return _EPILOGUE[int(gemm.group(1).split(",")[-1])]
+    for key, fam in (("composite_kernel", "compositing"), ("sum_partials_kernel",
+                     "partial and column sums"), ("colsum_kernel", "partial and column sums"),
+                     ("encode_kernel", "encoding"), ("loss_sum_kernel", "loss sum")):
+        if key in name:
+            return fam
+    return "other"
+
+
+def device_events(run, calls: int, after=None):
+    """``[(name, cat, µs, ts)]`` of the card's work over ``calls`` calls of
+    ``run`` inside one trace; with ``after``, the work of its calls too (in a
+    range of its own, after the card is idle), returned second."""
+    from torch.profiler import record_function
+
+    from lomanerf_tpu_torch.utils import trace
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            for _ in range(calls):
+                run()
+            if after is not None:
+                torch.cuda.synchronize()
+                with record_function("card_probe: after"):
+                    for _ in range(calls):
+                        after()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    work = [(e.get("name", ""), e["cat"], float(e.get("dur", 0.0)), float(e["ts"]))
+            for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    if after is None:
+        return work
+    # the card was idle when the range began: later work is `after`'s
+    start = min(float(e["ts"]) for e in events if e.get("name") == "card_probe: after")
+    return [w for w in work if w[3] < start], [w for w in work if w[3] >= start]
+
+
+def flagship(steps: int) -> dict:
+    from lomanerf_tpu_torch.core import rays
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
+
+    cfg = NeRFConfig.full()
+    rng = np.random.default_rng(0)
+    t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    batches = []
+    for _ in range(2):
+        o, d = (torch.tensor(rng.standard_normal((16384, 3)), dtype=torch.float32,
+                             device="cuda") for _ in range(2))
+        tgt = torch.tensor(rng.random((16384, 3)), dtype=torch.float32, device="cuda")
+        batches.append((o, d, t, dists, tgt))
+    model = NeRFModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    step = make_single_chip_train_step(cfg, torch.optim.Adam(model.parameters(), lr=5e-4))
+    calls = [0]
+
+    def run():
+        step(model, *batches[calls[0] % 2])
+        calls[0] += 1
+
+    run(), run()  # warm-up
+    events = device_events(run, steps)
+    ms = collections.Counter()
+    launches = collections.Counter()
+    for name, cat, us, _ in events:
+        fam = family(name, cat)
+        ms[fam] += us / 1e3 / steps
+        if fam == "dW":
+            launches["dw_wgmma_kernel" if "dw_wgmma_kernel" in name else "gemm kEpiPartial"] += 1
+    total = sum(ms.values())
+    out = {"what": "flagship", "steps": steps, "device_ms_per_step": total,
+           "ms": {k: ms[k] for k in FAMILIES}, "share": {k: ms[k] / total for k in FAMILIES},
+           "dw_launches_per_step": {k: v / steps for k, v in launches.items()}}
+    print(f"flagship train step, {steps} steps traced: device {total:.3f} ms/step")
+    for k in FAMILIES:
+        print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
+    print(f"  dW launches per step: {out['dw_launches_per_step']}")
+    return out
+
+
+def one_call_ms(fns: dict, rounds: int) -> dict:
+    """Per callable, the median ms of one call from an idle card: its event
+    window (CUDA events around the call: the host's enqueue and the card's
+    work) and its host time (the clock around the call, nothing awaited);
+    the callables in turns (a, b, b, a)."""
+    window = {k: [] for k in fns}
+    host = {k: [] for k in fns}
+    order = list(fns.items())
+    for _ in range(rounds):
+        for name, fn in order + order[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            window[name].append(start.elapsed_time(end))
+    return {k: {"window_ms": statistics.median(window[k]), "host_ms": statistics.median(host[k])}
+            for k in fns}
+
+
+def grid_sum(calls: int) -> dict:
+    from lomanerf_tpu_torch.ops import probe
+
+    x = torch.randn((8, 7864320), generator=torch.Generator("cuda").manual_seed(0),
+                    device="cuda")
+    probe.grid_sum(x, 3840).item()  # warm-up (and the scratch's first allocation)
+    torch.sum(x).item()
+    # both in one session (the card idle between them): torch.sum's work
+    # includes a memset of its own
+    events, lib = device_events(lambda: probe.grid_sum(x, 3840), calls,
+                                after=lambda: torch.sum(x))
+    names = collections.Counter(e[0] for e in events)
+    us = sum(e[2] for e in events) / calls
+    lib_us = sum(e[2] for e in lib) / calls
+    turns = one_call_ms({"grid_sum": lambda: probe.grid_sum(x, 3840),
+                         "torch.sum": lambda: torch.sum(x)}, 25)
+    out = {"what": "grid_sum", "calls": calls, "device_ms_per_call": us / 1e3,
+           "torch_sum_device_ms": lib_us / 1e3,
+           "kernels_per_call": {k: v / calls for k, v in names.items()}, **{
+               f"{k}_{m}": v for k in ("grid_sum", "torch.sum") for m, v in turns[k].items()}}
+    print(f"grid_sum (8, 7864320) in 3840-column tiles, {calls} calls traced: device "
+          f"{us / 1e3:.4f} ms/call (torch.sum {lib_us / 1e3:.4f}); kernels per call "
+          f"{out['kernels_per_call']}; one call from an idle card, 50 in turns with "
+          "torch.sum: " + ", ".join(f"{k} event window {v['window_ms']:.4f} ms, host "
+                                     f"{v['host_ms']:.4f} ms" for k, v in turns.items()))
+    return out
+
+
+def seeded_full(rng):
+    """``full()``'s params drawn from numpy as ``chip_smoke.seeded_params``
+    draws them (``init="nerf"``), on the card."""
+    from lomanerf_tpu_torch.models import NeRFConfig
+
+    cfg = NeRFConfig.full()
+    sizes = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) + [cfg.out_channels]
+    ws = []
+    for fi, fo in zip(sizes[:-1], sizes[1:]):
+        ws.append(torch.tensor(rng.standard_normal((fi, fo)) * np.sqrt(2.0 / fi),
+                               dtype=torch.float32, device="cuda"))
+        rng.standard_normal(fo)  # the biases the draw discards for init="nerf"
+    bs = [torch.zeros(w.shape[1], device="cuda") for w in ws]
+    ws[-1] *= 0.1
+    bs[-1][3] = 0.5
+    return cfg, {"w": ws, "b": bs}
+
+
+def leaves() -> dict:
+    from lomanerf_tpu_torch.core import rays
+    from lomanerf_tpu_torch.ops import fused_nerf
+
+    def batch(rng, cfg, n):
+        o, d = (torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                             device="cuda") for _ in range(2))
+        t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+        return o, d, t, dists, torch.tensor(rng.random((n, 3)), dtype=torch.float32,
+                                            device="cuda")
+
+    def worst(params, fn):
+        lv = [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+        got = [torch.autograd.grad(f(), lv) for f in fn]
+        return [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*got)]
+
+    out = {}
+    rng = np.random.default_rng(7)
+    cfg, params = seeded_full(rng)
+    o, d, t, dists, tgt = batch(rng, cfg, 1037)
+    cot = torch.tensor(rng.standard_normal((1037, 3)), dtype=torch.float32, device="cuda")
+    out["train_1037"] = worst(params, [
+        lambda f=f: f(params, o, d, t, dists, tgt, cfg)
+        for f in (fused_nerf.nerf_train_loss, fused_nerf.nerf_train_loss_reference)])
+    out["render_bwd_1037"] = worst(params, [
+        lambda f=f: (f(params, o, d, t, dists, cfg) * cot).sum()
+        for f in (fused_nerf.render_rays, fused_nerf.render_rays_reference)])
+    rng = np.random.default_rng(0)
+    cfg, params = seeded_full(rng)
+    b = batch(np.random.default_rng(0), cfg, 16384)
+    out["train_16384"] = worst(params, [
+        lambda f=f: f(params, *b, cfg)
+        for f in (fused_nerf.nerf_train_loss, fused_nerf.nerf_train_loss_reference)])
+    for k, v in out.items():
+        print(f"{k}: worst |kernel-plain| / max|plain| per leaf (dW_0.., db_0..): "
+              + " ".join(f"{e:.2e}" for e in v) + f"; max {max(v):.3e}")
+    return {"what": "leaves", **out}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--what", choices=("flagship", "grid_sum", "leaves"), required=True)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--calls", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("card_probe: no CUDA device; it measures the card's kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.what == "leaves":
+        out = leaves()
+    else:
+        out = flagship(args.steps) if args.what == "flagship" else grid_sum(args.calls)
+        if not out.get("device_ms_per_step", out.get("device_ms_per_call")):
+            raise SystemExit("card_probe: the trace holds no device time")
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@
 ``ops/probe.grid_sum`` sums an ``(8, rows)`` f32 array in ``(8, block)``
 tiles, one block per tile, in one launch.  Two sweeps at constant bytes:
 
-* **A, blocks per launch**: the JAX script's ``(block, dummies)`` list, one
-  launch each (2,048, 2,048, 512, 128 and 64 blocks at 7,864,320 rows);
+* **A, tiles per launch**: the JAX script's ``(block, dummies)`` list, one
+  launch each (2,048, 2,048, 512, 128 and 64 tiles at 7,864,320 rows);
 * **B, launches per step**: the same array in ``k`` launches in a row, each
   over ``rows // k`` columns in tiles of at most 3,840 columns, their sums
   added on the card and read back once.
@@ -13,7 +13,7 @@ tiles, one block per tile, in one launch.  Two sweeps at constant bytes:
 Each line gives the median over ``2 x reps`` steps, the two inputs in turn
 as the JAX script runs them: the device time (CUDA events) and the host's
 clock around the step and the read of its result (the host's share is what
-sweep B prices), per block (A) or per launch (B), GB/s and the share of the
+sweep B prices), per tile (A) or per launch (B), GB/s and the share of the
 bound (the bytes over 3.35 TB/s), beside ``torch.sum`` of the same columns
 timed in the same turns (the library call).  Every sum is checked against
 numpy's f64 sum (within 1e-6 of the sum of |x|) and, per input, bit-identical
@@ -87,7 +87,7 @@ def _line(label, count, per, cols, got, lib, refs, cuda):
     rec = {"label": label, count: per, "cols": cols, "host_ms": statistics.median(host),
            "lib_host_ms": statistics.median(lib[1]), "err": err}
     text = f"{label}: host {rec['host_ms']:.4f} ms"
-    unit = "block" if count == "blocks" else "launch"
+    unit = "tile" if count == "blocks" else "launch"
     if cuda:
         rec.update(ms=statistics.median(dev), lib_ms=statistics.median(lib[0]),
                    bound_ms=nbytes / PEAK_BYTES * 1e3)
@@ -145,7 +145,7 @@ def main(argv=None) -> dict:
         cols = covered(n_tiles * block)
         got = _measure({"kernel": lambda x, b=block, nd=n_dummy: probe.grid_sum(x, b, nd),
                         "lib": lambda x, c=cols: torch.sum(x[:, :c])}, xs, args.reps, cuda)
-        res["A"].append(_line(f"A block={block:6d} dummies={n_dummy} blocks/launch="
+        res["A"].append(_line(f"A block={block:6d} dummies={n_dummy} tiles/launch="
                               f"{n_tiles:5d}", "blocks", n_tiles, cols, got["kernel"],
                               got["lib"], refs, cuda))
     for k in SWEEP_B:
@@ -162,7 +162,7 @@ def main(argv=None) -> dict:
 
         got = _measure({"kernel": step, "lib": lambda x, c=cols: torch.sum(x[:, :c])},
                        xs, args.reps, cuda)
-        res["B"].append(_line(f"B launches={k:5d} blocks/launch={per // block:5d}",
+        res["B"].append(_line(f"B launches={k:5d} tiles/launch={per // block:5d}",
                               "launches", k, cols, got["kernel"], got["lib"], refs, cuda))
     if len(res["B"]) >= 2:
         ks = np.array([r["launches"] for r in res["B"]], dtype=np.float64)

@@ -20,7 +20,9 @@ ones over many ray chunks to the one-chunk call.  The 2D field's kernels
 (#13, #14) are held to the same bounds as the narrow ones, and so are
 narrow MLPs past one block's shared memory on the wide kernels.  The
 segmented scans (#15) and the grid-overhead probe's sum (#16) are held to
-numpy's f64 results and their plain versions.
+numpy's f64 results and their plain versions, the sum also bit for bit to
+the numpy restatement of its fixed order; the wide chain's bf16 dW stage
+(wgmma/TMA) to f64 of its rounded operands.
 """
 
 import dataclasses
@@ -522,3 +524,53 @@ def test_grid_sum_kernel_matches_f64_and_repeats_exactly(rows, block, n_dummy):
         assert all(torch.equal(got[0], g) for g in got[1:])
         assert abs(got[0].item() - want) <= 1e-6 * max(scale, 1.0)
         assert abs(probe.grid_sum_reference(view, block).item() - want) <= 1e-6 * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_cols,pw", [(2 * 8192 + 1037, 256, 256),
+                                             (1037 * 128, 40, 256), (1037, 128, 128)])
+def test_wide_dw_gemm_matches_f64(rows, in_cols, pw):
+    """The bf16 dW stage on wgmma/TMA (``wide_dw.wide_dw_gemm``, the kernel
+    #7, #9, #11 and #12 run per hidden layer) within 1e-6 of the f64 sum of
+    |products| of the f64 product of its rounded operands, per 8192-row
+    partial, at ragged rows and at layer 0's 40 columns; repeat launches
+    bit-identical; the ``mma.sync`` kernel it replaced within the same."""
+    need_card()
+    from lomanerf_tpu_torch.ops import wide_dw
+
+    g = torch.Generator("cuda").manual_seed(rows)
+    h = torch.relu(torch.randn((rows, pw), generator=g, device="cuda")).to(torch.bfloat16)
+    d32 = torch.randn((rows, pw), generator=g, device="cuda") * 1e-3
+    db = d32.to(torch.bfloat16)
+    before = dict(wide_dw.launches)
+    got, again = wide_dw.wide_dw_gemm(h, db, in_cols), wide_dw.wide_dw_gemm(h, db, in_cols)
+    old = wide_dw.wide_dw_gemm_mma(h, d32, in_cols)
+    torch.cuda.synchronize()
+    assert wide_dw.launches["wide_dw_gemm"] == before["wide_dw_gemm"] + 2
+    assert wide_dw.launches["wide_dw_gemm_mma"] == before["wide_dw_gemm_mma"] + 1
+    assert got.shape == (-(-rows // 8192), in_cols, pw) and torch.equal(got, again)
+    for z in range(got.shape[0]):
+        a = h[8192 * z:8192 * (z + 1), :in_cols].double()
+        b = db[8192 * z:8192 * (z + 1)].double()
+        exact, scale = a.T @ b, a.abs().T @ b.abs()
+        for part in (got[z], old[z]):
+            assert ((part.double() - exact).abs() <= 1e-6 * scale + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 7, 2048])
+def test_grid_sum_is_one_launch_in_a_fixed_order(n_tiles):
+    """grid_sum at 1, 7 and 2,048 tiles of 3,840 columns (and a remainder
+    it leaves out): repeat launches bit-identical and equal, bit for bit,
+    to the numpy restatement of the kernel's fixed order
+    (``test_torch_probe.kernel_order_sum``)."""
+    need_card()
+    from test_torch_probe import kernel_order_sum
+
+    from lomanerf_tpu_torch.ops import probe
+
+    x = torch.randn((8, n_tiles * 3840 + 4), generator=torch.Generator("cuda").manual_seed(
+        n_tiles), device="cuda")
+    got = [probe.grid_sum(x, 3840) for _ in range(3)]
+    assert all(torch.equal(got[0], y) for y in got[1:])
+    assert got[0].item() == float(kernel_order_sum(x.cpu().numpy(), 3840))

@@ -32,6 +32,67 @@ def test_grid_sum_reference_matches_f64(rows, block):
         assert abs(got.item() - np.sum(x, dtype=np.float64)) > 1e-6 * scale
 
 
+THREADS = 256  # grid_sum.cu: kThreads
+
+
+def block_total(v):
+    """grid_sum.cu's block_total in f32: a shuffle tree in each warp (lane l
+    adds lane l + 16, then + 8, ...), then the same tree over the warps'
+    sums, zero-padded to 32."""
+    def tree(a):
+        while a.shape[-1] > 1:
+            half = a.shape[-1] // 2
+            a = a[..., :half] + a[..., half:]
+        return a[..., 0]
+
+    warps = tree(v.reshape(-1, 32))
+    return tree(np.concatenate([warps, np.zeros(32 - warps.size, np.float32)]))
+
+
+def kernel_order_sum(x, block, vec=True):
+    """numpy (f32) restatement of grid_sum.cu's fixed order: in each tile,
+    thread t adds columns t, t + 256, ... in order (float4 columns with
+    ``vec``, their 8 rows in order, each float4's 4 values in order), then
+    the block's tree; the last block adds the partials p = t, t + 256, ...
+    per thread, then the tree."""
+    n_tiles = x.shape[1] // block
+    parts = np.zeros(n_tiles, np.float32)
+    width = 4 if vec else 1
+    n_cols = block // width
+    for tile in range(n_tiles):
+        cols = x[:, tile * block:(tile + 1) * block].reshape(8, n_cols, width)
+        acc = np.zeros(THREADS, np.float32)
+        for i0 in range(0, n_cols, THREADS):
+            idx = np.arange(i0, min(i0 + THREADS, n_cols))
+            for r in range(8):
+                for q in range(width):
+                    acc[idx - i0] += cols[r, idx, q]
+        parts[tile] = block_total(acc)
+    acc = np.zeros(THREADS, np.float32)
+    for p0 in range(0, n_tiles, THREADS):
+        idx = np.arange(p0, min(p0 + THREADS, n_tiles))
+        acc[idx - p0] += parts[idx]
+    return block_total(acc)
+
+
+@pytest.mark.parametrize("n_tiles,block,vec", [(1, 3840, True), (7, 3840, True),
+                                               (13, 1024, True), (300, 64, True),
+                                               (5, 1003, False)])
+def test_grid_sum_kernel_order_matches_plain(n_tiles, block, vec):
+    """The kernel's fixed-order reduction restated in numpy (tile sums, then
+    the last block's sum of the partials) against ``grid_sum_reference``
+    within 1e-6 of the sum of |x|, at ragged tile counts (one tile, fewer
+    and more than a block's threads), with a ragged remainder column."""
+    x = np.random.default_rng(n_tiles).standard_normal((8, n_tiles * block + 3)).astype(
+        np.float32)
+    got = kernel_order_sum(x, block, vec)
+    assert got.dtype == np.float32
+    want = probe.grid_sum_reference(torch.from_numpy(x), block).item()
+    scale = np.sum(np.abs(x[:, :n_tiles * block]), dtype=np.float64)
+    assert abs(float(got) - want) <= 1e-6 * scale
+    assert abs(float(got) - np.sum(x[:, :n_tiles * block], dtype=np.float64)) <= 1e-6 * scale
+
+
 def test_grid_sum_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         probe.grid_sum(torch.zeros(7, 64), 8)
@@ -56,3 +117,26 @@ def test_grid_overhead_cli_on_cpu(capsys):
     assert [r["launches"] for r in res["B"]] == list(grid_overhead.SWEEP_B)
     assert all(r["err"] <= 1e-6 for r in res["A"] + res["B"])
     assert "ms" not in res["A"][0]  # no device time on the CPU
+
+
+def test_card_probe_sorts_kernels_into_families():
+    """``scripts/card_probe.py`` puts each kernel of a trace in a family by
+    its demangled name (the GEMMs by their epilogue), and refuses to run
+    without a card."""
+    from lomanerf_tpu_torch.scripts import card_probe
+
+    gemm = "void wide::(anonymous namespace)::gemm{}<__nv_bfloat16, float, true, false, {}>(int)"
+    assert card_probe.family(gemm.format("_mma_kernel", 2), "kernel") == "dW"
+    assert card_probe.family(gemm.format("_mma_kernel", 1), "kernel") == "d_h"
+    assert card_probe.family(gemm.format("_kernel", 0), "kernel") == "forward"
+    assert card_probe.family("void wide::(anonymous namespace)::dw_wgmma_kernel<8>"
+                             "(CUtensorMap_st, CUtensorMap_st, int)", "kernel") == "dW"
+    for name, fam in (("composite_kernel<__nv_bfloat16, 1, false>", "compositing"),
+                      ("colsum_kernel(float const*)", "partial and column sums"),
+                      ("sum_partials_kernel(float const*)", "partial and column sums"),
+                      ("encode_kernel<float, true>", "encoding"),
+                      ("multi_tensor_apply_kernel<Adam>", "other")):
+        assert card_probe.family(name, "kernel") == fam
+    assert card_probe.family("Memset (Device)", "gpu_memset") == "memset and copy"
+    with pytest.raises(SystemExit):
+        card_probe.main(["--what", "grid_sum"])

@@ -136,8 +136,24 @@ def test_wide_bf16_matches_jax_kernels(rng, layers, width, S):
     assert grad_err <= BF16_GRAD_REL, grad_err
 
 
+def dw_stage(A, Zb, row_chunk, k_step):
+    """The bf16 dW stage's partials (nerf_wide_dw.cuh): per partial of
+    ``row_chunk`` rows, ``k_step``-row k-steps (the last of a partial
+    ragged), each k-step's sum rounded to f32 and promoted into the
+    partial's f32 running sum in order.  ``Zb`` is the bf16 copy of d_z."""
+    parts = []
+    for r0 in range(0, A.shape[0], row_chunk):
+        r1 = min(r0 + row_chunk, A.shape[0])
+        part = np.zeros((A.shape[1], Zb.shape[1]), np.float32)
+        for k0 in range(r0, r1, k_step):
+            k1 = min(k0 + k_step, r1)
+            part = part + (A[k0:k1].T @ Zb[k0:k1]).astype(np.float32)
+        parts.append(part)
+    return parts
+
+
 def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
-                    chunk_rays, row_chunk):
+                    chunk_rays, row_chunk, k_step=None):
     """numpy (f64) re-statement of the CUDA gradient sequence
     (nerf_wide_chain.cuh) over the packed stacks, with ``t``/``dists``
     shared (S,) or per-ray (N, S) (the ``*_rays`` entry points: each chunk
@@ -146,13 +162,23 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
     NaN (never read), the layer GEMMs, the per-ray compositing walk and its
     adjoint, then in reverse the split-K dW partials of row_chunk rows and
     the db column-sum partials, each added in a fixed order.  ``rnd`` rounds
-    to the compute dtype.  Returns (dW, db, loss)."""
+    to the compute dtype.  With ``k_step`` (bf16), the producers of each
+    hidden d_z (compositing, the d_h product) also write its rounded copy,
+    which the hidden layers' dW stage reads in f32 k-steps
+    (:func:`dw_stage`), its partials added in f32 in order; the head's dW
+    keeps the f64 partials.  Returns (dW, db, loss)."""
     L, pw = W.shape[0], W.shape[1]
     dW, db, loss = np.zeros((L, pw, pw)), np.zeros((L, pw)), 0.0
 
     def add_partials(A, Z, dst):  # dst += sum_z A[z]^T rnd(Z[z]), z in order
         for r0 in range(0, A.shape[0], row_chunk):
             dst += A[r0:r0 + row_chunk].T @ rnd(Z[r0:r0 + row_chunk])
+
+    def add_stage(A, Zb, dst):  # dst += the f32 sum of the stage's partials
+        total = np.zeros(dst.shape, np.float32)
+        for part in dw_stage(A, Zb, row_chunk, k_step):
+            total = total + part
+        dst += total
 
     def add_colsums(Z, dst):
         for r0 in range(0, Z.shape[0], row_chunk):
@@ -210,12 +236,17 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
         add_partials(H[L - 1], dz_head, dW[L - 1][:, :4])
         add_colsums(dz_head, db[L - 1][:4])
         dz = (rnd(dz_head) @ W[L - 1][:, :4].T) * (H[L - 1] > 0)
+        dzb = rnd(dz)  # the copy compositing writes beside d_z
         for l in range(L - 2, -1, -1):
             K = kc if l == 0 else pw
-            add_partials(H[l][:, :K], dz, dW[l][:K])
+            if k_step:
+                add_stage(H[l][:, :K], dzb, dW[l][:K])
+            else:
+                add_partials(H[l][:, :K], dz, dW[l][:K])
             add_colsums(dz, db[l])
             if l >= 1:
-                dz = (rnd(dz) @ W[l].T) * (H[l] > 0)
+                dz = (dzb @ W[l].T) * (H[l] > 0)
+                dzb = rnd(dz)  # the d_h epilogue's copy
     return dW, db, loss
 
 
@@ -237,7 +268,9 @@ def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, 
     version: the train loss (#7, or #12 on per-ray depths) or
     (render * cot).sum() (#9, or #11), at shared (S,) depths or jittered
     per-ray (N, S) ones from the stratified sampler.  Ray chunks of 4 and
-    split-K chunks of 7 rows make every sum cross a chunk edge."""
+    split-K chunks of 7 rows make every sum cross a chunk edge; for bf16,
+    the dW stage's k-steps of 3 rows (ragged in every partial) read the
+    rounded d_z copy."""
     S, n = 5, 9
     cfg = NeRFConfig(num_layers=layers, filter_size=width, num_samples=S, mode=mode,
                      compute_dtype=compute_dtype)
@@ -259,7 +292,8 @@ def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, 
     dW, db, loss = kernel_sequence(
         W.double().numpy(), b.double().numpy(), t.astype(np.float64),
         dists.astype(np.float64), o.astype(np.float64), d.astype(np.float64),
-        cot.astype(np.float64), S, 40, 5, mode == "loma", rnd, train, 4, 7)
+        cot.astype(np.float64), S, 40, 5, mode == "loma", rnd, train, 4, 7,
+        3 if compute_dtype == "bfloat16" else None)
     got = fused_nerf.unpack_wide_grads(torch.from_numpy(dW), torch.from_numpy(db), params)
     args = [torch.from_numpy(x) for x in (o, d, t, dists)]
     lv = leaves(params)
@@ -277,6 +311,57 @@ def test_kernel_sequence_matches_plain(rng, compute_dtype, layers, width, mode, 
         else:  # f64 against f32 sums: bf16 roundings can flip, as above
             assert np.abs(g.numpy() - w.numpy()).max() <= SEQ_BF16_GRAD_REL * np.abs(
                 w.numpy()).max()
+
+
+def test_flagship_batch_is_one_gradient_chunk():
+    """With the bf16 d_z copies in the gradient scratch (4 bytes per sample
+    and column more), the flagship's 16,384-ray batch is still one chunk of
+    a wide gradient call; f32 MLPs keep their chunk (no copy)."""
+    full = NeRFConfig.full()
+    assert fused_nerf.wide_grad_chunk_rays(full, 256, 8) >= 16384
+    f32 = NeRFConfig(num_layers=4, filter_size=128, num_samples=32)
+    assert fused_nerf.wide_grad_chunk_rays(f32, 128, 4) == \
+        fused_nerf.WIDE_GRAD_BYTES // (32 * (128 * (4 * 4 + 8) + 16))
+
+
+@pytest.mark.parametrize("rows,in_cols,pw", [(8192 + 1037, 40, 128), (300, 128, 128),
+                                             (8192, 256, 256)])
+def test_dw_stage_plain_matches_its_order(rng, rows, in_cols, pw):
+    """``wide_dw.wide_dw_gemm``'s plain version (what the CPU runs) against
+    the numpy restatement of the kernel's order (32-row k-steps promoted
+    into f32 sums, 8192-row partials) within 1e-6 of the f64 sum of
+    |products|, at a ragged last partial, one short partial and one whole;
+    ``wide_dw_gemm_mma``'s plain version on the f32 d_z gives the same
+    partials."""
+    from lomanerf_tpu_torch.ops import wide_dw
+
+    h = torch.from_numpy(np.maximum(rng.standard_normal((rows, pw)), 0).astype(np.float32))
+    d32 = torch.from_numpy((rng.standard_normal((rows, pw)) * 1e-3).astype(np.float32))
+    hb, db = h.to(torch.bfloat16), d32.to(torch.bfloat16)
+    got = wide_dw.wide_dw_gemm(hb, db, in_cols)
+    n = -(-rows // 8192)
+    assert got.shape == (n, in_cols, pw) and got.dtype == torch.float32
+    A, Z = hb[:, :in_cols].double().numpy(), db.double().numpy()
+    want = dw_stage(A, Z, 8192, 32)
+    for z in range(n):
+        sl = slice(8192 * z, 8192 * (z + 1))
+        scale = np.abs(A[sl]).T @ np.abs(Z[sl])
+        exact = A[sl].T @ Z[sl]
+        assert np.all(np.abs(got[z].double().numpy() - exact) <= 1e-6 * scale + 1e-30)
+        assert np.all(np.abs(want[z] - exact) <= 1e-6 * scale + 1e-30)
+    assert torch.equal(wide_dw.wide_dw_gemm_mma(hb, d32, in_cols), got)
+
+
+def test_dw_stage_refuses_what_it_does_not_take():
+    from lomanerf_tpu_torch.ops import wide_dw
+
+    h = torch.zeros(64, 128, dtype=torch.bfloat16)
+    for args in ((h, h.float(), 128), (h.float(), h, 128), (h, h, 36), (h, h, 136),
+                 (h, h[:32], 128), (h.t().contiguous().t(), h, 128)):
+        with pytest.raises(ValueError):
+            wide_dw.wide_dw_gemm(*args)
+    with pytest.raises(ValueError):
+        wide_dw.wide_dw_gemm_mma(h, h, 128)
 
 
 @pytest.mark.parametrize("mode", ["loma", "standard"])
