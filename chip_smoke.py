@@ -48,7 +48,13 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    alone (``wide_dw.wide_dw_gemm``) to f64 and to the ``mma.sync`` kernel
    it replaced at the flagship's 2,097,152 x 256 x 256, at layer 0's 40
    columns and at 1037 x 128 ragged rows, and times it against that
-   kernel, ``torch.mm`` and its bound;
+   kernel, ``torch.mm`` and its bound; times the frame also through the
+   ``mma.sync`` chain that the bf16 render's fused MLP (``nerf_wide_mlp.cuh``)
+   replaced, asserting the same bits, the fused MLP alone on one 65,536-ray
+   chunk against its bound and a cuBLAS ``addmm`` + ``relu_`` chain, and #10
+   at 16,384 rays new against old (the same bits); splits the frame's
+   device time by kernel family on both paths (``card_probe --what frame``:
+   the fused kernel once per chunk, no layer GEMM);
 10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``) against the
     plain version and autograd at the ``small`` and ``hires`` widths on
     1037 pixels, with repeat launches bit-identical and no coords gradient,
@@ -111,7 +117,9 @@ scans at the main path's column) and 19 (the sweep) are the main paths:
 each kernel's launch count is reset before its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
 sixteen kernels (with each one's least time on the card for its work,
-``bound_ms``), and ``{"ok": true, "device": ...}``.  It exits
+``bound_ms``; #8's also with phase 9's fused MLP alone, #10 new against
+old and the frame's split by kernel family), and ``{"ok": true,
+"device": ...}``.  It exits
 non-zero, before printing any result, without a CUDA device or outside a
 checkout of the repository; any failing phase raises.
 """
@@ -795,14 +803,17 @@ def mlp_macs(sizes):
     return fwd, 2 * fwd + sum(fi * fo for fi, fo in sizes[1:])
 
 
-def phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
+def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
                           make_single_chip_train_step, normalized_intrinsics, rays,
                           smi):
     """Phase 9: timing by CUDA events, median with min/max, kernel and plain
     in turns.  The flagship train step (``full``, 16,384 rays, Adam 5e-4,
-    bench.py's numpy-seeded batches); one 800x800 ``full`` frame (the plain
-    version chunked as the kernel path is); each wide entry point's own call
-    against its plain version.  Returns ``{kernel: (ms, plain_ms)}``."""
+    bench.py's numpy-seeded batches); one 800x800 ``full`` frame through the
+    fused MLP (the main path), through the ``mma.sync`` chain it replaced
+    (``wide_mlp.render_rays_mma``, bit for bit the same frame) and through
+    the plain version, each chunked as the kernel path is; each wide entry
+    point's own call against its plain version.  Returns ``{kernel: (ms,
+    plain_ms)}``."""
     cfg = NeRFConfig.full()
     rng = np.random.default_rng(0)
     batches = [bench_batch(rng, cfg, FLAGSHIP_RAYS) for _ in range(2)]
@@ -856,22 +867,39 @@ def phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
     def kernel_frame():
         return model.render_image(K, pose, SERVE_SIZE)
 
+    def mma_frame():
+        o, d = rays.get_rays(SERVE_SIZE, SERVE_SIZE, K, pose)
+        tv, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+        W, b = fused_nerf.pack_wide_params(model.params, 256, cfg.compute_dtype)
+        return torch.cat([wide_mlp.render_rays_mma(W, b, tv, dists, oc, dc, cfg)
+                          for oc, dc in zip(o.split(chunk), d.split(chunk))]
+                         ).reshape(SERVE_SIZE, SERVE_SIZE, 3)
+
     with torch.no_grad():
         _, img_k = cuda_ms(kernel_frame)  # warm-up
+        _, img_m = cuda_ms(mma_frame)
         _, img_p = cuda_ms(plain_frame)
         err = (img_k - img_p).abs().max().item()
         if not torch.isfinite(img_k).all():
             raise AssertionError("non-finite pixels")
+        if not torch.equal(img_k, img_m):
+            raise AssertionError("the fused MLP's frame differs from the mma.sync chain's: "
+                                 f"{int((img_k != img_m).sum())} values apart")
         torch.testing.assert_close(img_k, img_p, atol=wide_tolerances(cfg)[0], rtol=RTOL)
-        frame = timed_turns({"plain": plain_frame, "kernel": kernel_frame}, FRAME_ROUNDS)
+        # the plain frame takes ~3 s: one round of it, more of the two kernels
+        frame = timed_turns({"plain": plain_frame, "mma": mma_frame, "kernel": kernel_frame}, 1)
+        for name, ts in timed_turns({"mma": mma_frame, "kernel": kernel_frame},
+                                    FRAME_ROUNDS).items():
+            frame[name] += ts
     n_rays = SERVE_SIZE * SERVE_SIZE
     flops = n_rays * cfg.num_samples * FULL_MACS_FWD * 2
     print(f"phase 9 800x800 full frame ({n_rays} rays x {cfg.num_samples} samples, "
           f"{flops / 1e12:.2f} TFLOP, chunks of {chunk} rays), max|kernel-plain| = "
-          f"{err:.3e}; on {smi}:")
-    for name in ("kernel", "plain"):
+          f"{err:.3e}; the fused MLP's frame equals the mma.sync chain's bit for bit; on "
+          f"{smi}:")
+    for name, what in (("kernel", "fused MLP"), ("mma", "mma.sync chain"), ("plain", "plain")):
         med = statistics.median(frame[name])
-        print(f"  {name:6s}: {spread(frame[name])}/frame, {n_rays / med * 1e3:.4e} rays/s, "
+        print(f"  {what:14s}: {spread(frame[name])}/frame, {n_rays / med * 1e3:.4e} rays/s, "
               f"{flops / med / 1e9:.2f} TFLOP/s")
     out["nerf_wide_render_fwd"] = statistics.median(frame["kernel"])
     plain = {"nerf_wide_train": statistics.median(times["plain"]),
@@ -1015,6 +1043,109 @@ def phase_dw_stage(wide_dw, smi):
                   f"and the partials), the wgmma kernel at {kb[0] / out['ms']:.1%} of it")
         del h, d32, db
     torch.cuda.empty_cache()
+    return out
+
+
+FULL_MACS_MLP = FULL_MACS_FWD - 256 * 4  # the hidden layers: the fused kernel's work
+
+
+def phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi):
+    """Phase 9, the fused MLP (``nerf_wide_mlp.cuh``) alone and #10 new
+    against old.  The MLP of one 65,536-ray ``full`` chunk (8,388,608 rows)
+    through ``wide_mlp.wide_mlp`` (repeats bit-identical, finite, the
+    padded nothing: 256 of 256 columns) against its bound and a yardstick
+    the port never calls: the same seven layers as a cuBLAS chain of
+    ``torch.addmm`` + ``relu_`` in bf16 from the same stored encoding, in
+    turns; its H_{L-1} against the chain's on the first 1,024 rays (a
+    diagnostic: cuBLAS sums in another order).  Then #10, the per-ray
+    render, at the 16,384-ray flagship batch on jittered depths: the fused
+    MLP's colours equal the ``mma.sync`` chain's bit for bit, timed in
+    turns.  Returns ``{"ms", "cublas_ms", "bound_ms", "rays10_ms",
+    "rays10_mma_ms"}``."""
+    from lomanerf_tpu_torch.core import positional_encoding
+
+    cfg = NeRFConfig.full()
+    params = seeded_params(np.random.default_rng(0), cfg)
+    W, b = fused_nerf.pack_wide_params(params, 256, cfg.compute_dtype)
+    n = fused_nerf.wide_chunk_rays(cfg, 256)
+    o, d = seeded_rays(np.random.default_rng(3), n)
+    t, _ = uniform_depths(cfg)
+    h1, h2 = wide_mlp.wide_mlp(W, b, t, o, d, cfg), wide_mlp.wide_mlp(W, b, t, o, d, cfg)
+    rows, kc = h1.shape[0], fused_nerf._round_up(cfg.in_channels, 8)
+    if not torch.equal(h1, h2) or not torch.isfinite(h1.float()).all():
+        raise AssertionError("nerf_wide_mlp: repeat launches differ or H_{L-1} is not finite")
+    del h2
+    # the cuBLAS chain's input: the kernels' bf16 encoding of the same rows
+    pts = (o[:, None, :] + d[:, None, :] * t[:, None]).reshape(rows, 3)
+    enc = torch.zeros((rows, kc), dtype=torch.bfloat16, device="cuda")
+    enc[:, :cfg.in_channels] = positional_encoding(pts, cfg.num_encoding_functions)
+    del pts
+    ws = [W[0, :kc]] + [W[l] for l in range(1, cfg.num_layers - 1)]
+    bs = [b[l].to(torch.bfloat16) for l in range(cfg.num_layers - 1)]
+
+    def cublas():
+        h = enc
+        for w, bl in zip(ws, bs):
+            h = torch.addmm(bl, h, w).relu_()
+        return h
+
+    with torch.no_grad():
+        hc = cublas()
+        apart = (h1[:1024 * 128] != hc[:1024 * 128]).float().mean().item()
+        e = (h1[:1024 * 128].float() - hc[:1024 * 128].float()).abs().max().item()
+        del hc
+        fns = {"cublas": cublas, "fused": lambda: wide_mlp.wide_mlp(W, b, t, o, d, cfg)}
+        ts = timed_turns(fns, 3)
+    kb = bound(rows * FULL_MACS_MLP, PEAK_BF16, n * 24 + rows * 256 * 2)
+    med = {k: statistics.median(v) for k, v in ts.items()}
+    flops = 2.0 * rows * FULL_MACS_MLP
+    print(f"phase 9 fused MLP alone, one {n}-ray full chunk ({rows} rows, {flops / 1e12:.2f} "
+          f"TFLOP), on {smi}: nerf_wide_mlp {spread(ts['fused'])} ({flops / med['fused'] / 1e9:.2f}"
+          f" TFLOP/s, {kb[0] / med['fused']:.1%} of the {kb[0]:.4f} ms bound, {kb[1]}); cuBLAS "
+          f"chain of addmm + relu_ (a yardstick) {spread(ts['cublas'])} "
+          f"({flops / med['cublas'] / 1e9:.2f} TFLOP/s); H_{{L-1}} of the first 1024 rays vs the "
+          f"chain: max|diff| {e:.3e}, {apart:.2e} of the values apart; repeats bit-identical")
+    del h1, enc
+    torch.cuda.empty_cache()
+
+    o, d, _, _, _ = bench_batch(np.random.default_rng(0), cfg, FLAGSHIP_RAYS)
+    tj, dj = stratified_depths(NeRFModel(cfg), o, d, 3)
+    with torch.no_grad():
+        new = fused_nerf._launch_wide_render(W, b, tj, dj, o, d, cfg)
+        old = wide_mlp.render_rays_mma(W, b, tj, dj, o, d, cfg)
+        if not torch.equal(new, old):
+            raise AssertionError(f"#10 at the flagship batch: the fused MLP's colours differ "
+                                 f"from the mma.sync chain's ({int((new != old).sum())} apart)")
+        r10 = timed_turns({"mma": lambda: wide_mlp.render_rays_mma(W, b, tj, dj, o, d, cfg),
+                           "fused": lambda: fused_nerf._launch_wide_render(W, b, tj, dj, o, d,
+                                                                           cfg)}, 3)
+    print(f"phase 9 #10 nerf_wide_render_fwd_rays, {FLAGSHIP_RAYS} rays x 128 jittered samples, "
+          f"on {smi}: fused MLP {spread(r10['fused'])}, mma.sync chain {spread(r10['mma'])}; "
+          "colours bit-identical")
+    return {"ms": med["fused"], "cublas_ms": med["cublas"], "bound_ms": kb[0],
+            "rays10_ms": statistics.median(r10["fused"]),
+            "rays10_mma_ms": statistics.median(r10["mma"])}
+
+
+def phase_frame_split():
+    """Phase 9, an 800x800 ``full`` frame's device time by kernel family
+    (``card_probe --what frame``, a process of its own), on the fused MLP
+    and on the ``mma.sync`` chain it replaced: the main path launches
+    ``mlp_wgmma_kernel`` once per chunk and no layer GEMM
+    (``gemm_mma_kernel`` with ``kEpiBiasRelu``).  Returns both splits."""
+    out = {}
+    for path in ("fused", "mma"):
+        split = card_probe("frame", "--path", path)
+        per = split["launches_per_frame"]
+        out[path] = split
+        if path == "fused" and (per.get("mlp_wgmma_kernel") != split["chunks"]
+                                or "gemm_mma_kernel kEpiBiasRelu" in per):
+            raise AssertionError(f"frame: kernels per frame {per}, need mlp_wgmma_kernel once "
+                                 f"per chunk ({split['chunks']}) and no layer GEMM")
+        print(f"phase 9 frame split ({path}, utils.profiling.trace, {split['frames']} frames): device "
+              f"{split['device_ms_per_frame']:.3f} ms/frame; " + ", ".join(
+                  f"{k} {v:.3f} ms ({split['share'][k]:.1%})"
+                  for k, v in split["ms"].items() if v))
     return out
 
 
@@ -2310,13 +2441,15 @@ def phase_seg_scans(scans, smi, seed=29):
 
 NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "nerf_wide_")
                for k in ("render_fwd", "train", "render_bwd"))
-# SHA-256 of the twelve NeRF entry points' output bytes (kernel_digests).
-# They pin every bit of #1-#12: a kernel change that moves one fails phase
-# 18 until its entry is updated on purpose, with the reason here.  Taken
-# from the PR 5 kernels; unchanged by the scans' lift onto seg_scan.cuh and
-# by the bf16 dW stage's move onto wgmma/TMA (nerf_wide_dw.cuh: each 32-row
+# SHA-256 of the twelve NeRF entry points' output bytes (kernel_digests). They
+# pin every bit of #1-#12: a kernel change that moves one fails phase 18 until
+# its entry is updated on purpose, with the reason here.  Taken when the
+# per-ray instances were added; unchanged by the scans' lift onto seg_scan.cuh, by
+# the bf16 dW stage's move onto wgmma/TMA (nerf_wide_dw.cuh: each 32-row
 # k-step's tensor-core sum and its f32 promotion give the mma.sync kernel's
-# bits, so the four wide gradient entries did not move either).
+# bits, so the four wide gradient entries did not move either) and by the bf16
+# render's MLP moving into one wgmma/TMA kernel (nerf_wide_mlp.cuh: the same
+# promotion, epilogue and encoding arithmetic, so #8 and #10 kept theirs).
 KERNEL_DIGESTS = {
     "nerf_render_fwd":
         "64ba1c0f42400d315d53444f6e0d3757183e1f452497a0006831db6639d28aff",
@@ -2490,7 +2623,8 @@ def main() -> None:
     from lomanerf_tpu_torch.data import synthetic_views
     from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
                                            NeRFModel, image_grid_coords)
-    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf, probe, scans, wide_dw
+    from lomanerf_tpu_torch.ops import (build, fused_mlp, fused_nerf, probe, scans, wide_dw,
+                                        wide_mlp)
     from lomanerf_tpu_torch.scripts import grid_overhead
     from lomanerf_tpu_torch.train import fit_image, make_video, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
@@ -2603,11 +2737,18 @@ def main() -> None:
             synthetic_views, normalized_intrinsics, psnr, render_orbit, rays, tmp))
 
     # ---- phase 9: flagship timing, its split, the dW stage alone ----
-    timing.update(phase_flagship_timing(fused_nerf, NeRFConfig, NeRFModel,
+    timing.update(phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
                                         make_single_chip_train_step,
                                         normalized_intrinsics, rays, smi))
     phase_flagship_split(NeRFConfig)
     phase_dw_stage(wide_dw, smi)
+    # #8's entry in the kernels line also carries the fused MLP alone and the
+    # frame's split by kernel family on both paths
+    extra = {"nerf_wide_render_fwd": {
+        "fused_mlp": phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi),
+        "frame_split": {path: {"device_ms_per_frame": split["device_ms_per_frame"],
+                               "ms": {k: v for k, v in split["ms"].items() if v}}
+                        for path, split in phase_frame_split().items()}}}
 
     # ---- phase 10: the 2D field's kernels against their plain versions ----
     worst.update(phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords))
@@ -2676,6 +2817,7 @@ def main() -> None:
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         # one PyTorch call computes the same function only for the scans and the sum
         "library_ms": library.get(name),
+        **extra.get(name, {}),
     } for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,13 @@ SIGNATURES = {
     "nerf_wide_render_fwd_rays": _WIDE_RENDER,
     "nerf_wide_train_rays": _WIDE_GRAD,
     "nerf_wide_render_bwd_rays": _WIDE_GRAD,
+    # the bf16 render on the mma.sync chain the fused MLP replaced: as
+    #  _WIDE_RENDER, with per_ray in place of bf16
+    "nerf_wide_render_fwd_mma": _WIDE_RENDER,
+    # the bf16 render's fused MLP alone (nerf_wide_mlp.cuh): (W, b, ts,
+    #  origins, directions, out, n_rays, S, L, pw, kc, num_functions,
+    #  per_ray, stream)
+    "nerf_wide_mlp": [_P] * 6 + [_I] * 7 + [_P],
     # the wide sequence's bf16 dW stage alone (nerf_wide_dw.cuh) and the
     #  mma.sync kernel it replaced: (H, Dz, ld, M, N, rows, partials, stream)
     "wide_dw_gemm": [_P, _P] + [_I] * 4 + [_P, _P],

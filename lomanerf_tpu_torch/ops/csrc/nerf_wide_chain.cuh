@@ -1,11 +1,20 @@
 // The launch sequences of the wide NeRF kernels, on one stream, over ray
-// chunks: the forward (encoding, then one GEMM + bias + ReLU per hidden
-// layer) and the gradient sequence shared by the train step
-// (nerf_wide_train.cu) and the render backward (nerf_wide_render_bwd.cu),
-// with the body of their entry points (grad_entry).
+// chunks: the render forward, the forward layers (encoding, then one GEMM +
+// bias + ReLU per hidden layer) and the gradient sequence shared by the
+// train step (nerf_wide_train.cu) and the render backward
+// (nerf_wide_render_bwd.cu), with the body of their entry points
+// (grad_entry).
+//
+// Render forward per ray chunk: for bf16, the fused MLP (nerf_wide_mlp.cuh:
+// the encoding and every hidden layer of a 128-row tile in one persistent
+// wgmma/TMA kernel, only H_{L-1} written), then composite_kernel (the head,
+// compositing, the colour sum).  For f32, and for the bf16 chain the fused
+// MLP replaced (nerf_wide_render_fwd_mma, kept for comparison), the forward
+// layers on two ping-pong buffers, then composite_kernel.
 //
 // Gradient sequence per ray chunk (rows = chunk rays * S):
-//   1. the forward, saving every layer's input H_0..H_{L-1} in CDT;
+//   1. the forward layers, saving every layer's input H_0..H_{L-1} in CDT
+//      (bf16: gemm_mma_kernel, mma.sync);
 //   2. composite_kernel: the head, compositing, the loss (train) and its
 //      adjoint, writing the head's d_z (rows, 4) and d_z of layer L-2;
 //   3. layer by layer in reverse, l = L-1 .. 0:
@@ -27,7 +36,7 @@
 #include <type_traits>
 #include <utility>
 
-#include "nerf_wide_dw.cuh"
+#include "nerf_wide_mlp.cuh"
 
 namespace wide {
 namespace {
@@ -121,19 +130,31 @@ cudaError_t composite(const Net& net, const CDT* H, const float* cot,
                                                dz_prev, dzc_prev, n, stream);
 }
 
-// Render forward of n rays in chunks of chunk_rays; acts holds two
-// chunk-sized slots.
+// Render forward of n rays in chunks of chunk_rays.  bf16: the fused MLP
+// writes H_{L-1} into acts (one chunk-sized slot), or with layerwise the
+// mma.sync chain it replaced runs on two slots; f32: the forward layers on
+// two slots.
 template <typename CDT>
 cudaError_t render_forward(const Net& net, const float* origins,
                            const float* directions, float* out, CDT* acts,
-                           int n_rays, int chunk_rays, cudaStream_t stream) {
+                           int n_rays, int chunk_rays, bool layerwise,
+                           cudaStream_t stream) {
   const size_t chunk_rows = static_cast<size_t>(chunk_rays) * net.S;
   for (int r0 = 0; r0 < n_rays; r0 += chunk_rays) {
     const int n = std::min(chunk_rays, n_rays - r0);
     const Net cn = net.from_ray(r0);
-    CDT* H;
-    WIDE_TRY(forward_layers<CDT>(cn, origins + 3 * r0, directions + 3 * r0, n,
-                                 acts, chunk_rows, true, &H, stream));
+    CDT* H = acts;
+    if constexpr (std::is_same<CDT, __nv_bfloat16>::value) {
+      if (!layerwise) {
+        WIDE_TRY(mlp_forward(cn.W, cn.b, cn.ts, origins + 3 * r0, directions + 3 * r0,
+                             acts, n, cn.S, cn.L, cn.pw, cn.kc, cn.nf, cn.per_ray,
+                             stream));
+      }
+    }
+    if (layerwise || !std::is_same<CDT, __nv_bfloat16>::value) {
+      WIDE_TRY(forward_layers<CDT>(cn, origins + 3 * r0, directions + 3 * r0, n,
+                                   acts, chunk_rows, true, &H, stream));
+    }
     WIDE_TRY((composite<CDT, 0>(cn, H, nullptr, out + 3 * r0, nullptr,
                                 nullptr, nullptr, n, stream)));
   }

@@ -118,8 +118,10 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t lbo) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (+)= A (64 x 16) B (16 x 128), both MN-major (transpose bits 1, 1);
+// d (+)= A (64 x 16) B (16 x 128), B MN-major (transpose bit 1), A MN-major
+// with kTransA 1 (the dW stage) or K-major with 0 (nerf_wide_mlp.cuh);
 // scale_d 0 ignores d's old values
+template <int kTransA>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -135,11 +137,11 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : DW_R8(0), DW_R8(8), DW_R8(16), DW_R8(24), DW_R8(32), DW_R8(40), DW_R8(48),
         DW_R8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA));
 }
 #undef DW_R8
 
@@ -211,8 +213,8 @@ dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
       fence_regs(kstep);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
       // rows 0-15, then 16-31 of the stage: 2 x 1024 bytes further
-      wgmma_m64n128(kstep, mn_desc(a, kDwBoxBytes), mn_desc(b, kDwBoxBytes), 0);
-      wgmma_m64n128(kstep, mn_desc(a + 2048, kDwBoxBytes), mn_desc(b + 2048, kDwBoxBytes), 1);
+      wgmma_m64n128<1>(kstep, mn_desc(a, kDwBoxBytes), mn_desc(b, kDwBoxBytes), 0);
+      wgmma_m64n128<1>(kstep, mn_desc(a + 2048, kDwBoxBytes), mn_desc(b + 2048, kDwBoxBytes), 1);
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
       fence_regs(kstep);

@@ -12,20 +12,24 @@
 //
 // What bounds it on this card: arithmetic.  The flagship does 402,688 MACs
 // per sample (33*256 + 6*256^2 + 256*4); an 800x800 frame at S = 128 is
-// about 66 TFLOP, against ~0.5 GB per 65,536-ray chunk of activations
-// moved per layer.  The TPU kernel keeps all L+1 activations of a tile in
-// VMEM; here a 128-row bf16 tile of nine 256-wide activations (590 KB) and
-// the 1 MB weight stack both exceed a block's 227 KB of shared memory.
+// about 66 TFLOP (67 ms at the bf16 peak).  The TPU kernel keeps all L+1
+// activations of a tile in VMEM.
 //
-// What the design does about it: the MLP runs layer by layer as tiled GEMMs
-// (nerf_wide_gemm.cuh: 128x128 tiles staged in shared memory; bf16 on the
-// tensor cores through mma.sync m16n8k16, f32 as 8x8 FMAs per thread) with
-// the bias, ReLU and the rounding to the compute dtype fused into the
-// epilogue; activations go through device memory in two ping-pong buffers
-// of one ray chunk, nothing saved.  The encoding is one kernel before
-// layer 0; the 4-wide head, the compositing and the colour sum are one warp
-// per ray (nerf_wide_common.cuh:composite_kernel).  wgmma and TMA are not
-// used yet: the GEMMs run far below the tensor cores' peak.
+// What the design does about it (nerf_wide_chain.cuh:render_forward), per
+// ray chunk:
+//   * bf16 (the flagship): one persistent kernel computes the encoding and
+//     every hidden layer of each 128-row tile on the tensor cores (wgmma,
+//     the weights streamed by TMA), the activations kept in shared memory,
+//     and writes only H_{L-1} (nerf_wide_mlp.cuh).  nerf_wide_render_fwd_mma
+//     runs the chain it replaced (encode_kernel, then one mma.sync GEMM per
+//     hidden layer through device memory, nerf_wide_gemm.cuh) for
+//     comparison: the two give the same bits;
+//   * f32: the encoding kernel, then one tiled FMA GEMM per hidden layer
+//     (gemm_kernel: 128x128 tiles staged in shared memory) with the bias,
+//     ReLU and rounding in the epilogue, activations through device memory
+//     in two ping-pong buffers of one ray chunk;
+//   * then the 4-wide head, the compositing and the colour sum, one warp per
+//     ray (nerf_wide_common.cuh:composite_kernel), reading H_{L-1}.
 
 #include "nerf_wide_chain.cuh"
 
@@ -35,7 +39,7 @@ int render_fwd(bool per_ray, const void* W, const float* b, const float* ts,
                const float* ds, const float* origins, const float* directions,
                float* out, void* acts, int n_rays, int chunk_rays, int S, int L,
                int pw, int kc, int num_functions, int loma, int bf16,
-               void* stream) {
+               bool layerwise, void* stream) {
   if (L < 2 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -44,20 +48,21 @@ int render_fwd(bool per_ray, const void* W, const float* b, const float* ts,
   if (bf16) {
     return static_cast<int>(wide::render_forward<__nv_bfloat16>(
         net, origins, directions, out, static_cast<__nv_bfloat16*>(acts),
-        n_rays, chunk_rays, st));
+        n_rays, chunk_rays, layerwise, st));
   }
   return static_cast<int>(wide::render_forward<float>(
       net, origins, directions, out, static_cast<float*>(acts), n_rays,
-      chunk_rays, st));
+      chunk_rays, true, st));
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes.  W: the (L, pw, pw) weight stack in the
 // compute dtype (bf16 != 0: bfloat16, else f32); b: (L, pw) f32; acts:
-// 2 * chunk_rays * S * pw elements of scratch in the compute dtype; kc: the
-// encoded width padded to 8 (<= pw).  Return the first failing launch's
-// cudaError (0 on success); do not synchronise.
+// chunk_rays * S * pw elements of scratch in the compute dtype for bf16
+// (H_{L-1} of a chunk), twice that for f32 and for nerf_wide_render_fwd_mma;
+// kc: the encoded width padded to 8 (<= pw; bf16: pw 128 or 256).  Return
+// the first failing launch's cudaError (0 on success); do not synchronise.
 //
 // nerf_wide_render_fwd: ts, ds the (S,) f32 depths and steps every ray shares.
 extern "C" int nerf_wide_render_fwd(const void* W, const float* b,
@@ -70,7 +75,7 @@ extern "C" int nerf_wide_render_fwd(const void* W, const float* b,
                                     void* stream) {
   return render_fwd(false, W, b, ts, ds, origins, directions, out, acts,
                     n_rays, chunk_rays, S, L, pw, kc, num_functions, loma,
-                    bf16, stream);
+                    bf16, false, stream);
 }
 
 // nerf_wide_render_fwd_rays: ts, ds per-ray (N, S) f32, row-major (the
@@ -85,5 +90,34 @@ extern "C" int nerf_wide_render_fwd_rays(const void* W, const float* b,
                                          int bf16, void* stream) {
   return render_fwd(true, W, b, ts, ds, origins, directions, out, acts,
                     n_rays, chunk_rays, S, L, pw, kc, num_functions, loma,
-                    bf16, stream);
+                    bf16, false, stream);
+}
+
+// nerf_wide_render_fwd_mma: the bf16 render on the chain the fused MLP
+// replaced (encode_kernel, one gemm_mma_kernel per hidden layer, two acts
+// slots), ts, ds (S,) or, with per_ray, (N, S); for comparison only.
+extern "C" int nerf_wide_render_fwd_mma(const void* W, const float* b,
+                                        const float* ts, const float* ds,
+                                        const float* origins,
+                                        const float* directions, float* out,
+                                        void* acts, int n_rays, int chunk_rays,
+                                        int S, int L, int pw, int kc,
+                                        int num_functions, int loma,
+                                        int per_ray, void* stream) {
+  return render_fwd(per_ray != 0, W, b, ts, ds, origins, directions, out,
+                    acts, n_rays, chunk_rays, S, L, pw, kc, num_functions,
+                    loma, 1, true, stream);
+}
+
+// nerf_wide_mlp: the fused MLP alone, one launch for all n_rays: H_{L-1}
+// (n_rays * S, pw) bf16 row-major into out; ts (S,) or, with per_ray, (N, S).
+extern "C" int nerf_wide_mlp(const void* W, const float* b, const float* ts,
+                             const float* origins, const float* directions,
+                             void* out, int n_rays, int S, int L, int pw,
+                             int kc, int num_functions, int per_ray,
+                             void* stream) {
+  return static_cast<int>(wide::mlp_forward(
+      W, b, ts, origins, directions, static_cast<__nv_bfloat16*>(out), n_rays,
+      S, L, pw, kc, num_functions, per_ray != 0,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -19,9 +19,14 @@ included, padded to 8, at most 64), one thread per ray:
   :func:`nerf_train_loss`, the loss and its parameter gradients in one call.
 
 Wide MLPs (padded width above 64, hidden widths up to 256, f32 or bf16
-compute, e.g. the 8x256 flagship), layer-by-layer tiled GEMMs around a
-one-warp-per-ray compositing kernel (in bf16, each hidden layer's dW on
-``csrc/nerf_wide_dw.cuh``: ``wgmma`` fed by TMA, alone in ``ops/wide_dw``):
+compute, e.g. the 8x256 flagship), tiled GEMMs around a one-warp-per-ray
+compositing kernel.  In bf16 the render's MLP is one persistent kernel per
+ray chunk (``csrc/nerf_wide_mlp.cuh``: the encoding and every hidden layer
+of a row tile on ``wgmma`` fed by TMA, the activations in shared memory;
+alone, with the chain it replaced, in ``ops/wide_mlp``), and each hidden
+layer's dW in the gradient sequence runs on ``csrc/nerf_wide_dw.cuh``
+(``wgmma`` fed by TMA, alone in ``ops/wide_dw``); the rest runs layer by
+layer:
 
 * ``csrc/nerf_wide_render_fwd.cu`` — ``nerf_wide_render_fwd``
   (``_nerf_forward_kernel_W``) and ``nerf_wide_render_fwd_rays``
@@ -392,7 +397,9 @@ def _itemsize(config) -> int:
 def wide_chunk_rays(config, pw: int) -> int:
     """Rays per chunk of the wide render: one (rays x S, pw) activation
     buffer in the compute dtype within ``WIDE_BUFFER_BYTES`` (65,536 rays
-    for the flagship)."""
+    for the flagship).  The bf16 render's scratch is one such slot (the
+    fused MLP's H_{L-1}, ``csrc/nerf_wide_mlp.cuh``); the f32 render's is
+    two (the layer GEMMs' ping-pong buffers)."""
     return max(1, WIDE_BUFFER_BYTES // (config.num_samples * pw * _itemsize(config)))
 
 
@@ -427,15 +434,16 @@ def _wide_args(config, pw: int, L: int):
 
 def _launch_wide_render(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
     """One call of ``nerf_wide_render_fwd`` (``nerf_wide_render_fwd_rays``
-    for per-ray ``(N, S)`` depths), all chunks of the rays; counted in
-    ``launches``."""
+    for per-ray ``(N, S)`` depths), all chunks of the rays, with its
+    scratch (:func:`wide_chunk_rays`); counted in ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
     entry = "nerf_wide_render_fwd" + _suffix(t_vals)
     L, pw = W.shape[0], W.shape[1]
     n = origins.shape[0]
     chunk = max(1, min(n, wide_chunk_rays(config, pw)))
-    acts = torch.empty(2 * chunk * config.num_samples * pw, dtype=W.dtype,
+    slots = 1 if W.dtype == torch.bfloat16 else 2
+    acts = torch.empty(slots * chunk * config.num_samples * pw, dtype=W.dtype,
                        device=origins.device)
     out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
     stream = torch.cuda.current_stream(origins.device).cuda_stream

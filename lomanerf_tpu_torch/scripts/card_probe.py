@@ -12,6 +12,14 @@ run against another checkout of the port to compare two trees.
   GEMMs (``kEpiBiasRelu``), compositing, the partials' and column sums, the
   encoding, the loss sum, memsets and copies, and the rest (Adam, the
   parameter packing).  Prints ms per step and the share of the device time.
+* ``--what frame``: device time by kernel family of ``FRAMES`` 800x800
+  ``full`` frames (``NeRFModel.render_image``, seeded init, one pose) after
+  a warm-up frame, from one trace: the fused MLP (``mlp_wgmma_kernel``),
+  compositing and the rest; with ``--path mma``, the same frames on the
+  ``mma.sync`` chain the fused MLP replaced (``wide_mlp.render_rays_mma``
+  over the same chunks), whose encoding and layer GEMMs are families of
+  their own.  Prints ms per frame, each family's share and the kernels
+  launched per frame by name.
 * ``--what grid_sum``: one call of ``probe.grid_sum`` on an ``(8,
   7,864,320)`` f32 array in 3,840-column tiles split three ways, beside
   ``torch.sum`` of the same array: the device time of its kernels per call
@@ -28,6 +36,7 @@ run against another checkout of the port to compare two trees.
 The last line is one JSON object with the numbers.  Run:
 
     python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3
+    python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path mma]
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
 """
@@ -46,15 +55,18 @@ import time
 import numpy as np
 import torch
 
-FAMILIES = ("dW", "d_h", "forward", "compositing", "partial and column sums", "encoding",
-            "loss sum", "memset and copy", "other")
+FAMILIES = ("fused MLP", "dW", "d_h", "forward", "compositing", "partial and column sums",
+            "encoding", "loss sum", "memset and copy", "other")
 _EPILOGUE = {0: "forward", 1: "d_h", 2: "dW"}  # nerf_wide_gemm.cuh's kEpi values
+FRAMES = 2  # 800x800 frames traced by --what frame, after a warm-up frame
 
 
 def family(name: str, cat: str) -> str:
     """The family of a kernel (or memset / copy) by its trace name."""
     if cat != "kernel":
         return "memset and copy"
+    if "mlp_wgmma_kernel" in name:
+        return "fused MLP"
     if "dw_wgmma_kernel" in name:
         return "dW"
     gemm = re.search(r"gemm(?:_mma)?_kernel<([^>]*)>", name)
@@ -137,6 +149,62 @@ def flagship(steps: int) -> dict:
     for k in FAMILIES:
         print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
     print(f"  dW launches per step: {out['dw_launches_per_step']}")
+    return out
+
+
+def kernel_key(name: str) -> str:
+    """A kernel's short name: the function, with the epilogue of a layer
+    GEMM (``gemm_mma_kernel kEpiBiasRelu``)."""
+    gemm = re.search(r"(gemm(?:_mma)?_kernel)<([^>]*)>", name)
+    if gemm:
+        epi = ("kEpiBiasRelu", "kEpiMask", "kEpiPartial")[int(gemm.group(2).split(",")[-1])]
+        return f"{gemm.group(1)} {epi}"
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1]
+
+
+def frame(path: str) -> dict:
+    from lomanerf_tpu_torch.core import normalized_intrinsics, rays
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.ops import fused_nerf, wide_mlp
+
+    cfg, size = NeRFConfig.full(), 800
+    model = NeRFModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    K = normalized_intrinsics(1.1106, device="cuda")
+    pose = torch.eye(4, device="cuda")
+    pose[2, 3] = 4.0
+    chunk = fused_nerf.render_chunk_rays(cfg, model.params)
+    if path == "fused":
+        def run():
+            return model.render_image(K, pose, size)
+    else:
+        W, b = fused_nerf.pack_wide_params(model.params, 256, cfg.compute_dtype)
+
+        def run():
+            o, d = rays.get_rays(size, size, K, pose)
+            t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+            return torch.cat([wide_mlp.render_rays_mma(W, b, t, dists, oc, dc, cfg)
+                              for oc, dc in zip(o.split(chunk), d.split(chunk))])
+    with torch.no_grad():
+        run()  # warm-up
+        events = device_events(run, FRAMES)
+    ms, launches = collections.Counter(), collections.Counter()
+    for name, cat, us, _ in events:
+        ms[family(name, cat)] += us / 1e3 / FRAMES
+        if cat == "kernel":
+            launches[kernel_key(name)] += 1
+    total = sum(ms.values())
+    out = {"what": "frame", "path": path, "frames": FRAMES, "chunks": -(-size * size // chunk),
+           "device_ms_per_frame": total, "ms": {k: ms[k] for k in FAMILIES},
+           "share": {k: ms[k] / total for k in FAMILIES},
+           "launches_per_frame": {k: v / FRAMES for k, v in sorted(launches.items())}}
+    print(f"800x800 full frame ({path}), {FRAMES} frames traced, {out['chunks']} chunks of "
+          f"{chunk} rays: device {total:.3f} ms/frame")
+    for k in FAMILIES:
+        if ms[k]:
+            print(f"  {k:24s} {ms[k]:9.3f} ms/frame  {ms[k] / total:6.1%}")
+    print(f"  kernels per frame: {out['launches_per_frame']}")
     return out
 
 
@@ -250,8 +318,10 @@ def leaves() -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--what", choices=("flagship", "grid_sum", "leaves"), required=True)
+    ap.add_argument("--what", choices=("flagship", "frame", "grid_sum", "leaves"),
+                    required=True)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--path", choices=("fused", "mma"), default="fused")
     ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -260,8 +330,11 @@ def main(argv=None) -> dict:
     if args.what == "leaves":
         out = leaves()
     else:
-        out = flagship(args.steps) if args.what == "flagship" else grid_sum(args.calls)
-        if not out.get("device_ms_per_step", out.get("device_ms_per_call")):
+        out = {"flagship": lambda: flagship(args.steps),
+               "frame": lambda: frame(args.path),
+               "grid_sum": lambda: grid_sum(args.calls)}[args.what]()
+        if not any(out.get(k) for k in ("device_ms_per_step", "device_ms_per_frame",
+                                         "device_ms_per_call")):
             raise SystemExit("card_probe: the trace holds no device time")
     print(json.dumps(out))
     return out

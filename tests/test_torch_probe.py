@@ -121,8 +121,9 @@ def test_grid_overhead_cli_on_cpu(capsys):
 
 def test_card_probe_sorts_kernels_into_families():
     """``scripts/card_probe.py`` puts each kernel of a trace in a family by
-    its demangled name (the GEMMs by their epilogue), and refuses to run
-    without a card."""
+    its demangled name (the GEMMs by their epilogue, the fused MLP apart
+    from the forward GEMMs it replaced in the render) and names it per
+    frame, and refuses to run without a card."""
     from lomanerf_tpu_torch.scripts import card_probe
 
     gemm = "void wide::(anonymous namespace)::gemm{}<__nv_bfloat16, float, true, false, {}>(int)"
@@ -137,6 +138,12 @@ def test_card_probe_sorts_kernels_into_families():
                       ("encode_kernel<float, true>", "encoding"),
                       ("multi_tensor_apply_kernel<Adam>", "other")):
         assert card_probe.family(name, "kernel") == fam
+    mlp = ("void wide::(anonymous namespace)::mlp_wgmma_kernel<256, false>(CUtensorMap_st, "
+           "CUtensorMap_st, float const*, int)")
+    assert card_probe.family(mlp, "kernel") == "fused MLP"
+    assert card_probe.kernel_key(mlp) == "mlp_wgmma_kernel"
+    assert card_probe.kernel_key(gemm.format("_mma_kernel", 0)) == "gemm_mma_kernel kEpiBiasRelu"
     assert card_probe.family("Memset (Device)", "gpu_memset") == "memset and copy"
-    with pytest.raises(SystemExit):
-        card_probe.main(["--what", "grid_sum"])
+    for what in ("grid_sum", "frame"):
+        with pytest.raises(SystemExit):
+            card_probe.main(["--what", what])

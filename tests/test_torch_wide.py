@@ -152,14 +152,30 @@ def dw_stage(A, Zb, row_chunk, k_step):
     return parts
 
 
+def forward_sequence(W, b, p, kc, nf, rnd):
+    """The wide kernels' forward in f64 on the (rows, 3) points ``p``: the
+    encoding into the first kc columns of a (rows, pw) buffer whose other
+    columns are NaN (never read), then each hidden layer ``rnd(ReLU(H W_l +
+    b_l))``.  Returns ``[H_0, ..., H_{L-1}]``."""
+    pw = W.shape[1]
+    enc = np.full((p.shape[0], pw), np.nan)
+    feats = [p] + [f(2.0**i * p) for i in range(nf) for f in (np.sin, np.cos)]
+    enc[:, :kc] = 0.0
+    enc[:, :3 * (1 + 2 * nf)] = np.concatenate(feats, 1)
+    H = [rnd(enc)]
+    for l in range(W.shape[0] - 1):
+        K = kc if l == 0 else pw
+        H.append(rnd(np.maximum(H[l][:, :K] @ W[l, :K] + b[l], 0.0)))
+    return H
+
+
 def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
                     chunk_rays, row_chunk, k_step=None):
     """numpy (f64) re-statement of the CUDA gradient sequence
     (nerf_wide_chain.cuh) over the packed stacks, with ``t``/``dists``
     shared (S,) or per-ray (N, S) (the ``*_rays`` entry points: each chunk
-    reads its own rows): per ray chunk, the encoding
-    into the first kc columns of a (rows, pw) buffer whose other columns are
-    NaN (never read), the layer GEMMs, the per-ray compositing walk and its
+    reads its own rows): per ray chunk, the forward (:func:`forward_sequence`:
+    the encoding and the layer GEMMs), the per-ray compositing walk and its
     adjoint, then in reverse the split-K dW partials of row_chunk rows and
     the db column-sum partials, each added in a fixed order.  ``rnd`` rounds
     to the compute dtype.  With ``k_step`` (bf16), the producers of each
@@ -191,14 +207,7 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
         tc, distc = t[c0:c0 + chunk_rays], dists[c0:c0 + chunk_rays]
         n = oc.shape[0]
         p = (oc[:, None, :] + dc[:, None, :] * tc[:, :, None]).reshape(n * S, 3)
-        enc = np.full((n * S, pw), np.nan)
-        feats = [p] + [f(2.0**i * p) for i in range(nf) for f in (np.sin, np.cos)]
-        enc[:, :kc] = 0.0
-        enc[:, :3 * (1 + 2 * nf)] = np.concatenate(feats, 1)
-        H = [rnd(enc)]
-        for l in range(L - 1):
-            K = kc if l == 0 else pw
-            H.append(rnd(np.maximum(H[l][:, :K] @ W[l, :K] + b[l], 0.0)))
+        H = forward_sequence(W, b, p, kc, nf, rnd)
         z = H[-1] @ W[L - 1][:, :4] + b[L - 1][:4]
         rgb, sig = rnd(1.0 / (1.0 + np.exp(-z[:, :3]))), rnd(np.maximum(z[:, 3], 0.0))
         dz_head = np.zeros((n * S, 4))
