@@ -28,7 +28,9 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    steps on ``NeRFModel.loss``, whose backward is the render backward kernel;
 6. times the train step at the bench's shape (small, 262,144 rays, Adam)
    through the kernel and through the plain backend, in turns, and each
-   gradient kernel's own call against its plain version;
+   gradient kernel's own call against its plain version; splits the step's
+   device time by kernel family (``card_probe --what small``, a process of
+   its own: the narrow walk, its block sum, Adam, the rest);
 7. holds the wide kernels (the 8x256 flagship's render forward, train step
    and render backward) against their plain versions on the card, at
    ``full()`` (bf16) and at an f32 4x128/S=32 MLP in both modes on 1037
@@ -117,8 +119,9 @@ scans at the main path's column) and 19 (the sweep) are the main paths:
 each kernel's launch count is reset before its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
 sixteen kernels (with each one's least time on the card for its work,
-``bound_ms``; #8's also with phase 9's fused MLP alone, #10 new against
-old and the frame's split by kernel family), and ``{"ok": true,
+``bound_ms``; #3's also with phase 6's split of the step; #8's also with
+phase 9's fused MLP alone, #10 new against old and the frame's split by
+kernel family), and ``{"ok": true,
 "device": ...}``.  It exits
 non-zero, before printing any result, without a CUDA device or outside a
 checkout of the repository; any failing phase raises.
@@ -573,6 +576,22 @@ def phase_bench_step(fused_nerf, NeRFConfig, NeRFModel, make_single_chip_train_s
               f"max {max(k):.3f}) vs plain {out[name][1]:.3f} ms (min {min(pl):.3f}, "
               f"max {max(pl):.3f}), n=10")
     return out
+
+
+def phase_small_split():
+    """Phase 6, the ``small`` step's device time by kernel family (5 traced
+    steps, ``card_probe --what small``, a process of its own): the narrow
+    walk (``nerf_grad_kernel``) and the sum of its block partials must run
+    once a step.  Returns the split."""
+    split = card_probe("small", "--steps", "5")
+    per = split["launches_per_step"]
+    if per.get("nerf_grad_kernel") != 1.0 or per.get("sum_block_partials") != 1.0:
+        raise AssertionError(f"small step: kernels per step {per}, need one nerf_grad_kernel "
+                             "and one sum_block_partials")
+    print("phase 6 small step split (utils.profiling.trace, 5 steps): device "
+          f"{split['device_ms_per_step']:.3f} ms/step; " + ", ".join(
+              f"{k} {v:.3f} ms ({split['share'][k]:.1%})" for k, v in split["ms"].items()))
+    return {"device_ms_per_step": split["device_ms_per_step"], "ms": split["ms"]}
 
 
 def wide_tolerances(cfg):
@@ -2723,9 +2742,11 @@ def main() -> None:
     launches["nerf_render_bwd"] = phase_render_loss_steps(
         fused_nerf, NeRFConfig, NeRFModel, synthetic_views, normalized_intrinsics, rays)
 
-    # ---- phase 6: the train step at the bench's shape ----
+    # ---- phase 6: the train step at the bench's shape, and its split ----
     timing.update(phase_bench_step(fused_nerf, NeRFConfig, NeRFModel,
                                    make_single_chip_train_step, smi))
+    # #3's entry in the kernels line also carries the step's device split
+    extra = {"nerf_train": {"step_split": phase_small_split()}}
 
     # ---- phase 7: the wide kernels against their plain versions ----
     worst.update(phase_wide_kernels(fused_nerf, NeRFConfig))
@@ -2744,11 +2765,11 @@ def main() -> None:
     phase_dw_stage(wide_dw, smi)
     # #8's entry in the kernels line also carries the fused MLP alone and the
     # frame's split by kernel family on both paths
-    extra = {"nerf_wide_render_fwd": {
+    extra["nerf_wide_render_fwd"] = {
         "fused_mlp": phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi),
         "frame_split": {path: {"device_ms_per_frame": split["device_ms_per_frame"],
                                "ms": {k: v for k, v in split["ms"].items() if v}}
-                        for path, split in phase_frame_split().items()}}}
+                        for path, split in phase_frame_split().items()}}
 
     # ---- phase 10: the 2D field's kernels against their plain versions ----
     worst.update(phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords))

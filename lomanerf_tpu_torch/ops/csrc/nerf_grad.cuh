@@ -7,8 +7,8 @@
 //
 // Per ray (one thread), from the colour cotangent dcol (train: 2(col - tgt)
 // for valid rays; render backward: the given (N, 3) cotangent):
-//   pass 1, s = 0..S-1: the forward (nerf_common.cuh); keeps the inclusive
-//     product P_s = prod_{k<=s} c_k of every sample in shared memory, since
+//   pass 1, s = 0..S-1: the forward; keeps the inclusive product
+//     P_s = prod_{k<=s} c_k of every sample in shared memory, since
 //     dividing it back out of a later P is wrong where c = 1e-10 and P
 //     underflows;
 //   pass 2, s = S-1..0: recomputes the sample's MLP forward (remat, as the
@@ -21,14 +21,44 @@
 //     the head's sigmoid' / ReLU' give d_z of the last layer, and
 //     d_h = d_z W^T masked by h > 0 gives d_z of each layer below; d_z rows
 //     are staged beside the activations.
-//   After each sample, a barrier, then every thread adds a fixed subset of
-//   the dW/db entries over the block's rays (sum_r h_l[i][r] d_z_l[j][r])
-//   into the block's shared-memory accumulator, and a barrier again.
+//   After each sample, a barrier, then the dW stage adds the sample's
+//   dW/db over the block's rays (sum_r h_l[i][r] d_z_l[j][r]) into the
+//   block's shared-memory accumulator, and a barrier again.
+//
+// Code size is the walk's other cost (the instruction cache): so the two
+// passes are one loop over 2S steps with one inlined forward (walk_forward;
+// pass 1 stages its activations too, pass 2 writes over them), and at
+// W = 64 the forward's hidden layers and head read their inputs back from
+// the staged column in a rolled loop, and d_h's loop over units rolls.
+//
+// The dW stage's tile plan (DwTile): a layer of R input rows, then its bias
+// (a row of ones), and C columns (W, or kHead for the head) is cut into
+// kCG = min(C, 8) column groups and kRG = 64 / kCG row groups.  Thread
+// t = rg * kCG + cg owns
+//   * a main tile: rows rg + kRG*a (a < kTR = W / kRG) below R, columns
+//     cg + kCG*b (b < kTC = C / kCG): 4 x 4 entries of a W = 32 layer, 8 x 8
+//     at W = 64, 2 x 1 (W = 32) or 4 x 1 (W = 64) of the head.  Its
+//     per-sample sums are kTR x kTC registers (16 or 2 at W = 32, 64 or 4
+//     at W = 64);
+//   * the remainder, entry by entry: the rows [min(R, W), R] (the bias row
+//     last), entry e of them (row-major) to thread e % 64: at 33 inputs,
+//     layer 0's row 32 and every bias row.
+// The staging rows have a stride of 68 floats (kStride, a multiple of 4 and
+// 4 mod 32), so the stage reads 4 rays of a row as one float4: per 4 rays a
+// main tile loads kTR + kTC float4s (8 at W = 32) for 4 kTR kTC FMAs (64),
+// where the walk's one-entry loop read 2 floats per FMA; the walk's own
+// stores and reads down its column stay free of bank conflicts.  The plan's
+// host mirror is fused_nerf.grad_tile_plan.
+//
+// Bits: every sum has the order it had before the tiles (the kernel's
+// digests pin it): an entry's per-sample sum starts at 0 and takes the rays
+// r = 0..63 in turn (a bias: sum += d_z), then adds into the accumulator
+// once; the samples come in the order s = S-1..0; the blocks' partials are
+// summed in a fixed order.  So two launches on the same inputs give
+// bit-identical gradients and loss.
 // Pad rays (ray >= n_rays) run every loop and barrier with zero rays and a
 // zero cotangent, so they add exact zeros: no thread leaves early.  With
 // per-ray depths (kPerRay) they read ray 0's row, never one past n_rays.
-// Every sum has a fixed order, so two launches on the same inputs give
-// bit-identical gradients and loss.
 
 #pragma once
 
@@ -39,8 +69,8 @@ namespace nerf {
 namespace {  // each kernel source gets its own copy
 
 constexpr int kGradThreads = 64;           // rays per block
-constexpr int kStride = kGradThreads + 1;  // staging row stride: rows j and
-                                           // j+1 land in different banks
+constexpr int kStride = kGradThreads + 4;  // staging row stride: 4 rays of a
+                                           // row are one aligned float4
 
 // Dynamic shared memory of the gradient kernel, in floats: the packed
 // parameters, the dW/db accumulator, P_s per sample and ray, the staged
@@ -52,56 +82,239 @@ __host__ __device__ inline size_t grad_smem_floats(int pk_floats, int G, int S,
          static_cast<size_t>((L - 1) * W + kHead) * kStride + kGradThreads;
 }
 
+// The MLP at point p for the walk: raw head outputs rgba[0..4), the input of
+// every layer stored down this ray's column `col` of the staging (rows
+// [0, in_dim) the encoding, rows in_dim + (l-1)*W + [0, W) the input of
+// layer l >= 1).  At W = 32 it is mlp_rgba (nerf_common.cuh), its
+// activations in registers and its loops over inputs unrolled.  At W = 64
+// (a compile-time choice: unrolled, a layer is 4,096 FMAs of code) the
+// arithmetic is the same, but each hidden layer and the head read their
+// inputs back from the staged column in a loop that rolls 4 inputs an
+// iteration.
+template <int W>
+__device__ __forceinline__ void walk_forward(const float (&p)[3],
+                                             const Layout& lay,
+                                             float (&rgba)[kHead],
+                                             float* col) {
+  if constexpr (W == 32) {
+    mlp_rgba<W, true>(p, lay, rgba, col, kStride);
+    return;
+  }
+  if (lay.L == 1) {
+    encode_layer<kHead, kHead, true>(p, lay.nf, lay.w_first, lay.in_dim, rgba,
+                                     col, kStride);
+    return;
+  }
+  float z[W];
+  encode_layer<W, W, true>(p, lay.nf, lay.w_first, lay.in_dim, z, col,
+                           kStride);
+  float* hcol = col + lay.in_dim * kStride;
+#pragma unroll
+  for (int j = 0; j < W; ++j) hcol[j * kStride] = fmaxf(z[j], 0.0f);
+  const float* w = lay.w_hidden;
+  for (int l = 1; l < lay.L - 1; ++l, w += W * W + W) {
+    load_bias<W>(w + W * W, z);
+#pragma unroll 4
+    for (int k = 0; k < W; ++k) axpy<W>(hcol[k * kStride], w + k * W, z);
+    hcol += W * kStride;
+#pragma unroll
+    for (int j = 0; j < W; ++j) hcol[j * kStride] = fmaxf(z[j], 0.0f);
+  }
+  load_bias<kHead>(lay.w_head + W * kHead, rgba);
+#pragma unroll 4
+  for (int k = 0; k < W; ++k) {
+    axpy<kHead>(hcol[k * kStride], lay.w_head + k * kHead, rgba);
+  }
+}
+
 // From the head's d_z, d_z of every layer below, written down this ray's
 // column of the d_z staging (layer l at rows l*W).  my_act is this ray's
-// column of the staged layer inputs.
+// column of the staged layer inputs.  d_h = d_z W^T is one fmaf chain per
+// unit over the layer's outputs in order.  At W = 32 the loops over units
+// are unrolled and d_z stays in registers from layer to layer (the compiler
+// interleaves the chains); at W = 64 (a compile-time choice, as
+// walk_forward's) each layer reads its d_z back from the column and the
+// loop over units rolls, kChains units an iteration written side by side so
+// that their chains interleave.
+constexpr int kChains = 8;
+
 template <int W>
 __device__ __forceinline__ void backprop_hidden(const Layout& lay,
                                                 const float (&dz_head)[kHead],
                                                 const float* my_act,
                                                 float* my_dz) {
-  float g[W];
   const float* h = my_act + (lay.in_dim + (lay.L - 2) * W) * kStride;
+  float* out = my_dz + (lay.L - 2) * W * kStride;
   const float4* head = reinterpret_cast<const float4*>(lay.w_head);
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float4 w = head[i];
-    float dh = dz_head[0] * w.x;
-    dh = fmaf(dz_head[1], w.y, dh);
-    dh = fmaf(dz_head[2], w.z, dh);
-    dh = fmaf(dz_head[3], w.w, dh);
-    g[i] = h[i * kStride] > 0.0f ? dh : 0.0f;
-    my_dz[((lay.L - 2) * W + i) * kStride] = g[i];
-  }
-  for (int l = lay.L - 2; l >= 1; --l) {
-    const float4* wl = reinterpret_cast<const float4*>(lay.weights(l));
-    const float* hl = my_act + (lay.in_dim + (l - 1) * W) * kStride;
-    float ng[W];
+  if constexpr (W == 32) {
+    float g[W];
 #pragma unroll
     for (int i = 0; i < W; ++i) {
-      float dh = 0.0f;
-#pragma unroll
-      for (int j = 0; j < W / 4; ++j) {
-        const float4 v = wl[i * (W / 4) + j];
-        dh = fmaf(g[4 * j + 0], v.x, dh);
-        dh = fmaf(g[4 * j + 1], v.y, dh);
-        dh = fmaf(g[4 * j + 2], v.z, dh);
-        dh = fmaf(g[4 * j + 3], v.w, dh);
-      }
-      ng[i] = hl[i * kStride] > 0.0f ? dh : 0.0f;
+      const float4 w = head[i];
+      float dh = dz_head[0] * w.x;
+      dh = fmaf(dz_head[1], w.y, dh);
+      dh = fmaf(dz_head[2], w.z, dh);
+      dh = fmaf(dz_head[3], w.w, dh);
+      g[i] = h[i * kStride] > 0.0f ? dh : 0.0f;
+      out[i * kStride] = g[i];
     }
+    for (int l = lay.L - 2; l >= 1; --l) {
+      const float4* wl = reinterpret_cast<const float4*>(lay.weights(l));
+      const float* hl = my_act + (lay.in_dim + (l - 1) * W) * kStride;
+      out -= W * kStride;
+      float ng[W];
 #pragma unroll
+      for (int i = 0; i < W; ++i) {
+        float dh = 0.0f;
+#pragma unroll
+        for (int j = 0; j < W / 4; ++j) {
+          const float4 v = wl[i * (W / 4) + j];
+          dh = fmaf(g[4 * j + 0], v.x, dh);
+          dh = fmaf(g[4 * j + 1], v.y, dh);
+          dh = fmaf(g[4 * j + 2], v.z, dh);
+          dh = fmaf(g[4 * j + 3], v.w, dh);
+        }
+        ng[i] = hl[i * kStride] > 0.0f ? dh : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        g[i] = ng[i];
+        out[i * kStride] = g[i];
+      }
+    }
+  } else {
+#pragma unroll 8
     for (int i = 0; i < W; ++i) {
-      g[i] = ng[i];
-      my_dz[((l - 1) * W + i) * kStride] = g[i];
+      const float4 w = head[i];
+      float dh = dz_head[0] * w.x;
+      dh = fmaf(dz_head[1], w.y, dh);
+      dh = fmaf(dz_head[2], w.z, dh);
+      dh = fmaf(dz_head[3], w.w, dh);
+      out[i * kStride] = h[i * kStride] > 0.0f ? dh : 0.0f;
+    }
+    for (int l = lay.L - 2; l >= 1; --l) {
+      float g[W];  // d_z of layer l
+#pragma unroll
+      for (int j = 0; j < W; ++j) g[j] = out[j * kStride];
+      const float4* wl = reinterpret_cast<const float4*>(lay.weights(l));
+      const float* hl = my_act + (lay.in_dim + (l - 1) * W) * kStride;
+      out -= W * kStride;
+      for (int i0 = 0; i0 < W; i0 += kChains) {
+        float dh[kChains];
+#pragma unroll
+        for (int q = 0; q < kChains; ++q) dh[q] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < W / 4; ++j) {
+#pragma unroll
+          for (int q = 0; q < kChains; ++q) {
+            const float4 v = wl[(i0 + q) * (W / 4) + j];
+            dh[q] = fmaf(g[4 * j + 0], v.x, dh[q]);
+            dh[q] = fmaf(g[4 * j + 1], v.y, dh[q]);
+            dh[q] = fmaf(g[4 * j + 2], v.z, dh[q]);
+            dh[q] = fmaf(g[4 * j + 3], v.w, dh[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kChains; ++q) {
+          const int i = i0 + q;
+          out[i * kStride] = hl[i * kStride] > 0.0f ? dh[q] : 0.0f;
+        }
+      }
     }
   }
 }
 
-// acc += this sample's dW/db over the block's rays.  Entry e = i*C + j of
-// layer l goes to thread e % kGradThreads; C divides kGradThreads, so a
-// thread keeps one column j and a warp reads one h row (a broadcast) and
-// 32 d_z rows (distinct banks through kStride).
+// The dW stage's plan of a layer with C columns (the header's tile plan).
+template <int W, int C>
+struct DwTile {
+  static constexpr int kCG = C < 8 ? C : 8;         // column groups
+  static constexpr int kRG = kGradThreads / kCG;    // row groups
+  static constexpr int kTC = C / kCG;               // a main tile's columns
+  static constexpr int kTR = W / kRG;               // and rows
+};
+
+__device__ __forceinline__ float4 ray4(const float* row, int r) {
+  return *reinterpret_cast<const float4*>(row + r);
+}
+
+// acc_l += this sample's dW/db of one layer (R input rows, C columns) over
+// the block's rays: hrows its staged input rows, zrows its staged d_z rows.
+// The main tile spans rows [0, W) whatever R, so its r loop runs without a
+// branch: a row at or past R (layer 0 with fewer inputs than W) reads row
+// R - 1 again and its sums are dropped.
+template <int W, int C>
+__device__ __forceinline__ void layer_dw(const float* hrows, const float* zrows,
+                                         int R, float* acc_l, int tid) {
+  using P = DwTile<W, C>;
+  const int rg = tid / P::kCG, cg = tid - rg * P::kCG;
+  const float* hr[P::kTR];  // row rg + kRG*a
+#pragma unroll
+  for (int a = 0; a < P::kTR; ++a) hr[a] = hrows + min(rg + a * P::kRG, R - 1) * kStride;
+  const float* zc = zrows + cg * kStride;  // column cg + kCG*b: + b*kCG*kStride
+  float sum[P::kTR][P::kTC];
+#pragma unroll
+  for (int a = 0; a < P::kTR; ++a) {
+#pragma unroll
+    for (int b = 0; b < P::kTC; ++b) sum[a][b] = 0.0f;
+  }
+#pragma unroll 2
+  for (int r = 0; r < kGradThreads; r += 4) {
+    float4 z[P::kTC];
+#pragma unroll
+    for (int b = 0; b < P::kTC; ++b) z[b] = ray4(zc + b * P::kCG * kStride, r);
+#pragma unroll
+    for (int a = 0; a < P::kTR; ++a) {
+      const float4 h = ray4(hr[a], r);
+#pragma unroll
+      for (int b = 0; b < P::kTC; ++b) {
+        sum[a][b] = fmaf(h.x, z[b].x, sum[a][b]);
+        sum[a][b] = fmaf(h.y, z[b].y, sum[a][b]);
+        sum[a][b] = fmaf(h.z, z[b].z, sum[a][b]);
+        sum[a][b] = fmaf(h.w, z[b].w, sum[a][b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < P::kTR; ++a) {
+    const int i = rg + a * P::kRG;
+    if (i < R) {
+#pragma unroll
+      for (int b = 0; b < P::kTC; ++b) acc_l[i * C + cg + b * P::kCG] += sum[a][b];
+    }
+  }
+  // the rows past the main tile's, then the bias row (index R: it follows
+  // the weights)
+  const int r0 = min(R, W);
+  const int n = (R + 1 - r0) * C;
+  for (int e = tid; e < n; e += kGradThreads) {
+    const int i = r0 + e / C, j = e - (e / C) * C;
+    const float* zr = zrows + j * kStride;
+    float s = 0.0f;
+    if (i < R) {
+      const float* h = hrows + i * kStride;
+#pragma unroll 4
+      for (int r = 0; r < kGradThreads; r += 4) {
+        const float4 hv = ray4(h, r), zv = ray4(zr, r);
+        s = fmaf(hv.x, zv.x, s);
+        s = fmaf(hv.y, zv.y, s);
+        s = fmaf(hv.z, zv.z, s);
+        s = fmaf(hv.w, zv.w, s);
+      }
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < kGradThreads; r += 4) {
+        const float4 zv = ray4(zr, r);
+        s += zv.x;
+        s += zv.y;
+        s += zv.z;
+        s += zv.w;
+      }
+    }
+    acc_l[i * C + j] += s;
+  }
+}
+
+// acc += this sample's dW/db over the block's rays, layer by layer.
 template <int W>
 __device__ __forceinline__ void accumulate_block(const Layout& lay,
                                                  const float* act,
@@ -109,25 +322,14 @@ __device__ __forceinline__ void accumulate_block(const Layout& lay,
                                                  int tid) {
   int arow = 0;
   for (int l = 0; l < lay.L; ++l) {
-    const int R = lay.rows(l), C = lay.cols(l);
-    const int off = static_cast<int>(lay.weights(l) - lay.w_first);
+    const int R = lay.rows(l);
+    float* acc_l = acc + (lay.weights(l) - lay.w_first);
     const float* hrows = act + arow * kStride;
     const float* zrows = dz + l * W * kStride;
-    for (int e = tid; e < R * C; e += kGradThreads) {
-      const int i = e / C, j = e - i * C;
-      const float* hr = hrows + i * kStride;
-      const float* zr = zrows + j * kStride;
-      float sum = 0.0f;
-#pragma unroll 16
-      for (int r = 0; r < kGradThreads; ++r) sum = fmaf(hr[r], zr[r], sum);
-      acc[off + e] += sum;
-    }
-    if (tid < C) {
-      const float* zr = zrows + tid * kStride;
-      float sum = 0.0f;
-#pragma unroll 16
-      for (int r = 0; r < kGradThreads; ++r) sum += zr[r];
-      acc[off + R * C + tid] += sum;
+    if (l == lay.L - 1) {
+      layer_dw<W, kHead>(hrows, zrows, R, acc_l, tid);
+    } else {
+      layer_dw<W, W>(hrows, zrows, R, acc_l, tid);
     }
     arow += R;
   }
@@ -177,46 +379,46 @@ nerf_grad_kernel(const float* __restrict__ pk, int pk_floats, int G,
     }
   }
 
-  // pass 1: the forward, keeping P_s
-  float P = 1.0f;
-  float col[3] = {0.0f, 0.0f, 0.0f};
-  for (int s = 0; s < S; ++s) {
-    float p[3];
-    sample_point(o, d, ts[s], p);
-    float rgba[kHead];
-    mlp_rgba<W, false>(p, lay, rgba, nullptr, 0);
-    float alpha, c;
-    sample_alpha(rgba[3], ds[s], &alpha, &c);
-    const float wgt = alpha * transmittance(&P, c, s, loma);
-    pbuf[s * kGradThreads + tid] = P;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) col[k] = fmaf(wgt, sigmoidf(rgba[k]), col[k]);
-  }
-  float dcol[3];
-  float loss = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    if (kTrain) {
-      const float diff = valid ? col[k] - y[k] : 0.0f;
-      loss = fmaf(diff, diff, loss);
-      dcol[k] = 2.0f * diff;
-    } else {
-      dcol[k] = y[k];
-    }
-  }
-
-  // pass 2: the reverse walk
+  // The two passes run as one loop over 2S steps, so that the forward (most
+  // of the kernel's code) is inlined once: step it < S is pass 1 at s = it,
+  // the others pass 2 at s = 2S-1-it.  Pass 1 stages its activations too
+  // (pass 2 writes over them); the arithmetic is the same either way.
   float* my_act = act + tid;
   float* my_dz = dz + tid;
+  float P = 1.0f;
+  float col[3] = {0.0f, 0.0f, 0.0f};
+  float dcol[3] = {0.0f, 0.0f, 0.0f};
+  float loss = 0.0f;
   float suf = 0.0f;    // sum_{s' >= s} d_P_s' P_s'
   float carry = 0.0f;  // standard mode: d_w_{s+1} alpha_{s+1}
-  for (int s = S - 1; s >= 0; --s) {
+  for (int it = 0; it < 2 * S; ++it) {
+    const bool pass1 = it < S;
+    const int s = pass1 ? it : 2 * S - 1 - it;
     float p[3];
     sample_point(o, d, ts[s], p);
     float raw[kHead];
-    mlp_rgba<W, true>(p, lay, raw, my_act, kStride);
+    walk_forward<W>(p, lay, raw, my_act);
     float alpha, c;
     sample_alpha(raw[3], ds[s], &alpha, &c);
+    if (pass1) {
+      const float wgt = alpha * transmittance(&P, c, s, loma);
+      pbuf[s * kGradThreads + tid] = P;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) col[k] = fmaf(wgt, sigmoidf(raw[k]), col[k]);
+      if (s == S - 1) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          if (kTrain) {
+            const float diff = valid ? col[k] - y[k] : 0.0f;
+            loss = fmaf(diff, diff, loss);
+            dcol[k] = 2.0f * diff;
+          } else {
+            dcol[k] = y[k];
+          }
+        }
+      }
+      continue;
+    }
     const float Ps = pbuf[s * kGradThreads + tid];
     const float Ts = (s == 0) ? 1.0f
                      : loma   ? Ps

@@ -13,23 +13,27 @@
 // What bounds it on this card: arithmetic and shared memory.  Per ray and
 // sample it runs the forward twice (pass 1, then the remat of pass 2), the
 // backward d_h = d_z W^T, and its share of dW += h^T d_z: about 4x the
-// forward's FMAs, ~265 K per ray for the 3x30 model at S = 30.  The dW
-// reduction reads two shared-memory operands per FMA; device memory carries
-// only 36 B per ray plus one (G+1)-float partial per block.
+// forward's FMAs, ~265 K per ray for the 3x30 model at S = 30.  Every
+// weight operand comes from shared memory (a broadcast float4 per 4 FMAs
+// of a row); device memory carries only 36 B per ray plus one (G+1)-float
+// partial per block.
 //
 // What the design does about it (nerf_grad.cuh):
 //   * one thread per ray, 64 rays per block, weights in shared memory as in
 //     the render forward; the TPU's s-major rows, roll scans and suffix-sum
 //     gather become scalars carried along the ray (P_s kept per sample, the
-//     suffix sum carried in reverse);
+//     suffix sum carried in reverse); both passes run in one loop over one
+//     inlined forward, so that the code fits the instruction cache better;
 //   * dW/db are reduced without atomics: each sample's layer inputs and d_z
-//     rows are staged in shared memory, then each thread adds a fixed set of
-//     entries over the block's rays into the block's accumulator; a second
-//     kernel sums the blocks' partials in a fixed order, so the result is
-//     deterministic like the TPU's sequential grid;
+//     rows are staged in shared memory, then each thread takes a register
+//     tile of entries (4 x 4 of a hidden layer at W = 32), reading 4 rays of
+//     a row as one float4, and adds each entry's sum over the block's rays
+//     into the block's accumulator; a second kernel sums the blocks'
+//     partials in a fixed order, so the result is deterministic like the
+//     TPU's sequential grid;
 //   * pad threads of the ragged last block run every barrier with zeros.
-// Shared memory: about 68 KB per block for the 3x30 model at S = 30 (three
-// blocks per SM), about 208 KB for the 4x64 model at S = 64 (one).
+// Shared memory: about 70 KB per block for the 3x30 model at S = 30 (three
+// blocks per SM), about 213 KB for the 4x64 model at S = 64 (one).
 
 #include "nerf_grad.cuh"
 

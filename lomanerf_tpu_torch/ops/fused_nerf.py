@@ -42,7 +42,7 @@ Dispatch follows the JAX package's rule (:func:`_route`) for the width and
 the depths' shape for the instance.  A narrow MLP whose block does not fit
 one block's 227 KB of shared memory (the gradient kernels keep 64 rays'
 activations and d_z there beside the packed params: e.g. 5x64 at S = 64,
-~273 KB; ``single64``, 4x64 at S = 64, takes ~208 KB and stays narrow) runs
+~279 KB; ``single64``, 4x64 at S = 64, takes ~213 KB and stays narrow) runs
 on the wide kernels at pw = 128 in f32, as the JAX package sends it to its
 packed wide kernel at pw = 128; its forward, backward and train loss all
 take that route.  On CUDA tensors
@@ -76,7 +76,7 @@ MAX_WIDE_WIDTH = 256  # widest hidden layer the wide kernels take
 _HEAD = 4  # rgba channels the render reads
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
 GRAD_THREADS = 64  # rays per block of the gradient kernels (nerf_grad.cuh)
-_STRIDE = GRAD_THREADS + 1  # their staging row stride
+_STRIDE = GRAD_THREADS + 4  # their staging row stride (a float4 of 4 rays)
 WIDE_ROW_CHUNK = 8192  # rows per split-K partial (nerf_wide_common.cuh)
 # scratch budgets of the wide kernels: one activation buffer of a render
 # chunk, and all of a gradient call's buffers
@@ -216,6 +216,33 @@ def grad_smem_bytes(pk_floats: int, G: int, S: int, L: int, in_dim: int,
     return 4 * (pk_floats + G + S * GRAD_THREADS
                 + (in_dim + (L - 1) * width) * _STRIDE
                 + ((L - 1) * width + _HEAD) * _STRIDE + GRAD_THREADS)
+
+
+def grad_tile_plan(L: int, in_dim: int, width: int):
+    """The gradient kernels' dW tile plan (``nerf_grad.cuh``: ``DwTile``,
+    ``layer_dw``): per layer, ``(main, rest, budget)``.  ``main[t]`` lists
+    the indices (in the G-float gradient layout) of thread t's main tile,
+    whose per-sample sums the kernel keeps in ``budget`` registers;
+    ``rest[t]`` those of its remainder entries, taken one at a time.  A
+    layer of R input rows (then its bias row) and C columns has ``min(C, 8)``
+    column groups and ``64 / min(C, 8)`` row groups; the main tiles span the
+    rows below ``min(R, width)``."""
+    plan, off = [], 0
+    for l in range(L):
+        R = in_dim if l == 0 else width
+        C = _HEAD if l == L - 1 else width
+        cgs = min(C, 8)
+        rgs = GRAD_THREADS // cgs
+        tr, tc = width // rgs, C // cgs
+        main = [[off + i * C + t % cgs + cgs * b
+                 for i in range(t // cgs, width, rgs) if i < R for b in range(tc)]
+                for t in range(GRAD_THREADS)]
+        r0 = min(R, width)
+        rest = [[off + r0 * C + e for e in range(t, (R + 1 - r0) * C, GRAD_THREADS)]
+                for t in range(GRAD_THREADS)]
+        plan.append((main, rest, tr * tc))
+        off += R * C + C
+    return plan
 
 
 def _check_cuda_inputs(origins, directions, t_vals, dists, config, params, *extra):

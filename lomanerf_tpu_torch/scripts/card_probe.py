@@ -12,6 +12,15 @@ run against another checkout of the port to compare two trees.
   GEMMs (``kEpiBiasRelu``), compositing, the partials' and column sums, the
   encoding, the loss sum, memsets and copies, and the rest (Adam, the
   parameter packing).  Prints ms per step and the share of the device time.
+* ``--what small``: device time by kernel family of ``--steps`` ``small``
+  train steps (``NeRFConfig.small()``, bench.py's 262,144 rays x 30
+  samples, Adam 5e-4, the same batches and seeds as ``--what flagship``)
+  after two warm-up steps, from one trace: the narrow gradient walk
+  (``nerf_grad_kernel``), the fixed-order sum of its block partials
+  (``sum_block_partials``), Adam (``multi_tensor_apply_kernel``: the
+  optimizer's foreach updates) and the rest (the parameter packing, the
+  gradients' unpacking, memsets and copies).  Prints ms per step, each
+  family's share and the kernels launched per step by name.
 * ``--what frame``: device time by kernel family of ``FRAMES`` 800x800
   ``full`` frames (``NeRFModel.render_image``, seeded init, one pose) after
   a warm-up frame, from one trace: the fused MLP (``mlp_wgmma_kernel``),
@@ -23,10 +32,20 @@ run against another checkout of the port to compare two trees.
 * ``--what grid_sum``: one call of ``probe.grid_sum`` on an ``(8,
   7,864,320)`` f32 array in 3,840-column tiles split three ways, beside
   ``torch.sum`` of the same array: the device time of its kernels per call
-  over ``--calls`` calls (one trace session, after a warm-up call) and its
-  kernels per call; from an idle card, in turns with ``torch.sum``, the
+  over ``--calls`` calls (one trace session, after a warm-up call; the
+  calls of ``torch.sum`` follow behind a marker kernel, where the trace is
+  split on the card's clock) and its kernels per call; from an idle card, in turns with ``torch.sum``, the
   event window of one call (the host's enqueue and the card's work) and
   the host time of the call alone.
+* ``--what walk --parent DIR``: the narrow gradient walk of this tree
+  against the one of the checkout at ``DIR`` (its kernels built there), in
+  turns in one process: ``fused_nerf`` bound to either library.  At the
+  ``small`` bench batch (262,144 rays, ``chip_smoke``'s seed-0 params and
+  batch; per-ray depths from ``NeRFModel.sample``, seed 3): #3 and #6
+  (``nerf_train[_rays]``) and #2 and #5 (``nerf_render_bwd[_rays]``, a
+  seed-1 colour cotangent) alone, each pair's outputs required bit-equal;
+  then the ``small`` train step and the ``single64`` step (65,536 rays x
+  64, Adam 5e-4, one model per library from one seeded init).
 * ``--what leaves``: each wide leaf's worst |kernel - plain| of the
   flagship's train-loss gradients, over the leaf's largest entry, on the
   inputs of ``chip_smoke.py`` phase 7 (``full()`` on 1037 rays, numpy seed
@@ -36,19 +55,24 @@ run against another checkout of the port to compare two trees.
 The last line is one JSON object with the numbers.  Run:
 
     python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3
+    python -m lomanerf_tpu_torch.scripts.card_probe --what small --steps 5
     python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path mma]
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
+    python -m lomanerf_tpu_torch.scripts.card_probe --what walk --parent DIR
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import os
 import re
 import statistics
+import subprocess
+import sys
 import tempfile
 import time
 
@@ -59,6 +83,10 @@ FAMILIES = ("fused MLP", "dW", "d_h", "forward", "compositing", "partial and col
             "encoding", "loss sum", "memset and copy", "other")
 _EPILOGUE = {0: "forward", 1: "d_h", 2: "dW"}  # nerf_wide_gemm.cuh's kEpi values
 FRAMES = 2  # 800x800 frames traced by --what frame, after a warm-up frame
+SMALL_FAMILIES = ("nerf_grad_kernel", "sum_block_partials", "Adam", "other")
+WORK_CATS = ("kernel", "gpu_memset", "gpu_memcpy")  # the card's work in a trace
+MARKER, MARKER_CYCLES = "spin_kernel", 1000  # torch.cuda._sleep's kernel, between two sets
+MARGIN_S = 0.05  # idle host time at both ends of a traced session
 
 
 def family(name: str, cat: str) -> str:
@@ -82,46 +110,64 @@ def family(name: str, cat: str) -> str:
 
 def device_events(run, calls: int, after=None):
     """``[(name, cat, µs, ts)]`` of the card's work over ``calls`` calls of
-    ``run`` inside one trace; with ``after``, the work of its calls too (in a
-    range of its own, after the card is idle), returned second."""
-    from torch.profiler import record_function
-
+    ``run`` inside one trace; with ``after``, the work of its calls too
+    (after the card is idle, behind a marker kernel), returned second."""
     from lomanerf_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
+            # the profiler drops the card's work that it places outside its
+            # capture window (the card's clock mapped onto the host's): idle
+            # margins keep the first and the last kernel well inside it
+            time.sleep(MARGIN_S)
             for _ in range(calls):
                 run()
             if after is not None:
                 torch.cuda.synchronize()
-                with record_function("card_probe: after"):
-                    for _ in range(calls):
-                        after()
+                torch.cuda._sleep(MARKER_CYCLES)
+                torch.cuda.synchronize()
+                for _ in range(calls):
+                    after()
+            torch.cuda.synchronize()
+            time.sleep(MARGIN_S)
         with open(os.path.join(tmp, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
-    work = [(e.get("name", ""), e["cat"], float(e.get("dur", 0.0)), float(e["ts"]))
-            for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
-    if after is None:
+    return card_work(events, MARKER if after is not None else None)
+
+
+def card_work(events, marker=None):
+    """``[(name, cat, µs, ts)]`` of the card's work in the Chrome trace
+    ``events``, in the card's order.  With ``marker``, the name of a kernel
+    launched once between two sets of calls, two such lists: the work
+    before it and the work after it.  The split reads the card's own clock
+    only; the host's clock and the card's are mapped onto each other only
+    approximately."""
+    work = sorted(((e.get("name", ""), e["cat"], float(e.get("dur", 0.0)), float(e["ts"]))
+                   for e in events if e.get("cat") in WORK_CATS), key=lambda w: w[3])
+    if marker is None:
         return work
-    # the card was idle when the range began: later work is `after`'s
-    start = min(float(e["ts"]) for e in events if e.get("name") == "card_probe: after")
-    return [w for w in work if w[3] < start], [w for w in work if w[3] >= start]
+    at = [i for i, w in enumerate(work) if marker in w[0]]
+    if len(at) != 1:
+        raise RuntimeError(f"{len(at)} {marker} kernels in the trace, need one")
+    return work[:at[0]], work[at[0] + 1:]
 
 
-def flagship(steps: int) -> dict:
+def train_steps(cfg, n: int, steps: int):
+    """The device work of ``steps`` Adam 5e-4 train steps of ``cfg`` on
+    ``n`` numpy-seeded rays (two batches cycled, seed 0; seeded init), after
+    two warm-up steps, from one trace."""
     from lomanerf_tpu_torch.core import rays
-    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.models import NeRFModel
     from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
 
-    cfg = NeRFConfig.full()
     rng = np.random.default_rng(0)
     t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
     batches = []
     for _ in range(2):
-        o, d = (torch.tensor(rng.standard_normal((16384, 3)), dtype=torch.float32,
+        o, d = (torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
                              device="cuda") for _ in range(2))
-        tgt = torch.tensor(rng.random((16384, 3)), dtype=torch.float32, device="cuda")
+        tgt = torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")
         batches.append((o, d, t, dists, tgt))
     model = NeRFModel(cfg, device="cuda")
     model.init(torch.Generator().manual_seed(0))
@@ -133,7 +179,13 @@ def flagship(steps: int) -> dict:
         calls[0] += 1
 
     run(), run()  # warm-up
-    events = device_events(run, steps)
+    return device_events(run, steps)
+
+
+def flagship(steps: int) -> dict:
+    from lomanerf_tpu_torch.models import NeRFConfig
+
+    events = train_steps(NeRFConfig.full(), 16384, steps)
     ms = collections.Counter()
     launches = collections.Counter()
     for name, cat, us, _ in events:
@@ -149,6 +201,38 @@ def flagship(steps: int) -> dict:
     for k in FAMILIES:
         print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
     print(f"  dW launches per step: {out['dw_launches_per_step']}")
+    return out
+
+
+def small_family(name: str, cat: str) -> str:
+    """The family of a kernel of the ``small`` step by its trace name."""
+    if cat == "kernel":
+        for key in SMALL_FAMILIES[:2]:
+            if key in name:
+                return key
+        if "multi_tensor_apply_kernel" in name:
+            return "Adam"
+    return "other"
+
+
+def small(steps: int) -> dict:
+    from lomanerf_tpu_torch.models import NeRFConfig
+
+    events = train_steps(NeRFConfig.small(), 262144, steps)
+    ms, launches = collections.Counter(), collections.Counter()
+    for name, cat, us, _ in events:
+        ms[small_family(name, cat)] += us / 1e3 / steps
+        launches[kernel_key(name) if cat == "kernel" else cat] += 1
+    total = sum(ms.values())
+    out = {"what": "small", "steps": steps, "device_ms_per_step": total,
+           "ms": {k: ms[k] for k in SMALL_FAMILIES},
+           "share": {k: ms[k] / total for k in SMALL_FAMILIES},
+           "launches_per_step": {k: v / steps for k, v in sorted(launches.items())}}
+    print(f"small train step, 262144 rays x 30 samples, {steps} steps traced: device "
+          f"{total:.3f} ms/step")
+    for k in SMALL_FAMILIES:
+        print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
+    print(f"  kernels per step: {out['launches_per_step']}")
     return out
 
 
@@ -316,10 +400,80 @@ def leaves() -> dict:
     return {"what": "leaves", **out}
 
 
+def walk(parent: str, rounds: int = 5) -> dict:
+    from lomanerf_tpu_torch.core import rays
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.ops import build, fused_nerf
+    from lomanerf_tpu_torch.scripts.grad_variants import small_call_inputs
+    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
+
+    built = subprocess.run([sys.executable, "-c", "from lomanerf_tpu_torch.ops import build; "
+                            "print(build.build())"], cwd=parent, capture_output=True, text=True)
+    if built.returncode:
+        raise SystemExit(f"card_probe: the build at {parent} failed:\n{built.stderr[-4000:]}")
+    old = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
+    for name, argtypes in build.SIGNATURES.items():
+        fn = getattr(old, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    libs = {"parent": old, "this tree": build.load()}
+    load = build.load
+
+    def on(lib, fn):
+        build.load = lambda: libs[lib]
+        try:
+            return fn()
+        finally:
+            build.load = load
+
+    def turns(fns):
+        ms = one_call_ms(fns, rounds)  # the event window of one call each
+        return {k: v["window_ms"] for k, v in ms.items()}
+
+    cfg, params, pk, G, (o, d, t, dists, tgt) = small_call_inputs()
+    _, tj, dj = NeRFModel(cfg).sample(o, d, generator=torch.Generator("cuda").manual_seed(3))
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((o.shape[0], 3)),
+                       dtype=torch.float32, device="cuda")
+    out = {"what": "walk", "parent": parent, "rounds": rounds}
+    for suffix, (tv, dv) in (("", (t, dists)), ("_rays", (tj, dj))):
+        pkv = fused_nerf.pack_params(params, tv, dv, 32)
+        for entry, y in (("nerf_train", tgt), ("nerf_render_bwd", cot)):
+            fns = {lib: (lambda lib=lib, entry=entry, y=y, tv=tv, dv=dv, pkv=pkv: on(
+                lib, lambda: fused_nerf._launch_grad(entry, pkv, G, tv, dv, o, d, y, cfg,
+                                                     cfg.num_layers, 32)))
+                   for lib in libs}
+            if not torch.equal(fns["parent"]().clone(), fns["this tree"]()):
+                raise SystemExit(f"card_probe: {entry}{suffix} differs from the parent's")
+            out[entry + suffix] = turns(fns)
+    for preset, n in (("small", 262144), ("single64", 65536)):
+        cfg = NeRFConfig.preset(preset)
+        rng = np.random.default_rng(0)
+        batch = [torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device="cuda")
+                 for _ in range(2)]
+        batch += [*rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda"),
+                  torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")]
+        steps = {}
+        for lib in libs:
+            model = NeRFModel(cfg, device="cuda")
+            model.init(torch.Generator().manual_seed(0))
+            step = make_single_chip_train_step(cfg, torch.optim.Adam(model.parameters(), lr=5e-4))
+            steps[lib] = (lambda lib=lib, model=model, step=step: on(
+                lib, lambda: step(model, *batch)))
+            steps[lib]()  # warm-up
+        out[preset + " step"] = turns(steps)
+    print(f"narrow gradient walk, this tree against {parent}, one call each from an idle "
+          f"card, {2 * rounds} in turns (CUDA event window, median ms):")
+    for k, v in out.items():
+        if isinstance(v, dict):
+            print(f"  {k:22s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
+                  f"ratio {v['this tree'] / v['parent']:.4f}")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--what", choices=("flagship", "frame", "grid_sum", "leaves"),
-                    required=True)
+    ap.add_argument("--what", choices=("flagship", "small", "frame", "grid_sum", "leaves",
+                                       "walk"), required=True)
+    ap.add_argument("--parent", help="root of the checkout --what walk compares against")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--path", choices=("fused", "mma"), default="fused")
     ap.add_argument("--calls", type=int, default=20)
@@ -329,8 +483,13 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.what == "leaves":
         out = leaves()
+    elif args.what == "walk":
+        if not args.parent:
+            raise SystemExit("card_probe: --what walk needs --parent DIR")
+        out = walk(args.parent)
     else:
         out = {"flagship": lambda: flagship(args.steps),
+               "small": lambda: small(args.steps),
                "frame": lambda: frame(args.path),
                "grid_sum": lambda: grid_sum(args.calls)}[args.what]()
         if not any(out.get(k) for k in ("device_ms_per_step", "device_ms_per_frame",

@@ -27,16 +27,13 @@ The last line is one JSON object with the numbers.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
-import re
 import statistics
-import subprocess
-from pathlib import Path
 
 import torch
 
 from lomanerf_tpu_torch.ops import build
+from lomanerf_tpu_torch.scripts import variants
 
 HEADER = build.CSRC / "nerf_wide_mlp.cuh"
 ROUNDS = 5  # rounds of turns: each variant is timed 2 * ROUNDS times
@@ -113,68 +110,7 @@ extern "C" int variant_mlp(const void* W, const float* b, const float* ts,
 
 
 def patched(edits) -> str:
-    src = HEADER.read_text()
-    for old, new, times in edits:
-        if src.count(old) != times:
-            raise SystemExit(f"mlp_variants: {old!r} occurs {src.count(old)} times in "
-                             f"{HEADER.name}, not {times}: the variant is out of date")
-        src = src.replace(old, new)
-    return src
-
-
-def sass_counts(lib: Path) -> dict | None:
-    """Instruction counts of the library's fused-MLP kernel, or None where
-    the toolkit has no cuobjdump."""
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    if not tool.exists():
-        return None
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
-    body = next((f for f in sass.split("Function : ") if _KERNEL in f.split("\n", 1)[0]), "")
-    ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
-    return {"instructions": len(ins),
-            "F2FP": sum(i.startswith("F2FP") for i in ins),
-            "HGMMA": sum(i.startswith("HGMMA") for i in ins)}
-
-
-def ptxas(lib: Path) -> dict:
-    """Registers a thread and spill stores of the kernel, from the build log."""
-    log = lib.with_name("build.log").read_text()
-    start = re.search(rf"Compiling entry function '[^']*{_KERNEL}", log)
-    part = log[start.start():] if start else ""
-    regs, spills = re.search(r"Used (\d+) registers", part), re.search(
-        r"(\d+) bytes spill stores", part)
-    return {"registers": int(regs.group(1)) if regs else None,
-            "spill_stores": int(spills.group(1)) if spills else None}
-
-
-def compile_all() -> dict:
-    """One library per variant (all ``nvcc`` started together); returns
-    name -> library path."""
-    nvcc = build._nvcc()
-    jobs = {}
-    for name, (edits, _) in VARIANTS.items():
-        src = patched(edits)
-        d = OUT / hashlib.sha256((build.source_hash() + src).encode()).hexdigest()[:16]
-        proc = None
-        if not (d / "libvariant.so").exists():
-            d.mkdir(parents=True, exist_ok=True)
-            (d / "nerf_wide_mlp.cuh").write_text(src)
-            (d / "variant.cu").write_text(_ENTRY)
-            cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), "-o",
-                   str(d / "tmp.so"), str(d / "variant.cu")]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True)
-        jobs[name] = (proc, d)
-    libs = {}
-    for name, (proc, d) in jobs.items():
-        if proc is not None:
-            log = proc.communicate()[0]
-            (d / "build.log").write_text(log)
-            if proc.returncode:
-                raise SystemExit(f"mlp_variants: nvcc failed on {name!r}:\n{log[-4000:]}")
-            (d / "tmp.so").replace(d / "libvariant.so")
-        libs[name] = d / "libvariant.so"
-    return libs
+    return variants.patch(HEADER, edits, "mlp_variants")
 
 
 def main() -> dict:
@@ -184,7 +120,9 @@ def main() -> dict:
     from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
     from lomanerf_tpu_torch.ops import fused_nerf, wide_mlp
 
-    libs = compile_all()
+    libs = variants.compile_all(
+        {name: {HEADER.name: patched(edits)} for name, (edits, _) in VARIANTS.items()},
+        _ENTRY, OUT, "mlp_variants")
     cfg = NeRFConfig.full()
     model = NeRFModel(cfg, device="cuda")
     model.init(torch.Generator().manual_seed(0))
@@ -216,32 +154,22 @@ def main() -> dict:
         if whole and not same[name]:
             raise SystemExit(f"mlp_variants: {name!r} leaves the arithmetic whole but its "
                              "H_{L-1} differs from the production kernel's")
-    ms = {name: [] for name in calls}
-    order = list(calls.items())
-    for _ in range(ROUNDS):
-        for name, call in order + order[::-1]:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda.synchronize()
-            start.record()
-            call()
-            end.record()
-            torch.cuda.synchronize()
-            ms[name].append(start.elapsed_time(end))
+    ms = variants.timed_turns(calls, ROUNDS)
     flops = 2.0 * n * S * (cfg.in_channels * 256 + (L - 2) * 256 * 256)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    smi = variants.card()
     print(f"fused MLP variants, one {n}-ray full chunk ({n * S} rows, {flops / 1e12:.2f} TFLOP), "
-          f"{2 * ROUNDS} calls each in turns, on {smi.strip()}:")
+          f"{2 * ROUNDS} calls each in turns, on {smi}:")
     res = {}
     for name in calls:
         med = statistics.median(ms[name])
         res[name] = {"ms": med, "min_ms": min(ms[name]), "tflops": flops / med / 1e9,
-                     "bits_equal_production": same[name], "sass": sass_counts(libs[name]),
-                     "ptxas": ptxas(libs[name])}
+                     "bits_equal_production": same[name],
+                     "sass": variants.sass_counts(libs[name], _KERNEL, ("F2FP", "HGMMA")),
+                     "ptxas": variants.ptxas(libs[name], _KERNEL)}
         print(f"  {name:32s} median {med:8.3f} ms (min {min(ms[name]):8.3f}), "
               f"{flops / med / 1e9:7.2f} TFLOP/s, bits equal production: {same[name]}, "
               f"SASS {res[name]['sass']}, ptxas {res[name]['ptxas']}")
-    out = {"what": "mlp_variants", "device": smi.strip(), "rows": n * S, "variants": res}
+    out = {"what": "mlp_variants", "device": smi, "rows": n * S, "variants": res}
     print(json.dumps(out))
     return out
 

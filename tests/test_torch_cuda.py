@@ -92,14 +92,26 @@ def assert_grads_close(got, want):
         torch.testing.assert_close(g, w, rtol=3e-4, atol=atol)
 
 
+NARROW = {  # the narrow presets, and the one- and two-layer MLPs _route sends narrow
+    "small": NeRFConfig.small(),
+    "single64": NeRFConfig.single_view_64(),
+    "1x30": NeRFConfig(num_layers=1, filter_size=30),  # layer 0 is the head
+    "2x17": NeRFConfig(num_layers=2, filter_size=17),  # no hidden-to-hidden layer
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["small", "single64"])
+@pytest.mark.parametrize("preset", list(NARROW))
 @pytest.mark.parametrize("mode", ["loma", "standard"])
 @pytest.mark.parametrize("n_rays", [N_RAYS, 64, 1])  # ragged, one full block, one ray
 def test_gradient_kernels_match_plain_and_repeat_exactly(preset, mode, n_rays):
+    """The train kernel (#3) and the render backward (#2) against autograd
+    of the plain version, and bit-identical on a repeat launch: the narrow
+    presets and the one- and two-layer MLPs, whose edge layers (layer 0's
+    33 rows, the head's 4 columns) take the dW tile plan's ragged tiles."""
     need_card()
     rng = np.random.default_rng(7)
-    cfg = dataclasses.replace(NeRFConfig.preset(preset), mode=mode)
+    cfg = dataclasses.replace(NARROW[preset], mode=mode)
     params = params_from_numpy(*np_params(rng, cfg), "cuda")
     o, d = cuda_rays(rng, n_rays)
     t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
@@ -191,9 +203,8 @@ def test_kernels_refuse_what_they_do_not_take():
         fused_nerf.nerf_train_loss(too_wide_params, o, d, t, dists, tgt, too_wide)
 
 
-PERRAY = {  # the narrow presets, and two wide MLPs (f32, and the bf16 flagship's plan)
-    "small": NeRFConfig.small(),
-    "single64": NeRFConfig.single_view_64(),
+PERRAY = {  # the narrow MLPs, and two wide ones (f32, and the bf16 flagship's plan)
+    **NARROW,
     "wide-f32": NeRFConfig(num_layers=4, filter_size=128, num_samples=32),
     "wide-bf16": dataclasses.replace(NeRFConfig.full(), num_layers=4, num_samples=32),
 }

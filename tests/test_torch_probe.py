@@ -144,6 +144,45 @@ def test_card_probe_sorts_kernels_into_families():
     assert card_probe.kernel_key(mlp) == "mlp_wgmma_kernel"
     assert card_probe.kernel_key(gemm.format("_mma_kernel", 0)) == "gemm_mma_kernel kEpiBiasRelu"
     assert card_probe.family("Memset (Device)", "gpu_memset") == "memset and copy"
-    for what in ("grid_sum", "frame"):
+    walk = ("void nerf::(anonymous namespace)::nerf_grad_kernel<32, true, false>(float const*, "
+            "int, int)")
+    assert card_probe.small_family(walk, "kernel") == "nerf_grad_kernel"
+    assert card_probe.kernel_key(walk) == "nerf_grad_kernel"
+    blocks = "(anonymous namespace)::sum_block_partials(float const*, int, int, float*)"
+    assert card_probe.small_family(blocks, "kernel") == "sum_block_partials"
+    assert card_probe.kernel_key(blocks) == "sum_block_partials"
+    adam = "void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>(...)"
+    assert card_probe.small_family(adam, "kernel") == "Adam"
+    assert card_probe.small_family("Memset (Device)", "gpu_memset") == "other"
+    for what in ("grid_sum", "frame", "small"):
         with pytest.raises(SystemExit):
             card_probe.main(["--what", what])
+
+
+def test_card_probe_splits_a_trace_at_its_marker():
+    """``card_probe.card_work`` keeps the card's work (kernels, memsets,
+    copies) of a Chrome trace in the order of the card's clock and splits it
+    at the one marker kernel, which it leaves out; the host's events (here a
+    range that the card's clock would place after the last kernel launched
+    before it) play no part.  A trace without the marker, or with two, is
+    refused."""
+    from lomanerf_tpu_torch.scripts import card_probe
+
+    def work(ts, name="grid_sum_kernel", cat="kernel"):
+        return {"cat": cat, "name": name, "ts": ts, "dur": 80, "args": {"correlation": 1}}
+
+    marker = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    events = [work(12.0), {"cat": "user_annotation", "name": "range", "ts": 100.0, "dur": 50},
+              {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 101.0, "dur": 2},
+              work(200.0, "Memset (Device)", "gpu_memset"), work(190.0, "reduce_kernel"),
+              work(180.0, marker), work(110.0)]
+    assert card_probe.card_work(events) == [
+        ("grid_sum_kernel", "kernel", 80.0, 12.0), ("grid_sum_kernel", "kernel", 80.0, 110.0),
+        (marker, "kernel", 80.0, 180.0), ("reduce_kernel", "kernel", 80.0, 190.0),
+        ("Memset (Device)", "gpu_memset", 80.0, 200.0)]
+    before, after = card_probe.card_work(events, card_probe.MARKER)
+    assert [w[0] for w in before] == ["grid_sum_kernel", "grid_sum_kernel"]
+    assert [w[0] for w in after] == ["reduce_kernel", "Memset (Device)"]
+    for trace in (events[:-2], events + [work(300.0, marker)]):
+        with pytest.raises(RuntimeError, match="spin_kernel kernels in the trace"):
+            card_probe.card_work(trace, card_probe.MARKER)

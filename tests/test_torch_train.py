@@ -288,11 +288,12 @@ def test_grad_kernel_algorithm_matches_autograd(rng, layers, width, mode, train,
 
 
 def test_gradient_kernels_fit_shared_memory(rng):
-    """Both presets fit one block's shared memory (small ~68 KB, single64
-    ~208 KB) and take the narrow kernels; a 64-wide MLP whose block does not
-    fit (5x64 and 8x64 at S = 64, 4x64 at S = 160) takes the wide route at
-    pw = 128 instead, as the JAX package's dispatch does."""
-    for name, limit in (("small", 70 * 1024), ("single64", 210 * 1024)):
+    """Both presets fit one block's shared memory (small ~70 KB, single64
+    ~213 KB: staging rows of 68 floats, a float4 of 4 rays) and take the
+    narrow kernels; a 64-wide MLP whose block does not fit (5x64 and 8x64 at
+    S = 64, 4x64 at S = 160) takes the wide route at pw = 128 instead, as
+    the JAX package's dispatch does."""
+    for name, limit in (("small", 70 * 1024), ("single64", 214 * 1024)):
         cfg = NeRFConfig.preset(name)
         params = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(
             33, 4, cfg.num_layers, cfg.filter_size)), "cpu")
@@ -309,6 +310,51 @@ def test_gradient_kernels_fit_shared_memory(rng):
         G = fused_nerf.grad_floats(params, 64)
         assert fused_nerf.grad_smem_bytes(G + 2 * S, G, S, layers, 33, 64) > 227 * 1024
         assert fused_nerf._route(deep, params) == ("wide", 128)
+
+
+@pytest.mark.parametrize("layers,width", [(3, 30), (4, 64), (1, 30), (2, 17)])
+def test_grad_tile_plan_covers_each_entry_once(rng, layers, width):
+    """The dW tile plan's host mirror (``nerf_grad.cuh``: ``DwTile``) at
+    ``small``, ``single64`` and the one- and two-layer MLPs ``_route`` sends
+    narrow: the block's 64 threads cover each of G's entries exactly once,
+    each main tile's per-sample sums stay within the registers the source
+    states (16 at W = 32, 64 at W = 64; the head 2 and 4), and at the
+    presets no thread takes more than 5% above an even share."""
+    cfg = NeRFConfig(num_layers=layers, filter_size=width)
+    params = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(
+        33, 4, layers, width)), "cpu")
+    kind, W = fused_nerf._route(cfg, params)
+    assert kind == "narrow"
+    G = fused_nerf.grad_floats(params, W)
+    plan = fused_nerf.grad_tile_plan(layers, 33, W)
+    assert len(plan) == layers
+    got = sorted(i for main, rest, _ in plan for t in range(64) for i in main[t] + rest[t])
+    assert got == list(range(G))
+    for l, (main, rest, budget) in enumerate(plan):
+        assert budget == ({32: 2, 64: 4} if l == layers - 1 else {32: 16, 64: 64})[W]
+        assert all(len(m) <= budget for m in main)
+    share = [sum(len(main[t]) + len(rest[t]) for main, rest, _ in plan) for t in range(64)]
+    if layers >= 3:
+        assert max(share) <= 1.05 * G / 64
+
+
+def test_grad_variants_edit_the_current_source():
+    """Every variant of ``scripts/grad_variants`` applies to the walk's
+    headers as they stand (each edit matches as often as it names), the
+    first is the headers unchanged, and each changes what it names; the
+    script refuses to run without a card."""
+    from lomanerf_tpu_torch.scripts import grad_variants
+
+    srcs = grad_variants.patched(grad_variants.VARIANTS)
+    now = {h: (build.CSRC / h).read_text() for h in grad_variants.HEADERS}
+    assert srcs.pop("as is") == now
+    keys = [tuple(v.values()) for v in srcs.values()]
+    assert len(set(keys)) == len(keys) and now not in srcs.values()
+    with pytest.raises(SystemExit):
+        grad_variants.patched({"x": ([("nerf_grad.cuh", "no such line", "", 1)], False)})
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            grad_variants.main([])
 
 
 def test_generate_random_rays(rng):
