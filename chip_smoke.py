@@ -57,10 +57,12 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    at 16,384 rays new against old (the same bits); splits the frame's
    device time by kernel family on both paths (``card_probe --what frame``:
    the fused kernel once per chunk, no layer GEMM);
-10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``) against the
-    plain version and autograd at the ``small`` and ``hires`` widths on
-    1037 pixels, with repeat launches bit-identical and no coords gradient,
-    and at the full 1024x1024 ``hires`` image;
+10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``: 3xTF32
+    products on the tensor cores) against the plain version and autograd at
+    the ``small`` and ``hires`` widths and at 5x128 on 1037 pixels, with
+    repeat launches bit-identical and no coords gradient, and at the full
+    1024x1024 image at ``hires`` and 5x128, where each block walks hundreds
+    of tiles (printing the ReLU-mask flips' leaves and columns);
 11. fits images through ``fit_image.main`` on the synthetic target: the
     ``small`` field at 256x256, 301 Adam steps (one launch of each kernel
     per step, eval PSNR >= 22 dB at step 300 and 10 dB above step 0), then
@@ -70,7 +72,8 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     1024x1024, Adam 1e-3, two uniform targets cycled) through the kernels
     and the plain backend in turns, the device's busy share of the
     ``small`` step (``utils.profiling.trace``), one 1024x1024 ``hires``
-    render, and each field kernel's own call against its plain version;
+    render, and each field kernel's own call against its plain version,
+    its f32 bound and its 3xTF32 bound;
 13. holds the per-ray (N, S) depth instances of the six NeRF kernels
     (``*_rays``: the counterparts of #4-#6 and #10-#12) against their plain
     versions on jittered depths from ``NeRFModel.sample(generator=...)``,
@@ -196,6 +199,9 @@ KERNELS.update({
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 # f32 outside the tensor cores, bf16 on them, device memory
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# TF32 on the tensor cores (dense): the field kernels take their products in
+# three TF32 passes (3xTF32), so their least time is 3 x MACs at this rate
+PEAK_TF32, TF32_PASSES = 495e12, 3
 FIT_STEPS = 301
 # the small field's eval PSNR at steps 0, 100, 200, 300 of the same flags:
 # the JAX driver on the CPU (PRNGKey(215) init) and the port's --device cpu
@@ -1184,15 +1190,19 @@ def field_grads(fn, params, coords, cot, nf):
 def phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords, seed=11):
     """Phase 10: the field kernels (#13 forward, #14 backward) against the
     plain version and autograd of it on the card, at the ``small`` and
-    ``hires`` widths on 1037 pixels (the f32 bounds of phases 1 and 4),
-    repeat launches bit-identical, no coords gradient; then the whole
-    1024x1024 ``hires`` image, where both sides sum 1 M pixels in other
-    orders: dW/db rtol 1e-3 with atol 1e-4 of the leaf's largest entry, as
-    phase 4 at the bench batch.  Returns the worst |kernel - plain| per
+    ``hires`` widths and at 5 x 128 on 1037 pixels (the f32 bounds of phases
+    1 and 4), repeat launches bit-identical, no coords gradient; then the
+    whole 1024x1024 image at ``hires`` and 5 x 128 (each block of the
+    persistent grid walks hundreds of tiles, through every copy of the
+    weights' two-slot schedule), where both sides sum 1 M pixels in other
+    orders: dW/db within ``FIELD_IMAGE_GRAD`` of each leaf's largest entry,
+    repeat launches bit-identical.  Returns the worst |kernel - plain| per
     kernel."""
     rng = np.random.default_rng(seed)
     worst = {"field_fwd": 0.0, "field_bwd": 0.0}
-    for name, cfg in field_configs(ImageFieldConfig).items():
+    configs = {**field_configs(ImageFieldConfig), "5x128": ImageFieldConfig(
+        num_layers=5, filter_size=128, num_encoding_functions=8)}
+    for name, cfg in configs.items():
         nf = cfg.num_encoding_functions
         params = seeded_params(rng, cfg)
         coords = torch.tensor(rng.random((N_CHECK, 2)), dtype=torch.float32, device="cuda")
@@ -1216,32 +1226,43 @@ def phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords, seed=11)
               f"max|kernel-plain| forward {e_f:.3e}, dW/db {e_b:.3e}; repeat launches "
               "bit-identical; coords gradient None")
 
-    cfg = ImageFieldConfig.hires()
-    n_px = cfg.img_size ** 2
-    params = seeded_params(np.random.default_rng(0), cfg)
-    coords = image_grid_coords(cfg.img_size, "cuda")
-    cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, 3)),
-                       dtype=torch.float32, device="cuda")
-    k = field_grads(fused_mlp.field_forward, params, coords, cot, cfg.num_encoding_functions)
-    p = field_grads(fused_mlp.field_forward_reference, params, coords, cot,
-                    cfg.num_encoding_functions)
-    e_f = (k[0] - p[0]).abs().max().item()
-    torch.testing.assert_close(k[0], p[0], atol=ATOL, rtol=RTOL)
-    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k[1], p[1]))
-    # where a hidden pre-activation lies within f32 rounding of 0, the two
-    # sums can take the ReLU mask apart and move that pixel's whole term
-    # out of one unit's dW/db column (one flip measured 9e-4 of the leaf's
-    # largest entry at this image); list the columns beyond phase 4's bound
-    flips = [(i, sorted(set(torch.nonzero(
-        (a - b).abs() > 1e-3 * b.abs() + 1e-4 * b.abs().max())[:, -1].tolist())))
-        for i, (a, b) in enumerate(zip(k[1], p[1]))]
-    grads_close(k[1], p[1], "field_bwd at 1024x1024", 0.0,
-                lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
-    worst["field_fwd"] = max(worst["field_fwd"], e_f)
-    print(f"phase 10 field hires, the whole {cfg.img_size}x{cfg.img_size} image: "
-          f"max|kernel-plain| forward {e_f:.3e}; max|dW,db kernel-plain| {rel:.3e} of the "
-          f"leaf's largest entry (bound {FIELD_IMAGE_GRAD}); (leaf, columns) beyond rtol "
-          f"1e-3 + 1e-4 of the largest entry: {[f for f in flips if f[1]]}")
+    for name in ("hires", "5x128"):
+        cfg = configs[name]
+        size = ImageFieldConfig.hires().img_size
+        n_px = size ** 2
+        nf = cfg.num_encoding_functions
+        params = seeded_params(np.random.default_rng(0), cfg)
+        coords = image_grid_coords(size, "cuda")
+        cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, 3)),
+                           dtype=torch.float32, device="cuda")
+        k = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
+        k2 = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
+        if not all(torch.equal(a, b) for a, b in zip((k[0], *k[1]), (k2[0], *k2[1]))):
+            raise AssertionError(f"field {name} at {size}x{size}: repeat launches differ")
+        del k2
+        p = field_grads(fused_mlp.field_forward_reference, params, coords, cot, nf)
+        e_f = (k[0] - p[0]).abs().max().item()
+        torch.testing.assert_close(k[0], p[0], atol=ATOL, rtol=RTOL)
+        rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k[1], p[1]))
+        # where a hidden pre-activation lies within f32 rounding of 0, the two
+        # sums can take the ReLU mask apart and move that pixel's whole term
+        # out of one unit's dW/db column (one flip measured 9e-4 of the leaf's
+        # largest entry at this image); list the columns beyond phase 4's bound
+        flips = [(i, sorted(set(torch.nonzero(
+            (a - b).abs() > 1e-3 * b.abs() + 1e-4 * b.abs().max())[:, -1].tolist())))
+            for i, (a, b) in enumerate(zip(k[1], p[1]))]
+        grads_close(k[1], p[1], f"field_bwd {name} at {size}x{size}", 0.0,
+                    lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
+        worst["field_fwd"] = max(worst["field_fwd"], e_f)
+        blocks = fused_mlp.resident_blocks(0, "field_bwd", cfg.num_layers, cfg.in_channels,
+                                           cfg.filter_size, nf, 3)
+        print(f"phase 10 field {name}, the whole {size}x{size} image ({blocks} blocks, up "
+              f"to {-(-n_px // fused_mlp.TILE // blocks)} tiles each): max|kernel-plain| "
+              f"forward {e_f:.3e}; max|dW,db kernel-plain| {rel:.3e} of the leaf's largest "
+              f"entry (bound {FIELD_IMAGE_GRAD}); repeat launches bit-identical; (leaf, "
+              f"columns) beyond rtol 1e-3 + 1e-4 of the largest entry: "
+              f"{[f for f in flips if f[1]]}")
+        del k, p
     return worst
 
 
@@ -1351,7 +1372,10 @@ def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_
     (with the device's busy share of its step, from the trace of
     ``utils.profiling.trace``) and ``hires`` at 1024x1024; then one
     1024x1024 ``hires`` render and each field kernel's own call against its
-    plain version at that image.  Returns ``{kernel: (ms, plain_ms, bound_ms, bound_by)}``."""
+    plain version at that image, each against its f32 bound and its 3xTF32
+    bound (three TF32 passes at the tensor cores' peak: the operations the
+    kernels do).  Returns ``{kernel: (ms, plain_ms, bound_ms, bound_by)}``,
+    with the 3xTF32 bound (the f32 one is printed)."""
     out = {}
     for name, cfg in field_configs(ImageFieldConfig).items():
         size, nf = cfg.img_size, cfg.num_encoding_functions
@@ -1383,10 +1407,12 @@ def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_
                                             cfg.num_layers, cfg.filter_size))
         macs = n_px * (fwd + bwd)
         step_bound, by = bound(macs, PEAK_F32, n_px * 4 * (2 + 3 + 3))
+        tf32_step = bound(TF32_PASSES * macs, PEAK_TF32, n_px * 4 * (2 + 3 + 3))[0]
         print(f"phase 12 image-fit step, {name} ({fwd + bwd} MACs/px: one field_fwd and one "
               f"field_bwd launch), {size}x{size} = {n_px} px, Adam 1e-3, on {smi} "
               f"(first-step loss kernel {first['auto']:.6e} plain {first['plain']:.6e}); "
-              f"bound {step_bound:.4f} ms ({by}, f32 peak):")
+              f"bound {step_bound:.4f} ms ({by}, f32 peak), "
+              f"3xTF32 bound {tf32_step:.4f} ms:")
         for backend, label in (("auto", "kernel"), ("plain", "plain ")):
             med = statistics.median(times[backend])
             print(f"  {label}: {spread(times[backend])}/step, {n_px / med * 1e3:.4e} px/s, "
@@ -1433,22 +1459,25 @@ def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_
         alone = {
             "field_fwd": (lambda: fused_mlp._launch_fwd(pk, coords, *dims),
                           lambda: fused_mlp.field_forward_reference(params, coords, nf),
-                          fwd_bound, "the forward"),
+                          n_px * fwd, n_px * 4 * (2 + 3), "the forward"),
             "field_bwd": (lambda: fused_mlp._launch_bwd(pk, G, coords, cot, *dims),
                           lambda: torch.autograd.grad(plain_out, lv, cot, retain_graph=True),
-                          bound(n_px * bwd, PEAK_F32, n_px * 4 * (2 + 3) + 4 * G),
+                          n_px * bwd, n_px * 4 * (2 + 3) + 4 * G,
                           "dW/db from a cotangent (plain: the backward pass only)"),
         }
-        for kname, (kernel, plain_fn, kb, what) in alone.items():
+        for kname, (kernel, plain_fn, kmacs, kbytes, what) in alone.items():
             with torch.no_grad() if kname == "field_fwd" else contextlib.nullcontext():
                 kernel(), plain_fn()  # warm-up
                 ts = timed_turns({"plain": plain_fn, "kernel": kernel}, 3)
             med = statistics.median(ts["kernel"])
-            out[kname] = (med, statistics.median(ts["plain"]), *kb)
+            f32_bound = bound(kmacs, PEAK_F32, kbytes)
+            tf32_bound = bound(TF32_PASSES * kmacs, PEAK_TF32, kbytes)
+            out[kname] = (med, statistics.median(ts["plain"]), *tf32_bound)
             print(f"  {kname} alone, {what}, {n_px} px: kernel {spread(ts['kernel'])} vs plain "
-                  f"{spread(ts['plain'])}; bound {kb[0]:.4f} ms ({kb[1]}), "
-                  f"{2 * (n_px * (fwd if kname == 'field_fwd' else bwd)) / med / 1e9:.3f} "
-                  f"TFLOP/s, {kb[0] / med:.1%} of the bound")
+                  f"{spread(ts['plain'])}; {2 * kmacs / med / 1e9:.3f} TFLOP/s; f32 bound "
+                  f"{f32_bound[0]:.4f} ms ({f32_bound[1]}, {f32_bound[0] / med:.1%} of it); "
+                  f"3xTF32 bound {tf32_bound[0]:.4f} ms ({tf32_bound[1]}, "
+                  f"{tf32_bound[0] / med:.1%} of it)")
         del plain_out
     return out
 

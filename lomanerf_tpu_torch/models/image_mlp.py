@@ -32,7 +32,7 @@ class ImageFieldConfig:
     img_size: int = 256
     init: str = "he"
     dtype: torch.dtype = torch.float32  # parameter dtype
-    precision: str = "high"  # TPU matmul tier; every tier is f32 on the card
+    precision: str = "high"  # TPU matmul tier; every tier is 3xTF32 on the card
 
     @property
     def in_channels(self) -> int:

@@ -69,13 +69,15 @@ SIGNATURES = {
     #  mma.sync kernel it replaced: (H, Dz, ld, M, N, rows, partials, stream)
     "wide_dw_gemm": [_P, _P] + [_I] * 4 + [_P, _P],
     "wide_dw_gemm_mma": [_P, _P] + [_I] * 4 + [_P, _P],
-    # the 2D field (field_common.cuh): (pk, coords, out, n, L, in_dim, width,
-    #  num_functions, out_ch, stream)
-    "field_fwd": [_P, _P, _P] + [_I] * 6 + [_P],
+    # the 2D field (field_common.cuh): (pk, coords, out, n_blocks, n, L,
+    #  in_dim, width, num_functions, out_ch, stream)
+    "field_fwd": [_P, _P, _P] + [_I] * 7 + [_P],
     # (pk, G, coords, dout, partials, n_blocks, out, n, L, in_dim, width,
     #  num_functions, out_ch, stream)
     "field_bwd": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
-    # (L, in_dim, width, num_functions, out_ch) -> blocks the card holds at once
+    # (L, in_dim, width, num_functions, out_ch) -> blocks of each kernel the
+    #  card holds at once
+    "field_fwd_blocks": [_I] * 5,
     "field_bwd_blocks": [_I] * 5,
     # the segmented scans (seg_scans.cu, steps in seg_scan.cuh): (x, out,
     #  n_rows, S, op: 0 cumprod / 1 suffix sum / 2 shift down, fill, stream)

@@ -46,6 +46,7 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cstdint>
 
+#include "mbarrier.cuh"
 #include "nerf_wide_gemm.cuh"
 
 namespace wide {
@@ -59,40 +60,11 @@ constexpr int kDwBoxBytes = kDwBK * kDwBox * 2;  // 4 KB
 constexpr int kDwStageBytes = 4 * kDwBoxBytes;   // H: 2 boxes, Dz: 2 boxes
 constexpr int kDwThreads = 2 * 128 + 32;         // 2 consumer warpgroups + 1 producer warp
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+using mbar::mbar_arrive;
+using mbar::mbar_expect_tx;
+using mbar::mbar_init;
+using mbar::mbar_wait;
+using mbar::smem_u32;
 
 // the box at (column c0, row c1) of `map` into dst, completing on bar
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,

@@ -7,11 +7,16 @@ Two hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel:
 * ``csrc/field_bwd.cu`` — ``fused_mlp._bwd_kernel``: its backward
   (``_FieldFwd.backward``), dW/db from the output cotangent.
 
-Both take the raw ``(N, 2)`` pixel coords and encode them on the chip.
-Their parameters use the packed layout of the narrow NeRF kernels
+Both take the raw ``(N, 2)`` pixel coords and encode them on the chip, and
+run their products on the tensor cores in split TF32 (3xTF32, f32-level
+accuracy).  Their parameters arrive staged (:func:`pack_field_params`: the
+image of the kernels' shared memory, so that one bulk copy brings a layer
+in) with the hidden width padded to one of :data:`WIDTHS`; the gradient
+comes back in the packed layout of the narrow NeRF kernels
 (``fused_nerf.pack_params``: per layer, W zero-padded to (rows, cols), then
-b), with the hidden width padded to one of :data:`WIDTHS` and the head to 4
-columns.
+b, the head at 4 columns).  The kernels stream the weights layer by layer
+through two shared-memory slots; :func:`field_smem_bytes` mirrors a block's
+shared memory.
 
 Dispatch follows ``fused_nerf``: on CUDA tensors :func:`field_forward`
 launches the kernel or raises, naming the ROADMAP item of what it does not
@@ -28,34 +33,85 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from lomanerf_tpu_torch.core.encoding import encoded_dim, positional_encoding
 from lomanerf_tpu_torch.core.mlp import Params
 from lomanerf_tpu_torch.core.pipeline import image_fit_pred
-from lomanerf_tpu_torch.ops.fused_nerf import (_f32, _params_of, grad_floats, pack_params,
-                                               unpack_grads)
+from lomanerf_tpu_torch.ops.fused_nerf import _f32, _params_of, grad_floats, unpack_grads
 
 # kernel launches per C entry point; a run resets them and reads them to
 # show that its steps and renders went through the kernels
 launches = {"field_fwd": 0, "field_bwd": 0}
 
 WIDTHS = (16, 32, 64, 128)  # padded hidden widths the kernels are built for
-TILE = 64  # pixels per block tile (field_common.cuh)
+TILE = 32  # pixels per block tile (field_common.cuh)
 _HEAD = 4  # head columns the kernels compute
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def field_layout(L: int, in_dim: int, width: int):
+    """The kernels' shapes (``field_common.cuh:Dims``): per layer the
+    product's (krows, kcols) (the encoding rounded up to 8 rows, the head at 4
+    columns), its staged floats (W, then kcols of bias, padded to 16 bytes),
+    and the columns of each layer's input in shared memory (act(0) rounded
+    up to 32; act(L) the head's d_z)."""
+    krows = [_round_up(in_dim, 8)] + [width] * (L - 1)
+    kcols = [width] * (L - 1) + [_HEAD]
+    stage = [_round_up(r * c + c, 4) for r, c in zip(krows, kcols)]
+    return krows, kcols, stage, [_round_up(in_dim, 32)] + kcols
+
+
 def field_smem_bytes(L: int, in_dim: int, width: int) -> int:
-    """Shared memory of one block of either kernel (the formula of
-    ``field_common.cuh:Dims::smem_bytes``): the largest layer's weights with
-    rows padded by one float, then every layer's input for a tile and the
-    head's output, rows padded by one float."""
-    rows = [in_dim] + [width] * (L - 1)
-    cols = [width] * (L - 1) + [_HEAD]
-    wbuf = max(r * (c + 1) + c for r, c in zip(rows, cols))
-    acts = TILE * (in_dim + 1 + sum(c + 1 for c in cols))
-    return 4 * (wbuf + acts)
+    """Shared memory bytes of a block of either kernel (the formula of
+    ``field_common.cuh:Dims::smem_bytes``): two barriers, two weight slots
+    of the largest layer, every layer's input for a tile of :data:`TILE`
+    pixels, from two layers on a second d_z buffer of the hidden width, and
+    the tile's coords.  It may exceed what a block has (no kernel takes
+    that)."""
+    _, _, stage, act_cols = field_layout(L, in_dim, width)
+    acts = TILE * (sum(act_cols) + (width if L >= 2 else 0) + 2)
+    return 16 + 4 * (2 * max(stage) + acts)
+
+
+def swizzle(r, c, cols: int):
+    """Float index of element (r, c) of a row-major (., cols) matrix in the
+    kernels' shared memory (``field_common.cuh:swz``): rows of 32 or more
+    floats XOR bits 2-4 of the column with ``(r & 3) << 3 | (r & 4)``."""
+    f = ((r & 3) << 3) | (r & 4)
+    return r * cols + ((c ^ f) if cols >= 32 else c)
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_index(shapes: tuple, width: int, device: torch.device):
+    """Where each float of ``cat(W_0, b_0, W_1, ...)`` goes in the staged
+    buffer, and the buffer's length."""
+    krows, kcols, stage, _ = field_layout(len(shapes), shapes[0][0], width)
+    idx, off = [], 0
+    for (fi, fo), kr, kc, st in zip(shapes, krows, kcols, stage):
+        r, c = np.meshgrid(np.arange(fi), np.arange(fo), indexing="ij")
+        idx += [off + swizzle(r, c, kc).ravel(), off + kr * kc + np.arange(fo)]
+        off += st
+    return torch.as_tensor(np.concatenate(idx), device=device), off
+
+
+def pack_field_params(params: Params, width: int) -> torch.Tensor:
+    """The kernels' staged f32 parameter buffer, on the params' device: per
+    layer W_l zero-padded to (krows, kcols) in the swizzle of
+    :func:`swizzle`, then b_l in kcols floats, each layer padded to 16 bytes
+    (:func:`field_layout`): the image of a layer's slot in shared memory."""
+    shapes = tuple(tuple(w.shape) for w in params["w"])
+    idx, total = _stage_index(shapes, width, params["w"][0].device)
+    vals = torch.cat([t.reshape(-1).to(torch.float32)
+                      for w, b in zip(params["w"], params["b"]) for t in (w, b)])
+    out = vals.new_zeros(total)
+    out[idx] = vals
+    return out
 
 
 def kernel_width(params: Params, coord_dim: int, num_functions: int,
@@ -85,45 +141,46 @@ def kernel_width(params: Params, coord_dim: int, num_functions: int,
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"a {len(ws)}-layer field at width {width} needs {smem} B of shared "
-            f"memory per block, over the {_SMEM_LIMIT} B a block has (ROADMAP "
-            "queue 2, D2)")
+            f"memory per block, over the {_SMEM_LIMIT} B a block has (ROADMAP queue 2, D2)")
     return width
 
 
-def pack_field_params(params: Params, width: int) -> torch.Tensor:
-    """The kernels' flat f32 parameter buffer, on the params' device."""
-    empty = params["w"][0].new_zeros(0, dtype=torch.float32)
-    return pack_params(params, empty, empty, width)
+@functools.lru_cache(maxsize=None)
+def resident_blocks(device_index: int, entry: str, L: int, in_dim: int, width: int, nf: int,
+                    out_ch: int) -> int:
+    """Blocks of ``entry``'s kernel (``"field_fwd"`` or ``"field_bwd"``) the
+    card holds at once at these shapes: the upper bound of its grid (each
+    block strides over the tiles)."""
+    from lomanerf_tpu_torch.ops import build
+
+    with torch.cuda.device(device_index):
+        got = getattr(build.load(), f"{entry}_blocks")(L, in_dim, width, nf, out_ch)
+    if got <= 0:
+        raise RuntimeError(f"{entry}_blocks failed: cudaError {-got}" if got
+                           else f"{entry}: no block fits on the card")
+    return got
+
+
+def _grid(entry, n, dev, *dims) -> int:
+    """The persistent grid of one launch: the card's resident blocks, at
+    most one per tile."""
+    return max(1, min(-(-n // TILE), resident_blocks(dev.index, entry, *dims)))
 
 
 def _launch_fwd(pk, coords, L, in_dim, width, nf, out_ch) -> torch.Tensor:
     """One launch of ``field_fwd``; counted in ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
-    n = coords.shape[0]
-    out = torch.empty((n, out_ch), dtype=torch.float32, device=coords.device)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    err = build.load().field_fwd(pk.data_ptr(), coords.data_ptr(), out.data_ptr(), n, L,
-                                 in_dim, width, nf, out_ch, stream)
+    n, dev = coords.shape[0], coords.device
+    out = torch.empty((n, out_ch), dtype=torch.float32, device=dev)
+    blocks = _grid("field_fwd", n, dev, L, in_dim, width, nf, out_ch)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.load().field_fwd(pk.data_ptr(), coords.data_ptr(), out.data_ptr(), blocks, n,
+                                 L, in_dim, width, nf, out_ch, stream)
     if err != 0:
         raise RuntimeError(f"field_fwd launch failed: cudaError {err}")
     launches["field_fwd"] += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def resident_blocks(device_index: int, L: int, in_dim: int, width: int, nf: int,
-                    out_ch: int) -> int:
-    """Blocks of the gradient kernel the card holds at once at these shapes:
-    the upper bound of its grid (each block strides over the tiles)."""
-    from lomanerf_tpu_torch.ops import build
-
-    with torch.cuda.device(device_index):
-        got = build.load().field_bwd_blocks(L, in_dim, width, nf, out_ch)
-    if got <= 0:
-        raise RuntimeError(f"field_bwd_blocks failed: cudaError {-got}" if got
-                           else "field_bwd: no block fits on the card")
-    return got
 
 
 def _launch_bwd(pk, G, coords, dout, L, in_dim, width, nf, out_ch) -> torch.Tensor:
@@ -132,8 +189,7 @@ def _launch_bwd(pk, G, coords, dout, L, in_dim, width, nf, out_ch) -> torch.Tens
     from lomanerf_tpu_torch.ops import build
 
     n, dev = coords.shape[0], coords.device
-    tiles = -(-n // TILE)
-    blocks = max(1, min(tiles, resident_blocks(dev.index, L, in_dim, width, nf, out_ch)))
+    blocks = _grid("field_bwd", n, dev, L, in_dim, width, nf, out_ch)
     partials = torch.empty(blocks * G, dtype=torch.float32, device=dev)
     out = torch.empty(G, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -173,7 +229,8 @@ def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
     """Fused encode + MLP + sigmoid field: coords ``(N, 2)`` to
     ``(N, out_channels)``, with the JAX signature less the TPU tile.
     Differentiable w.r.t. params only.  Every precision tier of the JAX
-    package runs in f32 on the card."""
+    package runs in split TF32 on the card's tensor cores (3xTF32: about
+    2^-21 of each product, f32 sums), more exact than "high" (bf16x3)."""
     coords = coords.detach()
     if coords.device.type == "cpu":
         return field_forward_reference(params, coords, num_functions, out_channels)

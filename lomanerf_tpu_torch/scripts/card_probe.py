@@ -46,6 +46,22 @@ run against another checkout of the port to compare two trees.
   seed-1 colour cotangent) alone, each pair's outputs required bit-equal;
   then the ``small`` train step and the ``single64`` step (65,536 rays x
   64, Adam 5e-4, one model per library from one seeded init).
+* ``--what field``: device time by kernel of ``--steps`` ``hires`` image-fit
+  steps (``ImageFieldConfig.hires()``, the whole 1024x1024 image a step,
+  Adam 1e-3, two numpy-seeded uniform targets cycled, seeded init;
+  ``make_image_fit_step``, as ``chip_smoke.py`` phase 12) after two warm-up
+  steps, from one trace: the forward kernel (``field_kernel`` without the
+  gradient), the gradient kernel, the fixed-order sum of its block
+  partials, Adam and the rest (packing, unpacking, the loss, memsets and
+  copies).  With ``--parent DIR``, instead: the field kernels of this tree
+  against those of the checkout at ``DIR`` (built there), in turns in one
+  process, ``fused_mlp`` bound to either library and its packing: one
+  ``field_fwd`` and one ``field_bwd`` call at 1024x1024 (``chip_smoke``'s
+  seed-0 params, a seed-1 cotangent; the two trees' outputs compared), a
+  1024x1024 ``ImageFieldModel.render`` and the ``hires`` fit step (one model
+  per library from one seeded init); and each tree's dW/db against autograd
+  of the plain version at that image, with the (leaf, columns) that
+  ReLU-mask flips move past rtol 1e-3 + 1e-4 of the leaf's largest entry.
 * ``--what leaves``: each wide leaf's worst |kernel - plain| of the
   flagship's train-loss gradients, over the leaf's largest entry, on the
   inputs of ``chip_smoke.py`` phase 7 (``full()`` on 1037 rays, numpy seed
@@ -59,6 +75,7 @@ The last line is one JSON object with the numbers.  Run:
     python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path mma]
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
+    python -m lomanerf_tpu_torch.scripts.card_probe --what field [--parent DIR]
     python -m lomanerf_tpu_torch.scripts.card_probe --what walk --parent DIR
 """
 
@@ -67,6 +84,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import importlib.util
 import json
 import os
 import re
@@ -75,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -407,15 +426,7 @@ def walk(parent: str, rounds: int = 5) -> dict:
     from lomanerf_tpu_torch.scripts.grad_variants import small_call_inputs
     from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
 
-    built = subprocess.run([sys.executable, "-c", "from lomanerf_tpu_torch.ops import build; "
-                            "print(build.build())"], cwd=parent, capture_output=True, text=True)
-    if built.returncode:
-        raise SystemExit(f"card_probe: the build at {parent} failed:\n{built.stderr[-4000:]}")
-    old = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
-    for name, argtypes in build.SIGNATURES.items():
-        fn = getattr(old, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    libs = {"parent": old, "this tree": build.load()}
+    libs = {"parent": parent_library(parent), "this tree": build.load()}
     load = build.load
 
     def on(lib, fn):
@@ -469,11 +480,187 @@ def walk(parent: str, rounds: int = 5) -> dict:
     return out
 
 
+FIELD_FAMILIES = ("field_fwd", "field_bwd", "sum_block_partials", "Adam", "other")
+
+
+def field_family(name: str, cat: str) -> str:
+    """The family of a kernel of the image-fit step by its trace name."""
+    if cat == "kernel":
+        if "field_kernel" in name:
+            return "field_bwd" if re.search(r"field_kernel<[^>]*true", name) else "field_fwd"
+        if "sum_block_partials" in name:
+            return "sum_block_partials"
+        if "multi_tensor_apply_kernel" in name:
+            return "Adam"
+    return "other"
+
+
+def hires_fit(lib_name=None, on=None):
+    """``(model, step)`` of the ``hires`` image fit: seeded init, Adam 1e-3,
+    two numpy seed-0 uniform targets cycled over the 1024^2 grid coords;
+    ``on(lib_name, fn)`` runs each step through that library."""
+    from lomanerf_tpu_torch.models import ImageFieldConfig, ImageFieldModel, image_grid_coords
+    from lomanerf_tpu_torch.train.steps import make_image_fit_step
+
+    cfg = ImageFieldConfig.hires()
+    n = cfg.img_size ** 2
+    coords = image_grid_coords(cfg.img_size, "cuda")
+    rng = np.random.default_rng(0)
+    targets = [torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")
+               for _ in range(2)]
+    model = ImageFieldModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    fit = make_image_fit_step(cfg, torch.optim.Adam(model.parameters(), lr=1e-3))
+    calls = [0]
+
+    def step():
+        def go():
+            fit(model, coords, targets[calls[0] % 2])
+        calls[0] += 1
+        return go() if on is None else on(lib_name, go)
+    return model, step
+
+
+def field_split(steps: int) -> dict:
+    _, step = hires_fit()
+    step(), step()  # warm-up
+    events = device_events(step, steps)
+    ms, launches = collections.Counter(), collections.Counter()
+    for name, cat, us, _ in events:
+        fam = field_family(name, cat)
+        ms[fam] += us / 1e3 / steps
+        launches[fam if fam.startswith("field") else
+                 (kernel_key(name) if cat == "kernel" else cat)] += 1
+    total = sum(ms.values())
+    out = {"what": "field", "steps": steps, "device_ms_per_step": total,
+           "ms": {k: ms[k] for k in FIELD_FAMILIES},
+           "share": {k: ms[k] / total for k in FIELD_FAMILIES},
+           "launches_per_step": {k: v / steps for k, v in sorted(launches.items())}}
+    print(f"hires image-fit step, 1024x1024 px, {steps} steps traced: device {total:.3f} "
+          "ms/step")
+    for k in FIELD_FAMILIES:
+        print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
+    print(f"  kernels per step: {out['launches_per_step']}")
+    return out
+
+
+def parent_library(parent: str):
+    """The kernels of the checkout at ``parent``, built there, with every
+    entry point's signature set (the field's under this tree's C ABI:
+    ``field_variants.bind_field``)."""
+    from lomanerf_tpu_torch.ops import build
+    from lomanerf_tpu_torch.scripts import field_variants
+
+    built = subprocess.run([sys.executable, "-c", "from lomanerf_tpu_torch.ops import build; "
+                            "print(build.build())"], cwd=parent, capture_output=True, text=True)
+    if built.returncode:
+        raise SystemExit(f"card_probe: the build at {parent} failed:\n{built.stderr[-4000:]}")
+    old = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
+    for name, argtypes in build.SIGNATURES.items():
+        if not name.startswith("field_"):
+            fn = getattr(old, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return field_variants.bind_field(old)
+
+
+def parent_packing(parent: str):
+    """The field's parameter packing of the checkout at ``parent``: its own
+    ``fused_mlp.pack_field_params``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_fused_mlp", Path(parent) / "lomanerf_tpu_torch" / "ops" / "fused_mlp.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.pack_field_params
+
+
+def field_against(parent: str, rounds: int = 3) -> dict:
+    """This tree's field kernels against the parent's, in turns (under one C
+    ABI, ``parent_library``; the packing is each tree's own)."""
+    from lomanerf_tpu_torch.ops import build, fused_mlp, fused_nerf
+    from lomanerf_tpu_torch.scripts import field_variants
+
+    libs = {"parent": parent_library(parent), "this tree": build.load()}
+    # each tree's packing and grid bound (fused_mlp's grid is at most its
+    # tiles, far more than the card's blocks at 1024^2 under either tile)
+    own = {"parent": parent_packing(parent), "this tree": fused_mlp.pack_field_params}
+    saved = (build.load, fused_mlp.pack_field_params, fused_mlp.resident_blocks)
+
+    def on(lib, fn):
+        build.load = lambda: libs[lib]
+        fused_mlp.pack_field_params = own[lib]
+        fused_mlp.resident_blocks = (
+            lambda _dev, entry, *dims: getattr(libs[lib], f"{entry}_blocks")(*dims))
+        try:
+            return fn()
+        finally:
+            build.load, fused_mlp.pack_field_params, fused_mlp.resident_blocks = saved
+
+    def turns(fns):
+        ms = one_call_ms(fns, rounds)  # the event window of one call each
+        return {k: v["window_ms"] for k, v in ms.items()}
+
+    cfg, params, coords, cot = field_variants.hires_inputs()
+    nf = cfg.num_encoding_functions
+    width = fused_mlp.kernel_width(params, 2, nf, 3)
+    dims = (cfg.num_layers, cfg.in_channels, width, nf, 3)
+    G = fused_mlp.grad_floats(params, width)
+    out = {"what": "field", "parent": parent, "rounds": rounds}
+    for entry in ("field_fwd", "field_bwd"):
+        fns = {}
+        for lib in libs:
+            pk = on(lib, lambda: fused_mlp.pack_field_params(params, width))
+            if entry == "field_fwd":
+                fns[lib] = (lambda lib=lib, pk=pk: on(
+                    lib, lambda: fused_mlp._launch_fwd(pk, coords, *dims)))
+            else:
+                fns[lib] = (lambda lib=lib, pk=pk: on(
+                    lib, lambda: fused_mlp._launch_bwd(pk, G, coords, cot, *dims)))
+        a, b = fns["parent"]().clone(), fns["this tree"]()
+        rel = ((a - b).abs().max() / a.abs().max()).item()
+        out[entry] = {**turns(fns), "max_diff_of_largest": rel}
+    # each tree's dW/db against autograd of the plain version at the whole
+    # image, as chip_smoke phase 10: the leaves' worst distance over their
+    # largest entry, and the (leaf, columns) past rtol 1e-3 + 1e-4 of it
+    lv = [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+    plain = torch.autograd.grad(fused_mlp.field_forward_reference(params, coords, nf), lv, cot)
+    for lib in libs:
+        got = fused_nerf.unpack_grads(on(lib, lambda: fused_mlp._launch_bwd(
+            fused_mlp.pack_field_params(params, width), G, coords, cot, *dims)), params, width)
+        out[f"{lib} vs plain"] = {
+            "worst_of_largest": max(((a - b).abs().max() / b.abs().max()).item()
+                                    for a, b in zip(got, plain)),
+            "flips": [(i, sorted(set(torch.nonzero(
+                (a - b).abs() > 1e-3 * b.abs() + 1e-4 * b.abs().max())[:, -1].tolist())))
+                for i, (a, b) in enumerate(zip(got, plain))]}
+        out[f"{lib} vs plain"]["flips"] = [f for f in out[f"{lib} vs plain"]["flips"] if f[1]]
+    models = {lib: hires_fit(lib, on) for lib in libs}
+    for _, step in models.values():
+        step(), step()  # warm-up
+    with torch.no_grad():
+        out["render"] = turns({lib: (lambda lib=lib: on(lib, models[lib][0].render))
+                               for lib in libs})
+    out["hires step"] = turns({lib: models[lib][1] for lib in libs})
+    print(f"field kernels, this tree against {parent}, one call each from an idle card, "
+          f"{2 * rounds} in turns (CUDA event window, median ms):")
+    for k, v in out.items():
+        if k.endswith("vs plain"):
+            print(f"  {k}: dW/db worst |kernel - plain| {v['worst_of_largest']:.3e} of the "
+                  f"leaf's largest entry; (leaf, columns) past rtol 1e-3 + 1e-4 of it: "
+                  f"{v['flips']}")
+        elif isinstance(v, dict):
+            print(f"  {k:12s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
+                  f"ratio {v['this tree'] / v['parent']:.4f}" + (
+                      f"  max|this - parent| / max|parent| {v['max_diff_of_largest']:.3e}"
+                      if "max_diff_of_largest" in v else ""))
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", choices=("flagship", "small", "frame", "grid_sum", "leaves",
-                                       "walk"), required=True)
-    ap.add_argument("--parent", help="root of the checkout --what walk compares against")
+                                       "walk", "field"), required=True)
+    ap.add_argument("--parent", help="root of the checkout --what walk or field compares "
+                    "against")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--path", choices=("fused", "mma"), default="fused")
     ap.add_argument("--calls", type=int, default=20)
@@ -487,11 +674,14 @@ def main(argv=None) -> dict:
         if not args.parent:
             raise SystemExit("card_probe: --what walk needs --parent DIR")
         out = walk(args.parent)
+    elif args.what == "field" and args.parent:
+        out = field_against(args.parent)
     else:
         out = {"flagship": lambda: flagship(args.steps),
                "small": lambda: small(args.steps),
                "frame": lambda: frame(args.path),
-               "grid_sum": lambda: grid_sum(args.calls)}[args.what]()
+               "grid_sum": lambda: grid_sum(args.calls),
+               "field": lambda: field_split(args.steps)}[args.what]()
         if not any(out.get(k) for k in ("device_ms_per_step", "device_ms_per_frame",
                                          "device_ms_per_call")):
             raise SystemExit("card_probe: the trace holds no device time")

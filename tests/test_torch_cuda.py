@@ -444,17 +444,26 @@ def test_fused_mlp_refuses_what_it_does_not_take():
 # The 2D image field (ops/fused_mlp.py: field_fwd.cu, field_bwd.cu)
 # ---------------------------------------------------------------------------
 
-FIELDS = {"small": ImageFieldConfig.small(), "hires": ImageFieldConfig.hires()}
+FIELDS = {"small": ImageFieldConfig.small(), "hires": ImageFieldConfig.hires(),
+          # five layers at width 128: seven weight copies a tile in the gradient
+          "5x128": ImageFieldConfig(num_layers=5, filter_size=128, num_encoding_functions=8)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("preset", list(FIELDS))
-@pytest.mark.parametrize("n_px", [1037, 64, 1])  # ragged, one full tile, one pixel
+# ragged, around the 32-pixel tile, two tiles, one pixel; and 1024^2, where
+# each block of the persistent grid walks hundreds of tiles (every copy of
+# the two-slot weight schedule: the next tile's layer 0 in flight during this
+# tile's d_h, the head's slot held across d_h)
+@pytest.mark.parametrize("n_px", [1037, 64, 33, 32, 31, 1, 1 << 20])
 def test_field_kernels_match_plain_and_repeat_exactly(preset, n_px):
     """field_fwd vs the plain version at atol/rtol 1e-4; field_bwd vs
     autograd of the plain version at rtol 3e-4, atol 3e-5 of max(1, the
-    leaf's largest entry); two launches agree bit for bit; coords get no
-    gradient."""
+    leaf's largest entry), and at 1024^2 within 5e-3 of each leaf's largest
+    entry (``chip_smoke.py`` phase 10's bound there: both sides sum 1 M
+    pixels in other orders, and a pre-activation within rounding of 0 takes
+    a pixel's term out of a column); two launches agree bit for bit; coords
+    get no gradient."""
     need_card()
     rng = np.random.default_rng(11)
     cfg = FIELDS[preset]
@@ -476,7 +485,11 @@ def test_field_kernels_match_plain_and_repeat_exactly(preset, n_px):
     assert all(torch.equal(x, y) for x, y in zip(k1, k2))
     p = run(fused_mlp.field_forward_reference)
     torch.testing.assert_close(k1[0], p[0], atol=1e-4, rtol=1e-4)
-    assert_grads_close(k1[1:], p[1:])
+    if n_px > 1037:
+        for g, w in zip(k1[1:], p[1:]):
+            assert (g - w).abs().max().item() <= 5e-3 * w.abs().max().item()
+    else:
+        assert_grads_close(k1[1:], p[1:])
     c = coords.clone().requires_grad_(True)
     fused_mlp.field_forward(params, c, nf).sum().backward()
     assert c.grad is None

@@ -10,12 +10,13 @@ JAX test's bounds (``test_fused_field_forward_and_grads``): forward rtol
 as sin(x + pi/2); at n=8 the octave reaches 128 x and its cos lanes sit
 ~1e-5 from ``cos``; the port computes ``cos`` as core does, and the
 forward's rtol (2e-4 of outputs near 0.5) absorbs that difference.  The
-CUDA kernels' algorithm (``csrc/field_common.cuh``: tiles of 64 pixels,
-d_z written over each layer's input, per-block partials) is restated in
-numpy over the packed buffers; ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` compare the kernels themselves on the card.  Also: the
-grid coords, the packing, the image-fit step, the model's render and the
-``fit_image`` driver.
+CUDA kernels' algorithm (``csrc/field_common.cuh``: tiles of 32 pixels,
+the weights streamed through two slots, per-block partials) is
+restated in f64 numpy over the staged buffer, and their split-TF32
+products are emulated in numpy against f64; ``tests/test_torch_cuda.py``
+and ``chip_smoke.py`` compare the kernels themselves on the card.  Also:
+the grid coords, the packing, the image-fit step, the model's render and
+the ``fit_image`` driver.
 """
 
 import json
@@ -66,7 +67,7 @@ def close(got, want, rtol, atol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("n", [50, 1037])  # neither a multiple of the 64-pixel tile
+@pytest.mark.parametrize("n", [50, 1037])  # neither a multiple of the 32-pixel tile
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_field_forward_matches_jax_kernel_and_core(rng, shape, n):
     """Port field_forward (CPU) vs the JAX fused field (interpret mode) and
@@ -101,50 +102,129 @@ def test_field_forward_matches_jax_kernel_and_core(rng, shape, n):
     assert torch.autograd.grad(loss, [t_coords], allow_unused=True) == (None,)
 
 
-def field_walk(pk, coords, dout, L, K0, H, nf, out_ch, n_blocks, tile=64):
-    """numpy (f64) restatement of field_common.cuh over the packed buffer:
+def staged_layers(ws_staged, L, K0, H):
+    """The (krows, kcols) weights and kcols biases of each layer, read from
+    the staged buffer through the kernels' swizzle (field_common.cuh)."""
+    krows, kcols, stage, _ = fused_mlp.field_layout(L, K0, H)
+    offs = np.cumsum([0] + stage)
+    out = []
+    for l in range(L):
+        r, c = np.meshgrid(np.arange(krows[l]), np.arange(kcols[l]), indexing="ij")
+        blk = ws_staged[offs[l]:offs[l + 1]]
+        out.append((blk[fused_mlp.swizzle(r, c, kcols[l])],
+                    blk[krows[l] * kcols[l]:krows[l] * kcols[l] + kcols[l]]))
+    return out
+
+
+def copy_schedule(L, bwd, my_tiles):
+    """The layer of each weight use of one block, in order (the forward's,
+    then d_h's, the head's d_h reading the forward's copy), as the kernel's
+    copies deliver them (field_common.cuh: ``issue``, ``acquire``,
+    ``release``), simulated on two slots: copy j goes into slot j & 1 only
+    after copy j - 2's last use, so a use that reads a stale slot shows up
+    as the wrong layer."""
+    per_tile = L + (max(L - 2, 0) if bwd else 0)
+    loads = per_tile * my_tiles
+
+    def layer_of(j):
+        u = j % per_tile
+        return u if u < L else 2 * L - 2 - u
+
+    slots, issued, want, done, got = [None, None], 0, 0, 0, []
+    for j in range(min(2, loads)):
+        slots[j & 1], issued = layer_of(j), j + 1
+    for _ in range(my_tiles):
+        held = None
+        for l in range(L):  # the forward
+            got.append(slots[want & 1])
+            want += 1
+            head = l == L - 1 and bwd and L > 1
+            if head:
+                held = slots[(want - 1) & 1]
+            else:
+                if done + 2 < loads:
+                    assert issued == done + 2
+                    slots[(done + 2) & 1], issued = layer_of(done + 2), done + 3
+                done += 1
+        if not bwd:
+            continue
+        for l in range(L - 1, 0, -1):  # d_h
+            if l == L - 1:
+                got.append(held)
+            else:
+                got.append(slots[want & 1])
+                want += 1
+            if done + 2 < loads:
+                assert issued == done + 2
+                slots[(done + 2) & 1], issued = layer_of(done + 2), done + 3
+            done += 1
+    assert want == done == loads and issued == loads
+    return got
+
+
+def field_walk(ws_staged, coords, dout, L, K0, H, nf, out_ch, n_blocks, tile=fused_mlp.TILE):
+    """numpy (f64) restatement of field_common.cuh over the staged buffer:
     blocks stride over tiles of ``tile`` pixels (pad pixels at coords 0 with
-    a zero cotangent); per tile the encoding, the forward keeping every
-    layer's input, the head's d_z, then per layer from the top dW += h^T d_z
-    and db += sum d_z into the block's partial, and d_z written over the
-    layer's input; the partials summed in block order.  Returns
-    ``(out (n, out_ch), G gradient floats)``."""
-    pk = pk.astype(np.float64)
+    a zero cotangent); each block takes its weights through two slots
+    (``copy_schedule``); per tile the encoding, the forward keeping every
+    layer's input, the head's d_z (4 columns, those past ``out_ch`` zero),
+    then per layer from the top dW += h^T d_z (rows < rows_l, columns <
+    cols_l) and db += the column sums of d_z into the block's partial, and
+    d_z written over the layer's input; the partials summed in block order.
+    Returns ``(out (n, out_ch), G gradient floats)``."""
+    layers = staged_layers(ws_staged.astype(np.float64), L, K0, H)
     rows, cols = [K0] + [H] * (L - 1), [H] * (L - 1) + [4]
     offs = np.cumsum([0] + [r * c + c for r, c in zip(rows, cols)])
-    G = int(offs[-1])
-
-    def layer(l):
-        w = pk[offs[l]:offs[l] + rows[l] * cols[l]].reshape(rows[l], cols[l])
-        return w, pk[offs[l] + rows[l] * cols[l]:offs[l + 1]]
-
     n = coords.shape[0]
-    out, parts = np.zeros((n, out_ch)), np.zeros((n_blocks, G))
-    for t in range(-(-n // tile)):
-        px = np.arange(t * tile, (t + 1) * tile)
-        real = px < n
-        xy = np.zeros((tile, 2))
-        xy[real] = coords[px[real]]
-        enc = [xy]
-        for i in range(nf):
-            enc += [np.sin(2.0**i * xy), np.cos(2.0**i * xy)]
-        acts = [np.concatenate(enc, axis=1)]
-        for l in range(L):
-            w, b = layer(l)
-            z = acts[l] @ w + b
-            acts.append(np.maximum(z, 0.0) if l < L - 1 else 1.0 / (1.0 + np.exp(-z)))
-        y = acts[L]
-        out[px[real]] = y[real, :out_ch]
-        dz = np.zeros((tile, 4))
-        dz[real, :out_ch] = dout[px[real]] * y[real, :out_ch] * (1.0 - y[real, :out_ch])
-        acts[L] = dz
-        part = parts[t % n_blocks]
-        for l in reversed(range(L)):
-            part[offs[l]:offs[l] + rows[l] * cols[l]] += (acts[l].T @ acts[l + 1]).ravel()
-            part[offs[l] + rows[l] * cols[l]:offs[l + 1]] += acts[l + 1].sum(0)
-            if l > 0:
-                acts[l] = (acts[l + 1] @ layer(l)[0].T) * (acts[l] > 0)
+    n_tiles = -(-n // tile)
+    out, parts = np.zeros((n, out_ch)), np.zeros((n_blocks, int(offs[-1])))
+    for blk in range(n_blocks):
+        tiles = list(range(blk, n_tiles, n_blocks))
+        sched = iter(copy_schedule(L, True, len(tiles)))
+        part = parts[blk]
+        for t in tiles:
+            px = np.arange(t * tile, (t + 1) * tile)
+            real = px < n
+            xy = np.zeros((tile, 2))
+            xy[real] = coords[px[real]]
+            enc = [xy]
+            for i in range(nf):
+                enc += [np.sin(2.0**i * xy), np.cos(2.0**i * xy)]
+            acts = [np.concatenate(enc, axis=1)]
+            acts[0] = np.pad(acts[0], ((0, 0), (0, layers[0][0].shape[0] - K0)))
+            for l in range(L):
+                li = next(sched)
+                assert li == l, "a use read another layer's slot"
+                w, b = layers[li]
+                z = acts[l] @ w + b
+                acts.append(np.maximum(z, 0.0) if l < L - 1 else 1.0 / (1.0 + np.exp(-z)))
+            y = acts[L]
+            out[px[real]] = y[real, :out_ch]
+            dz = np.zeros((tile, 4))
+            dz[real, :out_ch] = dout[px[real]] * y[real, :out_ch] * (1.0 - y[real, :out_ch])
+            acts[L] = dz
+            for l in reversed(range(L)):
+                R, C = rows[l], cols[l]
+                dw = acts[l].T @ acts[l + 1]
+                part[offs[l]:offs[l] + R * C] += dw[:R, :C].ravel()
+                part[offs[l] + R * C:offs[l + 1]] += acts[l + 1][:, :C].sum(0)
+                if l > 0:
+                    li = next(sched)
+                    assert li == l, "a use read another layer's slot"
+                    acts[l] = (acts[l + 1] @ layers[li][0].T) * (acts[l] > 0)
     return out, parts.sum(0)
+
+
+@pytest.mark.parametrize("L,bwd,tiles", [(1, True, 3), (2, True, 3), (4, True, 5),
+                                         (5, True, 4), (6, True, 2), (4, False, 5),
+                                         (1, False, 2)])
+def test_streamed_copies_deliver_each_use_its_layer(L, bwd, tiles):
+    """The weights' two-slot schedule (copy j + 2 issued after copy
+    j's last use) gives every use of a block, over several tiles, the layer
+    it reads: the forward's 0..L-1, then d_h's L-1 (the forward's copy of
+    the head), L-2..1."""
+    want = (list(range(L)) + (list(range(L - 1, 0, -1)) if bwd else [])) * tiles
+    assert copy_schedule(L, bwd, tiles) == want
 
 
 @pytest.mark.parametrize("n", [50, 1037])
@@ -153,10 +233,12 @@ def field_walk(pk, coords, dout, L, K0, H, nf, out_ch, n_blocks, tile=64):
     (4, 32, 8, 3),   # hires shape, narrowed: W = 32
     (2, 20, 5, 2),   # padded hidden columns (20 -> 32), two channels read of a 2-wide head
     (1, 16, 5, 3),   # one layer: layer 0 is the head
+    (5, 128, 8, 3),  # five layers at width 128
 ])
 def test_field_kernel_algorithm_matches_autograd(rng, layers, width, nf, out, n):
-    """The field kernels' walk, restated in numpy over the packed buffer and
-    unpacked by the wrapper's unpack_grads, equals the plain version and
+    """The field kernels' walk, restated in numpy over the staged buffer
+    (their tile plan and weight schedule) and unpacked by the wrapper's
+    unpack_grads, equals the plain version and
     autograd of (field * dout).sum(); pad pixels and pad columns add
     nothing.  Both sides in f64 on f32-exact inputs, so that a ReLU mask
     cannot flip between them: rtol 1e-9."""
@@ -165,9 +247,9 @@ def test_field_kernel_algorithm_matches_autograd(rng, layers, width, nf, out, n)
     coords = rng.random((n, 2)).astype(np.float32).astype(np.float64)
     dout = rng.standard_normal((n, out))
     W = fused_mlp.kernel_width(params, 2, nf, out)
-    pk = fused_mlp.pack_field_params(params, W)
+    ws = fused_mlp.pack_field_params(params, W)
     G = fused_nerf.grad_floats(params, W)
-    got_out, flat = field_walk(pk.numpy(), coords, dout, layers, 2 * (1 + 2 * nf), W, nf,
+    got_out, flat = field_walk(ws.numpy(), coords, dout, layers, 2 * (1 + 2 * nf), W, nf,
                                out, n_blocks=3)
     assert flat.shape == (G,)
     lv = leaves(params)
@@ -180,10 +262,133 @@ def test_field_kernel_algorithm_matches_autograd(rng, layers, width, nf, out, n)
         close(g, w, 1e-9, 1e-12)
 
 
+def tf32_rna(x):
+    """cvt.rna.tf32.f32: f32 to its nearest 10-bit-mantissa value, ties away
+    from zero (finite inputs)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_read(x):
+    """An f32 operand as the tensor core reads it in TF32: its top 19 bits
+    (the 13 below cleared)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def mma_products(a, b, passes=3):
+    """``a @ b`` over the last two axes (f32 in, f32 out) as the kernels take
+    it on the tensor cores (field_common.cuh: split, warp_gemm): x = hi +
+    lo, hi = tf32_rna(x), lo = x - hi read as TF32; per 8-deep k-step
+    mma.m16n8k8 adds a_hi b_hi into one f32 accumulator and a_lo b_hi, a_hi
+    b_lo into a second, each mma's exact products summed with its
+    accumulator and rounded to f32 once; out = the first + the second.
+    ``passes=1``: one TF32 pass, a_hi b_hi."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_read(a - ah), tf32_read(b - bh)
+    shape = a.shape[:-1] + b.shape[-1:]
+    big, small = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+
+        def mma(acc, x, y):
+            return (acc.astype(np.float64) + x[..., ks].astype(np.float64)
+                    @ y[..., ks, :].astype(np.float64)).astype(np.float32)
+        big = mma(big, ah, bh)
+        if passes == 3:
+            small = mma(mma(small, al, bh), ah, bl)
+    return (big + small).astype(np.float32)
+
+
+def field_3xtf32(ws, bs, coords, dout, nf, passes=3, tile=fused_mlp.TILE):
+    """The field kernels' arithmetic in f32 with the hidden layers' products
+    in 3xTF32 (``mma_products``; the head's in f32): the forward of every
+    pixel, then per tile of ``tile`` pixels dW += h^T d_z (the 32-pixel sum
+    as 4 k-steps), db += the column sums of d_z, d_z <- (d_z W^T) masked,
+    the tiles added in order in f32.  Returns ``(out (n, out_ch), [dW_0..,
+    db_0..])``."""
+    f32 = np.float32
+    n, out_ch, L = coords.shape[0], dout.shape[1], len(ws)
+    T = -(-n // tile)
+    xy = np.zeros((T * tile, 2), f32)
+    xy[:n] = coords
+    enc = [xy]
+    for i in range(nf):
+        x = (f32(2.0**i) * xy).astype(np.float64)
+        enc += [np.sin(x).astype(f32), np.cos(x).astype(f32)]
+    K0 = 2 * (1 + 2 * nf)
+    pad = -K0 % 8
+    acts = [np.pad(np.concatenate(enc, 1), ((0, 0), (0, pad)))]
+    def products(x, w, head):
+        return (x @ w).astype(f32) if head else mma_products(x, w, passes)
+
+    for l in range(L):
+        w = np.pad(ws[l], ((0, pad if l == 0 else 0), (0, 0)))
+        z = (products(acts[l], w, l == L - 1) + bs[l]).astype(f32)
+        acts.append(np.maximum(z, f32(0)) if l < L - 1 else
+                    (f32(1) / (f32(1) + np.exp(-z))).astype(f32))
+    y = acts[L]
+    g = np.zeros((T * tile, out_ch), f32)
+    g[:n] = dout
+    acts[L] = (g * y * (f32(1) - y)).astype(f32)
+    dws, dbs = [None] * L, [None] * L
+    for l in reversed(range(L)):
+        h = acts[l][:, :ws[l].shape[0]].reshape(T, tile, -1)
+        dz = acts[l + 1].reshape(T, tile, -1)
+        per_tile = products(h.transpose(0, 2, 1), dz, l == L - 1)
+        cols = dz.sum(1, dtype=f32)
+        dw, db = np.zeros_like(per_tile[0]), np.zeros_like(cols[0])
+        for t in range(T):
+            dw, db = (dw + per_tile[t]).astype(f32), (db + cols[t]).astype(f32)
+        dws[l], dbs[l] = dw, db
+        if l > 0:
+            dh = products(acts[l + 1], np.ascontiguousarray(ws[l].T), l == L - 1)
+            acts[l] = np.where(acts[l] > 0, dh, f32(0)).astype(f32)
+    return y[:n], dws + dbs
+
+
+def test_3xtf32_products_meet_the_card_bounds_at_hires_shape(rng):
+    """The kernels' split-TF32 scheme, emulated in numpy on a hires-shaped
+    field (4 x 128, n = 8, N = 1037), against the f64 field at chip_smoke
+    phase 10's bounds: outputs 1e-4 abs + 1e-4 rel, dW/db rtol 3e-4 and atol
+    3e-5 of max(1, the leaf's largest entry).  One TF32 pass (a_hi b_hi)
+    lands at least 10x farther from f64 than three."""
+    n, nf = 1037, 8
+    ws, bs = field_params(rng, 4, 128, nf)
+    coords = rng.random((n, 2)).astype(np.float32)
+    dout = rng.standard_normal((n, 3)).astype(np.float32)
+    params = tcore.params_from_numpy(ws, bs, "cpu", dtype=torch.float64)
+    lv = leaves(params)
+    want_out = fused_mlp.field_forward_reference(params, torch.from_numpy(coords).double(), nf)
+    want = torch.autograd.grad((want_out * torch.from_numpy(dout).double()).sum(), lv)
+    got_out, got = field_3xtf32(ws, bs, coords, dout, nf)
+    np.testing.assert_allclose(got_out, want_out.detach().numpy(), rtol=1e-4, atol=1e-4)
+    for g, w in zip(got, want):
+        w = w.numpy()
+        np.testing.assert_allclose(g, w, rtol=3e-4, atol=3e-5 * max(1.0, np.abs(w).max()))
+    one_out, _ = field_3xtf32(ws, bs, coords, dout, nf, passes=1)
+    err3 = np.abs(got_out - want_out.detach().numpy()).max()
+    err1 = np.abs(one_out - want_out.detach().numpy()).max()
+    assert err1 > 10 * err3, (err1, err3)
+
+
+def parent_smem_bytes(L, in_dim, width):
+    """The shared memory of a block before the tensor-core redesign (64-pixel
+    tiles, one layer's weights at a time, rows padded by one float): every
+    shape it fitted in 227 KB must still be taken."""
+    rows, cols = [in_dim] + [width] * (L - 1), [width] * (L - 1) + [4]
+    wbuf = max(r * (c + 1) + c for r, c in zip(rows, cols))
+    return 4 * (wbuf + 64 * (in_dim + 1 + sum(c + 1 for c in cols)))
+
+
 def test_kernel_width_and_shared_memory():
     """The padded width of each preset, the shared memory the kernels' own
-    formula gives (hires: 16,640 floats of weights + 64 x 427 of
-    activations), and a raise naming D2 for each case no kernel takes."""
+    formula gives (16 B of barriers, two weight slots of the largest layer,
+    then the activations, the second d_z buffer and the coords; hires: two
+    16,512-float slots + 32 x (452 + 128 + 2); 5 x 128: the same slots + 32
+    x (580 + 128 + 2)), every shape the kernels took before their redesign
+    still taken, and a raise naming D2 for each case no kernel takes."""
     rng = np.random.default_rng(0)
 
     def params(layers, width, nf=5, out=3):
@@ -192,8 +397,17 @@ def test_kernel_width_and_shared_memory():
     assert fused_mlp.kernel_width(params(3, 16), 2, 5, 3) == 16
     assert fused_mlp.kernel_width(params(3, 30), 2, 5, 3) == 32
     assert fused_mlp.kernel_width(params(4, 128, 8), 2, 8, 3) == 128
-    assert fused_mlp.field_smem_bytes(4, 34, 128) == 4 * (16640 + 64 * 427) == 175872
-    assert fused_mlp.field_smem_bytes(3, 22, 16) == 4 * (22 * 17 + 16 + 64 * (23 + 17 + 17 + 5))
+    assert fused_mlp.kernel_width(params(5, 128, 8), 2, 8, 3) == 128
+    assert fused_mlp.field_smem_bytes(4, 34, 128) == 16 + 4 * (2 * 16512 + 32 * 582)
+    assert fused_mlp.field_smem_bytes(5, 34, 128) == 16 + 4 * (2 * 16512 + 32 * 710)
+    assert fused_mlp.field_smem_bytes(3, 22, 16) == 16 + 4 * (
+        2 * (24 * 16 + 16) + 32 * (32 + 16 + 16 + 4 + 16 + 2))
+    limit = 227 * 1024
+    for width in fused_mlp.WIDTHS:
+        for nf in (0, 5, 8, 12):
+            for L in range(1, 13):
+                if parent_smem_bytes(L, 2 * (1 + 2 * nf), width) <= limit:
+                    assert fused_mlp.field_smem_bytes(L, 2 * (1 + 2 * nf), width) <= limit
     for p, nf, out, match in ((params(3, 200), 5, 3, "width 200"),
                               (params(3, 16, out=5), 5, 5, "5-channel head"),
                               (params(8, 128, 8), 8, 3, "shared memory")):
@@ -211,14 +425,23 @@ def test_kernel_width_and_shared_memory():
 
 
 def test_packing_round_trip_and_cpu_route(rng):
-    """unpack_grads of the packed buffer gives the params back exactly; the
-    CPU path launches nothing."""
-    for layers, width, nf in SHAPES.values():
+    """The staged buffer, read back through the kernels' swizzle, gives the
+    params back exactly with zeros in every pad row and column; the
+    gradient layout's unpack_grads of pack_params does too; the CPU path
+    launches nothing."""
+    for layers, width, nf in [*SHAPES.values(), (5, 128, 8)]:
         params = tcore.params_from_numpy(*field_params(rng, layers, width, nf), "cpu")
         W = fused_mlp.kernel_width(params, 2, nf, 3)
-        pk = fused_mlp.pack_field_params(params, W)
+        ws = fused_mlp.pack_field_params(params, W)
+        assert ws.dtype == torch.float32 and ws.numel() == sum(fused_mlp.field_layout(
+            layers, 2 * (1 + 2 * nf), W)[2])
+        staged = staged_layers(ws.numpy(), layers, 2 * (1 + 2 * nf), W)
+        for (sw, sb), w, b in zip(staged, params["w"], params["b"]):
+            fi, fo = w.shape
+            assert np.array_equal(sw[:fi, :fo], w.numpy()) and np.array_equal(sb[:fo], b.numpy())
+            assert not sw[fi:].any() and not sw[:, fo:].any() and not sb[fo:].any()
+        pk = fused_nerf.pack_params(params, torch.zeros(0), torch.zeros(0), W)
         G = fused_nerf.grad_floats(params, W)
-        assert pk.dtype == torch.float32 and pk.numel() >= G
         back = fused_nerf.unpack_grads(pk[:G], params, W)
         for a, b in zip(back, [*params["w"], *params["b"]]):
             assert torch.equal(a, b)
@@ -356,3 +579,30 @@ def test_fit_image_converges_and_refuses_missing_card(tmp_path):
         with pytest.raises(SystemExit, match="no CUDA device"):
             fit_image.main(["--steps", "1"])
     assert os.path.exists(tmp_path / "logs" / "iter_151.png")
+
+
+def test_field_variants_edit_the_current_source():
+    """Every variant of ``scripts/field_variants`` applies to
+    ``field_common.cuh`` as it stands (each edit matches as often as it
+    names), the first is the header unchanged, and each changes what it
+    names; its card_probe companion parses ``--what field``; both refuse to
+    run without a card."""
+    from lomanerf_tpu_torch.ops import build
+    from lomanerf_tpu_torch.scripts import card_probe, field_variants
+
+    srcs = field_variants.patched(field_variants.VARIANTS)
+    now = (build.CSRC / field_variants.HEADER).read_text()
+    assert srcs.pop("as is") == {field_variants.HEADER: now}
+    texts = [v[field_variants.HEADER] for v in srcs.values()]
+    assert len(set(texts)) == len(texts) and now not in texts
+    assert set(field_variants.WHOLE) <= set(field_variants.VARIANTS)
+    with pytest.raises(SystemExit):
+        field_variants.patched({"x": [("no such line", "", 1)]})
+    assert card_probe.field_family("void field::(anonymous namespace)::field_kernel<true>(float "
+                                   "const*)", "kernel") == "field_bwd"
+    assert card_probe.field_family("field::(anonymous namespace)::field_kernel<false>",
+                                   "kernel") == "field_fwd"
+    if not torch.cuda.is_available():
+        for main in (field_variants.main, lambda a: card_probe.main(["--what", "field", *a])):
+            with pytest.raises(SystemExit):
+                main([])
