@@ -9,14 +9,16 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
 
 1. holds the render kernel against its plain PyTorch version on the card,
    at the ``small`` (3x30, S=30) and ``single64`` (4x64, S=64) shapes, in
-   both compositing modes, on 1037 rays (not a multiple of the block);
+   both compositing modes, on 1037 rays (not a multiple of the block) and
+   on one (a thread runs its ray's samples in pairs);
 2. renders the trained 3x30 field (``tests/data/convergence_64_step5000.npz``)
    at 64x64 through ``NeRFModel.render_image`` and compares it with the JAX
    package's renders stored in that file, and its PSNR on the eval view with
    the JAX package's PSNR;
 3. renders a 4-frame 800x800 orbit with ``render_orbit`` (the serving path),
-   then times one frame through the kernel and through the plain version with
-   CUDA events;
+   then times one frame through the kernel and through the plain version,
+   and the kernel's own call and the plain version's on the frame's rays,
+   in turns, with CUDA events;
 4. holds the train kernel (loss and dW/db) and the render backward against
    autograd of their plain versions at the same shapes and modes, checks
    that repeat launches are bit-identical, and compares the train kernel
@@ -57,12 +59,14 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    at 16,384 rays new against old (the same bits); splits the frame's
    device time by kernel family on both paths (``card_probe --what frame``:
    the fused kernel once per chunk, no layer GEMM);
-10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``: 3xTF32
-    products on the tensor cores) against the plain version and autograd at
+10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``) on both
+    product routes (the "high" tier's 3xTF32 on the tensor cores, the
+    "highest" tier's f32 FMAs) against the plain version and autograd at
     the ``small`` and ``hires`` widths and at 5x128 on 1037 pixels, with
     repeat launches bit-identical and no coords gradient, and at the full
     1024x1024 image at ``hires`` and 5x128, where each block walks hundreds
-    of tiles (printing the ReLU-mask flips' leaves and columns);
+    of tiles, printing the ReLU-mask flips' leaves and columns per route
+    (the exact route may flip no more columns than 3xTF32);
 11. fits images through ``fit_image.main`` on the synthetic target: the
     ``small`` field at 256x256, 301 Adam steps (one launch of each kernel
     per step, eval PSNR >= 22 dB at step 300 and 10 dB above step 0), then
@@ -122,7 +126,10 @@ scans at the main path's column) and 19 (the sweep) are the main paths:
 each kernel's launch count is reset before its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
 sixteen kernels (with each one's least time on the card for its work,
-``bound_ms``; #3's also with phase 6's split of the step; #8's also with
+``bound_ms``; #1's ``ms`` is the kernel's own call, with the frames' times
+and its share of the bound beside it, #4's with its share; #14's with
+phase 10's whole-image leaves and flips per route; #3's also with phase
+6's split of the step; #8's also with
 phase 9's fused MLP alone, #10 new against old and the frame's split by
 kernel family), and ``{"ok": true,
 "device": ...}``.  It exits
@@ -213,6 +220,9 @@ HIRES_STEPS, HIRES_GAIN_DB, HIRES_PLAIN_DB = 200, 8.0, 0.3
 # field_bwd vs autograd at the whole 1024x1024 hires image, of the leaf's
 # largest entry: a few ReLU-mask flips (phase 10) above the 1e-4 of phase 4
 FIELD_IMAGE_GRAD = 5e-3
+# the field's two product routes by the JAX package's tiers: "high" (and
+# "default") 3xTF32 on the tensor cores, "highest" exact f32 FMAs
+FIELD_TIERS = ("high", "highest")
 # the per-ray (N, S) depth instances of the six NeRF kernels (phases 13-14)
 _CSRC, _TPU = "lomanerf_tpu_torch/ops/csrc/", "lomanerf_tpu/ops/fused_nerf.py:"
 KERNELS.update({
@@ -266,23 +276,23 @@ def uniform_depths(cfg):
 
 def phase_kernel_vs_plain(fused_nerf, NeRFConfig, seed=0):
     """Phase 1: numpy-seeded params and rays through the kernel and the plain
-    version on the card."""
+    version on the card, on 1037 rays (a ragged block) and on one."""
     rng = np.random.default_rng(seed)
     worst = 0.0
     for name in ("small", "single64"):
         for mode in ("loma", "standard"):
-            cfg = dataclasses.replace(NeRFConfig.preset(name), mode=mode)
-            params = seeded_params(rng, cfg)
-            o, d = seeded_rays(rng, N_CHECK)
-            t, dists = uniform_depths(cfg)
-            got = fused_nerf.render_rays(params, o, d, t, dists, cfg)
-            want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            worst = max(worst, err)
-            print(f"phase 1 {name:8s} {mode:8s} N={N_CHECK}: max|kernel-plain| = "
-                  f"{err:.3e}")
-            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            for n in (N_CHECK, 1):
+                cfg = dataclasses.replace(NeRFConfig.preset(name), mode=mode)
+                params = seeded_params(rng, cfg)
+                o, d = seeded_rays(rng, n)
+                t, dists = uniform_depths(cfg)
+                got = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+                want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                worst = max(worst, err)
+                print(f"phase 1 {name:8s} {mode:8s} N={n}: max|kernel-plain| = {err:.3e}")
+                torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
     return worst
 
 
@@ -1189,43 +1199,53 @@ def field_grads(fn, params, coords, cot, nf):
 
 def phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords, seed=11):
     """Phase 10: the field kernels (#13 forward, #14 backward) against the
-    plain version and autograd of it on the card, at the ``small`` and
-    ``hires`` widths and at 5 x 128 on 1037 pixels (the f32 bounds of phases
-    1 and 4), repeat launches bit-identical, no coords gradient; then the
-    whole 1024x1024 image at ``hires`` and 5 x 128 (each block of the
-    persistent grid walks hundreds of tiles, through every copy of the
-    weights' two-slot schedule), where both sides sum 1 M pixels in other
-    orders: dW/db within ``FIELD_IMAGE_GRAD`` of each leaf's largest entry,
-    repeat launches bit-identical.  Returns the worst |kernel - plain| per
-    kernel."""
+    plain version and autograd of it on the card, on both product routes
+    (``FIELD_TIERS``: "high", 3xTF32 on the tensor cores; "highest", f32
+    FMAs), at the ``small`` and ``hires`` widths and at 5 x 128 on 1037
+    pixels (the f32 bounds of phases 1 and 4), repeat launches
+    bit-identical, no coords gradient; then the whole 1024x1024 image at
+    ``hires`` and 5 x 128 (each block of the persistent grid walks hundreds
+    of tiles, through every copy of the weights' two-slot schedule), where
+    both sides sum 1 M pixels in other orders: dW/db within
+    ``FIELD_IMAGE_GRAD`` of each leaf's largest entry, repeat launches
+    bit-identical, and the (leaf, columns) that ReLU-mask flips move printed
+    per route; the exact route may flip no more columns than 3xTF32.
+    Returns the worst |kernel - plain| per kernel and, per image and route,
+    the worst leaf and the flipped columns."""
     rng = np.random.default_rng(seed)
     worst = {"field_fwd": 0.0, "field_bwd": 0.0}
     configs = {**field_configs(ImageFieldConfig), "5x128": ImageFieldConfig(
         num_layers=5, filter_size=128, num_encoding_functions=8)}
+
+    def kernel(tier):
+        return lambda params, coords, nf: fused_mlp.field_forward(params, coords, nf,
+                                                                  precision=tier)
     for name, cfg in configs.items():
         nf = cfg.num_encoding_functions
         params = seeded_params(rng, cfg)
         coords = torch.tensor(rng.random((N_CHECK, 2)), dtype=torch.float32, device="cuda")
         cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
                            device="cuda")
-        k1 = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
-        k2 = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
         p = field_grads(fused_mlp.field_forward_reference, params, coords, cot, nf)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip((k1[0], *k1[1]), (k2[0], *k2[1]))):
-            raise AssertionError(f"field {name}: repeat launches differ")
-        if k1[2] is not None:
-            raise AssertionError(f"field {name}: the coords got a gradient")
-        e_f = (k1[0] - p[0]).abs().max().item()
-        torch.testing.assert_close(k1[0], p[0], atol=ATOL, rtol=RTOL)
-        e_b = grads_close(k1[1], p[1], f"field_bwd {name}", GRAD_RTOL, grad_atol)
-        worst["field_fwd"] = max(worst["field_fwd"], e_f)
-        worst["field_bwd"] = max(worst["field_bwd"], e_b)
-        widths = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) + [3]
-        print(f"phase 10 field {name} ({'->'.join(map(str, widths))}, n={nf}) N={N_CHECK}: "
-              f"max|kernel-plain| forward {e_f:.3e}, dW/db {e_b:.3e}; repeat launches "
-              "bit-identical; coords gradient None")
+        for tier in FIELD_TIERS:
+            k1 = field_grads(kernel(tier), params, coords, cot, nf)
+            k2 = field_grads(kernel(tier), params, coords, cot, nf)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((k1[0], *k1[1]), (k2[0], *k2[1]))):
+                raise AssertionError(f"field {name} {tier}: repeat launches differ")
+            if k1[2] is not None:
+                raise AssertionError(f"field {name}: the coords got a gradient")
+            e_f = (k1[0] - p[0]).abs().max().item()
+            torch.testing.assert_close(k1[0], p[0], atol=ATOL, rtol=RTOL)
+            e_b = grads_close(k1[1], p[1], f"field_bwd {name} {tier}", GRAD_RTOL, grad_atol)
+            worst["field_fwd"] = max(worst["field_fwd"], e_f)
+            worst["field_bwd"] = max(worst["field_bwd"], e_b)
+            widths = [cfg.in_channels] + [cfg.filter_size] * (cfg.num_layers - 1) + [3]
+            print(f"phase 10 field {name} ({'->'.join(map(str, widths))}, n={nf}) "
+                  f"{tier:7s} N={N_CHECK}: max|kernel-plain| forward {e_f:.3e}, dW/db "
+                  f"{e_b:.3e}; repeat launches bit-identical; coords gradient None")
 
+    image = {}
     for name in ("hires", "5x128"):
         cfg = configs[name]
         size = ImageFieldConfig.hires().img_size
@@ -1235,35 +1255,48 @@ def phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords, seed=11)
         coords = image_grid_coords(size, "cuda")
         cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, 3)),
                            dtype=torch.float32, device="cuda")
-        k = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
-        k2 = field_grads(fused_mlp.field_forward, params, coords, cot, nf)
-        if not all(torch.equal(a, b) for a, b in zip((k[0], *k[1]), (k2[0], *k2[1]))):
-            raise AssertionError(f"field {name} at {size}x{size}: repeat launches differ")
-        del k2
         p = field_grads(fused_mlp.field_forward_reference, params, coords, cot, nf)
-        e_f = (k[0] - p[0]).abs().max().item()
-        torch.testing.assert_close(k[0], p[0], atol=ATOL, rtol=RTOL)
-        rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k[1], p[1]))
-        # where a hidden pre-activation lies within f32 rounding of 0, the two
-        # sums can take the ReLU mask apart and move that pixel's whole term
-        # out of one unit's dW/db column (one flip measured 9e-4 of the leaf's
-        # largest entry at this image); list the columns beyond phase 4's bound
-        flips = [(i, sorted(set(torch.nonzero(
-            (a - b).abs() > 1e-3 * b.abs() + 1e-4 * b.abs().max())[:, -1].tolist())))
-            for i, (a, b) in enumerate(zip(k[1], p[1]))]
-        grads_close(k[1], p[1], f"field_bwd {name} at {size}x{size}", 0.0,
-                    lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
-        worst["field_fwd"] = max(worst["field_fwd"], e_f)
-        blocks = fused_mlp.resident_blocks(0, "field_bwd", cfg.num_layers, cfg.in_channels,
-                                           cfg.filter_size, nf, 3)
-        print(f"phase 10 field {name}, the whole {size}x{size} image ({blocks} blocks, up "
-              f"to {-(-n_px // fused_mlp.TILE // blocks)} tiles each): max|kernel-plain| "
-              f"forward {e_f:.3e}; max|dW,db kernel-plain| {rel:.3e} of the leaf's largest "
-              f"entry (bound {FIELD_IMAGE_GRAD}); repeat launches bit-identical; (leaf, "
-              f"columns) beyond rtol 1e-3 + 1e-4 of the largest entry: "
-              f"{[f for f in flips if f[1]]}")
-        del k, p
-    return worst
+        for tier in FIELD_TIERS:
+            k = field_grads(kernel(tier), params, coords, cot, nf)
+            k2 = field_grads(kernel(tier), params, coords, cot, nf)
+            if not all(torch.equal(a, b) for a, b in zip((k[0], *k[1]), (k2[0], *k2[1]))):
+                raise AssertionError(f"field {name} {tier} at {size}x{size}: repeat "
+                                     "launches differ")
+            del k2
+            e_f = (k[0] - p[0]).abs().max().item()
+            torch.testing.assert_close(k[0], p[0], atol=ATOL, rtol=RTOL)
+            rel = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(k[1], p[1]))
+            # where a hidden pre-activation lies within f32 rounding of 0, the
+            # two sums can take the ReLU mask apart and move that pixel's
+            # whole term out of one unit's dW/db column (one flip measured
+            # 9e-4 of the leaf's largest entry at this image); list the
+            # columns beyond phase 4's bound
+            flips = [(i, sorted(set(torch.nonzero(
+                (a - b).abs() > 1e-3 * b.abs() + 1e-4 * b.abs().max())[:, -1].tolist())))
+                for i, (a, b) in enumerate(zip(k[1], p[1]))]
+            flips = [f for f in flips if f[1]]
+            grads_close(k[1], p[1], f"field_bwd {name} {tier} at {size}x{size}", 0.0,
+                        lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
+            worst["field_fwd"] = max(worst["field_fwd"], e_f)
+            exact = fused_mlp.exact_tier(tier)
+            blocks = fused_mlp.resident_blocks(0, "field_bwd", cfg.num_layers,
+                                               cfg.in_channels, cfg.filter_size, nf, 3, exact)
+            image[f"{name} {tier}"] = {"worst_of_largest": rel, "flips": flips,
+                                       "flipped_columns": sum(len(c) for _, c in flips)}
+            print(f"phase 10 field {name} {tier}, the whole {size}x{size} image ({blocks} "
+                  f"blocks, up to {-(-n_px // fused_mlp.TILE // blocks)} tiles each): "
+                  f"max|kernel-plain| forward {e_f:.3e}; max|dW,db kernel-plain| {rel:.3e} "
+                  f"of the leaf's largest entry (bound {FIELD_IMAGE_GRAD}); repeat launches "
+                  f"bit-identical; (leaf, columns) beyond rtol 1e-3 + 1e-4 of the largest "
+                  f"entry: {flips}")
+            del k
+        high, highest = (image[f"{name} {t}"]["flipped_columns"] for t in FIELD_TIERS)
+        if highest > high:
+            raise AssertionError(f"field {name} at {size}x{size}: the exact route flips "
+                                 f"{highest} columns, 3xTF32 {high}")
+        del p
+    return worst, image
 
 
 def phase_field_driver(fit_image, fused_mlp, tmp):
@@ -1452,7 +1485,7 @@ def phase_field_timing(fused_mlp, ImageFieldConfig, ImageFieldModel, image_grid_
         width = fused_mlp.kernel_width(params, 2, nf, 3)
         pk = fused_mlp.pack_field_params(params, width)
         G = fused_mlp.grad_floats(params, width)
-        dims = (cfg.num_layers, cfg.in_channels, width, nf, 3)
+        dims = (cfg.num_layers, cfg.in_channels, width, nf, 3, 0)  # "high": 3xTF32
         cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, 3)),
                            dtype=torch.float32, device="cuda")
         plain_out = fused_mlp.field_forward_reference(params, coords, nf)
@@ -2735,7 +2768,19 @@ def main() -> None:
     def kernel_frame():
         return model.render_image(K, pose, SERVE_SIZE)
 
-    kernel_ms, plain_ms = [], []
+    # the kernel's own call, and the plain version's, on the frame's rays
+    o_f, d_f = (x.contiguous() for x in rays.get_rays(SERVE_SIZE, SERVE_SIZE, K, pose))
+    tv_f, dd_f = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    pk_f = fused_nerf.pack_params(model.params, tv_f, dd_f, 32)
+
+    def kernel_alone():
+        return fused_nerf._launch(pk_f, tv_f, dd_f, o_f, d_f, cfg, cfg.num_layers, 32)
+
+    def plain_alone():
+        return fused_nerf.render_rays_reference(model.params, o_f, d_f, tv_f, dd_f, cfg)
+
+    calls = {"frame": kernel_frame, "plain frame": plain_frame, "kernel": kernel_alone,
+             "plain": plain_alone}
     with torch.no_grad():
         _, img_k = cuda_ms(kernel_frame)  # warm-up
         _, img_p = cuda_ms(plain_frame)
@@ -2743,21 +2788,24 @@ def main() -> None:
         torch.testing.assert_close(img_k, img_p, atol=ATOL, rtol=RTOL)
         if not torch.isfinite(img_k).all():
             raise AssertionError("non-finite pixels")
+        if not torch.equal(cuda_ms(kernel_alone)[1].reshape(img_k.shape), img_k):
+            raise AssertionError("the kernel's own call differs from the frame's pixels")
         worst["nerf_render_fwd"] = max(worst["nerf_render_fwd"], err)
-        for _ in range(SERVE_FRAMES):  # in turns: plain, kernel, kernel, plain
-            plain_ms.append(cuda_ms(plain_frame)[0])
-            kernel_ms.append(cuda_ms(kernel_frame)[0])
-            kernel_ms.append(cuda_ms(kernel_frame)[0])
-            plain_ms.append(cuda_ms(plain_frame)[0])
-    timing = {"nerf_render_fwd": (statistics.median(kernel_ms), statistics.median(plain_ms))}
-    k_med, p_med = timing["nerf_render_fwd"]
+        ms = {k: [] for k in calls}
+        for _ in range(3):  # in turns, forwards then backwards: 6 calls each
+            for name, fn in [*calls.items(), *reversed(calls.items())]:
+                ms[name].append(cuda_ms(fn)[0])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    timing = {"nerf_render_fwd": (med["kernel"], med["plain"])}
+    # #1's entry in the kernels line also carries the frames' times
+    extra = {"nerf_render_fwd": {"frame_ms": med["frame"], "plain_frame_ms": med["plain frame"]}}
     n_rays = SERVE_SIZE * SERVE_SIZE
     print(f"phase 3 800x800 frame ({n_rays} rays x {cfg.num_samples} samples), "
           f"max|kernel-plain| = {err:.3e}; on {smi}:")
-    print(f"  kernel: median {k_med:.3f} ms/frame (min {min(kernel_ms):.3f}, max "
-          f"{max(kernel_ms):.3f}, n={len(kernel_ms)}), {n_rays / k_med * 1e3:.4e} rays/s")
-    print(f"  plain : median {p_med:.3f} ms/frame (min {min(plain_ms):.3f}, max "
-          f"{max(plain_ms):.3f}, n={len(plain_ms)}), {n_rays / p_med * 1e3:.4e} rays/s")
+    for name, what in (("frame", "render_image, kernel"), ("plain frame", "render_image, plain"),
+                       ("kernel", "the kernel alone"), ("plain", "the plain version alone")):
+        print(f"  {what:24s}: median {med[name]:.3f} ms/frame (min {min(ms[name]):.3f}, max "
+              f"{max(ms[name]):.3f}, n={len(ms[name])}), {n_rays / med[name] * 1e3:.4e} rays/s")
 
     # ---- phase 4: the gradient kernels against their plain versions ----
     worst.update(phase_grad_kernels(fused_nerf, NeRFConfig))
@@ -2775,7 +2823,7 @@ def main() -> None:
     timing.update(phase_bench_step(fused_nerf, NeRFConfig, NeRFModel,
                                    make_single_chip_train_step, smi))
     # #3's entry in the kernels line also carries the step's device split
-    extra = {"nerf_train": {"step_split": phase_small_split()}}
+    extra["nerf_train"] = {"step_split": phase_small_split()}
 
     # ---- phase 7: the wide kernels against their plain versions ----
     worst.update(phase_wide_kernels(fused_nerf, NeRFConfig))
@@ -2801,7 +2849,11 @@ def main() -> None:
                         for path, split in phase_frame_split().items()}}
 
     # ---- phase 10: the 2D field's kernels against their plain versions ----
-    worst.update(phase_field_kernels(fused_mlp, ImageFieldConfig, image_grid_coords))
+    field_worst, field_image = phase_field_kernels(fused_mlp, ImageFieldConfig,
+                                                   image_grid_coords)
+    worst.update(field_worst)
+    # #14's entry also carries the whole-image leaves and flips on both routes
+    extra["field_bwd"] = {"image_1024": field_image}
 
     # ---- phase 11: the image-fit path (fit_image) ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -2859,6 +2911,8 @@ def main() -> None:
         phase_grid_overhead(probe, grid_overhead, smi)
     timing["grid_sum"], library["grid_sum"] = grid_ms[:2], grid_ms[2]
 
+    for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share
+        extra[name] = {**extra.get(name, {}), "share": bounds[name][0] / timing[name][0]}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -32,7 +32,10 @@ class ImageFieldConfig:
     img_size: int = 256
     init: str = "he"
     dtype: torch.dtype = torch.float32  # parameter dtype
-    precision: str = "high"  # TPU matmul tier; every tier is 3xTF32 on the card
+    # the JAX package's matmul tier: on the card "highest" runs the field's
+    # products as exact f32 FMAs, "high" and "default" as 3xTF32 on the
+    # tensor cores (ops.fused_mlp.field_forward)
+    precision: str = "high"
 
     @property
     def in_channels(self) -> int:
@@ -129,11 +132,14 @@ class ImageFieldModel(nn.Module):
 
     def predict_coords(self, coords: torch.Tensor) -> torch.Tensor:
         """Predict from raw ``(N, 2)`` coords: the fused encode + MLP (the
-        kernels on CUDA), or the plain version with ``backend="plain"``."""
+        kernels on CUDA, on the config's precision tier), or the plain
+        version with ``backend="plain"``."""
         c = self.config
-        fn = (fused_mlp.field_forward_reference if self.backend == "plain"
-              else fused_mlp.field_forward)
-        return fn(self.params, coords, c.num_encoding_functions, c.out_channels)
+        if self.backend == "plain":
+            return fused_mlp.field_forward_reference(self.params, coords,
+                                                     c.num_encoding_functions, c.out_channels)
+        return fused_mlp.field_forward(self.params, coords, c.num_encoding_functions,
+                                       c.out_channels, precision=c.precision)
 
     def loss(self, coords: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         """Sum-MSE of :meth:`predict_coords` against ``(N, 3)`` targets; its

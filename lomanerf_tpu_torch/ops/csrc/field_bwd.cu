@@ -15,7 +15,8 @@
 //
 // What the design does about it (field_common.cuh):
 //   * the three products (forward, dW, d_h) on the tensor cores in split
-//     TF32 (mma.sync.m16n8k8, 3xTF32: f32-level accuracy), the weights in
+//     TF32 (mma.sync.m16n8k8, 3xTF32: f32-level accuracy), or as f32 FMAs
+//     for the "highest" tier (exact != 0), the weights in
 //     shared memory, streamed through two slots by the Tensor Memory
 //     Accelerator, the next layer's copy in flight during this layer's
 //     products;
@@ -36,22 +37,23 @@
 
 // C entry point, bound with ctypes: how many blocks of the gradient kernel
 // the current card holds at once for these shapes (its grid's upper bound;
-// a partial of G floats each).  Returns that count, or minus the CUDA error.
+// a partial of G floats each; exact as for field_bwd).  Returns that
+// count, or minus the CUDA error.
 extern "C" int field_bwd_blocks(int L, int in_dim, int width, int num_functions,
-                                int out_ch) {
-  return field::resident_blocks<true>(L, in_dim, width, num_functions, out_ch);
+                                int out_ch, int exact) {
+  return field::resident_blocks<true>(L, in_dim, width, num_functions, out_ch, exact);
 }
 
 // C entry point, bound with ctypes.  ws: the staged parameters; G the
 // floats of the weights and biases in the gradient layout
 // (field_common.cuh); coords (n, 2) and dout (n, out_ch) f32; partials
 // n_blocks * G floats of scratch, n_blocks at most field_bwd_blocks(...) and
-// at most the tiles of 32 pixels; out receives the G gradient floats.
-// Returns the launches' cudaGetLastError() (0 on success); does not
-// synchronise.
+// at most the tiles of 32 pixels; out receives the G gradient floats;
+// exact != 0 the f32 FMA products ("highest"), 0 3xTF32.  Returns the
+// launches' cudaGetLastError() (0 on success); does not synchronise.
 extern "C" int field_bwd(const float* ws, int G, const float* coords, const float* dout,
                          float* partials, int n_blocks, float* out, int n, int L,
-                         int in_dim, int width, int num_functions, int out_ch,
+                         int in_dim, int width, int num_functions, int out_ch, int exact,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || n_blocks <= 0) {
@@ -63,7 +65,7 @@ extern "C" int field_bwd(const float* ws, int G, const float* coords, const floa
     err = cudaMemsetAsync(partials, 0, sizeof(float) * static_cast<size_t>(n_blocks) * G, st);
   }
   if (err == cudaSuccess) {
-    err = field::launch_tiles<true>(ws, coords, dout, partials, G, n, d, n_blocks, st);
+    err = field::launch_tiles<true>(ws, coords, dout, partials, G, n, d, n_blocks, exact, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_block_partials<<<(G + 31) / 32, kSumWarps * 32, 0, st>>>(partials, n_blocks, G, out);

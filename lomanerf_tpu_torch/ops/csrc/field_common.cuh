@@ -32,7 +32,12 @@
 // thread moves a weight.
 //
 // The three products of the hidden layers (forward H W, dW = H^T d_z, d_h
-// = d_z W^T) run on the tensor cores: mma.sync.m16n8k8 with TF32 operands
+// = d_z W^T) take one of two routes, a compile-time flag (kExact) of the
+// kernel: the JAX package's "highest" tier runs them as f32 FMAs (kExact:
+// each output one fmaf chain over the sum in order, from 0, and db as
+// column sums in pixel order, as the kernels before the tensor cores
+// computed them); its "high" and "default" tiers run them on the tensor
+// cores: mma.sync.m16n8k8 with TF32 operands
 // and f32 accumulators, in split TF32 (3xTF32): each operand x = hi + lo,
 // hi = x rounded to TF32 (cvt.rna's rounding, in two integer operations)
 // and lo = x - hi (exact in f32, read by the tensor core as TF32), and
@@ -188,6 +193,7 @@ struct RowA {
     ldmatrix_x4(X + swz(m0 + (lane & 7) + 8 * ((lane >> 3) & 1), k0 + 4 * (lane >> 4), cols),
                 v);
   }
+  __device__ __forceinline__ float at(int m, int k) const { return X[swz(m, k, cols)]; }
 };
 // A(m, k) = X[k][m]: a transposed read
 struct ColA {
@@ -201,6 +207,7 @@ struct ColA {
     v[2] = __float_as_uint(x[swz(t + 4, m0 + g, cols)]);
     v[3] = __float_as_uint(x[swz(t + 4, m0 + g + 8, cols)]);
   }
+  __device__ __forceinline__ float at(int m, int k) const { return X[swz(k, m, cols)]; }
 };
 // B(k, n) = X[k][n]: the two k8n8 fragments at (k0, n0) and (k0, n0 + 8)
 struct ColB {
@@ -215,6 +222,7 @@ struct ColB {
       v[j][1] = __float_as_uint(x[swz(t + 4, n0 + 8 * j + g, cols)]);
     }
   }
+  __device__ __forceinline__ float at(int k, int n) const { return X[swz(k, n, cols)]; }
 };
 // B(k, n) = X[n][k]: a transposed read, through ldmatrix
 struct RowB {
@@ -227,6 +235,7 @@ struct RowB {
                 r);
     v[0][0] = r[0], v[0][1] = r[1], v[1][0] = r[2], v[1][1] = r[3];
   }
+  __device__ __forceinline__ float at(int k, int n) const { return X[swz(n, k, cols)]; }
 };
 
 // out(m, n) = sum_{k < K} A(m, k) B(k, n) for m < M, n < N in 3xTF32,
@@ -238,8 +247,10 @@ struct RowB {
 // 8-deep k-step a warp reads its fragments and splits them, then adds
 // a_hi b_hi into one accumulator and a_lo b_hi, a_hi b_lo into a second
 // (lo lo dropped), in that order: two short chains a tile instead of one
-// long one; out = the first + the second.  A fixed order per output.
-template <class A, class B, class Epi>
+// long one; out = the first + the second.  With kExact, each lane sums the
+// same eight outputs as f32 FMAs instead, reading its operands one element
+// at a time (the readers' at()).  A fixed order per output.
+template <bool kExact, class A, class B, class Epi>
 __device__ __forceinline__ void warp_gemm(int M, int N, int K, const A& a, const B& b,
                                           Epi&& epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -247,6 +258,25 @@ __device__ __forceinline__ void warp_gemm(int M, int N, int K, const A& a, const
   const int bn = N / 16, blocks = M / 16 * bn;
   for (int blk = warp; blk < blocks; blk += kWarps) {
     const int m0 = blk / bn * 16, n0 = blk % bn * 16;
+    if constexpr (kExact) {
+      float acc[2][4] = {};
+#pragma unroll 2
+      for (int k = 0; k < K; ++k) {
+        const float a0 = a.at(m0 + g, k), a1 = a.at(m0 + g + 8, k);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y = b.at(k, n0 + 8 * j + 2 * t + e);
+            acc[j][e] = fmaf(a0, y, acc[j][e]);
+            acc[j][2 + e] = fmaf(a1, y, acc[j][2 + e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) epi(m0 + g, n0 + 8 * j + 2 * t, acc[j]);
+      continue;
+    }
     float big[2][4] = {}, small[2][4] = {};
 #pragma unroll 4
     for (int k0 = 0; k0 < K; k0 += 8) {
@@ -277,8 +307,17 @@ __device__ __forceinline__ void warp_gemm(int M, int N, int K, const A& a, const
 // warp w sums the n8 tile of columns 8w.. as (all ones) x d_z, d_z split
 // into hi + lo (ones are exact in TF32; lo then hi into one accumulator),
 // its lanes of row 0 adding columns 2t, 2t + 1 into pb by a float2
-// reduction
+// reduction.  With kExact: thread c sums column c in f32, pixel by pixel.
+template <bool kExact>
 __device__ __forceinline__ void add_db(const float* dz, int N, float* pb) {
+  if constexpr (kExact) {
+    if (threadIdx.x < N) {
+      float s = 0.0f;
+      for (int p = 0; p < kTile; ++p) s += dz[swz(p, threadIdx.x, N)];
+      atomicAdd(pb + threadIdx.x, s);
+    }
+    return;
+  }
   const int lane = threadIdx.x & 31, n0 = 8 * (threadIdx.x >> 5);
   if (n0 >= N) return;
   const uint32_t ones[4] = {0x3f800000u, 0x3f800000u, 0x3f800000u, 0x3f800000u};
@@ -380,8 +419,9 @@ __device__ __forceinline__ void encode_tile(const float* xy, const Dims& d, floa
 // (n, out_ch) cotangent dout into its G-float partial, zeroed before the
 // launch).  ws: the staged parameters.  Blocks stride over the tiles
 // (gridDim.x <= n_tiles); pad pixels and pad columns add nothing (their
-// cotangent is zero).
-template <bool kBwd>
+// cotangent is zero).  kExact: the hidden layers' products as f32 FMAs
+// ("highest"), else in 3xTF32 on the tensor cores.
+template <bool kBwd, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 field_kernel(const float* __restrict__ ws, const float* __restrict__ coords,
              const float* __restrict__ dout, float* __restrict__ out, int G, int n,
@@ -467,7 +507,7 @@ field_kernel(const float* __restrict__ ws, const float* __restrict__ coords,
       const float* hin = acts + d.act_offset(l);
       float* hout = acts + d.act_offset(l + 1);
       if (l < L - 1) {
-        warp_gemm(kTile, C, K, RowA{hin, ci}, ColB{w, C},
+        warp_gemm<kExact>(kTile, C, K, RowA{hin, ci}, ColB{w, C},
                   [&](int r, int c, const float (&v)[4]) {
                     const float b0 = bias[c], b1 = bias[c + 1];
                     *reinterpret_cast<float2*>(hout + swz(r, c, C)) =
@@ -506,7 +546,7 @@ field_kernel(const float* __restrict__ ws, const float* __restrict__ coords,
         if (l == L - 1) {
           head_grads(h, ci, dz, R, pw);
         } else {
-          warp_gemm(round_up(R, 16), C, kTile, ColA{h, ci}, ColB{dz, C},
+          warp_gemm<kExact>(round_up(R, 16), C, kTile, ColA{h, ci}, ColB{dz, C},
                     [&](int r, int c, const float (&v)[4]) {
                       for (int e = 0; e < 2; ++e) {
                         if (r + 8 * e < R) {
@@ -515,7 +555,7 @@ field_kernel(const float* __restrict__ ws, const float* __restrict__ coords,
                         }
                       }
                     });
-          add_db(dz, C, pw + R * C);
+          add_db<kExact>(dz, C, pw + R * C);
         }
         if (l == 0) break;
         // d_z_{l-1} = (d_z W_l^T) masked by act(l) > 0
@@ -523,7 +563,7 @@ field_kernel(const float* __restrict__ ws, const float* __restrict__ coords,
         if (l == L - 1) {
           head_dh(dz, w, R, h, nxt, ci);
         } else {
-          warp_gemm(kTile, R, C, RowA{dz, C}, RowB{w, C},
+          warp_gemm<kExact>(kTile, R, C, RowA{dz, C}, RowB{w, C},
                     [&](int p, int r, const float (&v)[4]) {
                       for (int e = 0; e < 2; ++e) {
                         const int at = swz(p + 8 * e, r, ci);
@@ -544,11 +584,12 @@ field_kernel(const float* __restrict__ ws, const float* __restrict__ coords,
 }
 
 // Dynamic shared memory above 48 KB needs the kernel's opt-in.
-template <bool kBwd>
+template <bool kBwd, bool kExact>
 cudaError_t allow_smem(const Dims& d) {
   const size_t smem = d.smem_bytes();
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(field_kernel<kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(field_kernel<kBwd, kExact>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
@@ -562,15 +603,15 @@ inline cudaError_t plan(int L, int K0, int width, int nf, int out_ch, Dims* d) {
 
 // Blocks of the kernel the current card holds at once for these shapes
 // (the upper bound of its persistent grid), or minus the CUDA error.
-template <bool kBwd>
+template <bool kBwd, bool kExact>
 int resident_blocks(int L, int K0, int width, int nf, int out_ch) {
   Dims d;
   cudaError_t err = plan(L, K0, width, nf, out_ch, &d);
-  if (err == cudaSuccess) err = allow_smem<kBwd>(d);
+  if (err == cudaSuccess) err = allow_smem<kBwd, kExact>(d);
   int per_sm = 0, dev = 0, sms = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, field_kernel<kBwd>, kThreads,
-                                                        d.smem_bytes());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, field_kernel<kBwd, kExact>,
+                                                        kThreads, d.smem_bytes());
   }
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -579,17 +620,32 @@ int resident_blocks(int L, int K0, int width, int nf, int out_ch) {
 
 // One launch over the tiles of n pixels, at most `blocks` blocks (a
 // gradient's further partials stay zero).
-template <bool kBwd>
+template <bool kBwd, bool kExact>
 cudaError_t launch_tiles(const float* ws, const float* coords, const float* dout, float* out,
                          int G, int n, const Dims& d, int blocks, cudaStream_t stream) {
-  cudaError_t err = allow_smem<kBwd>(d);
+  cudaError_t err = allow_smem<kBwd, kExact>(d);
   if (err != cudaSuccess) return err;
   const int n_tiles = (n + kTile - 1) / kTile;
   // a block with no tile would leave its first copy in flight
   blocks = blocks < n_tiles ? blocks : n_tiles;
-  field_kernel<kBwd><<<blocks, kThreads, d.smem_bytes(), stream>>>(ws, coords, dout, out, G,
-                                                                    n, n_tiles, d);
+  field_kernel<kBwd, kExact><<<blocks, kThreads, d.smem_bytes(), stream>>>(
+      ws, coords, dout, out, G, n, n_tiles, d);
   return cudaGetLastError();
+}
+
+// The same two on the run-time tier: exact != 0 the f32 FMA route.
+template <bool kBwd>
+int resident_blocks(int L, int K0, int width, int nf, int out_ch, int exact) {
+  return exact ? resident_blocks<kBwd, true>(L, K0, width, nf, out_ch)
+               : resident_blocks<kBwd, false>(L, K0, width, nf, out_ch);
+}
+
+template <bool kBwd>
+cudaError_t launch_tiles(const float* ws, const float* coords, const float* dout, float* out,
+                         int G, int n, const Dims& d, int blocks, int exact,
+                         cudaStream_t stream) {
+  return exact ? launch_tiles<kBwd, true>(ws, coords, dout, out, G, n, d, blocks, stream)
+               : launch_tiles<kBwd, false>(ws, coords, dout, out, G, n, d, blocks, stream);
 }
 
 }  // namespace

@@ -15,7 +15,8 @@
 // 495 TFLOP/s of the tensor cores, against ~6 us of bytes.
 //
 // What the design does about it (field_common.cuh): the products on the
-// tensor cores in split TF32 (3xTF32, f32-level accuracy); a persistent
+// tensor cores in split TF32 (3xTF32, f32-level accuracy), or as f32 FMAs
+// for the "highest" tier (exact != 0); a persistent
 // grid whose blocks take the weights into shared memory through two slots,
 // copied in by the Tensor Memory Accelerator, the next layer's copy in
 // flight during this layer's products; tiles of 32 pixels per 512-thread
@@ -25,26 +26,29 @@
 
 // C entry point, bound with ctypes: how many blocks of the forward kernel
 // the current card holds at once for these shapes (its grid's upper
-// bound).  Returns that count, or minus the CUDA error.
-extern "C" int field_fwd_blocks(int L, int in_dim, int width, int num_functions, int out_ch) {
-  return field::resident_blocks<false>(L, in_dim, width, num_functions, out_ch);
+// bound; exact as for field_fwd).  Returns that count, or minus the CUDA
+// error.
+extern "C" int field_fwd_blocks(int L, int in_dim, int width, int num_functions, int out_ch,
+                                int exact) {
+  return field::resident_blocks<false>(L, in_dim, width, num_functions, out_ch, exact);
 }
 
 // C entry point, bound with ctypes.  ws: the staged parameters
 // (field_common.cuh); coords (n, 2) and out (n, out_ch) f32; n_blocks the
 // grid, at most field_fwd_blocks(...) (cut to the tiles of 32 pixels);
 // width the padded hidden width (16, 32, 64 or 128); in_dim the encoded
-// width K0.  Returns the launch's cudaGetLastError() (0 on success); does
-// not synchronise.
+// width K0; exact != 0 runs the hidden layers' products as f32 FMAs (the
+// "highest" tier), 0 in 3xTF32.  Returns the launch's cudaGetLastError() (0
+// on success); does not synchronise.
 extern "C" int field_fwd(const float* ws, const float* coords, float* out, int n_blocks, int n,
                          int L, int in_dim, int width, int num_functions, int out_ch,
-                         void* stream) {
+                         int exact, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   field::Dims d;
   cudaError_t err = field::plan(L, in_dim, width, num_functions, out_ch, &d);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(field::launch_tiles<false>(ws, coords, nullptr, out, 0, n, d,
-                                                    n_blocks,
+                                                    n_blocks, exact,
                                                     static_cast<cudaStream_t>(stream)));
 }

@@ -8,13 +8,15 @@ Two hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel:
   (``_FieldFwd.backward``), dW/db from the output cotangent.
 
 Both take the raw ``(N, 2)`` pixel coords and encode them on the chip, and
-run their products on the tensor cores in split TF32 (3xTF32, f32-level
-accuracy).  Their parameters arrive staged (:func:`pack_field_params`: the
-image of the kernels' shared memory, so that one bulk copy brings a layer
-in) with the hidden width padded to one of :data:`WIDTHS`; the gradient
-comes back in the packed layout of the narrow NeRF kernels
-(``fused_nerf.pack_params``: per layer, W zero-padded to (rows, cols), then
-b, the head at 4 columns).  The kernels stream the weights layer by layer
+run their hidden layers' products by the JAX package's precision tier
+(:func:`exact_tier`): "highest" as f32 FMAs (exact f32 products, for parity
+work), "high" and "default" on the tensor cores in split TF32 (3xTF32,
+f32-level accuracy).  Their parameters arrive staged
+(:func:`pack_field_params`: the image of the kernels' shared memory, so that
+one bulk copy brings a layer in) with the hidden width padded to one of
+:data:`WIDTHS`; the gradient comes back in the packed layout of the narrow
+NeRF kernels (``fused_nerf.pack_params``: per layer, W zero-padded to (rows,
+cols), then b, the head at 4 columns).  The kernels stream the weights layer by layer
 through two shared-memory slots; :func:`field_smem_bytes` mirrors a block's
 shared memory.
 
@@ -49,6 +51,18 @@ WIDTHS = (16, 32, 64, 128)  # padded hidden widths the kernels are built for
 TILE = 32  # pixels per block tile (field_common.cuh)
 _HEAD = 4  # head columns the kernels compute
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
+# the JAX package's precision tiers (``ImageFieldConfig.precision``) ->
+# whether the kernels run exact f32 products (1) or 3xTF32 (0)
+TIERS = {"highest": 1, "high": 0, "default": 0}
+
+
+def exact_tier(precision: str) -> int:
+    """The kernels' ``exact`` flag for a precision tier of the JAX package
+    ("highest": 1, f32 FMA products; "high" and "default": 0, 3xTF32);
+    raises ``ValueError`` for any other."""
+    if precision not in TIERS:
+        raise ValueError(f"unknown precision tier {precision!r}; one of {list(TIERS)}")
+    return TIERS[precision]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -147,14 +161,14 @@ def kernel_width(params: Params, coord_dim: int, num_functions: int,
 
 @functools.lru_cache(maxsize=None)
 def resident_blocks(device_index: int, entry: str, L: int, in_dim: int, width: int, nf: int,
-                    out_ch: int) -> int:
-    """Blocks of ``entry``'s kernel (``"field_fwd"`` or ``"field_bwd"``) the
-    card holds at once at these shapes: the upper bound of its grid (each
-    block strides over the tiles)."""
+                    out_ch: int, exact: int) -> int:
+    """Blocks of ``entry``'s kernel (``"field_fwd"`` or ``"field_bwd"``, on
+    the route ``exact`` names) the card holds at once at these shapes: the
+    upper bound of its grid (each block strides over the tiles)."""
     from lomanerf_tpu_torch.ops import build
 
     with torch.cuda.device(device_index):
-        got = getattr(build.load(), f"{entry}_blocks")(L, in_dim, width, nf, out_ch)
+        got = getattr(build.load(), f"{entry}_blocks")(L, in_dim, width, nf, out_ch, exact)
     if got <= 0:
         raise RuntimeError(f"{entry}_blocks failed: cudaError {-got}" if got
                            else f"{entry}: no block fits on the card")
@@ -167,35 +181,37 @@ def _grid(entry, n, dev, *dims) -> int:
     return max(1, min(-(-n // TILE), resident_blocks(dev.index, entry, *dims)))
 
 
-def _launch_fwd(pk, coords, L, in_dim, width, nf, out_ch) -> torch.Tensor:
-    """One launch of ``field_fwd``; counted in ``launches``."""
+def _launch_fwd(pk, coords, L, in_dim, width, nf, out_ch, exact) -> torch.Tensor:
+    """One launch of ``field_fwd`` (``exact``: :func:`exact_tier`); counted
+    in ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
     n, dev = coords.shape[0], coords.device
     out = torch.empty((n, out_ch), dtype=torch.float32, device=dev)
-    blocks = _grid("field_fwd", n, dev, L, in_dim, width, nf, out_ch)
+    blocks = _grid("field_fwd", n, dev, L, in_dim, width, nf, out_ch, exact)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.load().field_fwd(pk.data_ptr(), coords.data_ptr(), out.data_ptr(), blocks, n,
-                                 L, in_dim, width, nf, out_ch, stream)
+                                 L, in_dim, width, nf, out_ch, exact, stream)
     if err != 0:
         raise RuntimeError(f"field_fwd launch failed: cudaError {err}")
     launches["field_fwd"] += 1
     return out
 
 
-def _launch_bwd(pk, G, coords, dout, L, in_dim, width, nf, out_ch) -> torch.Tensor:
+def _launch_bwd(pk, G, coords, dout, L, in_dim, width, nf, out_ch, exact) -> torch.Tensor:
     """One call of ``field_bwd`` (the gradient kernel and its fixed-order
-    partial sum): the G gradient floats.  Counted in ``launches``."""
+    partial sum; ``exact`` as for :func:`_launch_fwd`): the G gradient
+    floats.  Counted in ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
     n, dev = coords.shape[0], coords.device
-    blocks = _grid("field_bwd", n, dev, L, in_dim, width, nf, out_ch)
+    blocks = _grid("field_bwd", n, dev, L, in_dim, width, nf, out_ch, exact)
     partials = torch.empty(blocks * G, dtype=torch.float32, device=dev)
     out = torch.empty(G, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.load().field_bwd(pk.data_ptr(), G, coords.data_ptr(), dout.data_ptr(),
                                  partials.data_ptr(), blocks, out.data_ptr(), n, L,
-                                 in_dim, width, nf, out_ch, stream)
+                                 in_dim, width, nf, out_ch, exact, stream)
     if err != 0:
         raise RuntimeError(f"field_bwd launch failed: cudaError {err}")
     launches["field_bwd"] += 1
@@ -205,14 +221,15 @@ def _launch_bwd(pk, G, coords, dout, L, in_dim, width, nf, out_ch) -> torch.Tens
 class _FieldFwd(torch.autograd.Function):
     """The field kernel behind autograd: forward launches ``field_fwd``;
     backward launches ``field_bwd`` with the output cotangent (the
-    counterpart of ``pallas_utils.render_vjp``).  Coords get no gradient."""
+    counterpart of ``pallas_utils.render_vjp``), both on the product route
+    ``exact`` names (:func:`exact_tier`).  Coords get no gradient."""
 
     @staticmethod
-    def forward(ctx, coords, num_functions, out_channels, width, *wb):
+    def forward(ctx, coords, num_functions, out_channels, width, exact, *wb):
         params = _params_of(wb)
         pk = pack_field_params(params, width)
         ctx.save_for_backward(pk, coords, *wb)
-        ctx.dims = (len(wb) // 2, wb[0].shape[0], width, num_functions, out_channels)
+        ctx.dims = (len(wb) // 2, wb[0].shape[0], width, num_functions, out_channels, exact)
         return _launch_fwd(pk, coords, *ctx.dims)
 
     @staticmethod
@@ -221,16 +238,20 @@ class _FieldFwd(torch.autograd.Function):
         params, width = _params_of(wb), ctx.dims[2]
         flat = _launch_bwd(pk, grad_floats(params, width), coords, _f32(grad_out),
                            *ctx.dims)
-        return (None,) * 4 + unpack_grads(flat, params, width)
+        return (None,) * 5 + unpack_grads(flat, params, width)
 
 
 def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
-                  out_channels: int = 3) -> torch.Tensor:
+                  out_channels: int = 3, precision: str = "high") -> torch.Tensor:
     """Fused encode + MLP + sigmoid field: coords ``(N, 2)`` to
     ``(N, out_channels)``, with the JAX signature less the TPU tile.
-    Differentiable w.r.t. params only.  Every precision tier of the JAX
-    package runs in split TF32 on the card's tensor cores (3xTF32: about
-    2^-21 of each product, f32 sums), more exact than "high" (bf16x3)."""
+    Differentiable w.r.t. params only.  ``precision`` is the JAX package's
+    tier (the models pass their config's; :func:`exact_tier`): on the card
+    "highest" runs the hidden layers' products as exact f32 FMAs, "high"
+    and "default" in split TF32 on the tensor cores (3xTF32: about 2^-21 of
+    each product, f32 sums), more exact than the JAX package's "high"
+    (bf16x3).  The plain version (CPU tensors) is f32 on every tier."""
+    exact = exact_tier(precision)
     coords = coords.detach()
     if coords.device.type == "cpu":
         return field_forward_reference(params, coords, num_functions, out_channels)
@@ -241,7 +262,7 @@ def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
     width = kernel_width(params, coords.shape[1], num_functions, out_channels)
     if any(x.device != coords.device for x in [*params["w"], *params["b"]]):
         raise ValueError("coords and params must share one CUDA device")
-    return _FieldFwd.apply(_f32(coords), num_functions, out_channels, width,
+    return _FieldFwd.apply(_f32(coords), num_functions, out_channels, width, exact,
                            *params["w"], *params["b"])
 
 

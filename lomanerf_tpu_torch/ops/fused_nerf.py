@@ -6,7 +6,8 @@ ray (``(S,)``, the unjittered sampler's) and one for per-ray ``(N, S)``
 depths (the stratified sampler's, ``NeRFModel.sample(generator=...)``).
 The ``*_rays`` entry points read the per-ray depths; a ray's arithmetic is
 the same in both.  Narrow MLPs (every width, the 33 inputs and 4 outputs
-included, padded to 8, at most 64), one thread per ray:
+included, padded to 8, at most 64), one thread per ray (the render
+forward runs a ray's samples in groups, :func:`sample_groups`):
 
 * ``csrc/nerf_render_fwd.cu`` — ``nerf_render_fwd`` (``_nerf_forward_kernel_S``)
   and ``nerf_render_fwd_rays`` (``_nerf_forward_kernel_T``): :func:`render_rays`;
@@ -76,6 +77,8 @@ MAX_WIDE_WIDTH = 256  # widest hidden layer the wide kernels take
 _HEAD = 4  # rgba channels the render reads
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
 GRAD_THREADS = 64  # rays per block of the gradient kernels (nerf_grad.cuh)
+RENDER_THREADS = 128  # rays per block of the render forward (nerf_render_fwd.cu)
+RENDER_GROUP = 2  # samples of a ray its thread runs together (nerf_render_mlp.cuh)
 _STRIDE = GRAD_THREADS + 4  # their staging row stride (a float4 of 4 rays)
 WIDE_ROW_CHUNK = 8192  # rows per split-K partial (nerf_wide_common.cuh)
 # scratch budgets of the wide kernels: one activation buffer of a render
@@ -98,15 +101,17 @@ def _padded_width(config, params: Params) -> int:
 
 def _narrow_fits(config, params: Params, width: int) -> bool:
     """Whether one block of the narrow kernels holds this MLP in shared
-    memory: the render forward's packed params and the gradient kernels'
-    64-ray block (:func:`grad_smem_bytes`), both counted with the shared
-    ``(S,)`` depths' tail (the larger packing), so that an MLP takes one
-    route whatever its depth source."""
+    memory: the render forward's block (:func:`render_smem_bytes`, with its
+    staged per-ray depths) and the gradient kernels' 64-ray block
+    (:func:`grad_smem_bytes`), both counted with the shared ``(S,)`` depths'
+    tail (the larger packing), so that an MLP takes one route whatever its
+    depth source."""
     G = grad_floats(params, width)
     pk_floats = G + _round_up(2 * config.num_samples, 4)
     grad = grad_smem_bytes(pk_floats, G, config.num_samples, len(params["w"]),
                            config.in_channels, width)
-    return max(4 * pk_floats, grad) <= _SMEM_LIMIT
+    render = render_smem_bytes(pk_floats, config.num_samples, width, per_ray=True)
+    return max(render, grad) <= _SMEM_LIMIT
 
 
 def _plan(config, params: Params):
@@ -218,6 +223,27 @@ def grad_smem_bytes(pk_floats: int, G: int, S: int, L: int, in_dim: int,
                 + ((L - 1) * width + _HEAD) * _STRIDE + GRAD_THREADS)
 
 
+def sample_groups(S: int, group: int):
+    """The render forward's walk over a ray's S samples
+    (``nerf_render_fwd.cu``, groups of :data:`RENDER_GROUP`): per group, the
+    sample index of each of its ``group`` slots and how many are real.  A group starts at every multiple
+    of ``group``; the last group of an S that ``group`` does not divide
+    repeats sample S-1 in its pad slots, whose colours are not composited."""
+    return [([min(s0 + j, S - 1) for j in range(group)], min(group, S - s0))
+            for s0 in range(0, S, group)]
+
+
+def render_smem_bytes(pk_floats: int, S: int, width: int, per_ray: bool) -> int:
+    """Shared memory one block of the render forward takes (the formula of
+    ``nerf_render_fwd.cu:render_smem_floats``): the packed params (with the
+    shared depths' tail: ``pk_floats``, :func:`pack_params`), the activation
+    stage of :data:`RENDER_THREADS` threads (:data:`RENDER_GROUP` x
+    ``width`` floats each) and, for per-ray depths, the block's rows of t
+    and dist at the odd stride ``S | 1``."""
+    rows = 2 * RENDER_THREADS * (S | 1) if per_ray else 0
+    return 4 * (pk_floats + RENDER_THREADS * RENDER_GROUP * width + rows)
+
+
 def grad_tile_plan(L: int, in_dim: int, width: int):
     """The gradient kernels' dW tile plan (``nerf_grad.cuh``: ``DwTile``,
     ``layer_dw``): per layer, ``(main, rest, budget)``.  ``main[t]`` lists
@@ -279,12 +305,13 @@ def _launch(pk, t_vals, dists, origins, directions, config, L, width) -> torch.T
     from lomanerf_tpu_torch.ops import build
 
     n = origins.shape[0]
-    if pk.numel() * 4 > _SMEM_LIMIT:
+    suffix = _suffix(t_vals)
+    smem = render_smem_bytes(pk.numel(), config.num_samples, width, bool(suffix))
+    if smem > _SMEM_LIMIT:
         raise NotImplementedError(
-            f"params need {pk.numel() * 4} B of shared memory, over the "
+            f"the render forward needs {smem} B of shared memory per block, over the "
             f"{_SMEM_LIMIT} B a block has; render_rays sends such MLPs to the "
             "wide kernels (ROADMAP queue 2, A5)")
-    suffix = _suffix(t_vals)
     entry = "nerf_render_fwd" + suffix
     ptrs = (t_vals.data_ptr(), dists.data_ptr()) if suffix else ()
     out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)

@@ -28,7 +28,12 @@ run against another checkout of the port to compare two trees.
   ``mma.sync`` chain the fused MLP replaced (``wide_mlp.render_rays_mma``
   over the same chunks), whose encoding and layer GEMMs are families of
   their own.  Prints ms per frame, each family's share and the kernels
-  launched per frame by name.
+  launched per frame by name.  With ``--preset small``: an 800x800
+  ``small`` frame (one launch of the narrow render, ``nerf_render_fwd``)
+  split into the render kernel and the rest of the frame by kernel
+  (``get_rays``, the parameter packing, ``uniform_depths``, the ``cat``),
+  and, from an idle card, the event window and the host time of one
+  ``render_image`` call.
 * ``--what grid_sum``: one call of ``probe.grid_sum`` on an ``(8,
   7,864,320)`` f32 array in 3,840-column tiles split three ways, beside
   ``torch.sum`` of the same array: the device time of its kernels per call
@@ -46,6 +51,15 @@ run against another checkout of the port to compare two trees.
   seed-1 colour cotangent) alone, each pair's outputs required bit-equal;
   then the ``small`` train step and the ``single64`` step (65,536 rays x
   64, Adam 5e-4, one model per library from one seeded init).
+* ``--what render --parent DIR``: the narrow render forward of this tree
+  against the one of the checkout at ``DIR`` (built there), in turns in
+  one process (``fused_nerf`` bound to either library), each pair's
+  colours required bit-equal: #1 (``nerf_render_fwd``) on an 800x800
+  ``small`` frame (``scripts/render_variants.frame_inputs``: the trained
+  fixture, its second pose), #4 (``nerf_render_fwd_rays``) on 262,144 rays
+  at per-ray depths (``render_variants.rays_inputs``), #1 at ``single64``
+  (65,536 rays x 64, seeded init), and the whole ``render_image`` frame
+  of the fixture through each library.
 * ``--what field``: device time by kernel of ``--steps`` ``hires`` image-fit
   steps (``ImageFieldConfig.hires()``, the whole 1024x1024 image a step,
   Adam 1e-3, two numpy-seeded uniform targets cycled, seeded init;
@@ -73,6 +87,8 @@ The last line is one JSON object with the numbers.  Run:
     python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3
     python -m lomanerf_tpu_torch.scripts.card_probe --what small --steps 5
     python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path mma]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what frame --preset small
+    python -m lomanerf_tpu_torch.scripts.card_probe --what render --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
     python -m lomanerf_tpu_torch.scripts.card_probe --what field [--parent DIR]
@@ -264,6 +280,46 @@ def kernel_key(name: str) -> str:
         return f"{gemm.group(1)} {epi}"
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1]
+
+
+def small_frame() -> dict:
+    """An 800x800 ``small`` frame's device time, the render kernel against
+    the rest, and one ``render_image`` call's event window and host time."""
+    from lomanerf_tpu_torch.core import normalized_intrinsics
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+
+    size = 800
+    model = NeRFModel(NeRFConfig.small(), device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    K = normalized_intrinsics(1.1106, device="cuda")
+    pose = torch.eye(4, device="cuda")
+    pose[2, 3] = 4.0
+
+    def run():
+        return model.render_image(K, pose, size)
+    with torch.no_grad():
+        run()  # warm-up
+        events = device_events(run, FRAMES)
+        call = one_call_ms({"render_image": run}, 3)["render_image"]
+    ms, launches = collections.Counter(), collections.Counter()
+    for name, cat, us, _ in events:
+        key = kernel_key(name) if cat == "kernel" else cat
+        ms[key] += us / 1e3 / FRAMES
+        launches[key] += 1
+    kernel = ms["nerf_render_fwd_kernel"]
+    total = sum(ms.values())
+    out = {"what": "frame", "preset": "small", "frames": FRAMES, "device_ms_per_frame": total,
+           "kernel_ms": kernel, "rest_ms": total - kernel, "ms": dict(ms),
+           "launches_per_frame": {k: v / FRAMES for k, v in sorted(launches.items())},
+           "window_ms": call["window_ms"], "host_ms": call["host_ms"]}
+    print(f"800x800 small frame, {FRAMES} frames traced: device {total:.3f} ms/frame, the "
+          f"render kernel {kernel:.3f} ({kernel / total:.1%}), the rest {total - kernel:.3f}")
+    for k, v in sorted(ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {k:40s} {v:9.3f} ms/frame  {v / total:6.1%}  "
+              f"({launches[k] / FRAMES:g} a frame)")
+    print(f"  one render_image call from an idle card: event window {call['window_ms']:.3f} ms,"
+          f" host time {call['host_ms']:.3f} ms")
+    return out
 
 
 def frame(path: str) -> dict:
@@ -480,6 +536,62 @@ def walk(parent: str, rounds: int = 5) -> dict:
     return out
 
 
+def render(parent: str, rounds: int = 3) -> dict:
+    """This tree's narrow render forward against the parent's, in turns."""
+    from lomanerf_tpu_torch.core import normalized_intrinsics, rays
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.ops import build
+    from lomanerf_tpu_torch.scripts import render_variants as rv
+    from lomanerf_tpu_torch.scripts import variants
+    from lomanerf_tpu_torch.scripts.grad_variants import small_call_inputs
+    from lomanerf_tpu_torch.train.checkpoint import load_params_npz
+
+    libs = {"parent": parent_library(parent), "this tree": build.load()}
+    cfg64 = NeRFConfig.preset("single64")
+    m64 = NeRFModel(cfg64, device="cuda")
+    m64.init(torch.Generator().manual_seed(0))
+    params64 = {k: [x.detach() for x in v] for k, v in m64.params.items()}
+    _, _, _, _, (o, d, _, _, _) = small_call_inputs(65536)
+    cases = {"nerf_render_fwd 800x800": rv.frame_inputs(),
+             "nerf_render_fwd_rays 262144": rv.rays_inputs(),
+             "nerf_render_fwd single64 65536": (cfg64, params64, (
+                 o, d, *rays.uniform_depths(cfg64.near, cfg64.far, cfg64.num_samples, "cuda")))}
+    out = {"what": "render", "parent": parent, "rounds": rounds, "device": variants.card()}
+    for name, (cfg, params, batch) in cases.items():
+        width = 64 if cfg.filter_size > 32 else 32
+        fns = {lib: rv.render_call(libs[lib], cfg, params, batch, width) for lib in libs}
+        if not torch.equal(fns["parent"]().clone(), fns["this tree"]()):
+            raise SystemExit(f"card_probe: {name} differs from the parent's")
+        out[name] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
+    # the whole frame through render_image (rays, packing, depths and cat too)
+    fx = np.load(rv.FIXTURE)
+    p = load_params_npz(rv.FIXTURE)
+    model = NeRFModel.from_numpy(NeRFConfig.small(), p["w"], p["b"], device="cuda")
+    K = normalized_intrinsics(float(fx["focal"]), device="cuda")
+    pose = torch.from_numpy(fx["poses"][1]).cuda()
+    load = build.load
+
+    def frame_on(lib):
+        build.load = lambda: libs[lib]
+        try:
+            return model.render_image(K, pose, rv.SIZE)
+        finally:
+            build.load = load
+    with torch.no_grad():
+        frames = {lib: (lambda lib=lib: frame_on(lib)) for lib in libs}
+        for f in frames.values():
+            f()  # warm-up
+        out["render_image 800x800"] = {k: v["window_ms"]
+                                       for k, v in one_call_ms(frames, rounds).items()}
+    print(f"narrow render forward, this tree against {parent}, one call each from an idle "
+          f"card, {2 * rounds} in turns (CUDA event window, median ms), on {out['device']}:")
+    for k, v in out.items():
+        if isinstance(v, dict):
+            print(f"  {k:32s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
+                  f"ratio {v['this tree'] / v['parent']:.4f}")
+    return out
+
+
 FIELD_FAMILIES = ("field_fwd", "field_bwd", "sum_block_partials", "Adam", "other")
 
 
@@ -547,7 +659,8 @@ def field_split(steps: int) -> dict:
 def parent_library(parent: str):
     """The kernels of the checkout at ``parent``, built there, with every
     entry point's signature set (the field's under this tree's C ABI:
-    ``field_variants.bind_field``)."""
+    ``field_variants.bind_field``; the render forward's is the same in
+    every tree)."""
     from lomanerf_tpu_torch.ops import build
     from lomanerf_tpu_torch.scripts import field_variants
 
@@ -560,7 +673,8 @@ def parent_library(parent: str):
         if not name.startswith("field_"):
             fn = getattr(old, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return field_variants.bind_field(old)
+    csrc = Path(parent) / "lomanerf_tpu_torch" / "ops" / "csrc"
+    return field_variants.bind_field(old, field_variants.takes_tier(csrc))
 
 
 def parent_packing(parent: str):
@@ -602,7 +716,7 @@ def field_against(parent: str, rounds: int = 3) -> dict:
     cfg, params, coords, cot = field_variants.hires_inputs()
     nf = cfg.num_encoding_functions
     width = fused_mlp.kernel_width(params, 2, nf, 3)
-    dims = (cfg.num_layers, cfg.in_channels, width, nf, 3)
+    dims = (cfg.num_layers, cfg.in_channels, width, nf, 3, 0)  # "high": the 3xTF32 route
     G = fused_mlp.grad_floats(params, width)
     out = {"what": "field", "parent": parent, "rounds": rounds}
     for entry in ("field_fwd", "field_bwd"):
@@ -658,9 +772,11 @@ def field_against(parent: str, rounds: int = 3) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", choices=("flagship", "small", "frame", "grid_sum", "leaves",
-                                       "walk", "field"), required=True)
-    ap.add_argument("--parent", help="root of the checkout --what walk or field compares "
-                    "against")
+                                       "walk", "field", "render"), required=True)
+    ap.add_argument("--parent", help="root of the checkout --what walk, field or render "
+                    "compares against")
+    ap.add_argument("--preset", choices=("full", "small"), default="full",
+                    help="the frame --what frame splits")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--path", choices=("fused", "mma"), default="fused")
     ap.add_argument("--calls", type=int, default=20)
@@ -670,16 +786,16 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.what == "leaves":
         out = leaves()
-    elif args.what == "walk":
+    elif args.what in ("walk", "render"):
         if not args.parent:
-            raise SystemExit("card_probe: --what walk needs --parent DIR")
-        out = walk(args.parent)
+            raise SystemExit(f"card_probe: --what {args.what} needs --parent DIR")
+        out = (walk if args.what == "walk" else render)(args.parent)
     elif args.what == "field" and args.parent:
         out = field_against(args.parent)
     else:
         out = {"flagship": lambda: flagship(args.steps),
                "small": lambda: small(args.steps),
-               "frame": lambda: frame(args.path),
+               "frame": lambda: small_frame() if args.preset == "small" else frame(args.path),
                "grid_sum": lambda: grid_sum(args.calls),
                "field": lambda: field_split(args.steps)}[args.what]()
         if not any(out.get(k) for k in ("device_ms_per_step", "device_ms_per_frame",

@@ -51,7 +51,7 @@ SIZE = 1024  # the hires image
 # the gradient kernel (at the hires width before the redesign), by its
 # mangled name: before the redesign, and as the source stands
 _PARENT_KERNEL = "field_kernelILi128ELb1E"
-_KERNEL = "field_kernelILb1E"
+_KERNEL = "field_kernelILb1ELb0E"
 OUT = build.BUILD_ROOT.parent / "field_variants"
 
 # the kernels before their redesign: f32 FMAs in register tiles, each
@@ -159,8 +159,9 @@ VARIANTS = {
     "no db sums": [("    mma_tf32(acc, ones, lo);\n    mma_tf32(acc, ones, hi);\n", "", 1)],
     # d_h = d_z W^T of the hidden layers (the head's on FMAs, the copies and
     # barriers stay)
-    "no d_h": [("          warp_gemm(kTile, R, C, RowA{dz, C}, RowB{w, C},",
-                "          if (false) warp_gemm(kTile, R, C, RowA{dz, C}, RowB{w, C},", 1)],
+    "no d_h": [("          warp_gemm<kExact>(kTile, R, C, RowA{dz, C}, RowB{w, C},",
+                "          if (false) warp_gemm<kExact>(kTile, R, C, RowA{dz, C}, RowB{w, C},",
+                1)],
     # the tile's two barriers (before and after the encoding)
     "no tile barriers": [
         ("    __syncthreads();  // the previous tile is done with act(0); xy written\n", "", 1),
@@ -291,33 +292,64 @@ def parent_pack(params, width):
     return fused_nerf.pack_params(params, empty, empty, width)
 
 
-class _GridlessFwd:
-    """A library built before ``field_fwd`` took its grid (it has no
-    ``field_fwd_blocks``; its forward sizes its own grid), under this tree's
-    C ABI: ``field_fwd`` drops the grid argument."""
+class _OlderField:
+    """A library built before the field entry points took their precision
+    route (``exact``, the argument before the stream; they ran 3xTF32 or,
+    before the tensor cores, f32 FMAs), and, ``gridless``, before
+    ``field_fwd`` took its grid (no ``field_fwd_blocks``; its forward sizes
+    its own grid), under this tree's C ABI: the calls drop the arguments it
+    does not take (``exact`` must be 0)."""
 
-    def __init__(self, lib):
-        self._lib = lib
-        self.field_fwd_blocks = lib.field_bwd_blocks
+    def __init__(self, lib, gridless: bool):
+        self._lib, self._gridless = lib, gridless
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
 
-    def field_fwd(self, ws, coords, out, _n_blocks, *rest):
-        return self._lib.field_fwd(ws, coords, out, *rest)
+    @staticmethod
+    def _tier(args):
+        *rest, exact, stream = args
+        if exact:
+            raise SystemExit("field_variants: an older library has no exact f32 route")
+        return (*rest, stream)
+
+    def field_fwd_blocks(self, *dims):
+        blocks = self._lib.field_bwd_blocks if self._gridless else self._lib.field_fwd_blocks
+        return blocks(*dims[:-1])
+
+    def field_bwd_blocks(self, *dims):
+        return self._lib.field_bwd_blocks(*dims[:-1])
+
+    def field_fwd(self, ws, coords, out, n_blocks, *rest):
+        grid = () if self._gridless else (n_blocks,)
+        return self._lib.field_fwd(ws, coords, out, *grid, *self._tier(rest))
+
+    def field_bwd(self, *args):
+        return self._lib.field_bwd(*self._tier(args))
 
 
-def bind_field(lib):
+def takes_tier(csrc: Path) -> bool:
+    """Whether the field entry points of the ``csrc`` directory take their
+    precision route (``exact``), as this tree's do."""
+    return "int exact" in (csrc / "field_fwd.cu").read_text()
+
+
+def bind_field(lib, tier: bool = True):
     """``lib`` with its field entry points' signatures set, under this tree's
-    C ABI (an older library's forward wrapped in :class:`_GridlessFwd`)."""
+    C ABI (an older library, built from sources without the precision route
+    (``tier`` False), wrapped in :class:`_OlderField`)."""
     gridless = not hasattr(lib, "field_fwd_blocks")
     for name, argtypes in build.SIGNATURES.items():
+        if not name.startswith("field_") or (gridless and name == "field_fwd_blocks"):
+            continue
+        if not tier:  # no exact argument: before the stream, or the last
+            argtypes = argtypes[:-1] if name.endswith("_blocks") else argtypes[:-2] + [
+                argtypes[-1]]
         if name == "field_fwd" and gridless:
             argtypes = argtypes[:3] + argtypes[4:]
-        if name.startswith("field_") and not (gridless and name == "field_fwd_blocks"):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return _GridlessFwd(lib) if gridless else lib
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib if tier else _OlderField(lib, gridless)
 
 
 def field_calls(lib, pk, G, coords, cot, dims, tile):
@@ -366,7 +398,7 @@ def main(argv=None) -> dict:
     cfg, params, coords, cot = hires_inputs()
     nf = cfg.num_encoding_functions
     width = fused_mlp.kernel_width(params, 2, nf, 3)
-    dims = (cfg.num_layers, cfg.in_channels, width, nf, 3)
+    dims = (cfg.num_layers, cfg.in_channels, width, nf, 3, 0)  # the 3xTF32 route
     G = fused_mlp.grad_floats(params, width)
     tables = {"": (VARIANTS, build.CSRC, fused_mlp.pack_field_params(params, width),
                    fused_mlp.TILE, _KERNEL)}
@@ -381,8 +413,8 @@ def main(argv=None) -> dict:
             libs[prefix + name] = path
             whole[prefix + name] = name in WHOLE
             kernel[prefix + name] = kname
-            calls[prefix + name] = field_calls(bind_field(ctypes.CDLL(str(path))), pk, G,
-                                               coords, cot, dims, tile)
+            lib = bind_field(ctypes.CDLL(str(path)), takes_tier(csrc))
+            calls[prefix + name] = field_calls(lib, pk, G, coords, cot, dims, tile)
     want = (fused_mlp._launch_fwd(tables[""][2], coords, *dims).clone(),
             fused_mlp._launch_bwd(tables[""][2], G, coords, cot, *dims).clone())
     same = {}

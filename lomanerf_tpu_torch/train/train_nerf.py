@@ -11,8 +11,9 @@ its render; checkpoints every ``--ckpt-every`` steps and at the end;
 ``--resume`` restarts from the latest.  Every view's rays and targets stay
 on the device: each step sends only the ray indices.
 
-Not ported yet (ROADMAP queue 1, item 10): ``--tp``, ``--coordinator``,
-``--pipeline native|numpy`` and the mesh-sharded eval.
+Not ported yet (ROADMAP queue 1, items 1 and 2): ``--tp``,
+``--coordinator`` and the mesh-sharded eval (item 1), ``--pipeline
+native|numpy`` (item 2).
 
 Run: ``python -m lomanerf_tpu_torch.train.train_nerf --preset small --steps 500``
 (the narrow kernels) or ``--preset full --steps 300`` (the 8x256 bf16

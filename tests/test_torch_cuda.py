@@ -18,7 +18,8 @@ flip moves off the plain version in f32 to the plain version in f64), and
 on broadcast (S,) depths to the shared-depth kernels bit for bit, the wide
 ones over many ray chunks to the one-chunk call.  The 2D field's kernels
 (#13, #14) are held to the same bounds as the narrow ones, and so are
-narrow MLPs past one block's shared memory on the wide kernels.  The
+narrow MLPs past one block's shared memory on the wide kernels; the field's
+"highest" tier (f32 FMA products) to the plain version in f64.  The
 segmented scans (#15) and the grid-overhead probe's sum (#16) are held to
 numpy's f64 results and their plain versions, the sum also bit for bit to
 the numpy restatement of its fixed order; the wide chain's bf16 dW stage
@@ -77,6 +78,42 @@ def test_kernel_matches_plain_version(preset, mode):
     assert fused_nerf.launches["nerf_render_fwd"] == before + 1
     want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["small", "single64", "small-S31"])
+@pytest.mark.parametrize("mode", ["loma", "standard"])
+@pytest.mark.parametrize("n_rays", [1, 31, N_RAYS])
+def test_render_forward_groups_match_plain_repeat_and_broadcast(preset, mode, n_rays):
+    """The render forward (#1, and #4 on per-ray depths), whose threads run a
+    ray's samples in pairs: against the plain version at atol/rtol 1e-4 on
+    uniform and on jittered depths, at S = 30 and 64 and at an odd S (the
+    last pair ragged), two launches bit-identical, and #4 on the (S,)
+    depths broadcast to (N, S) bit-identical to #1."""
+    need_card()
+    rng = np.random.default_rng(41)
+    cfg = dataclasses.replace(NeRFConfig.small(), num_samples=31) if preset == "small-S31" \
+        else NeRFConfig.preset(preset)
+    cfg = dataclasses.replace(cfg, mode=mode)
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    o, d = cuda_rays(rng, n_rays)
+    t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    _, tj, dj = NeRFModel(cfg).sample(o, d, generator=torch.Generator("cuda").manual_seed(9))
+    before = dict(fused_nerf.launches)
+    with torch.no_grad():
+        for tv, dv in ((t, dists), (tj, dj)):
+            got = fused_nerf.render_rays(params, o, d, tv, dv, cfg)
+            again = fused_nerf.render_rays(params, o, d, tv, dv, cfg)
+            want = fused_nerf.render_rays_reference(params, o, d, tv, dv, cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        shared = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+        rays = fused_nerf.render_rays(params, o, d, t.expand(n_rays, -1),
+                                      dists.expand(n_rays, -1), cfg)
+    assert torch.equal(shared, rays)
+    assert fused_nerf.launches["nerf_render_fwd"] == before["nerf_render_fwd"] + 3
+    assert fused_nerf.launches["nerf_render_fwd_rays"] == before["nerf_render_fwd_rays"] + 3
 
 
 def grads_of(params, fn):
@@ -493,6 +530,42 @@ def test_field_kernels_match_plain_and_repeat_exactly(preset, n_px):
     c = coords.clone().requires_grad_(True)
     fused_mlp.field_forward(params, c, nf).sum().backward()
     assert c.grad is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", list(FIELDS))
+@pytest.mark.parametrize("n_px", [1037, 31])
+def test_field_highest_tier_matches_f64_autograd(preset, n_px):
+    """The field on the "highest" tier (f32 FMA products) against autograd of
+    the plain version in f64: the forward at atol/rtol 1e-5, dW/db at the
+    gradient kernels' bound (rtol 3e-4, atol 3e-5 of max(1, the leaf's
+    largest entry)); repeats bit-identical; a model whose config asks for
+    "highest" gets the same gradients through its own predict_coords."""
+    need_card()
+    rng = np.random.default_rng(43)
+    cfg = dataclasses.replace(FIELDS[preset], precision="highest")
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    coords = torch.from_numpy(rng.random((n_px, 2)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.standard_normal((n_px, 3)).astype(np.float32)).cuda()
+    nf = cfg.num_encoding_functions
+
+    def run(fn, prm, c, y):
+        return grads_of(prm, lambda: (fn(prm, c, nf) * y).sum()), fn(prm, c, nf).detach()
+
+    def exact(prm, c, n):
+        return fused_mlp.field_forward(prm, c, n, precision="highest")
+    (k, out), (k2, out2) = run(exact, params, coords, cot), run(exact, params, coords, cot)
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(k, k2))
+    p64 = {key: [x.detach().double() for x in v] for key, v in params.items()}
+    w, want = run(fused_mlp.field_forward_reference, p64, coords.double(), cot.double())
+    torch.testing.assert_close(out.double(), want, atol=1e-5, rtol=1e-5)
+    assert_grads_close([g.double() for g in k[1:]], w[1:])
+    model = ImageFieldModel(cfg)
+    model.load_params(params)
+    before = dict(fused_mlp.launches)
+    got = grads_of(model.params, lambda: (model.predict_coords(coords) * cot).sum())
+    assert fused_mlp.launches["field_bwd"] == before["field_bwd"] + 1
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], k[1:]))
 
 
 @pytest.mark.cuda

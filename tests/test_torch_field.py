@@ -606,3 +606,65 @@ def test_field_variants_edit_the_current_source():
         for main in (field_variants.main, lambda a: card_probe.main(["--what", "field", *a])):
             with pytest.raises(SystemExit):
                 main([])
+
+
+@pytest.mark.parametrize("tier,exact", [("highest", 1), ("high", 0), ("default", 0)])
+def test_model_precision_reaches_the_field_wrapper(rng, monkeypatch, tier, exact):
+    """``ImageFieldModel.predict_coords`` (and so ``loss`` and ``render``)
+    passes the config's precision to ``fused_mlp.field_forward``, which maps
+    the JAX package's tiers to the kernels' product route: "highest" exact
+    f32 FMAs, "high" and "default" 3xTF32."""
+    seen = []
+    real = fused_mlp.field_forward
+
+    def spy(params, coords, nf, out_channels=3, precision="high"):
+        seen.append(precision)
+        return real(params, coords, nf, out_channels, precision=precision)
+    monkeypatch.setattr(fused_mlp, "field_forward", spy)
+    cfg = ImageFieldConfig(precision=tier, img_size=4)
+    ws, bs = field_params(rng, cfg.num_layers, cfg.filter_size, cfg.num_encoding_functions)
+    model = ImageFieldModel.from_numpy(cfg, ws, bs, device="cpu")
+    coords = image_grid_coords(4)
+    model.loss(coords, torch.zeros(16, 3)).backward()
+    model.render()
+    assert seen == [tier, tier]
+    assert fused_mlp.exact_tier(tier) == exact
+
+
+@pytest.mark.parametrize("tier", ["HIGHEST", "bf16x3", "", None, True, 1])
+def test_unknown_precision_tier_is_refused(rng, tier):
+    """A tier the JAX package does not name is refused on any device, before
+    the plain version or a kernel runs."""
+    ws, bs = field_params(rng, 3, 16, 5)
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    with pytest.raises(ValueError, match="precision tier"):
+        fused_mlp.field_forward(params, torch.zeros(4, 2), 5, precision=tier)
+    with pytest.raises(ValueError, match="precision tier"):
+        ImageFieldModel.from_numpy(ImageFieldConfig(precision=tier), ws, bs,
+                                   device="cpu").predict_coords(torch.zeros(4, 2))
+
+
+@pytest.mark.parametrize("exact", [0, 1])
+def test_field_function_passes_the_route_to_both_launches(rng, monkeypatch, exact):
+    """``_FieldFwd`` hands its route to the forward and the gradient launch
+    (the launchers stubbed with the plain version on CPU tensors)."""
+    calls = []
+    ws, bs = field_params(rng, 3, 16, 5)
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    coords = torch.from_numpy(rng.random((37, 2)).astype(np.float32))
+    width = fused_mlp.kernel_width(params, 2, 5, 3)
+
+    def fwd(pk, c, *dims):
+        calls.append(("fwd", dims))
+        return fused_mlp.field_forward_reference(params, c, 5).detach()
+
+    def bwd(pk, G, c, dout, *dims):
+        calls.append(("bwd", dims))
+        return torch.zeros(G)
+    monkeypatch.setattr(fused_mlp, "_launch_fwd", fwd)
+    monkeypatch.setattr(fused_mlp, "_launch_bwd", bwd)
+    lv = [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+    out = fused_mlp._FieldFwd.apply(coords, 5, 3, width, exact, *lv)
+    out.sum().backward()
+    dims = (3, 22, width, 5, 3, exact)
+    assert calls == [("fwd", dims), ("bwd", dims)]

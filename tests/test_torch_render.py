@@ -96,7 +96,9 @@ def kernel_walk(pk, origins, directions, S, L, in_dim, nf, W, loma, depths=None)
     packed buffer with the kernel's own offsets (f64 arithmetic): the
     shared depths from its tail, or, with ``depths = (t, dists)`` (N, S),
     row r for ray r (nerf_render_fwd_rays: the buffer then ends with the
-    weights)."""
+    weights).  A ray's samples go in the kernel's groups
+    (``fused_nerf.sample_groups``): every slot's MLP runs, the pad slots of
+    the last group on sample S-1, and only the real ones are composited."""
     pk = pk.astype(np.float64)
     l0_cols = 4 if L == 1 else W
     w_first = 0
@@ -114,30 +116,34 @@ def kernel_walk(pk, origins, directions, S, L, in_dim, nf, W, loma, depths=None)
         w = pk[off:off + rows * cols].reshape(rows, cols)
         return x @ w + pk[off + rows * cols:off + rows * cols + cols]
 
+    def mlp(p):
+        enc = [p]
+        for i in range(nf):
+            enc += [np.sin(2.0**i * p), np.cos(2.0**i * p)]
+        z = layer(np.concatenate(enc), w_first, in_dim, l0_cols)
+        if L >= 2:
+            h = np.maximum(z, 0.0)
+            for l in range(1, L - 1):
+                h = np.maximum(layer(h, w_hidden + (l - 1) * (W * W + W), W, W), 0.0)
+            z = layer(h, w_head, W, 4)
+        return z
+
     out = np.zeros((origins.shape[0], 3))
     for r in range(origins.shape[0]):
         t, dist = t_rays[r], d_rays[r]
         P, acc = 1.0, np.zeros(3)
-        for s in range(S):
-            p = origins[r] + directions[r] * t[s]
-            enc = [p]
-            for i in range(nf):
-                enc += [np.sin(2.0**i * p), np.cos(2.0**i * p)]
-            z = layer(np.concatenate(enc), w_first, in_dim, l0_cols)
-            if L >= 2:
-                h = np.maximum(z, 0.0)
-                for l in range(1, L - 1):
-                    h = np.maximum(layer(h, w_hidden + (l - 1) * (W * W + W), W, W), 0.0)
-                z = layer(h, w_head, W, 4)
-            sigma = max(z[3], 0.0)
-            e = np.exp(-sigma * dist[s])
-            if loma:
-                P *= e + 1e-10
-                T = 1.0 if s == 0 else P
-            else:
-                T = P
-                P *= e + 1e-10
-            acc += (1.0 - e) * T / (1.0 + np.exp(-z[:3]))
+        for slots, real in fused_nerf.sample_groups(S, fused_nerf.RENDER_GROUP):
+            rgba = [mlp(origins[r] + directions[r] * t[s]) for s in slots]
+            for s, z in zip(slots[:real], rgba):
+                sigma = max(z[3], 0.0)
+                e = np.exp(-sigma * dist[s])
+                if loma:
+                    P *= e + 1e-10
+                    T = 1.0 if s == 0 else P
+                else:
+                    T = P
+                    P *= e + 1e-10
+                acc += (1.0 - e) * T / (1.0 + np.exp(-z[:3]))
         out[r] = acc
     return out
 
@@ -187,6 +193,56 @@ def test_packed_layout_matches_plain_render(rng, layers, width, mode, depths):
     np.testing.assert_allclose(got, want.numpy(), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("S", [1, 30, 64, 7])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_sample_groups_match_a_direct_restatement(S, group):
+    """The render forward's walk over a ray's samples (nerf_render_fwd.cu):
+    groups of ``group`` slots from every multiple of ``group``, the last
+    one's pad slots on sample S-1; the real slots take each sample once, in
+    order.  The kernel runs groups of 2 (an odd S ends in one real slot)."""
+    n_groups = -(-S // group)
+    slots = np.minimum(np.arange(n_groups * group).reshape(n_groups, group), S - 1)
+    real = np.minimum(group, S - group * np.arange(n_groups))
+    got = fused_nerf.sample_groups(S, group)
+    assert [g[0] for g in got] == slots.tolist()
+    assert [g[1] for g in got] == real.tolist()
+    assert [s for sl, n in got for s in sl[:n]] == list(range(S))
+    assert fused_nerf.RENDER_GROUP == 2
+
+
+@pytest.mark.parametrize("S", [1, 30, 64])
+@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("per_ray", [False, True])
+def test_render_smem_bytes_match_a_direct_restatement(S, width, per_ray):
+    """A render block's shared memory (nerf_render_fwd.cu:render_smem_floats):
+    the packed params, 128 threads' activation stage of 2 x W floats, and
+    for per-ray depths the block's t and dist rows at an odd stride."""
+    pk_floats = 2468
+    stride = S + 1 if S % 2 == 0 else S
+    want = 4 * (pk_floats + 128 * 2 * width + (2 * 128 * stride if per_ray else 0))
+    assert fused_nerf.render_smem_bytes(pk_floats, S, width, per_ray) == want
+    assert fused_nerf.RENDER_THREADS == 128
+
+
+def test_render_block_past_shared_memory_routes_wide(rng):
+    """The narrow route also needs the render's block to fit: a 2-layer
+    W = 32 MLP at S = 256 fits the gradient kernels' block but its render
+    block (256 rows of staged per-ray depths a thread pair) does not, so it
+    goes wide at pw = 128; the presets stay narrow."""
+    params = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, 2, 32)), "cpu")
+    cfg = NeRFConfig(num_layers=2, filter_size=32, num_samples=256)
+    G = fused_nerf.grad_floats(params, 32)
+    pk = G + 512
+    assert fused_nerf.grad_smem_bytes(pk, G, 256, 2, 33, 32) <= 227 * 1024
+    assert fused_nerf.render_smem_bytes(pk, 256, 32, per_ray=True) > 227 * 1024
+    assert fused_nerf._plan(cfg, params) == ("wide", 128)
+    for preset, W in (("small", 32), ("single64", 64)):
+        c = NeRFConfig.preset(preset)
+        p = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, c.num_layers,
+                                                              c.filter_size)), "cpu")
+        assert fused_nerf._plan(c, p) == ("narrow", W)
+
+
 def test_kernel_refuses_what_it_does_not_take(rng):
     """The JAX dispatch rule routes each MLP to the narrow kernels (every
     width padded to 8 at most 64) or the wide ones (hidden widths up to 256,
@@ -220,3 +276,26 @@ def test_kernel_refuses_what_it_does_not_take(rng):
             fused_nerf._check_cuda_inputs(o, o, bad_t, bad_d, small, params)
     with pytest.raises(ValueError):  # targets of another ray count
         fused_nerf._check_cuda_inputs(o, o, t, t, small, params, torch.zeros(5, 3))
+
+
+def test_render_variants_edit_the_current_source():
+    """Every variant of ``scripts/render_variants`` applies to the render's
+    sources as they stand ("as is" is them unchanged, every other variant
+    changes them), an edit that no longer matches is refused, and the script
+    and ``card_probe --what render`` refuse to run without a card."""
+    from lomanerf_tpu_torch.ops import build
+    from lomanerf_tpu_torch.scripts import card_probe, render_variants
+
+    srcs = render_variants.patched(render_variants.VARIANTS, render_variants.FILES)
+    now = {f: (build.CSRC / f).read_text() for f in render_variants.FILES}
+    now["render_entry.cuh"] = now.pop("nerf_render_fwd.cu")
+    assert srcs.pop("as is") == now
+    assert all(texts != now for texts in srcs.values())
+    with pytest.raises(SystemExit, match="out of date"):
+        render_variants.patched({"x": ([("nerf_render_mlp.cuh", "no such line", "", 1)],
+                                       False)}, render_variants.FILES)
+    if not torch.cuda.is_available():
+        for main in (lambda: render_variants.main([]),
+                     lambda: card_probe.main(["--what", "render", "--parent", "x"])):
+            with pytest.raises(SystemExit):
+                main()
