@@ -110,10 +110,14 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     version through the kernel or through the plain version in f32, by
     bisecting ray chunks, and lists their near-zero hidden
     pre-activations;
-18. holds ``seg_scans`` (#15) against numpy, its plain version and the
-    library call at R=4/S=6, S=128 down to 1e-10 and the main path's
-    262,144 x 30 column (timed), and checks the SHA-256 digests of the
-    twelve NeRF entry points' outputs against ``KERNEL_DIGESTS``;
+18. holds ``seg_scans`` (#15) to numpy's f32 sequential accumulate bit
+    for bit, and to numpy f64, its plain version and the library call, at
+    R=4/S=6, S=128 down to 1e-10 (subnormal products), S=64 and S=30 at a
+    ragged R (the latter at an unaligned storage offset), S=2048 (the
+    direct walk) and the 262,144 x 30 column, timed there (the card's work
+    alone, with the L2 as found and flushed), and checks the SHA-256
+    digests of the twelve NeRF entry points' outputs against
+    ``KERNEL_DIGESTS``;
 19. runs the grid-overhead sweep (#16,
     ``lomanerf_tpu_torch.scripts.grid_overhead``) at 7,864,320 rows, then
     ``grid_sum`` alone against its plain version and ``torch.sum``, and
@@ -122,7 +126,8 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
-scans at the main path's column) and 19 (the sweep) are the main paths:
+scans' own timed runs at the 262,144 x 30 column: no train step or frame
+launches ``seg_scans``) and 19 (the sweep) are the main paths:
 each kernel's launch count is reset before its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
 sixteen kernels (with each one's least time on the card for its work,
@@ -131,7 +136,9 @@ and its share of the bound beside it, #4's with its share; #14's with
 phase 10's whole-image leaves and flips per route; #3's also with phase
 6's split of the step; #8's also with
 phase 9's fused MLP alone, #10 new against old and the frame's split by
-kernel family), and ``{"ok": true,
+kernel family; #15's ``ms``, ``plain_ms`` and ``library_ms`` the cumprod's
+card work with the L2 flushed, with its share and every op's times, as
+found and flushed, beside them), and ``{"ok": true,
 "device": ...}``.  It exits
 non-zero, before printing any result, without a CUDA device or outside a
 checkout of the repository; any failing phase raises.
@@ -2445,27 +2452,49 @@ def scan_close(got, want, what):
     return rel
 
 
-def phase_seg_scans(scans, smi, seed=29):
-    """Phase 18: ``seg_scans`` (#15) through ``scans.seg_*`` against numpy
-    (f64 of the same f32 inputs), its plain version and the library call:
-    cumprod and suffix sum within rtol 1e-5 where the f64 value is a normal
+SCAN_SHAPES = (  # (R, S, values, fill, storage offset in floats)
+    (4, 6, "unit", 1.0, 0), (4, 6, "unit", 0.0, 0), (1024, 128, "tiny", 1.0, 0),
+    (1037, 64, "tiny", 1.0, 0), (1037, 30, "tiny", 0.0, 1), (37, 2048, "tiny", 1.0, 0),
+    (BENCH_RAYS, 30, "tiny", 1.0, 0))
+
+
+def scan_bits(x):
+    """numpy's f32 sequential accumulate of an (R, S) f32 array: the bits
+    every ``seg_scans`` output must have (the product along a segment, the
+    sum along the reversed one)."""
+    return {"cumprod": np.multiply.accumulate(x, axis=1),
+            "suffix": np.add.accumulate(x[:, ::-1], axis=1)[:, ::-1]}
+
+
+def phase_seg_scans(scans, variants, smi, seed=29):
+    """Phase 18: ``seg_scans`` (#15) through ``scans.seg_*`` against numpy's
+    f32 sequential accumulate of the same inputs bit for bit, numpy f64, its
+    plain version and the library call: cumprod and suffix sum within rtol
+    1e-5 of f64 and of the plain version where the reference is a normal
     f32 (both at most 1.2e-38 where the product underflows), the shift
-    exact, at R = 4, S = 6 on [0.5, 1.5) (the JAX test's), fill 1 and 0;
-    R = 1024, S = 128 on [1e-10, 1]; and the main path's 262,144 x 30
-    column, then timed there (kernel, plain version, library call in
-    turns), its launches the main path's.  Returns ``(worst |kernel -
-    plain|, launches, {op: (ms, plain_ms, library_ms)}, bound)``."""
+    exact, repeat launches bit-identical, at ``SCAN_SHAPES``: R = 4, S = 6
+    on [0.5, 1.5) (the JAX test's), fill 1 and 0; S = 128 on [1e-10, 1]
+    (subnormal products); S = 64 (an even stride) and S = 30 at a ragged R,
+    the latter at a storage offset of one float (not 16-B aligned); S =
+    2048 (past one run's fit: the direct walk); the 262,144 x 30 column.
+    Then the timed main path at that column: kernel, plain version and
+    library call in turns, the card's work alone (``variants.device_turns``),
+    as found and with the L2 flushed (a 128 MiB read) before each call; its
+    launches are this phase's own (no train step or frame runs the scans).
+    Returns ``(worst |kernel - plain|, launches, {op: {"warm" | "flushed":
+    (ms, plain_ms, library_ms)}}, bound)``."""
     rng = np.random.default_rng(seed)
     fns = {"cumprod": (scans.seg_inclusive_cumprod, scans.seg_inclusive_cumprod_reference),
            "suffix": (scans.seg_suffix_sum, scans.seg_suffix_sum_reference),
            "shift": (scans.seg_shift_down, scans.seg_shift_down_reference)}
     worst = 0.0
     main = None
-    for R, S, kind, fill in ((4, 6, "unit", 1.0), (4, 6, "unit", 0.0),
-                             (1024, 128, "tiny", 1.0), (BENCH_RAYS, 30, "tiny", 1.0)):
+    for R, S, kind, fill, offset in SCAN_SHAPES:
         x = scan_inputs(rng, R, S, kind)
-        col = torch.from_numpy(x).cuda().reshape(-1, 1)
-        wants = scan_wants(x, fill)
+        buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), x.ravel()]))
+        col = buf.cuda()[offset:].reshape(-1, 1)
+        wants, bits = scan_wants(x, fill), scan_bits(x)
+        route = scans.scan_plan(R * S, S).route
         line = []
         for op, (kernel, plain) in fns.items():
             args = (S, fill) if op == "shift" else (S,)
@@ -2482,14 +2511,19 @@ def phase_seg_scans(scans, smi, seed=29):
                     raise AssertionError(f"seg_shift_down R={R} S={S} fill={fill}: not exact")
                 line.append("shift exact")
                 continue
+            apart = int((got.cpu().numpy().view(np.uint32) != bits[op].view(np.uint32)).sum())
+            if apart:
+                raise AssertionError(f"seg_scans {op} R={R} S={S}: {apart} values differ "
+                                     "from numpy's f32 accumulate")
             e_np = scan_close(got, wants[op], f"seg_scans {op} R={R} S={S} vs numpy")
             e_pl = scan_close(k1, p, f"seg_scans {op} R={R} S={S} vs its plain version")
             worst = max(worst, (k1 - p).abs().max().item())
-            line.append(f"{op} rel err {e_np:.2e} vs numpy f64, {e_pl:.2e} vs plain")
-        under = int((wants["cumprod"] < SCAN_TINY).sum())
-        print(f"phase 18 seg_scans R={R} S={S} on {kind} values, fill {fill}: "
-              + "; ".join(line) + f"; repeat launches bit-identical ({under} products "
-              "underflow)")
+            line.append(f"{op} equal to numpy's f32 accumulate bit for bit, rel err "
+                        f"{e_np:.2e} vs numpy f64, {e_pl:.2e} vs plain")
+        under = int((bits["cumprod"] < SCAN_TINY).sum())
+        print(f"phase 18 seg_scans R={R} S={S} ({route}) on {kind} values, fill {fill}, "
+              f"offset {offset}: " + "; ".join(line) + f"; repeat launches bit-identical "
+              f"({under} products below 1.2e-38)")
         if R == BENCH_RAYS:
             main = (col, S)
 
@@ -2497,6 +2531,7 @@ def phase_seg_scans(scans, smi, seed=29):
     view = col.reshape(-1, S)
     library = {"cumprod": lambda: torch.cumprod(view, dim=1),
                "suffix": lambda: torch.flip(torch.cumsum(torch.flip(view, [1]), dim=1), [1])}
+    flush = variants.l2_flush()
     scans.launches["seg_scans"] = 0
     timing = {}
     for op, (kernel, plain) in fns.items():
@@ -2506,17 +2541,23 @@ def phase_seg_scans(scans, smi, seed=29):
             turns["library"] = library[op]
         for fn in turns.values():
             fn()  # warm-up
-        ts = timed_turns(turns, 5)
-        timing[op] = tuple(statistics.median(ts[k]) if k in ts else None
-                           for k in ("kernel", "plain", "library"))
-        print(f"phase 18 {op} at the main path's {BENCH_RAYS} x {S} column, on {smi}: "
-              + ", ".join(f"{k} {spread(v)}" for k, v in ts.items()))
+        timing[op] = {}
+        for mode, fl in (("warm", None), ("flushed", flush)):
+            ts = variants.device_turns(turns, 3, fl)
+            timing[op][mode] = tuple(statistics.median(ts[k]) if k in ts else None
+                                     for k in ("kernel", "plain", "library"))
+            print(f"phase 18 {op} at the {BENCH_RAYS} x {S} column, the card's work, L2 "
+                  f"{'as found' if fl is None else 'flushed'}, on {smi}: "
+                  + ", ".join(f"{k} {spread(v)}" for k, v in ts.items()))
     launches = scans.launches["seg_scans"]
     nbytes = 2 * col.numel() * 4
     kb = bound(col.numel() / 2, PEAK_F32, nbytes)  # one operation per value
     print(f"phase 18 seg_scans launches on the main path: {launches}; bound {kb[0]:.4f} ms "
-          f"({kb[1]}: {nbytes / 1e6:.1f} MB read and written), cumprod at "
-          f"{kb[0] / timing['cumprod'][0]:.1%} of it")
+          f"({kb[1]}: {nbytes / 1e6:.1f} MB read and written); with the L2 flushed "
+          + ", ".join(f"{op} {t['flushed'][0]:.4f} ms ({kb[0] / t['flushed'][0]:.1%})"
+                      for op, t in timing.items())
+          + "; L2 as found " + ", ".join(f"{op} {t['warm'][0]:.4f} ms"
+                                         for op, t in timing.items()))
     return worst, launches, timing, kb
 
 
@@ -2706,7 +2747,7 @@ def main() -> None:
                                            NeRFModel, image_grid_coords)
     from lomanerf_tpu_torch.ops import (build, fused_mlp, fused_nerf, probe, scans, wide_dw,
                                         wide_mlp)
-    from lomanerf_tpu_torch.scripts import grid_overhead
+    from lomanerf_tpu_torch.scripts import grid_overhead, variants
     from lomanerf_tpu_torch.train import fit_image, make_video, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
     from lomanerf_tpu_torch.train.logging_utils import read_png, write_png
@@ -2901,9 +2942,14 @@ def main() -> None:
     # ---- phase 18: the segmented scans (#15), and #1-#12's output digests ----
     library = {}
     worst["seg_scans"], launches["seg_scans"], scan_timing, bounds["seg_scans"] = \
-        phase_seg_scans(scans, smi)
-    timing["seg_scans"], library["seg_scans"] = scan_timing["cumprod"][:2], \
-        scan_timing["cumprod"][2]
+        phase_seg_scans(scans, variants, smi)
+    # the flushed cumprod: the column read from device memory, as the bound
+    timing["seg_scans"] = scan_timing["cumprod"]["flushed"][:2]
+    library["seg_scans"] = scan_timing["cumprod"]["flushed"][2]
+    extra["seg_scans"] = {
+        "share": bounds["seg_scans"][0] / timing["seg_scans"][0],
+        "ops": {op: {mode: dict(zip(("ms", "plain_ms", "library_ms"), t))
+                     for mode, t in modes.items()} for op, modes in scan_timing.items()}}
     phase_digests(fused_nerf, NeRFConfig)
 
     # ---- phase 19: the grid-overhead probe (#16) ----

@@ -2,10 +2,19 @@
 ``lomanerf_tpu.ops.pallas_utils`` and of the TPU kernel that runs them,
 ``tests/test_pallas_kernels.py:46``).
 
-One hand-written CUDA entry point, ``csrc/seg_scans.cu`` — ``seg_scans``:
-one thread per segment of ``S`` values walks it in order with the step
-functions of ``csrc/seg_scan.cuh``, the ones the NeRF kernels composite
-with (the transmittance's running product, the adjoint's suffix sum).
+One hand-written CUDA entry point, ``csrc/seg_scans.cu`` — ``seg_scans``.
+Device memory bounds it (one read and one write a value), so a warp owns a
+run of 32 whole segments: it stages the run into shared memory with
+coalesced 4-B copies (segment ``r`` at ``r * P``, ``P = S | 1``, so that the
+lanes' walks meet no bank conflict), each lane walks its segment there in
+order with the step functions of ``csrc/seg_scan.cuh`` (the ones the NeRF
+kernels composite with: the transmittance's running product, the adjoint's
+suffix sum), and the warp writes the run back coalesced.  An ``S`` whose run
+does not fit a block's shared memory takes the direct walk (one thread a
+segment, from device memory).  :func:`scan_plan` restates that choice.
+Either way every output bit is the in-order f32 walk's: numpy's
+``np.multiply.accumulate`` along a segment, ``np.add.accumulate`` along the
+reversed one.
 
 The functions keep the JAX names and argument order and take an
 ``(R * S, 1)`` or ``(R * S,)`` column, a ray's ``S`` samples contiguous; the
@@ -17,10 +26,44 @@ rows of the TPU's tiles; no layout of the port needs it.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 # kernel launches of the C entry point; a run resets and reads them
 launches = {"seg_scans": 0}
+
+# seg_scans.cu's kWarps (32-segment runs a block, at most), kSmemMax (the
+# dynamic shared memory a block may take) and kWalkThreads
+SCAN_WARPS, SCAN_SMEM_MAX, WALK_THREADS = 4, 232448, 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One ``seg_scans`` launch: ``route`` "staged" (a warp stages a run of
+    32 segments at tile stride ``stride``) or "direct" (a thread walks a
+    segment from device memory); ``threads`` a block, ``blocks``, and the
+    block's dynamic shared memory in bytes."""
+    route: str
+    stride: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def scan_plan(n_rows: int, num_samples: int) -> ScanPlan:
+    """The launch ``seg_scans`` makes for ``n_rows`` values in segments of
+    ``num_samples`` (the host mirror of ``seg_scans.cu:launch``): the staged
+    kernel with as many runs a block, up to ``SCAN_WARPS``, as fit
+    ``SCAN_SMEM_MAX``; the direct walk where not even one does."""
+    S = num_samples
+    n_seg = n_rows // S
+    stride = S | 1
+    warps = min(SCAN_WARPS, SCAN_SMEM_MAX // (32 * stride * 4))
+    if warps == 0:
+        return ScanPlan("direct", S, WALK_THREADS, -(-n_seg // WALK_THREADS), 0)
+    return ScanPlan("staged", stride, 32 * warps, -(-n_seg // (32 * warps)),
+                    warps * 32 * stride * 4)
 
 
 def seg_inclusive_cumprod_reference(x: torch.Tensor, num_samples: int) -> torch.Tensor:

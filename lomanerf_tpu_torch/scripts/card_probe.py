@@ -76,6 +76,15 @@ run against another checkout of the port to compare two trees.
   per library from one seeded init); and each tree's dW/db against autograd
   of the plain version at that image, with the (leaf, columns) that
   ReLU-mask flips move past rtol 1e-3 + 1e-4 of the leaf's largest entry.
+* ``--what scans [--parent DIR]``: ``seg_scans`` (#15), each op at the
+  262,144 x 30 column, the same values at S = 64 and 128, and 1024 x 128:
+  this tree's kernel, the same at tile stride S (bank conflicts at even
+  S) and the kernel of the checkout at ``DIR``, in turns in one process,
+  outputs required equal to numpy's f32 sequential accumulate bit for
+  bit: the card's work of one call by CUDA events behind a spin kernel,
+  with the L2 as found and flushed (a 128 MiB read; a 128 MiB write, whose
+  dirty lines the call's misses write back), and the kernel's duration
+  from one trace.
 * ``--what leaves``: each wide leaf's worst |kernel - plain| of the
   flagship's train-loss gradients, over the leaf's largest entry, on the
   inputs of ``chip_smoke.py`` phase 7 (``full()`` on 1037 rays, numpy seed
@@ -93,6 +102,7 @@ The last line is one JSON object with the numbers.  Run:
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
     python -m lomanerf_tpu_torch.scripts.card_probe --what field [--parent DIR]
     python -m lomanerf_tpu_torch.scripts.card_probe --what walk --parent DIR
+    python -m lomanerf_tpu_torch.scripts.card_probe --what scans [--parent DIR]
 """
 
 from __future__ import annotations
@@ -769,12 +779,115 @@ def field_against(parent: str, rounds: int = 3) -> dict:
     return out
 
 
+# the main path's column, the same 7,864,320 values at S = 64 and 128, and
+# the 1024 x 128 column of the tests
+SCAN_SHAPES = ((262144, 30), (122880, 64), (61440, 128), (1024, 128))
+# the staged kernel with its tile stride P = S | 1 edited to P = S: even S
+# meets 2-way bank conflicts at S = 30 and 32-way at S = 64 and 128
+SCAN_STRIDE_EDIT = ("const int P = S | 1;", "const int P = S;", 1)
+
+
+def scan_stride_s():
+    """``seg_scans.cu`` built with ``SCAN_STRIDE_EDIT`` (under
+    ``build/scan_variants/``), its entry point bound."""
+    from lomanerf_tpu_torch.ops import build
+    from lomanerf_tpu_torch.scripts import variants
+
+    src = variants.patch(build.CSRC / "seg_scans.cu", [SCAN_STRIDE_EDIT], "card_probe")
+    path = variants.compile_all({"stride S": {}}, src, build.BUILD_ROOT.parent / "scan_variants",
+                                "card_probe")["stride S"]
+    lib = ctypes.CDLL(str(path))
+    lib.seg_scans.argtypes, lib.seg_scans.restype = build.SIGNATURES["seg_scans"], ctypes.c_int
+    return lib
+
+
+def scans_against(parent: str | None, rounds: int = 3, calls: int = 20) -> dict:
+    """``seg_scans`` (#15) of this tree, of this tree at tile stride S
+    (:func:`scan_stride_s`) and of the checkout at ``parent`` (built there)
+    if given, in turns in one process (``scans`` bound to each library):
+    each op at ``SCAN_SHAPES`` on [1e-10, 1] values (numpy seed 29), every
+    output required equal to numpy's f32 sequential accumulate bit for
+    bit; the card's work of one call (``variants.device_turns``), median
+    of ``2 * rounds``, with the L2 as found, flushed by a 128 MiB read and
+    flushed by a 128 MiB write before each call; and the kernel's own
+    duration in one trace of ``calls`` read-flushed cumprods at 262,144 x
+    30 a tree (the parent's after a marker kernel)."""
+    from lomanerf_tpu_torch.ops import build, scans
+    from lomanerf_tpu_torch.scripts import variants
+
+    libs = {"stride S": scan_stride_s(), "this tree": build.load()}
+    if parent:
+        libs = {"parent": parent_library(parent), **libs}
+    load = build.load
+
+    def on(lib, fn):
+        build.load = lambda: libs[lib]
+        try:
+            return fn()
+        finally:
+            build.load = load
+
+    fns = {"cumprod": scans.seg_inclusive_cumprod, "suffix": scans.seg_suffix_sum,
+           "shift": lambda c, S: scans.seg_shift_down(c, S, 1.0)}
+    flushes = {"warm": None, "read-flushed": variants.l2_flush("read"),
+               "write-flushed": variants.l2_flush("write")}
+    rng = np.random.default_rng(29)
+    out = {"what": "scans", "parent": parent, "rounds": rounds, "device": variants.card()}
+    for R, S in SCAN_SHAPES:
+        x = (10.0 ** (-10.0 * rng.random((R, S)) ** 6)).astype(np.float32)
+        col = torch.from_numpy(x).cuda().reshape(-1, 1)
+        bits = {"cumprod": np.multiply.accumulate(x, axis=1),
+                "suffix": np.add.accumulate(x[:, ::-1], axis=1)[:, ::-1],
+                "shift": np.concatenate([np.ones((R, 1), np.float32), x[:, :-1]], axis=1)}
+        for op, fn in fns.items():
+            run = {lib: (lambda lib=lib, fn=fn: on(lib, lambda: fn(col, S))) for lib in libs}
+            for lib, call in run.items():
+                got = call().cpu().numpy().reshape(R, S)
+                if not np.array_equal(got.view(np.uint32), bits[op].view(np.uint32)):
+                    raise SystemExit(f"card_probe: {lib}'s {op} at {R} x {S} differs from "
+                                     "numpy's f32 accumulate")
+            out[f"{op} {R}x{S}"] = {
+                mode: {lib: statistics.median(v)
+                       for lib, v in variants.device_turns(run, rounds, fl).items()}
+                for mode, fl in flushes.items()}
+    # the kernels' own durations from the profiler, beside the events' windows
+    R, S = SCAN_SHAPES[0]
+    col = torch.from_numpy(np.random.default_rng(29).random((R * S, 1), np.float32)).cuda()
+    flush = flushes["read-flushed"]
+
+    def flushed(lib):
+        def go():
+            flush()
+            on(lib, lambda: scans.seg_inclusive_cumprod(col, S))
+        return go
+    names = ["this tree", *(["parent"] if parent else [])]
+    sets = device_events(flushed(names[0]), calls,
+                         after=flushed(names[1]) if parent else None)
+    sets = sets if parent else (sets,)
+    out["traced cumprod"] = {}
+    for lib, work in zip(names, sets):
+        durs = [w[2] / 1e3 for w in work if "seg_scan" in w[0]]
+        if len(durs) != calls:
+            raise SystemExit(f"card_probe: {len(durs)} seg_scan kernels traced, need {calls}")
+        out["traced cumprod"][lib] = statistics.median(durs)
+    print(f"seg_scans (#15), one call each, the card's work by CUDA events behind a spin "
+          f"kernel, {2 * rounds} in turns, median ms, on {out['device']}:")
+    for k, v in out.items():
+        if isinstance(v, dict) and k != "traced cumprod":
+            for mode, t in v.items():
+                print(f"  {k:17s} {mode:13s} " + "  ".join(f"{lib} {ms:8.4f}"
+                                                           for lib, ms in t.items()))
+    print(f"  kernel duration (profiler, {calls} read-flushed cumprods at {R}x{S}): "
+          + "  ".join(f"{lib} {ms:.4f}" for lib, ms in out["traced cumprod"].items()))
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", choices=("flagship", "small", "frame", "grid_sum", "leaves",
-                                       "walk", "field", "render"), required=True)
-    ap.add_argument("--parent", help="root of the checkout --what walk, field or render "
-                    "compares against")
+                                       "walk", "field", "render", "scans"), required=True)
+    ap.add_argument("--parent", help="root of the checkout --what walk, field, render or "
+                    "scans compares against")
     ap.add_argument("--preset", choices=("full", "small"), default="full",
                     help="the frame --what frame splits")
     ap.add_argument("--steps", type=int, default=3)
@@ -786,6 +899,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.what == "leaves":
         out = leaves()
+    elif args.what == "scans":
+        out = scans_against(args.parent, calls=args.calls)
     elif args.what in ("walk", "render"):
         if not args.parent:
             raise SystemExit(f"card_probe: --what {args.what} needs --parent DIR")

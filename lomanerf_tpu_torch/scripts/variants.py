@@ -2,7 +2,9 @@
 ``grad_variants``): a kernel header with textual edits, each variant built
 by ``nvcc`` with the port's flags into a library of its own (all compiled at
 once), its kernel's SASS counted and its registers and spills read from
-``ptxas -v``, and the variants' calls timed in turns by CUDA events.
+``ptxas -v``, and the variants' calls timed in turns by CUDA events
+(:func:`device_turns`: the card's work alone, with or without the L2
+flushed, for calls shorter than their host time).
 
 Needs the CUDA toolkit to compile and a card to time; the edits apply
 anywhere (the tests check that every edit still matches its source).
@@ -117,3 +119,39 @@ def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+
+
+SPIN_CYCLES = 200_000  # torch.cuda._sleep ahead of a timed call: ~0.1 ms of card work
+L2_FLUSH_FLOATS = 32 << 20  # 128 MiB, past the card's 50 MB L2
+
+
+def l2_flush(mode: str = "read"):
+    """A callable that leaves the card's L2 holding none of a call's data:
+    a read of a 128 MiB buffer, which leaves clean lines; with ``mode``
+    "write", a write of it, which leaves dirty ones that the next call's
+    misses write back."""
+    buf = torch.ones(L2_FLUSH_FLOATS, device="cuda")
+    return (lambda: buf.sum()) if mode == "read" else (lambda: buf.fill_(1.0))
+
+
+def device_turns(calls: dict, rounds: int, flush=None) -> dict:
+    """ms of each call's work on the card by CUDA events, in turns (every
+    round in order, then in reverse).  Before each call the card is idle,
+    then ``flush`` runs (if given) and a spin kernel keeps the card busy
+    while the host enqueues the call, so the events time the card's work
+    and not the host's."""
+    ms = {name: [] for name in calls}
+    order = list(calls.items())
+    for _ in range(rounds):
+        for name, call in order + order[::-1]:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            if flush is not None:
+                flush()
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    return ms

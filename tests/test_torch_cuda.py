@@ -21,8 +21,9 @@ ones over many ray chunks to the one-chunk call.  The 2D field's kernels
 narrow MLPs past one block's shared memory on the wide kernels; the field's
 "highest" tier (f32 FMA products) to the plain version in f64.  The
 segmented scans (#15) and the grid-overhead probe's sum (#16) are held to
-numpy's f64 results and their plain versions, the sum also bit for bit to
-the numpy restatement of its fixed order; the wide chain's bf16 dW stage
+numpy's f64 results and their plain versions, the scans also bit for bit
+to numpy's f32 sequential accumulate and the sum to the numpy restatement
+of its fixed order; the wide chain's bf16 dW stage
 (wgmma/TMA) to f64 of its rounded operands; the bf16 wide render's fused
 MLP (wgmma/TMA) to the ``mma.sync`` chain it replaced, bit for bit.
 """
@@ -646,12 +647,20 @@ def test_narrow_mlps_past_shared_memory_run_on_the_wide_kernels(layers):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,S,kind", [(4, 6, "unit"), (1024, 128, "tiny")])
-def test_seg_scans_kernel_matches_plain_and_numpy(R, S, kind):
-    """The seg_scans kernel (#15) against its plain version and numpy f64:
+@pytest.mark.parametrize("R,S,kind,offset", [
+    (4, 6, "unit", 0), (1024, 128, "tiny", 0), (262144, 30, "tiny", 0),
+    (1037, 64, "tiny", 0), (1037, 30, "tiny", 1), (33, 1815, "tiny", 1), (37, 2048, "tiny", 0)])
+def test_seg_scans_kernel_matches_plain_and_numpy(R, S, kind, offset):
+    """The seg_scans kernel (#15) against numpy's f32 sequential accumulate
+    of the same inputs bit for bit (the product along a segment, the sum
+    along the reversed one), against its plain version and numpy f64:
     cumprod and suffix sum within rtol 1e-5 where the f64 value is a normal
     f32 (both below 1.2e-38 where the product underflows), the shift exact,
-    repeat launches bit-identical, one launch counted per call."""
+    repeat launches bit-identical, one launch counted per call.  Shapes: the
+    JAX test's, S = 128 with subnormal products, the 262,144 x 30 column,
+    S = 64 (32-way banks at an even stride), ragged R, a column at a
+    storage offset of ``offset`` floats (not 16-B aligned), the largest S
+    the staged kernel takes and an S past it (the direct walk)."""
     need_card()
     from lomanerf_tpu_torch.ops import scans
 
@@ -659,10 +668,16 @@ def test_seg_scans_kernel_matches_plain_and_numpy(R, S, kind):
     rng = np.random.default_rng(R)
     u = rng.random((R * S, 1))
     x = (u + 0.5 if kind == "unit" else 10.0 ** (-10.0 * u ** 6)).astype(np.float32)
-    col = torch.from_numpy(x).cuda()
-    x64 = x.reshape(R, S).astype(np.float64)
+    buf = torch.from_numpy(np.concatenate([np.zeros((offset, 1), np.float32), x])).cuda()
+    col = buf[offset:]
+    assert col.data_ptr() % 16 == 4 * offset % 16
+    assert scans.scan_plan(R * S, S).route == ("direct" if S > 1815 else "staged")
+    x32 = x.reshape(R, S)
+    x64 = x32.astype(np.float64)
     wants = {"cumprod": np.cumprod(x64, axis=1),
              "suffix": np.cumsum(x64[:, ::-1], axis=1)[:, ::-1]}
+    bits = {"cumprod": np.multiply.accumulate(x32, axis=1),
+            "suffix": np.add.accumulate(x32[:, ::-1], axis=1)[:, ::-1]}
     for op, fn, ref in (("cumprod", scans.seg_inclusive_cumprod,
                          scans.seg_inclusive_cumprod_reference),
                         ("suffix", scans.seg_suffix_sum, scans.seg_suffix_sum_reference)):
@@ -670,8 +685,10 @@ def test_seg_scans_kernel_matches_plain_and_numpy(R, S, kind):
         got, again = fn(col, S), fn(col, S)
         assert scans.launches["seg_scans"] == before + 2
         assert got.shape == col.shape and torch.equal(got, again)
+        g32 = got.cpu().numpy().reshape(R, S)
+        np.testing.assert_array_equal(g32.view(np.uint32), bits[op].view(np.uint32))
         for want in (wants[op], ref(col, S).double().cpu().numpy().reshape(R, S)):
-            g = got.double().cpu().numpy().reshape(R, S)
+            g = g32.astype(np.float64)
             normal = np.abs(want) >= tiny
             np.testing.assert_allclose(g[normal], want[normal], rtol=1e-5, atol=0.0)
             assert np.all(np.abs(g[~normal]) <= tiny)
