@@ -122,12 +122,25 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     ``lomanerf_tpu_torch.scripts.grid_overhead``) at 7,864,320 rows, then
     ``grid_sum`` alone against its plain version and ``torch.sum``, and
     splits one call into its event window, its kernel's device time (one
-    kernel a call, ``scripts/card_probe.py``) and the wrapper's host time.
+    kernel a call, ``scripts/card_probe.py``) and the wrapper's host time;
+20. drives the data-parallel path (``lomanerf_tpu_torch.parallel``) in
+    ranks of its own (``parallel.run_ranks``): (a) a one-rank NCCL group's
+    step (the train kernel, one flat SUM all-reduce) at the bench shape,
+    bit-identical to ``make_single_chip_train_step``'s after 3 Adam steps,
+    both timed in turns; (b) two gloo ranks on the one card, each running
+    the train kernel on half of the 262,144 rays, at shared (#3) and per-ray
+    (#6) depths, their summed loss and gradients against one process's
+    kernel and against the plain version (phase 4's bounds); (c) the
+    800x800 ``small`` frame sharded over the two ranks, bit-identical to
+    ``render_image``'s and within phase 3's tolerance of the plain version
+    on the frame's rays; (d) a tensor-parallel step
+    (dp=1, tp=2, the plain path) against the single-process plain step.
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
 scans' own timed runs at the 262,144 x 30 column: no train step or frame
-launches ``seg_scans``) and 19 (the sweep) are the main paths:
+launches ``seg_scans``), 19 (the sweep) and 20 (each rank's data-parallel
+steps and sharded frame) are the main paths:
 each kernel's launch count is reset before its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
 sixteen kernels (with each one's least time on the card for its work,
@@ -2717,6 +2730,254 @@ def phase_grid_overhead(probe, grid_overhead, smi):
     return err, launches, med, kb, sweep
 
 
+DP_STEPS = 3  # phase 20 (a): Adam steps after which the params must be bit-identical
+DP_ROUNDS = 10  # its timing: rounds of single, data-parallel, data-parallel, single
+# phase 20 (d): the tensor-parallel step (plain path) at a narrow width
+TP_WIDTH, TP_LAYERS, TP_SAMPLES, TP_RAYS = 32, 4, 16, 4096
+
+
+def _rank_setup():
+    """A phase-20 rank's device, its kernels (built once per node), and the
+    TF32 switches the parent sets (a spawned rank starts without them)."""
+    from lomanerf_tpu_torch.parallel import build_kernels_once, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device("cuda")
+    build_kernels_once()
+    return dev
+
+
+def dp_one_rank():
+    """Phase 20 (a), on a one-rank NCCL group: the data-parallel step
+    (``parallel.make_train_step``: the train kernel, then one flat SUM
+    all-reduce over NCCL) and ``make_single_chip_train_step`` from the same
+    init at the bench shape (small, 262,144 rays, Adam 5e-4, bench.py's two
+    cycled batches): after ``DP_STEPS`` steps the params must be equal bit
+    for bit; then both steps timed in turns by CUDA events."""
+    import torch.distributed as dist
+
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.ops import fused_nerf
+    from lomanerf_tpu_torch.parallel import RayBatch, data_mesh, make_train_step, place_state
+    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
+
+    dev = _rank_setup()
+    cfg = NeRFConfig.small()
+    rng = np.random.default_rng(0)
+    batches = [bench_batch(rng, cfg, BENCH_RAYS) for _ in range(2)]
+    mesh = data_mesh(dev)
+    calls, models = {}, {}
+    for name in ("single", "dp"):
+        model = NeRFModel(cfg, device=dev)
+        model.init(torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        if name == "single":
+            step = make_single_chip_train_step(cfg, opt)
+            calls[name] = lambda b, m=model, s=step: s(m, *b)
+        else:
+            place_state(mesh, cfg, model, opt)
+            step = make_train_step(cfg, opt, mesh)
+            calls[name] = lambda b, m=model, s=step: s(m, RayBatch(*b))
+        models[name] = model
+    losses = {name: [] for name in calls}
+    launches = {}
+    for name in ("single", "dp"):  # the main path: the counts reset just before
+        reset_launches(fused_nerf)
+        for i in range(DP_STEPS):
+            losses[name].append(calls[name](batches[i % 2]).item())
+        torch.cuda.synchronize()
+        launches[name] = fused_nerf.launches["nerf_train"]
+    same = all(torch.equal(a, b) for a, b in zip(models["single"].parameters(),
+                                                 models["dp"].parameters()))
+    ms = {name: [] for name in calls}
+    for i in range(DP_ROUNDS):
+        for name in ("single", "dp", "dp", "single"):
+            ms[name].append(cuda_ms(lambda: calls[name](batches[i % 2]))[0])
+    return {"backend": dist.get_backend(mesh.data_group), "losses": losses, "same": same,
+            "launches": launches["dp"], "single_launches": launches["single"], "ms": ms}
+
+
+def dp_two_ranks():
+    """Phase 20 (b)-(d), on two gloo ranks that share the card: (b) the
+    data-parallel step, each rank running the train kernel on its 131,072
+    of the bench batch's rays, at shared (#3) and at per-ray depths (#6,
+    sharded with the rays), summed loss and gradients against one process's
+    kernel and against the plain version on the whole batch; the step
+    timed; (c) the sharded 800x800 ``small`` frame of the trained fixture
+    against ``render_image``'s, bit for bit, and against the plain version
+    on the frame's rays; (d) a tensor-parallel step (dp=1, tp=2, plain path) against the
+    single-process plain step.  Rank 0 compares; every rank counts."""
+    import torch.distributed as dist
+
+    from lomanerf_tpu_torch.core import normalized_intrinsics, rays
+    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.ops import fused_nerf
+    from lomanerf_tpu_torch.parallel import (RayBatch, data_mesh, gather_state, is_primary,
+                                             make_mesh, make_train_step, place_state,
+                                             shard_batch)
+    from lomanerf_tpu_torch.train.checkpoint import load_params_npz
+    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
+
+    dev = _rank_setup()
+    mesh = data_mesh(dev)
+    out = {"backend": dist.get_backend(mesh.data_group), "launches": {}, "checks": {}}
+    cfg = NeRFConfig.small()
+    o, d, t, dists, tgt = bench_batch(np.random.default_rng(0), cfg, BENCH_RAYS)
+    params = seeded_params(np.random.default_rng(1), cfg)
+    _, tr, dr = rays.sample_along_rays(o, d, cfg.near, cfg.far, cfg.num_samples,
+                                       generator=torch.Generator(device=dev).manual_seed(13))
+    for label, entry, (tv, dd) in (("shared", "nerf_train", (t, dists)),
+                                   ("per-ray", "nerf_train_rays", (tr, dr))):
+        # one data-parallel SGD step of this rank's shard: the main path
+        batch = RayBatch(o, d, tv, dd, tgt)
+        p = {k: [torch.nn.Parameter(x.clone()) for x in v] for k, v in params.items()}
+        step = make_train_step(cfg, torch.optim.SGD([*p["w"], *p["b"]], lr=1e-3), mesh)
+        local = shard_batch(mesh, batch)
+        reset_launches(fused_nerf)
+        loss = step(p, local)
+        torch.cuda.synchronize()
+        out["launches"][entry] = fused_nerf.launches[entry]
+        grads = [x.grad.clone() for x in [*p["w"], *p["b"]]]  # summed over the ranks
+        if is_primary():
+            # held to one process's kernel on the whole batch, and to the
+            # plain version (autograd of the core pipeline) on it
+            ref = {k: [x.clone() for x in v] for k, v in params.items()}
+            lv = leaves_of(ref)
+            want = fused_nerf.nerf_train_loss(ref, *batch, cfg)
+            wg = torch.autograd.grad(want, lv)
+            plain = fused_nerf.nerf_train_loss_reference(ref, *batch, cfg)
+            pg = torch.autograd.grad(plain, lv)
+            torch.testing.assert_close(loss, want.detach(), rtol=1e-5, atol=0.0)
+            torch.testing.assert_close(loss, plain.detach(), rtol=1e-5, atol=0.0)
+            err = grads_close(grads, wg, f"phase 20 two ranks, {label} depths", GRAD_RTOL,
+                              grad_atol)
+            err_plain = grads_close(grads, pg, f"phase 20 two ranks against the plain "
+                                    f"version, {label} depths", GRAD_RTOL, grad_atol)
+            out["checks"][label] = {"rays_per_rank": local.origins.shape[0],
+                                    "loss": loss.item(), "loss_one_process": want.item(),
+                                    "loss_plain": plain.item(), "max_grad_err": err,
+                                    "max_grad_err_plain": err_plain}
+            del plain, pg
+        # the step's time with the two ranks on the one card
+        ts = []
+        for _ in range(10):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(p, local)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out.setdefault("step_ms", {})[label] = ts
+
+    # (c) the sharded frame of the trained fixture
+    fx = np.load(FIXTURE)
+    pf = load_params_npz(FIXTURE)
+    model = NeRFModel.from_numpy(cfg, pf["w"], pf["b"], device=dev)
+    K = normalized_intrinsics(float(fx["focal"]), device=dev)
+    pose = torch.from_numpy(fx["poses"][1]).to(dev)
+    with torch.no_grad():
+        reset_launches(fused_nerf)
+        frame = model.render_image(K, pose, SERVE_SIZE, mesh=mesh)
+        torch.cuda.synchronize()
+        out["launches"]["nerf_render_fwd"] = fused_nerf.launches["nerf_render_fwd"]
+        ms = []
+        for _ in range(6):
+            dist.barrier()
+            ms.append(cuda_ms(lambda: model.render_image(K, pose, SERVE_SIZE, mesh=mesh))[0])
+        out["frame_ms"] = ms
+        if is_primary():
+            alone = model.render_image(K, pose, SERVE_SIZE)
+            # the plain version on the frame's rays, at phase 3's tolerance
+            o_f, d_f = rays.get_rays(SERVE_SIZE, SERVE_SIZE, K, pose)
+            tv_f, dd_f = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, dev)
+            plain = fused_nerf.render_rays_reference(model.params, o_f, d_f, tv_f, dd_f,
+                                                     cfg).reshape(frame.shape)
+            torch.testing.assert_close(frame, plain, atol=ATOL, rtol=RTOL)
+            out["checks"]["frame"] = {"equal": bool(torch.equal(frame, alone)),
+                                      "finite": bool(torch.isfinite(frame).all()),
+                                      "std": frame.std().item(),
+                                      "max_err_plain": (frame - plain).abs().max().item()}
+
+    # (d) tensor parallelism on the plain path, dp=1 x tp=2
+    tcfg = NeRFConfig(num_layers=TP_LAYERS, filter_size=TP_WIDTH, num_samples=TP_SAMPLES)
+    tmesh = make_mesh(dp=1, tp=2, device=dev)
+    tparams = seeded_params(np.random.default_rng(3), tcfg)
+    tbatch = RayBatch(*bench_batch(np.random.default_rng(4), tcfg, TP_RAYS))
+    p = {k: [torch.nn.Parameter(x.clone()) for x in v] for k, v in tparams.items()}
+    opt = torch.optim.SGD([*p["w"], *p["b"]], lr=1e-3)
+    local = place_state(tmesh, tcfg, p, opt, tp=True)
+    loss = make_train_step(tcfg, opt, tmesh, tp=True, backend="plain")(local, tbatch)
+    full, _ = gather_state(tmesh, tcfg, local, None, tp=True)
+    if is_primary():
+        ref = {k: [torch.nn.Parameter(x.clone()) for x in v] for k, v in tparams.items()}
+        ropt = torch.optim.SGD([*ref["w"], *ref["b"]], lr=1e-3)
+        want = make_single_chip_train_step(tcfg, ropt, backend="plain")(ref, *tbatch)
+        torch.testing.assert_close(loss, want, rtol=1e-5, atol=0.0)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip([*full["w"], *full["b"]], [*ref["w"], *ref["b"]])):
+            worst = max(worst, (a - b).abs().max().item())
+            torch.testing.assert_close(a, b.detach(), rtol=1e-4, atol=1e-6,
+                                       msg=lambda m, i=i: f"phase 20 TP leaf {i}: {m}")
+        out["checks"]["tp"] = {"loss": loss.item(), "loss_one_process": want.item(),
+                               "max_param_err": worst}
+    return out
+
+
+def phase_data_parallel(smi):
+    """Phase 20: the data-parallel path in ranks of its own
+    (``parallel.run_ranks``; no process group outlives it): (a) one NCCL
+    rank against the single-card step, (b)-(d) two gloo ranks on the one
+    card (NCCL refuses two ranks on one GPU).  Returns the launches of
+    #1, #3 and #6 summed over the ranks."""
+    from lomanerf_tpu_torch.parallel import run_ranks
+
+    one = run_ranks(dp_one_rank, 1, backend="nccl", timeout=600)[0]
+    if not one["same"]:
+        raise AssertionError(f"phase 20 (a): params after {DP_STEPS} steps differ from the "
+                             f"single-card step's (losses {one['losses']})")
+    if one["losses"]["dp"] != one["losses"]["single"]:
+        raise AssertionError(f"phase 20 (a): losses differ: {one['losses']}")
+    if one["launches"] != DP_STEPS or one["backend"] != "nccl":
+        raise AssertionError(f"phase 20 (a): {one['launches']} train launches for "
+                             f"{DP_STEPS} steps on {one['backend']}")
+    print(f"phase 20 (a) one-rank {one['backend']} data-parallel step, small, {BENCH_RAYS} "
+          f"rays, Adam 5e-4: params after {DP_STEPS} steps bit-identical to "
+          f"make_single_chip_train_step's (losses {one['losses']['dp']}); nerf_train "
+          f"launches {one['launches']}; on {smi}, in turns:")
+    for name, what in (("single", "single-card step"), ("dp", "data-parallel step")):
+        print(f"  {what:20s}: {spread(one['ms'][name])}, "
+              f"{BENCH_RAYS / statistics.median(one['ms'][name]) * 1e3:.4e} rays/s")
+    two = run_ranks(dp_two_ranks, 2, backend="gloo", timeout=600)
+    checks = two[0]["checks"]
+    for label in ("shared", "per-ray"):
+        c = checks[label]
+        print(f"phase 20 (b) two {two[0]['backend']} ranks on one card, {label} depths: "
+              f"{c['rays_per_rank']} rays a rank, summed loss {c['loss']:.6e} vs one process "
+              f"{c['loss_one_process']:.6e} (plain version {c['loss_plain']:.6e}), max|dW,db| "
+              f"diff {c['max_grad_err']:.3e} (plain version {c['max_grad_err_plain']:.3e}); "
+              f"step on rank 0 {spread(two[0]['step_ms'][label])} (host clock, {smi})")
+    f = checks["frame"]
+    if not (f["equal"] and f["finite"] and f["std"] > 0.01):
+        raise AssertionError(f"phase 20 (c): sharded frame {f}")
+    print(f"phase 20 (c) sharded {SERVE_SIZE}x{SERVE_SIZE} small frame on two ranks: "
+          f"bit-identical to render_image's, max|frame-plain| {f['max_err_plain']:.3e}; "
+          f"{spread(two[0]['frame_ms'])} per frame on rank 0")
+    tpc = checks["tp"]
+    print(f"phase 20 (d) tp=2 plain step ({TP_LAYERS}x{TP_WIDTH}, S={TP_SAMPLES}, {TP_RAYS} "
+          f"rays, SGD 1e-3): loss {tpc['loss']:.6e} vs one process "
+          f"{tpc['loss_one_process']:.6e}, max|param diff| {tpc['max_param_err']:.3e}")
+    launches = {"nerf_train": one["launches"]}
+    for r, res in enumerate(two):
+        want = {"nerf_train": 1, "nerf_train_rays": 1, "nerf_render_fwd": 1}
+        if res["launches"] != want:
+            raise AssertionError(f"phase 20 rank {r}: launches {res['launches']}, need {want}")
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"phase 20 launches per rank {[res['launches'] for res in two]}; summed {launches}")
+    return launches
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -2956,6 +3217,10 @@ def main() -> None:
     worst["grid_sum"], launches["grid_sum"], grid_ms, bounds["grid_sum"], _ = \
         phase_grid_overhead(probe, grid_overhead, smi)
     timing["grid_sum"], library["grid_sum"] = grid_ms[:2], grid_ms[2]
+
+    # ---- phase 20: the data-parallel path, in ranks of its own ----
+    for k, v in phase_data_parallel(smi).items():
+        launches[k] += v
 
     for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share
         extra[name] = {**extra.get(name, {}), "share": bounds[name][0] / timing[name][0]}

@@ -14,6 +14,10 @@ is easy to find; public functions keep its layouts (params
 * ``train``  — optimizers, the train step, checkpoints, logging, the
                ``train_nerf`` and ``fit_image`` drivers and the orbit
                renderer
+* ``parallel`` — ``torch.distributed`` (one process per card): process
+               set-up, the (data, model) mesh, the data-parallel train step
+               (one SUM all-reduce), the sharded render, the
+               tensor-parallel MLP and a launcher for ranks
 * ``utils``  — profiling hooks (``trace``, ``device_memory_stats``)
 
 Tensors are made on the device of a function's inputs, or on the ``device``

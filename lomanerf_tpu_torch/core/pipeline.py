@@ -29,11 +29,15 @@ def nerf_render(
     points_encoded: torch.Tensor,
     dists: torch.Tensor,
     mode: str = "loma",
+    mlp_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """MLP -> rgba -> compositing: ``(N, S, F)`` encoded points and
-    ``(N, S)`` (or broadcastable ``(S,)``) dists to ``(N, 3)`` colours."""
+    ``(N, S)`` (or broadcastable ``(S,)``) dists to ``(N, 3)`` colours.
+    ``mlp_fn(params, x) -> rgba`` replaces the MLP (the tensor-parallel
+    one, ``parallel.tp.tp_mlp_apply``); default ``mlp_apply``."""
     n, s, f = points_encoded.shape
-    rgba = mlp_apply(params, points_encoded.reshape(n * s, f), head="rgba")
+    x = points_encoded.reshape(n * s, f)
+    rgba = mlp_apply(params, x, head="rgba") if mlp_fn is None else mlp_fn(params, x)
     rgba = rgba.reshape(n, s, -1)
     weights = render_weights(rgba[..., 3], dists, mode=mode)
     return accumulate_color(weights, rgba[..., :3])
@@ -47,12 +51,13 @@ def nerf_render_rays(
     dists: torch.Tensor,
     num_functions: int = 5,
     mode: str = "loma",
+    mlp_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Render straight from ``(N, 3)`` rays and ``(S,)`` or ``(N, S)``
     depths: sample points, encode, :func:`nerf_render`."""
     points = origins[:, None, :] + directions[:, None, :] * t_vals[..., None]
     enc = positional_encoding(points, num_functions=num_functions)
-    return nerf_render(params, enc, dists, mode=mode)
+    return nerf_render(params, enc, dists, mode=mode, mlp_fn=mlp_fn)
 
 
 def nerf_loss(
@@ -75,10 +80,11 @@ def nerf_loss_rays(
     target: torch.Tensor,
     num_functions: int = 5,
     mode: str = "loma",
+    mlp_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Sum-MSE of :func:`nerf_render_rays` against ``(N, 3)`` targets."""
     pred = nerf_render_rays(params, origins, directions, t_vals, dists,
-                            num_functions, mode)
+                            num_functions, mode, mlp_fn)
     return sum_mse(pred, target)
 
 

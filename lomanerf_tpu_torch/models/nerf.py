@@ -145,18 +145,30 @@ class NeRFModel(nn.Module):
         return fused_nerf.nerf_loss(self.params, origins, directions, t_vals,
                                     dists, target, self.config)
 
-    def render_image(self, K, c2w, img_size: int, chunk: Optional[int] = None) -> torch.Tensor:
+    def render_image(self, K, c2w, img_size: int, chunk: Optional[int] = None,
+                     mesh=None) -> torch.Tensor:
         """``(img_size, img_size, 3)`` render of pose ``c2w`` on the
         parameters' device.  ``chunk`` rays per render call only bounds
         memory: each ray's colour does not depend on it.  The default comes
         from a byte budget (``fused_nerf.render_chunk_rays``): about 4 GB per
         activation buffer, 65,536 rays for ``full`` and 2^20 (frames up to
-        1024x1024 in one call) for the narrow presets."""
+        1024x1024 in one call) for the narrow presets.
+
+        With ``mesh`` (``parallel.make_mesh``), the frame's rays are sharded
+        over its data group and the frame reassembled by an all-gather
+        (``parallel.render_step``): every rank of the group must call it,
+        and every rank gets the whole frame, the same bits as without."""
+        chunk = chunk or fused_nerf.render_chunk_rays(self.config, self.params)
+        if mesh is not None:
+            from lomanerf_tpu_torch.parallel import render_step
+
+            step = render_step.make_render_step(self.config, mesh)
+            return render_step.sharded_render_image(self.params, K, c2w, img_size, mesh,
+                                                    step, chunk=chunk)
         dev = self.device
         K = torch.as_tensor(K, dtype=torch.float32).to(dev)
         c2w = torch.as_tensor(c2w, dtype=torch.float32).to(dev)
         o, d = rays.get_rays(img_size, img_size, K, c2w)
-        chunk = chunk or fused_nerf.render_chunk_rays(self.config, self.params)
         cols = [render_chunk(self.config, self.params, oc, dc)
                 for oc, dc in zip(o.split(chunk), d.split(chunk))]
         return torch.cat(cols).reshape(img_size, img_size, 3)

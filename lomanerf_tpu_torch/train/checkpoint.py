@@ -3,7 +3,7 @@ fixtures in numpy ``.npz`` form.
 
 ``CheckpointManager`` keeps ``ckpt_<step>.pt`` files, each a ``torch.save``
 of ``{"params", "optimizer", "step"}``, with keep-N rotation and
-latest-step restore.  The JAX package checkpoints with orbax, which the port
+latest-step restore; under a process group rank 0 writes them.  The JAX package checkpoints with orbax, which the port
 does not depend on; ``scripts/export_torch_fixture.py`` converts an orbax
 checkpoint into the ``.npz`` form (``w0..w{L-1}``, ``b0..b{L-1}``, plus any
 other arrays) that :func:`load_params_npz` reads.
@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -48,20 +49,38 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, model_or_params, optimizer: torch.optim.Optimizer) -> None:
+    def save(self, step: int, model_or_params, optimizer: torch.optim.Optimizer,
+             mesh=None, config=None, tp: bool = False) -> None:
         """Write step ``step`` (atomically: a temporary file, then a rename),
-        then delete all but the newest ``max_to_keep``."""
+        then delete all but the newest ``max_to_keep``.
+
+        Under a process group every rank calls it: rank 0 writes, then all
+        wait at a barrier.  With ``tp`` (and the ``mesh`` and ``config`` of
+        the step) the full params and optimizer state are gathered over the
+        model group first (``parallel.gather_state``), so the file is the
+        same at any world size; restore it on every rank, then run
+        ``parallel.place_state``."""
+        from lomanerf_tpu_torch.parallel.mesh import is_primary
+        from lomanerf_tpu_torch.parallel.train_step import gather_state
+
         params = _params_of(model_or_params)
-        state = {
-            "params": {k: [p.detach().cpu() for p in params[k]] for k in ("w", "b")},
-            "optimizer": optimizer.state_dict(),
-            "step": int(step),
-        }
-        tmp = self._path(step) + f".{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self._path(step))
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        if tp:
+            params, opt_state = gather_state(mesh, config, params, optimizer, tp=True)
+        else:
+            opt_state = optimizer.state_dict()
+        if is_primary():
+            state = {
+                "params": {k: [p.detach().cpu() for p in params[k]] for k in ("w", "b")},
+                "optimizer": opt_state,
+                "step": int(step),
+            }
+            tmp = self._path(step) + f".{os.getpid()}.tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, self._path(step))
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        if dist.is_initialized():
+            dist.barrier()
 
     @torch.no_grad()
     def restore(self, model_or_params, optimizer: Optional[torch.optim.Optimizer] = None,

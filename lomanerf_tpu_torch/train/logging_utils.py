@@ -21,14 +21,24 @@ import numpy as np
 class MetricsLogger:
     """Appends ``{"step", "time", <metrics>}`` lines to
     ``<log_dir>/metrics.jsonl``; with ``use_wandb``, also logs to wandb
-    (imported only then)."""
+    (imported only then).
+
+    Under a process group only rank 0 writes: every other rank gets a
+    logger that does nothing, so the drivers log unconditionally without
+    ranks racing on one file."""
 
     def __init__(self, log_dir: str, project: Optional[str] = None,
                  use_wandb: bool = False):
+        from lomanerf_tpu_torch.parallel.mesh import is_primary
+
+        self.active = is_primary()
         self.log_dir = log_dir
+        self._f = None
+        self._wandb = None
+        if not self.active:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._f = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self._wandb = None
         if use_wandb:
             import wandb
 
@@ -36,6 +46,8 @@ class MetricsLogger:
             wandb.init(project=project or "lomanerf-tpu")
 
     def log(self, step: int, **metrics) -> None:
+        if not self.active:
+            return
         rec = {"step": step, "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
@@ -44,6 +56,8 @@ class MetricsLogger:
             self._wandb.log(metrics, step=step)
 
     def close(self) -> None:
+        if not self.active:
+            return
         self._f.close()
         if self._wandb is not None:
             self._wandb.finish()

@@ -22,6 +22,9 @@ Run:
     python -m lomanerf_tpu_torch.train.make_video --frames orbit_frames --out orbit.mp4
 
 ``--preset full`` renders through the wide kernels (65,536-ray chunks).
+Under ``torchrun --nproc_per_node=N`` each frame's rays are sharded over
+the ranks (``parallel.render_step``, as the JAX driver shards them over its
+devices) and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -39,13 +42,16 @@ from lomanerf_tpu_torch.train.logging_utils import read_png, write_png
 
 
 @torch.no_grad()
-def render_orbit(model, focal: float, radius: float, n: int, img_size: int) -> np.ndarray:
+def render_orbit(model, focal: float, radius: float, n: int, img_size: int,
+                 mesh=None) -> np.ndarray:
     """``(n, img_size, img_size, 3)`` uint8 frames of ``model`` seen from
-    ``sphere_poses(n, radius)``, rendered on the model's device."""
+    ``sphere_poses(n, radius)``, rendered on the model's device; with
+    ``mesh``, each frame's rays sharded over its data group (every rank
+    calls it and gets every frame)."""
     K = normalized_intrinsics(focal, device=model.device)
     frames = []
     for pose in sphere_poses(n, radius=radius):
-        img = model.render_image(K, pose, img_size)
+        img = model.render_image(K, pose, img_size, mesh=mesh)
         frames.append((img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
     return np.stack(frames)
 
@@ -86,8 +92,11 @@ def write_video(frames: np.ndarray, out: str, fps: int) -> str:
 
 def main(argv=None) -> str:
     """Run the driver; returns the path of the video (or of the frames'
-    directory) it wrote."""
+    directory) it wrote, ``None`` on ranks other than 0."""
     from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.parallel import (build_kernels_once, data_mesh,
+                                             initialize_multihost, is_primary,
+                                             process_count, rank_device)
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
 
     ap = argparse.ArgumentParser()
@@ -122,16 +131,29 @@ def main(argv=None) -> str:
         cfg = NeRFConfig(num_layers=args.layers, filter_size=args.width,
                          num_encoding_functions=args.enc_functions,
                          num_samples=args.samples)
+    # under torchrun: one rank per card, each frame's rays over the ranks
+    owns_group = initialize_multihost(
+        backend="gloo" if torch.device(args.device).type == "cpu" else None)
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        build_kernels_once()
+    mesh = data_mesh(device) if process_count() > 1 else None
     if args.params:
         p = load_params_npz(args.params)
-        model = NeRFModel.from_numpy(cfg, p["w"], p["b"], device=args.device)
+        model = NeRFModel.from_numpy(cfg, p["w"], p["b"], device=device)
     else:
-        model = NeRFModel(cfg, device=args.device)
+        model = NeRFModel(cfg, device=device)
         step = CheckpointManager(args.ckpt_dir).restore(model)
-        print(f"restored step {step} from {args.ckpt_dir}")
-    print(f"rendering {args.orbit}-frame orbit at {args.img_size}px on {args.device}")
-    frames = render_orbit(model, args.focal, args.radius, args.orbit, args.img_size)
-    return write_video(frames, args.out, args.fps)
+        if is_primary():
+            print(f"restored step {step} from {args.ckpt_dir}")
+    if is_primary():
+        print(f"rendering {args.orbit}-frame orbit at {args.img_size}px on {args.device} "
+              f"({process_count()} rank(s))")
+    frames = render_orbit(model, args.focal, args.radius, args.orbit, args.img_size, mesh)
+    wrote = write_video(frames, args.out, args.fps) if is_primary() else None
+    if owns_group:
+        torch.distributed.destroy_process_group()
+    return wrote
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ updates the parameters in place through the optimizer built over them.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -32,8 +32,9 @@ def resolve_backend(cfg, backend: str = "auto") -> str:
 
 
 def nerf_loss_fn(params: Params, origins, directions, t_vals, dists, target, cfg,
-                 backend: str = "fused") -> torch.Tensor:
-    """The sum-MSE train loss of one ray batch, differentiable w.r.t. params."""
+                 backend: str = "fused", mlp_fn: Optional[Callable] = None) -> torch.Tensor:
+    """The sum-MSE train loss of one ray batch, differentiable w.r.t. params.
+    ``mlp_fn`` replaces the plain pipeline's MLP (``core.pipeline.nerf_render``)."""
     if backend == "fused":
         # one kernel call gives the loss AND its gradients
         from lomanerf_tpu_torch.ops import fused_nerf
@@ -42,16 +43,23 @@ def nerf_loss_fn(params: Params, origins, directions, t_vals, dists, target, cfg
                                           dists, target, cfg)
     if backend == "plain":
         return nerf_loss_rays(params, origins, directions, t_vals, dists, target,
-                              cfg.num_encoding_functions, cfg.mode)
+                              cfg.num_encoding_functions, cfg.mode, mlp_fn)
     raise ValueError(f"unknown backend {backend!r}")
 
 
 def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
-                                backend: str = "auto") -> Callable:
+                                backend: str = "auto", mlp_fn: Optional[Callable] = None,
+                                reduce_fn: Optional[Callable] = None) -> Callable:
     """``step(model_or_params, origins, directions, t_vals, dists, target)
     -> loss``: zero the gradients, the loss, its backward, one
     ``optimizer.step()``; returns the loss as a detached 0-d tensor.  The
-    optimizer must hold the same parameter tensors."""
+    optimizer must hold the same parameter tensors.
+
+    The data-parallel step (``parallel.train_step.make_train_step``) is
+    this step with ``reduce_fn(params, loss) -> loss``, which sums the
+    gradients and the loss over the ranks between the backward and the
+    update, and, under tensor parallelism, ``mlp_fn`` (see
+    :func:`nerf_loss_fn`)."""
     backend = resolve_backend(cfg, backend)
 
     def step(model_or_params, origins, directions, t_vals, dists, target):
@@ -59,10 +67,13 @@ def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
                   else model_or_params)
         optimizer.zero_grad(set_to_none=True)
         loss = nerf_loss_fn(params, origins, directions, t_vals, dists, target,
-                            cfg, backend)
+                            cfg, backend, mlp_fn)
         loss.backward()
+        loss = loss.detach()
+        if reduce_fn is not None:
+            loss = reduce_fn(params, loss)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 

@@ -1,4 +1,5 @@
-"""NeRF training driver on one device (port of ``lomanerf_tpu.train.train_nerf``).
+"""NeRF training driver (port of ``lomanerf_tpu.train.train_nerf``), on one
+card or data-parallel over many (one process per card, ``parallel/``).
 
 Trains a radiance field on the synthetic scene (built in memory) or a
 Blender-format dataset directory.  Per step: a random view and a fixed-size
@@ -11,13 +12,23 @@ its render; checkpoints every ``--ckpt-every`` steps and at the end;
 ``--resume`` restarts from the latest.  Every view's rays and targets stay
 on the device: each step sends only the ray indices.
 
-Not ported yet (ROADMAP queue 1, items 1 and 2): ``--tp``,
-``--coordinator`` and the mesh-sharded eval (item 1), ``--pipeline
-native|numpy`` (item 2).
+Several processes (``torchrun``, or ``--coordinator`` with ``RANK`` and
+``WORLD_SIZE`` set for each): each rank draws its own ``--rays-per-batch``
+rays from the seed ``seed + 7919 * data index`` (its rank when ``--tp`` is
+1), the step sums the ranks' gradients and losses in one all-reduce, the
+eval frame's rays are sharded over the ranks (with ``--tp`` the full params
+are gathered and each rank renders the frame), and only rank 0 prints and
+writes metrics, PNGs and checkpoints.  ``--tp N`` shards the MLP over N
+ranks and runs on ``--backend plain`` only.  With one process and no
+distributed environment the run is the single-card run, bit for bit.
+
+Not ported yet (ROADMAP queue 1, item 2): ``--pipeline native|numpy``.
 
 Run: ``python -m lomanerf_tpu_torch.train.train_nerf --preset small --steps 500``
 (the narrow kernels) or ``--preset full --steps 300`` (the 8x256 bf16
-flagship on the wide kernels; ~4 GB of saved activations per 4096-ray step).
+flagship on the wide kernels; ~4 GB of saved activations per 4096-ray step);
+on N cards ``torchrun --nproc_per_node=N -m lomanerf_tpu_torch.train.train_nerf
+--preset small`` (NCCL).
 """
 
 from __future__ import annotations
@@ -78,20 +89,43 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=1000)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=215)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel size (ranks per MLP; --backend plain only)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rendezvous host:port (or an init_method URL) of a multi-process "
+                         "run, each process with RANK and WORLD_SIZE set; omit under "
+                         "torchrun and on one process")
     args = ap.parse_args(argv)
 
     from lomanerf_tpu_torch.core import psnr, stratified_ray_offsets, uniform_depths
     from lomanerf_tpu_torch.core.rays import get_rays, normalized_intrinsics
     from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.parallel import (RayBatch, build_kernels_once,
+                                             initialize_multihost, is_primary, make_mesh,
+                                             make_train_step, place_state, process_count,
+                                             rank_device, unshard_tp_params)
     from lomanerf_tpu_torch.train import optim
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager
     from lomanerf_tpu_torch.train.logging_utils import MetricsLogger, write_png
-    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_nerf: --device cuda but no CUDA device; "
                          "pass --device cpu for the plain version")
+    if args.coordinator and not {"RANK", "WORLD_SIZE"} <= os.environ.keys():
+        raise SystemExit("train_nerf: --coordinator needs RANK and WORLD_SIZE set for "
+                         "each process")
+    # the process group first: the mesh below spans every rank
+    owns_group = initialize_multihost(args.coordinator,
+                                      backend="gloo" if device.type == "cpu" else None)
+    if process_count() % args.tp:
+        raise SystemExit(f"train_nerf: --tp {args.tp} does not divide the "
+                         f"{process_count()} ranks")
+    device = rank_device(device)
+    if device.type == "cuda":
+        build_kernels_once()
+    mesh = make_mesh(tp=args.tp, device=device)
+    tp = args.tp > 1
     if args.preset:
         cfg = dataclasses.replace(NeRFConfig.preset(args.preset),
                                   near=args.near, far=args.far)
@@ -113,23 +147,30 @@ def main(argv=None) -> dict:
 
     model = NeRFModel(cfg, device=device)
     model.init(torch.Generator().manual_seed(args.seed))
-    params = list(model.parameters())
+    leaves = list(model.parameters())
     opt = {
-        "adam": lambda: torch.optim.Adam(params, lr=args.lr),
-        "loma_adam": lambda: optim.loma_adam(params, args.lr),
-        "sgd": lambda: optim.loma_sgd(params, args.lr),
+        "adam": lambda: torch.optim.Adam(leaves, lr=args.lr),
+        "loma_adam": lambda: optim.loma_adam(leaves, args.lr),
+        "sgd": lambda: optim.loma_sgd(leaves, args.lr),
     }[args.optimizer]()
-    step_fn = make_single_chip_train_step(cfg, opt, backend=args.backend)
 
     ckpt = CheckpointManager(args.ckpt_dir)
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
         start_step = ckpt.restore(model, opt)
-        print(f"resumed from step {start_step}")
+        if is_primary():
+            print(f"resumed from step {start_step}")
+    # replicas equal over the data axis; with --tp this rank's shard
+    params = place_state(mesh, cfg, model, opt, tp=tp)
+    step_fn = make_train_step(cfg, opt, mesh, tp=tp, backend=args.backend)
+    # sharded eval frames over the data axis (with --tp: full params, whole frames)
+    eval_mesh = mesh if mesh.dp > 1 and not tp else None
 
     logger = MetricsLogger(args.log_dir)
-    rng = np.random.default_rng(args.seed)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    # each data shard draws its own rays (the JAX driver's per-host stream)
+    seed = args.seed + 7919 * mesh.data_index
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     view = args.eval_view % n_views
     losses, psnrs = [], {}
     for i in range(start_step, args.steps):
@@ -140,29 +181,37 @@ def main(argv=None) -> dict:
             dt = stratified_ray_offsets(gen, args.rays_per_batch, cfg.near, cfg.far,
                                         cfg.num_samples)
             o = o + d * dt[:, None]
-        loss = step_fn(model, o, d, t_vals, dists, all_t[v, idx])
+        loss = step_fn(params, RayBatch(o, d, t_vals, dists, all_t[v, idx]))
         losses.append(float(loss))
         if not np.isfinite(losses[-1]):
-            # report and stop, so the last checkpoint stays usable
-            print(f"non-finite loss at step {i}; stopping")
+            # report and stop (every rank: the loss is summed over them),
+            # so the last checkpoint stays usable
+            if is_primary():
+                print(f"non-finite loss at step {i}; stopping")
             break
 
         if i % args.eval_every == 0:
             with torch.no_grad():
-                img = model.render_image(K, poses[view], args.img_size)
+                if tp:
+                    model.load_params(unshard_tp_params(params, cfg.num_layers,
+                                                        mesh.model_group))
+                img = model.render_image(K, poses[view], args.img_size, mesh=eval_mesh)
             p = float(psnr(images[view], img))
             psnrs[i] = p
             logger.log(i, loss=losses[-1], psnr=p)
-            print(f"step {i} loss {losses[-1]:.4f} psnr {p:.2f} dB")
-            write_png(os.path.join(args.log_dir, f"{i}.png"),
-                      (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+            if is_primary():
+                print(f"step {i} loss {losses[-1]:.4f} psnr {p:.2f} dB")
+                write_png(os.path.join(args.log_dir, f"{i}.png"),
+                          (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
         if args.ckpt_every and i and i % args.ckpt_every == 0:
-            ckpt.save(i, model, opt)
+            ckpt.save(i, params, opt, mesh=mesh, config=cfg, tp=tp)
 
-    ckpt.save(args.steps, model, opt)
+    ckpt.save(args.steps, params, opt, mesh=mesh, config=cfg, tp=tp)
     logger.close()
-    if losses:
+    if losses and is_primary():
         print(f"done; final loss {losses[-1]:.4f}")
+    if owns_group:
+        torch.distributed.destroy_process_group()
     return {"losses": losses, "psnr": psnrs}
 
 
