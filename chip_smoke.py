@@ -134,20 +134,37 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     800x800 ``small`` frame sharded over the two ranks, bit-identical to
     ``render_image``'s and within phase 3's tolerance of the plain version
     on the frame's rays; (d) a tensor-parallel step
-    (dp=1, tp=2, the plain path) against the single-process plain step.
+    (dp=1, tp=2, the plain path) against the single-process plain step;
+21. drives the C++ ray-batch prefetcher (``data.native.RayBatchPipeline``,
+    built by g++ from ``lomanerf_tpu_torch/data/csrc``): 500 ``train_nerf
+    --pipeline native`` steps (small, 4096 rays, the 16-view 64x64 scene)
+    at 4 threads and at 1 thread, params bit-identical (batches in batch-id
+    order), and 500 ``--pipeline numpy`` steps within a stated bound of
+    them, each run's PSNR as phase 5's; the pipeline alone on 100 random
+    800x800 views, its batches on the card (copied from a ring of pinned
+    buffers while the card is busy) equal to the CPU pipeline's bit for
+    bit, and its batches/s at 4096 and 262,144 rays, native against numpy;
+    the driver step's host ms, device ms and idle share under ``--pipeline
+    python``, ``numpy`` and ``native`` (``card_probe --what pipeline``);
+22. runs the loma DSL (``lomanerf_tpu_torch.dsl``) on the card: every
+    program of the parity table (``tests/test_torch_dsl_programs.py``)
+    compiled for ``cuda`` against ``cpu`` at the table's tolerances, one
+    warm call of each timed; an ``@simd`` add and reduce at 65,536 threads
+    through the ``torch.func.vmap`` route, and the reduce at 1,024 threads
+    through both routes; ``diff_raytrace``'s image and gradient.
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
 scans' own timed runs at the 262,144 x 30 column: no train step or frame
-launches ``seg_scans``), 19 (the sweep) and 20 (each rank's data-parallel
-steps and sharded frame) are the main paths:
+launches ``seg_scans``), 19 (the sweep), 20 (each rank's data-parallel
+steps and sharded frame) and 21 (the three pipeline runs) are the main paths:
 each kernel's launch count is reset before its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
 sixteen kernels (with each one's least time on the card for its work,
 ``bound_ms``; #1's ``ms`` is the kernel's own call, with the frames' times
 and its share of the bound beside it, #4's with its share; #14's with
 phase 10's whole-image leaves and flips per route; #3's also with phase
-6's split of the step; #8's also with
+6's split of the step and phase 21's pipeline summary; #8's also with
 phase 9's fused MLP alone, #10 new against old and the frame's split by
 kernel family; #15's ``ms``, ``plain_ms`` and ``library_ms`` the cumprod's
 card work with the L2 flushed, with its share and every op's times, as
@@ -2978,6 +2995,217 @@ def phase_data_parallel(smi):
     return launches
 
 
+PIPE_STEPS, PIPE_EVAL = 500, 250  # phase 21's driver runs (native x4, x1, numpy), evals
+# phase 21: the numpy run against the native one after 500 Adam steps.  Their
+# batches agree to float32 rounding (the C++ rounds in f32, numpy partly in
+# f64), and Adam carries the difference forward: every param within this
+# absolute bound, the final eval PSNR within PIPE_PSNR_DB
+PIPE_PARAM_ATOL, PIPE_PSNR_DB = 5e-3, 0.1
+PIPE_VIEWS, PIPE_SIZE = 100, 800  # the pipeline alone: 768 MB of images
+PIPE_TIMED = {4096: {"native": 300, "numpy": 60}, 262144: {"native": 30, "numpy": 4}}
+PIPE_HELD = 16  # batches held on the card, unread, against the CPU pipeline's
+PIPE_SPLIT_STEPS = 60  # card_probe --what pipeline: driver steps a producer
+
+
+def phase_pipeline(train_nerf, fused_nerf, CheckpointManager, NeRFModel, NeRFConfig,
+                   synthetic_views, normalized_intrinsics, psnr, smi, tmp):
+    """Phase 21: the C++ ray-batch prefetcher on the card's host.  (a) 500
+    ``train_nerf`` steps (small, 4096 rays, the 16-view 64x64 synthetic
+    scene, one seed) under ``--pipeline native`` at 4 threads and at 1
+    thread, params bit-identical (batches in batch-id order), and under
+    ``--pipeline numpy``, within PIPE_PARAM_ATOL and PIPE_PSNR_DB of them;
+    (b) the pipeline alone on 100 random 800x800 views: batches on the
+    card, held unread behind a busy card, equal to the CPU pipeline's bit
+    for bit (the pinned ring), and batches/s at 4096 and 262,144 rays,
+    native against numpy; (c) the driver step's host ms, device ms and
+    idle share under each producer (``card_probe --what pipeline``).
+    Returns (the train kernel's launches in (a), a summary)."""
+    from lomanerf_tpu_torch.data.native import RayBatchPipeline
+    from lomanerf_tpu_torch.data.synthetic import LEGO_CAMERA_ANGLE_X, focal_of, sphere_poses
+
+    flags = ["--device", "cuda", "--data", "synthetic", "--preset", "small",
+             "--img-size", "64", "--rays-per-batch", "4096", "--eval-every", str(PIPE_EVAL),
+             "--optimizer", "adam", "--lr", "5e-4", "--ckpt-every", "0",
+             "--steps", str(PIPE_STEPS)]
+    runs = {"native x4": ["--pipeline", "native", "--pipeline-threads", "4"],
+            "native x1": ["--pipeline", "native", "--pipeline-threads", "1"],
+            "numpy": ["--pipeline", "numpy"]}
+    images, poses, focal = synthetic_views(16, 64, device="cuda")
+    K = normalized_intrinsics(focal, device="cuda")
+    res = {}
+    reset_launches(fused_nerf)  # the main path: the three runs
+    for name, extra in runs.items():
+        d = os.path.join(tmp, name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        out = train_nerf.main([*flags, *extra, "--log-dir", os.path.join(d, "logs"),
+                               "--ckpt-dir", os.path.join(d, "ck")])
+        secs = time.perf_counter() - t0
+        model = NeRFModel(NeRFConfig.small(), device="cuda")
+        step = CheckpointManager(os.path.join(d, "ck")).restore(model)
+        with torch.no_grad():
+            img = model.render_image(K, poses[2], 64)
+        with open(os.path.join(d, "logs", "metrics.jsonl")) as f:
+            stamps = {r["step"]: r["time"] for r in map(json.loads, f)}
+        res[name] = {"losses": out["losses"], "params": [p.detach().clone()
+                                                         for p in model.parameters()],
+                     "psnr": {**out["psnr"], step: psnr(images[2], img).item()}, "s": secs,
+                     "ms_per_step": (stamps[PIPE_EVAL] - stamps[0]) / PIPE_EVAL * 1e3}
+    torch.cuda.synchronize()
+    launches = fused_nerf.launches["nerf_train"]
+    if launches != len(runs) * PIPE_STEPS or fused_nerf.launches["nerf_render_fwd"] < 1:
+        raise AssertionError(f"phase 21: launches {dict(fused_nerf.launches)} for "
+                             f"{len(runs)} x {PIPE_STEPS} steps")
+    a, b, c = (res[k] for k in runs)
+    if a["losses"] != b["losses"] or not all(torch.equal(x, y) for x, y in
+                                             zip(a["params"], b["params"])):
+        raise AssertionError("phase 21: --pipeline native at 4 threads and at 1 thread differ")
+    worst = max((x - y).abs().max().item() for x, y in zip(a["params"], c["params"]))
+    for name, r in res.items():
+        final = r["psnr"][PIPE_STEPS]
+        if not (np.all(np.isfinite(r["losses"])) and final >= PSNR_FLOOR_DB
+                and final >= r["psnr"][0] + PSNR_GAIN_DB):
+            raise AssertionError(f"phase 21 {name}: PSNR {r['psnr']}")
+    dpsnr = abs(c["psnr"][PIPE_STEPS] - a["psnr"][PIPE_STEPS])
+    if worst > PIPE_PARAM_ATOL or dpsnr > PIPE_PSNR_DB:
+        raise AssertionError(f"phase 21: numpy run vs native: max|param diff| {worst:.3e}, "
+                             f"|PSNR diff| {dpsnr:.3f} dB")
+    print(f"phase 21 (a) train_nerf --preset small, {PIPE_STEPS} steps x 4096 rays, seed 215: "
+          f"native x4 and native x1 params bit-identical; numpy vs native max|param diff| "
+          f"{worst:.3e} (bound {PIPE_PARAM_ATOL}); nerf_train launches {launches}")
+    for name, r in res.items():
+        print(f"  {name:9s}: PSNR " + ", ".join(f"step {k}: {v:.2f}"
+                                               for k, v in sorted(r["psnr"].items()))
+              + f" dB; {r['ms_per_step']:.3f} ms/step between the evals at 0 and {PIPE_EVAL} "
+              f"(host clock); {r['s']:.2f} s the run")
+
+    # (b) the pipeline alone: 100 random 800x800 views (768 MB)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    views = torch.rand((PIPE_VIEWS, PIPE_SIZE, PIPE_SIZE, 3), generator=g,
+                       device="cuda").cpu().numpy()
+    vposes = sphere_poses(PIPE_VIEWS)
+    vfocal = focal_of(LEGO_CAMERA_ANGLE_X)
+    rates = {}
+    for n, counts in PIPE_TIMED.items():
+        for name, count in counts.items():
+            kw = dict(stratified=True, seed=3, force_numpy=name == "numpy")
+            pipe = RayBatchPipeline(vposes, views, vfocal, n, 30, 2.0, 6.0, device="cuda", **kw)
+            if n == max(PIPE_TIMED):
+                # the ring: batches copied while the card is busy, read at the end
+                host = RayBatchPipeline(vposes, views, vfocal, n, 30, 2.0, 6.0, device="cpu",
+                                        **kw)
+                held = []
+                for _ in range(PIPE_HELD):
+                    torch.cuda._sleep(2_000_000)
+                    held.append(pipe.next_batch())
+                for i, batch in enumerate(held):
+                    if not all(torch.equal(x.cpu(), y) for x, y in zip(batch, host.next_batch())):
+                        raise AssertionError(f"phase 21 (b) {name}: card batch {i} differs from "
+                                             "the CPU pipeline's")
+                host.close()
+            for _ in range(2):
+                pipe.next_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(count):
+                pipe.next_batch()
+            torch.cuda.synchronize()
+            rates[(n, name)] = count / (time.perf_counter() - t0)
+            pipe.close()
+    del views
+    print(f"phase 21 (b) RayBatchPipeline alone, {PIPE_VIEWS} random {PIPE_SIZE}x{PIPE_SIZE} "
+          f"views, stratified, batches on the card (host clock, {smi}); {PIPE_HELD} batches "
+          f"held behind a busy card equal the CPU pipeline's, native and numpy:")
+    for n in PIPE_TIMED:
+        print(f"  {n:7d} rays: native (4 threads) {rates[(n, 'native')]:.1f} batches/s "
+              f"({rates[(n, 'native')] * n:.4e} rays/s), numpy {rates[(n, 'numpy')]:.1f} "
+              f"batches/s ({rates[(n, 'numpy')] * n:.4e} rays/s)")
+
+    # (c) the driver step's split under each producer, in a process of its own
+    split = card_probe("pipeline", "--steps", str(PIPE_SPLIT_STEPS))
+    print("phase 21 (c) the small driver step (4096 rays), utils.profiling.trace, "
+          f"{split['steps']} steps a producer: " + "; ".join(
+              f"{k} host {v['host_ms_per_step']:.4f} ms, device {v['device_ms_per_step']:.4f} "
+              f"ms, idle {v['idle_share']:.1%}" for k, v in split["pipelines"].items()))
+    return launches, {
+        "driver_psnr": {k: r["psnr"][PIPE_STEPS] for k, r in res.items()},
+        "numpy_vs_native_max_param_diff": worst,
+        "batches_per_s": {f"{n} {name}": v for (n, name), v in rates.items()},
+        "step_split": split["pipelines"]}
+
+
+def phase_dsl(smi):
+    """Phase 22: the loma DSL on the card.  Every program of the parity
+    table (``tests/test_torch_dsl_programs.py``; the reference's own
+    kernels are not in the checkout) compiled for ``device="cuda"`` and for
+    ``"cpu"``, held to each other at the table's tolerances, and one warm
+    call of each timed; one ``@simd`` add-and-reduce at 65,536 threads
+    through the vmap route against numpy, and at 1,024 threads through
+    both routes (vmap and the threads in turn); ``diff_raytrace``'s image
+    and gradient (the rev-over-fwd Hessian is in the table)."""
+    import warnings
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_dsl_programs import ATOL, PROGRAMS, RTOL, assert_trees_close
+
+    from lomanerf_tpu_torch import dsl
+    from lomanerf_tpu_torch.dsl import lower, parser
+    from lomanerf_tpu_torch.examples import diff_raytrace
+
+    ms = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", dsl.compiler.LoopBoundWarning)
+        for name, (code, run, *rest) in sorted(PROGRAMS.items()):
+            tol = (rest[0] if rest else None) or (RTOL, ATOL)
+            _, card = dsl.compile(code, device="cuda")
+            _, host = dsl.compile(code, device="cpu")
+            assert_trees_close(run(card, dsl), run(host, dsl), *tol,
+                               what=f"phase 22 {name}: ")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(card, dsl)  # results come back to numpy: the call ends synchronised
+            ms[name] = (time.perf_counter() - t0) * 1e3
+    code = PROGRAMS["simd_parallel_add_and_atomic_reduce"][0]
+    _, lib = dsl.compile(code, device="cuda")
+    _, funcs = parser.parse(code)
+    low = lower.Lowerer({}, funcs, device="cuda")
+    n = 65536
+    if low._simd_vmap_plan(funcs["parallel_reduce"], n) != (frozenset(), frozenset({"total"})):
+        raise AssertionError("phase 22: parallel_reduce does not take the vmap route")
+    rng = np.random.default_rng(22)
+    x, y = (rng.random(n).astype(np.float32) for _ in range(2))
+    zz, total = np.zeros(n, np.float32), np.zeros(1, np.float32)
+    t0 = time.perf_counter()
+    lib.parallel_add(x, y, zz, n)
+    lib.parallel_reduce(x, total, n)
+    simd_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(zz, x + y):
+        raise AssertionError("phase 22: parallel_add at 65,536 threads")
+    np.testing.assert_allclose(total[0], x.astype(np.float64).sum(), rtol=RTOL)
+    m = 1024
+    args = [torch.tensor(x[:m], device="cuda"), torch.zeros(1, device="cuda")]
+    plan = low._simd_vmap_plan(funcs["parallel_reduce"], m)
+    t0 = time.perf_counter()
+    scan = low._run_simd_scan(funcs["parallel_reduce"], args, m)["total"].item()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    vmapped = low._run_simd_vmap(funcs["parallel_reduce"], args, m, *plan)[0]["total"].item()
+    np.testing.assert_allclose(scan, vmapped, rtol=1e-6)
+    t0 = time.perf_counter()
+    ray = diff_raytrace.main(["--device", "cuda", "--size", "8"])
+    ray_ms = (time.perf_counter() - t0) * 1e3
+    want = diff_raytrace.main(["--device", "cpu", "--size", "8"])
+    assert_trees_close((ray["image"], ray["grad"]), (want["image"], want["grad"]),
+                       what="phase 22 diff_raytrace: ")
+    print(f"phase 22 the DSL on the card: {len(ms)} programs on cuda equal to cpu at the "
+          f"table's tolerances; one warm call each, host clock ({smi}), ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(ms.items())))
+    print(f"  @simd add + reduce at {n} threads (vmap route): {simd_ms:.2f} ms, sum rel err "
+          f"{abs(total[0] / x.astype(np.float64).sum() - 1):.2e}; reduce at {m} threads: "
+          f"threads in turn {scan_ms:.2f} ms, equal to the vmap route; diff_raytrace "
+          f"(8x8 image + gradient) {ray_ms:.2f} ms, equal to the cpu run")
+    return {"programs": len(ms), "ms": ms, "simd_65536_ms": simd_ms, "scan_1024_ms": scan_ms,
+            "diff_raytrace_ms": ray_ms}
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -3003,7 +3231,7 @@ def main() -> None:
     if os.path.dirname(os.path.dirname(os.path.abspath(lomanerf_tpu_torch.__file__))) != ROOT:
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     from lomanerf_tpu_torch.core import mlp_layer_sizes, normalized_intrinsics, psnr, rays
-    from lomanerf_tpu_torch.data import synthetic_views
+    from lomanerf_tpu_torch.data import native, synthetic_views
     from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
                                            NeRFModel, image_grid_coords)
     from lomanerf_tpu_torch.ops import (build, fused_mlp, fused_nerf, probe, scans, wide_dw,
@@ -3029,6 +3257,10 @@ def main() -> None:
     build.load()
     print(f"build: {os.path.relpath(lib_path, ROOT)} in {time.perf_counter() - t0:.1f} s")
     print((lib_path.parent / "build.log").read_text().strip())
+    t0 = time.perf_counter()
+    host_lib = native.build()  # the ray-batch prefetcher (phase 21), by g++
+    native.load_native()
+    print(f"build: {os.path.relpath(host_lib, ROOT)} in {time.perf_counter() - t0:.1f} s")
 
     worst = {"nerf_render_fwd": phase_kernel_vs_plain(fused_nerf, NeRFConfig)}
 
@@ -3221,6 +3453,16 @@ def main() -> None:
     # ---- phase 20: the data-parallel path, in ranks of its own ----
     for k, v in phase_data_parallel(smi).items():
         launches[k] += v
+
+    # ---- phase 21: the C++ ray-batch prefetcher (train_nerf --pipeline) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe_launches, extra["nerf_train"]["pipeline"] = phase_pipeline(
+            train_nerf, fused_nerf, CheckpointManager, NeRFModel, NeRFConfig, synthetic_views,
+            normalized_intrinsics, psnr, smi, tmp)
+    launches["nerf_train"] += pipe_launches
+
+    # ---- phase 22: the loma DSL on the card ----
+    phase_dsl(smi)
 
     for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share
         extra[name] = {**extra.get(name, {}), "share": bounds[name][0] / timing[name][0]}

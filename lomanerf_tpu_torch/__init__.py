@@ -10,7 +10,9 @@ is easy to find; public functions keep its layouts (params
                versions, and the nvcc/ctypes build
 * ``models`` — ``NeRFConfig``/``NeRFModel`` and ``ImageFieldConfig``/
                ``ImageFieldModel`` (``nn.Module``s)
-* ``data``   — camera poses, the synthetic scene, the Blender loader
+* ``data``   — camera poses, the synthetic scene, the Blender loader, and
+               the ray-batch prefetcher (``data.native``: a C++ worker pool
+               built by g++ at first use, and its numpy twin)
 * ``train``  — optimizers, the train step, checkpoints, logging, the
                ``train_nerf`` and ``fit_image`` drivers and the orbit
                renderer
@@ -19,6 +21,10 @@ is easy to find; public functions keep its layouts (params
                (one SUM all-reduce), the sharded render, the
                tensor-parallel MLP and a launcher for ranks
 * ``utils``  — profiling hooks (``trace``, ``device_memory_stats``)
+* ``dsl``    — the loma DSL: parser, checks and type inference, lowered to
+               eager PyTorch with ``torch.func`` autodiff (``dsl.compile``)
+* ``examples`` — the DSL and data demos (``python -m
+               lomanerf_tpu_torch.examples.<name>``)
 
 Tensors are made on the device of a function's inputs, or on the ``device``
 it is given; randomness comes from a ``torch.Generator`` argument.  The

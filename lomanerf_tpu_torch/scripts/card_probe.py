@@ -85,6 +85,15 @@ run against another checkout of the port to compare two trees.
   with the L2 as found and flushed (a 128 MiB read; a 128 MiB write, whose
   dirty lines the call's misses write back), and the kernel's duration
   from one trace.
+* ``--what pipeline``: the ``small`` driver step (``train_nerf.main``,
+  4096 rays, the 16-view 64x64 synthetic scene, Adam 5e-4) under each ray
+  producer, ``--pipeline python``, ``numpy`` and ``native``, ``--steps``
+  steps each, one after the other in one trace: from the driver's
+  ``train_nerf.step`` spans after ``PIPELINE_WARMUP`` steps, the host's
+  ms a step (the spans' window over their count), the card's busy ms a
+  step (the union of its kernels, copies and memsets inside that window)
+  and its idle share (1 - busy / window).  Each step ends in the loss's
+  read, so a step's device work lies inside its span.
 * ``--what leaves``: each wide leaf's worst |kernel - plain| of the
   flagship's train-loss gradients, over the leaf's largest entry, on the
   inputs of ``chip_smoke.py`` phase 7 (``full()`` on 1037 rays, numpy seed
@@ -100,6 +109,7 @@ The last line is one JSON object with the numbers.  Run:
     python -m lomanerf_tpu_torch.scripts.card_probe --what render --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
+    python -m lomanerf_tpu_torch.scripts.card_probe --what pipeline --steps 60
     python -m lomanerf_tpu_torch.scripts.card_probe --what field [--parent DIR]
     python -m lomanerf_tpu_torch.scripts.card_probe --what walk --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what scans [--parent DIR]
@@ -882,10 +892,73 @@ def scans_against(parent: str | None, rounds: int = 3, calls: int = 20) -> dict:
     return out
 
 
+PIPELINES = ("python", "numpy", "native")
+PIPELINE_WARMUP = 10  # driver steps before the measured window (the step-0 eval among them)
+
+
+def busy_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of ``(start, end)`` intervals clipped to [lo, hi]."""
+    total, reach = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            total += b - a
+            reach = b
+    return total
+
+
+def pipeline(steps: int) -> dict:
+    """The ``small`` driver step's host ms, device ms and idle share under
+    each ray producer (``--what pipeline``)."""
+    from lomanerf_tpu_torch.train import train_nerf
+    from lomanerf_tpu_torch.utils import trace
+
+    if steps <= PIPELINE_WARMUP:
+        raise SystemExit(f"card_probe: --what pipeline needs --steps > {PIPELINE_WARMUP}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(os.path.join(tmp, "trace")):
+            for name in PIPELINES:
+                train_nerf.main([
+                    "--device", "cuda", "--preset", "small", "--img-size", "64",
+                    "--rays-per-batch", "4096", "--steps", str(steps), "--pipeline", name,
+                    "--eval-every", str(10 * steps), "--ckpt-every", "0",
+                    "--log-dir", os.path.join(tmp, name, "logs"),
+                    "--ckpt-dir", os.path.join(tmp, name, "ck")])
+        with open(os.path.join(tmp, "trace", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("name") == "train_nerf.step" and e.get("cat") == "user_annotation")
+    if len(spans) != steps * len(PIPELINES):
+        raise SystemExit(f"card_probe: {len(spans)} train_nerf.step spans, need "
+                         f"{steps * len(PIPELINES)}")
+    work = [(ts, ts + us) for _, _, us, ts in card_work(events)]
+    out = {"what": "pipeline", "steps": steps - PIPELINE_WARMUP, "rays": 4096,
+           "device": torch.cuda.get_device_name(0), "pipelines": {}}
+    print(f"small driver step, 4096 rays, {steps - PIPELINE_WARMUP} steps a producer after "
+          f"{PIPELINE_WARMUP}:")
+    for i, name in enumerate(PIPELINES):
+        mine = spans[i * steps + PIPELINE_WARMUP:(i + 1) * steps]
+        lo, hi = mine[0][0], mine[-1][1]
+        busy = busy_us(work, lo, hi)
+        n = len(mine)
+        out["pipelines"][name] = {
+            "host_ms_per_step": (hi - lo) / n / 1e3, "device_ms_per_step": busy / n / 1e3,
+            "idle_share": 1.0 - busy / (hi - lo),
+            "span_ms_median": statistics.median(b - a for a, b in mine) / 1e3}
+        r = out["pipelines"][name]
+        print(f"  --pipeline {name:6s}: host {r['host_ms_per_step']:.4f} ms/step (span median "
+              f"{r['span_ms_median']:.4f}), device {r['device_ms_per_step']:.4f} ms/step, idle "
+              f"{r['idle_share']:.1%}")
+    if not all(r["device_ms_per_step"] for r in out["pipelines"].values()):
+        raise SystemExit("card_probe: the trace holds no device time")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", choices=("flagship", "small", "frame", "grid_sum", "leaves",
-                                       "walk", "field", "render", "scans"), required=True)
+                                       "walk", "field", "render", "scans", "pipeline"),
+                    required=True)
     ap.add_argument("--parent", help="root of the checkout --what walk, field, render or "
                     "scans compares against")
     ap.add_argument("--preset", choices=("full", "small"), default="full",
@@ -907,6 +980,8 @@ def main(argv=None) -> dict:
         out = (walk if args.what == "walk" else render)(args.parent)
     elif args.what == "field" and args.parent:
         out = field_against(args.parent)
+    elif args.what == "pipeline":
+        out = pipeline(args.steps)
     else:
         out = {"flagship": lambda: flagship(args.steps),
                "small": lambda: small(args.steps),

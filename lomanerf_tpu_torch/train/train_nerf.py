@@ -22,7 +22,14 @@ writes metrics, PNGs and checkpoints.  ``--tp N`` shards the MLP over N
 ranks and runs on ``--backend plain`` only.  With one process and no
 distributed environment the run is the single-card run, bit for bit.
 
-Not ported yet (ROADMAP queue 1, item 2): ``--pipeline native|numpy``.
+``--pipeline native`` (or ``numpy``) draws each step's batch from
+``data.native.RayBatchPipeline`` instead: the C++ prefetcher's worker pool
+(``--pipeline-threads``; batches in batch-id order, so any thread count
+gives the same run) or its numpy twin, seeded with the same per-rank seed,
+on the host, one copy to the card a step.  Its depths are in offset form:
+the driver folds each ray's offset into its origin (``o + d * dt``) and
+trains on the pipeline's static ``(S,)`` comb, so stratified runs stay on
+the shared-depth train kernel.
 
 Run: ``python -m lomanerf_tpu_torch.train.train_nerf --preset small --steps 500``
 (the narrow kernels) or ``--preset full --steps 300`` (the 8x256 bf16
@@ -79,6 +86,11 @@ def main(argv=None) -> dict:
                     help="shift each ray's depth comb by a random offset")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda runs the kernels, cpu the plain version")
+    ap.add_argument("--pipeline", default="python", choices=["python", "native", "numpy"],
+                    help="ray-batch producer: in-driver python, the C++ prefetcher, or its "
+                         "numpy twin")
+    ap.add_argument("--pipeline-threads", type=int, default=4,
+                    help="worker threads of --pipeline native")
     ap.add_argument("--backend", default="auto", choices=["auto", "plain"],
                     help="auto: the fused train loss (the kernel on CUDA); plain: "
                          "autograd through the core pipeline, for comparisons")
@@ -171,18 +183,32 @@ def main(argv=None) -> dict:
     seed = args.seed + 7919 * mesh.data_index
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
+    pipe = None
+    if args.pipeline != "python":
+        from lomanerf_tpu_torch.data.native import RayBatchPipeline
+
+        pipe = RayBatchPipeline(poses, images, focal, args.rays_per_batch, cfg.num_samples,
+                                cfg.near, cfg.far, stratified=args.stratified, seed=seed,
+                                n_threads=args.pipeline_threads,
+                                force_numpy=args.pipeline == "numpy", device=device)
+        t_vals, dists = pipe.t_base, pipe.dists
     view = args.eval_view % n_views
     losses, psnrs = [], {}
     for i in range(start_step, args.steps):
-        v = int(rng.integers(n_views))
-        idx = torch.from_numpy(rng.integers(n_pix, size=args.rays_per_batch)).to(device)
-        o, d = all_o[v, idx], all_d[v, idx]
-        if args.stratified:
-            dt = stratified_ray_offsets(gen, args.rays_per_batch, cfg.near, cfg.far,
-                                        cfg.num_samples)
-            o = o + d * dt[:, None]
-        loss = step_fn(params, RayBatch(o, d, t_vals, dists, all_t[v, idx]))
-        losses.append(float(loss))
+        with torch.profiler.record_function("train_nerf.step"):
+            if pipe is not None:
+                o, d, dt, tgt = pipe.next_batch()
+                o = o + d * dt[:, None]
+            else:
+                v = int(rng.integers(n_views))
+                idx = torch.from_numpy(rng.integers(n_pix, size=args.rays_per_batch)).to(device)
+                o, d, tgt = all_o[v, idx], all_d[v, idx], all_t[v, idx]
+                if args.stratified:
+                    dt = stratified_ray_offsets(gen, args.rays_per_batch, cfg.near, cfg.far,
+                                                cfg.num_samples)
+                    o = o + d * dt[:, None]
+            loss = step_fn(params, RayBatch(o, d, t_vals, dists, tgt))
+            losses.append(float(loss))
         if not np.isfinite(losses[-1]):
             # report and stop (every rank: the loss is summed over them),
             # so the last checkpoint stays usable
@@ -206,6 +232,8 @@ def main(argv=None) -> dict:
         if args.ckpt_every and i and i % args.ckpt_every == 0:
             ckpt.save(i, params, opt, mesh=mesh, config=cfg, tp=tp)
 
+    if pipe is not None:
+        pipe.close()
     ckpt.save(args.steps, params, opt, mesh=mesh, config=cfg, tp=tp)
     logger.close()
     if losses and is_primary():

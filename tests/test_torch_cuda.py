@@ -771,3 +771,32 @@ def test_grid_sum_is_one_launch_in_a_fixed_order(n_tiles):
     got = [probe.grid_sum(x, 3840) for _ in range(3)]
     assert all(torch.equal(got[0], y) for y in got[1:])
     assert got[0].item() == float(kernel_order_sum(x.cpu().numpy(), 3840))
+
+
+@pytest.mark.cuda
+def test_pinned_ring_batches_on_the_card():
+    """On the card each batch crosses from a ring of pinned buffers without
+    a synchronise: 50 batches held back on the card (none read until the
+    end) equal the CPU pipeline's, bit for bit."""
+    need_card()
+    from lomanerf_tpu_torch.data.native import RayBatchPipeline
+
+    rng = np.random.default_rng(215)
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    poses[:, :3, 3] = rng.standard_normal((3, 3))
+    images = rng.random((3, 64, 64, 3)).astype(np.float32)
+    kw = dict(focal=1.2, n_rays=65536, num_samples=16, near=2.0, far=6.0, seed=5,
+              stratified=True)
+    for force_numpy in (False, True):
+        card = RayBatchPipeline(poses, images, force_numpy=force_numpy, device="cuda", **kw)
+        host = RayBatchPipeline(poses, images, force_numpy=force_numpy, device="cpu", **kw)
+        held = []
+        for _ in range(50):
+            torch.cuda._sleep(100000)  # keep the card busy: copies queue behind
+            held.append(card.next_batch())
+        for i, batch in enumerate(held):
+            for g, w in zip(batch, host.next_batch()):
+                assert torch.equal(g.cpu(), w), f"batch {i}"
+        assert torch.equal(card.t_base.cpu(), host.t_base)
+        card.close()
+        host.close()

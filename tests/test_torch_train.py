@@ -609,7 +609,9 @@ def test_train_nerf_refuses_missing_card_and_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             train_nerf.main(["--steps", "1"])
-    for flag in (["--tp", "2"], ["--pipeline", "native"], ["--coordinator", "h:1"]):
+    # --pipeline native|numpy is ported (test_torch_native.py); an unknown
+    # producer is refused
+    for flag in (["--tp", "2"], ["--pipeline", "jax"], ["--coordinator", "h:1"]):
         with pytest.raises(SystemExit):
             train_nerf.main(["--device", "cpu", *flag])
 
