@@ -151,22 +151,45 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     compiled for ``cuda`` against ``cpu`` at the table's tolerances, one
     warm call of each timed; an ``@simd`` add and reduce at 65,536 threads
     through the ``torch.func.vmap`` route, and the reduce at 1,024 threads
-    through both routes; ``diff_raytrace``'s image and gradient.
+    through both routes; ``diff_raytrace``'s image and gradient;
+23. runs the driver surface (``lomanerf_tpu_torch.entry``): ``entry()``'s
+    flagship loss and dW/db (the wide train kernel) against the plain
+    version, ``dryrun_multichip(1)`` over NCCL and ``dryrun_multichip(4)``
+    over gloo (dp = 2, tp = 2, four ranks on the card), then ``python -m
+    lomanerf_tpu_torch.entry 2``;
+24. holds the wide kernels at the shapes they took last (C4: hidden widths
+    padded to 384, 512 and 1024, f32 and bf16, the bf16 render past pw 256
+    on the layer chain; one-layer MLPs; A4: ``small()`` in bf16) against
+    their plain versions on 1037 rays at shared and per-ray depths; times
+    the 8x1024 bf16 step at 16,384 rays (TFLOP/s, share of the bf16 peak),
+    each wide entry point there, and the step in turns with the plain
+    version at 4096 rays; runs ``train_nerf --layers 8 --width 1024
+    --samples 128 --steps 3``;
+25. holds the wide field route (``field_wide.cu``, D2) against its plain
+    version: 8x128 and a 3D field with a 16-channel head on 1037 points,
+    the 4x256 field over the whole 512x512 image; times each kernel and the
+    fit step there against the plain version; fits 200 ``fit_image`` steps
+    of the 4x256 field at 512x512 on the kernels and the plain backend
+    from one init (>= 8 dB above step 0, within 0.3 dB of plain).
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
 scans' own timed runs at the 262,144 x 30 column: no train step or frame
 launches ``seg_scans``), 19 (the sweep), 20 (each rank's data-parallel
-steps and sharded frame) and 21 (the three pipeline runs) are the main paths:
-each kernel's launch count is reset before its path and read after it.
+steps and sharded frame), 21 (the three pipeline runs), 23 (``entry()``'s
+loss and each dry-run rank's steps), 24 (the 8x1024 driver) and 25 (the
+4x256 fit) are the main paths: each kernel's launch count is reset before
+its path and read after it.
 The last lines are the card's name and power limit, a JSON line of the
-sixteen kernels (with each one's least time on the card for its work,
+eighteen kernels (the sixteen TPU kernels' counterparts and the wide
+field route's two; with each one's least time on the card for its work,
 ``bound_ms``; #1's ``ms`` is the kernel's own call, with the frames' times
 and its share of the bound beside it, #4's with its share; #14's with
 phase 10's whole-image leaves and flips per route; #3's also with phase
 6's split of the step and phase 21's pipeline summary; #8's also with
 phase 9's fused MLP alone, #10 new against old and the frame's split by
-kernel family; #15's ``ms``, ``plain_ms`` and ``library_ms`` the cumprod's
+kernel family; #7-#9's also with phase 24's 8x1024 times and bounds;
+#15's ``ms``, ``plain_ms`` and ``library_ms`` the cumprod's
 card work with the L2 flushed, with its share and every op's times, as
 found and flushed, beside them), and ``{"ok": true,
 "device": ...}``.  It exits
@@ -274,6 +297,10 @@ PERRAY = tuple(name for name in KERNELS if name.endswith("_rays"))
 KERNELS.update({  # the last two TPU kernels: the seg-scan harness, the grid-overhead probe
     "seg_scans": (_CSRC + "seg_scans.cu", "tests/test_pallas_kernels.py:46"),
     "grid_sum": (_CSRC + "grid_sum.cu", "scripts/tpu_grid_overhead.py:36"),
+})
+KERNELS.update({  # fields past the tile kernels (D2): the wide route of #13 and #14
+    "field_wide_fwd": (_CSRC + "field_wide.cu", "lomanerf_tpu/ops/fused_mlp.py:45"),
+    "field_wide_bwd": (_CSRC + "field_wide.cu", "lomanerf_tpu/ops/fused_mlp.py:51"),
 })
 SINGLE64_RAYS = 65536  # the bench's single64 rung (bench.py:334)
 STRAT_STEPS, STRAT_FULL_STEPS = 500, 30
@@ -3206,6 +3233,464 @@ def phase_dsl(smi):
             "diff_raytrace_ms": ray_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-25: the driver surface (entry.py), NeRF MLPs at any width (C4)
+# and narrow ones in bf16 (A4) on the wide kernels, and image fields past
+# the tile kernels on field_wide.cu (D2)
+# ---------------------------------------------------------------------------
+
+ENTRY_RANKS = (1, 4)  # dryrun_multichip: one NCCL rank; four gloo ranks (tp = 2)
+
+
+def phase_entry(fused_nerf, NeRFConfig):
+    """Phase 23: ``entry.entry()`` on the card, its loss and dW/db (one
+    launch of the wide train kernel) against the plain version on the same
+    args (loss rtol 1e-4, dW/db phase 7's bf16 bound), then
+    ``dryrun_multichip(1)`` over NCCL and ``dryrun_multichip(4)`` over gloo
+    (tp = 2; four ranks on one card): each rank's losses finite and its
+    train and render kernels launched; then the command line, ``python -m
+    lomanerf_tpu_torch.entry 2`` (two gloo ranks), in a process of its own.
+    Returns the launches of the three main paths by kernel."""
+    from lomanerf_tpu_torch import entry
+
+    fn, args = entry.entry()
+    params, batch = args[0], args[1:]
+    leaves = leaves_of(params)
+    cfg = NeRFConfig.full()
+    reset_launches(fused_nerf)
+    loss = fn(*args)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    launches = {"nerf_wide_train": fused_nerf.launches["nerf_wide_train"]}
+    if launches["nerf_wide_train"] != 1 or sum(fused_nerf.launches.values()) != 1:
+        raise AssertionError(f"entry()'s loss launched {fused_nerf.launches}")
+    plain = fused_nerf.nerf_train_loss_reference(params, *batch, cfg)
+    p_grads = torch.autograd.grad(plain, leaves)
+    _, loss_rtol, _ = wide_tolerances(cfg)
+    torch.testing.assert_close(loss.detach(), plain.detach(), rtol=loss_rtol, atol=0.0)
+    e = wide_grads_close(grads, p_grads, "entry() dW/db", cfg)
+    print(f"phase 23 entry(): full() on {batch[0].shape[0]} rays, loss kernel "
+          f"{loss.item():.6e} plain {plain.item():.6e}; max|dW,db kernel-plain| {e:.3e}; "
+          f"per leaf {leaf_errors(grads, p_grads)}")
+    del grads, p_grads, plain
+    for n in ENTRY_RANKS:
+        t0 = time.perf_counter()
+        ranks = entry.dryrun_multichip(n)
+        secs = time.perf_counter() - t0
+        for r in ranks:
+            if not (np.isfinite(r["loss_dp_tp"]) and np.isfinite(r["loss_fused"])):
+                raise AssertionError(f"dryrun_multichip({n}): {r}")
+            if r["launches"]["nerf_train"] != 1 or r["launches"]["nerf_render_fwd"] < 1:
+                raise AssertionError(f"dryrun_multichip({n}) launched {r['launches']}")
+        for k in ("nerf_train", "nerf_render_fwd"):
+            launches[k] = launches.get(k, 0) + sum(r["launches"][k] for r in ranks)
+        print(f"phase 23 dryrun_multichip({n}) OK in {secs:.1f} s: losses dp x tp "
+              f"{ranks[0]['loss_dp_tp']:.4f}, fused {ranks[0]['loss_fused']:.4f}; render "
+              f"{ranks[0]['render_shape']}; launches a rank (#3, #1) "
+              f"{[(r['launches']['nerf_train'], r['launches']['nerf_render_fwd']) for r in ranks]}")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "lomanerf_tpu_torch.entry", "2"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    last = cli.stdout.strip().splitlines()[-1:] or [""]
+    if cli.returncode != 0 or last[0] != "dryrun_multichip(2) OK":
+        raise AssertionError(f"python -m lomanerf_tpu_torch.entry 2: rc {cli.returncode}\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-4000:]}")
+    print(f"phase 23 python -m lomanerf_tpu_torch.entry 2 in {time.perf_counter() - t0:.1f} s: "
+          + " | ".join(cli.stdout.strip().splitlines()))
+    return launches
+
+
+WIDTHS_RAYS = 16384  # the 8x1024 step: the flagship rung's batch (bench.py:334)
+WIDTHS_PLAIN_RAYS = 4096  # where the 8x1024 plain step fits beside the kernels' scratch
+WIDTHS_STEPS = 5
+
+
+def width_configs(NeRFConfig):
+    """Phase 24's MLPs: C4 (hidden widths past 256: 3x384, 4x512 in f32 and
+    bf16; 8x1024 bf16, the NeRF MLP of mip-NeRF 360 (Barron et al., CVPR
+    2022, section 5) at S = 128, standard, init "nerf"; one-layer wide,
+    n = 12, 75 inputs) and A4 (``small()`` in bf16)."""
+    big = NeRFConfig(num_layers=8, filter_size=1024, num_samples=128, mode="standard",
+                     init="nerf", compute_dtype="bfloat16")
+    out = {}
+    for L, W in ((3, 384), (4, 512)):
+        for cdt in ("float32", "bfloat16"):
+            out[f"{L}x{W} {cdt}"] = NeRFConfig(num_layers=L, filter_size=W, num_samples=32,
+                                               compute_dtype=cdt)
+    out["8x1024 bfloat16"] = big
+    for cdt in ("float32", "bfloat16"):
+        out[f"1x(75->4) {cdt}"] = NeRFConfig(num_layers=1, num_encoding_functions=12,
+                                             num_samples=32, mode="standard",
+                                             compute_dtype=cdt)
+    out["small bfloat16"] = NeRFConfig(compute_dtype="bfloat16")
+    return out
+
+
+def jittered_depths(rng, cfg, n):
+    """Sorted uniform (N, S) depths and their steps (the 1e8 sentinel last)."""
+    S = cfg.num_samples
+    tj = np.sort(rng.uniform(cfg.near, cfg.far, (n, S)), axis=1)
+    dj = np.concatenate([np.diff(tj, axis=1), np.full((n, 1), 1e8)], axis=1)
+    return tuple(torch.tensor(x, dtype=torch.float32, device="cuda") for x in (tj, dj))
+
+
+def phase_widths(fused_nerf, NeRFConfig, make_single_chip_train_step, mlp_layer_sizes,
+                 train_nerf, smi, tmp, seed=31):
+    """Phase 24: the wide kernels at the shapes C4 and A4 opened
+    (:func:`width_configs`) against their plain versions on 1037 rays, at
+    shared and per-ray depths: render, train loss and dW/db, render backward
+    at phases 4 and 7's bounds (:func:`wide_tolerances`), repeat launches
+    bit-identical, only wide launches.  Then the 8x1024 bf16 step at 16,384
+    rays (Adam 5e-4): a few steps timed by CUDA events, its TFLOP/s and
+    share of the bf16 peak; each wide entry point's own call there; the
+    step in turns with the plain version at 4096 rays (16,384 rays of the
+    plain version's f32 activations do not fit beside the kernels'
+    scratch); ``train_nerf --layers 8 --width 1024 --samples 128 --steps 3``
+    (f32) through the wide train kernel.  Returns (worst |kernel - plain|
+    per entry point, timings, bounds, launches of the driver run)."""
+    rng = np.random.default_rng(seed)
+    worst = dict.fromkeys([n + s for n in WIDE for s in ("", "_rays")], 0.0)
+    for name, cfg in width_configs(NeRFConfig).items():
+        params = seeded_params(rng, cfg)
+        leaves = leaves_of(params)
+        kind, pw = fused_nerf._route(cfg, params)
+        if kind != "wide":
+            raise AssertionError(f"{name}: routed {kind}")
+        o, d = seeded_rays(rng, N_CHECK)
+        tgt = torch.tensor(rng.random((N_CHECK, 3)), dtype=torch.float32, device="cuda")
+        cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
+                           device="cuda")
+        col_atol, loss_rtol, _ = wide_tolerances(cfg)
+        for depths, suf in ((uniform_depths(cfg), ""), (jittered_depths(rng, cfg, N_CHECK),
+                                                          "_rays")):
+            t, dists = depths
+
+            def train(loss_fn):
+                loss = loss_fn(params, o, d, t, dists, tgt, cfg)
+                return (loss.detach(), *torch.autograd.grad(loss, leaves))
+
+            def render_bwd(render_fn):
+                out = render_fn(params, o, d, t, dists, cfg)
+                return torch.autograd.grad((out * cot).sum(), leaves)
+
+            reset_launches(fused_nerf)
+            with torch.no_grad():
+                c1 = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+                c2 = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+            k1, k2 = train(fused_nerf.nerf_train_loss), train(fused_nerf.nerf_train_loss)
+            b1, b2 = render_bwd(fused_nerf.render_rays), render_bwd(fused_nerf.render_rays)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in fused_nerf.launches.items() if v}
+            want = {"nerf_wide_render_fwd" + suf: 4, "nerf_wide_train" + suf: 2,
+                    "nerf_wide_render_bwd" + suf: 2}
+            if got != want:
+                raise AssertionError(f"{name}{suf}: launches {got}, expected {want}")
+            with torch.no_grad():
+                cp = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+            p = train(fused_nerf.nerf_train_loss_reference)
+            q = render_bwd(fused_nerf.render_rays_reference)
+            if not all(torch.equal(x, y) for x, y in zip((c1, *k1, *b1), (c2, *k2, *b2))):
+                raise AssertionError(f"{name}{suf}: repeat launches differ")
+            what = f"{name} pw={pw} S={cfg.num_samples} {cfg.mode}{suf or ' shared'}"
+            e_fwd = (c1 - cp).abs().max().item()
+            torch.testing.assert_close(c1, cp, atol=col_atol, rtol=RTOL)
+            loss_err = abs(k1[0].item() - p[0].item())
+            torch.testing.assert_close(k1[0], p[0], rtol=loss_rtol, atol=0.0)
+            e_tr = wide_grads_close(k1[1:], p[1:], f"nerf_wide_train {what}", cfg)
+            e_bw = wide_grads_close(b1, q, f"nerf_wide_render_bwd {what}", cfg)
+            for k, e in (("render_fwd", e_fwd), ("train", max(e_tr, loss_err)),
+                         ("render_bwd", e_bw)):
+                worst["nerf_wide_" + k + suf] = max(worst["nerf_wide_" + k + suf], e)
+            print(f"phase 24 {what} N={N_CHECK}: max|kernel-plain| render {e_fwd:.3e}; "
+                  f"loss {k1[0].item():.6e} (|kernel-plain| {loss_err:.3e}); dW,db train "
+                  f"{e_tr:.3e}, render bwd {e_bw:.3e} (of the largest entry: train "
+                  f"{leaf_errors(k1[1:], p[1:])}); repeat launches bit-identical; launches "
+                  f"{got}")
+        del params, leaves
+
+    # the 8x1024 bf16 step at the flagship batch, and each entry alone
+    cfg = width_configs(NeRFConfig)["8x1024 bfloat16"]
+    fwd, bwd = mlp_macs(mlp_layer_sizes(cfg.in_channels, cfg.out_channels, cfg.num_layers,
+                                        cfg.filter_size))
+    S = cfg.num_samples
+    params = seeded_params(np.random.default_rng(0), cfg)
+    leaves = leaves_of(params)
+    opt = torch.optim.Adam(leaves, lr=5e-4)
+    step = make_single_chip_train_step(cfg, opt)
+    batch = bench_batch(np.random.default_rng(0), cfg, WIDTHS_RAYS)
+    losses = [step(params, *batch).item()]  # warm-up
+    ms = [cuda_ms(lambda: step(params, *batch))[0] for _ in range(WIDTHS_STEPS)]
+    med = statistics.median(ms)
+    flop = 2.0 * bwd * WIDTHS_RAYS * S
+    print(f"phase 24 8x1024 bf16 train step, {WIDTHS_RAYS} rays x {S} samples, Adam 5e-4, "
+          f"on {smi}: {spread(ms)}; {flop / med / 1e9:.1f} TFLOP/s, "
+          f"{flop / med / 1e9 / (PEAK_BF16 / 1e12) * 100:.1f}% of the bf16 peak; "
+          f"first loss {losses[0]:.6e}")
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((WIDTHS_RAYS, 3)),
+                       dtype=torch.float32, device="cuda")
+    o, d, t, dists, tgt = batch
+
+    def call(name):
+        if name == "nerf_wide_render_fwd":
+            def run():
+                with torch.no_grad():
+                    return fused_nerf.render_rays(params, o, d, t, dists, cfg)
+        elif name == "nerf_wide_train":
+            def run():
+                loss = fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, cfg)
+                return torch.autograd.grad(loss, leaves)
+        else:
+            out = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+
+            def run():
+                return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        return run
+
+    timing, bounds = {}, {}
+    for name in WIDE:
+        fn = call(name)
+        fn()
+        ts = [cuda_ms(fn)[0] for _ in range(3)]
+        macs = fwd if name == "nerf_wide_render_fwd" else bwd
+        bounds[name] = bound(WIDTHS_RAYS * S * macs, PEAK_BF16, WIDTHS_RAYS * 36)
+        timing[name] = statistics.median(ts)
+        print(f"phase 24 {name} alone, 8x1024 bf16, {WIDTHS_RAYS} rays x {S}: {spread(ts)}; "
+              f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]}), "
+              f"{bounds[name][0] / timing[name] * 100:.1f}% of it")
+    del batch, o, d, t, dists, tgt, cot, opt, step
+
+    # kernels and plain in turns at 4096 rays, from one init
+    small_batch = bench_batch(np.random.default_rng(2), cfg, WIDTHS_PLAIN_RAYS)
+    runs = {}
+    for backend in ("auto", "plain"):
+        prm = seeded_params(np.random.default_rng(0), cfg)
+        opt = torch.optim.Adam(leaves_of(prm), lr=5e-4)
+        def plain_step(p, *b, _opt=opt):  # the plain version of the same loss
+            _opt.zero_grad(set_to_none=True)
+            loss = fused_nerf.nerf_train_loss_reference(p, *b, cfg)
+            loss.backward()
+            _opt.step()
+            return loss.detach()
+
+        st = make_single_chip_train_step(cfg, opt) if backend == "auto" else plain_step
+        runs[backend] = (lambda p=prm, s=st: s(p, *small_batch))
+    first = {k: fn().item() for k, fn in runs.items()}
+    turns = timed_turns(runs, 2)
+    plain_ms = statistics.median(turns["plain"])
+    print(f"phase 24 8x1024 bf16 train step at {WIDTHS_PLAIN_RAYS} rays, in turns: kernels "
+          f"{spread(turns['auto'])}, plain {spread(turns['plain'])}; first losses kernel "
+          f"{first['auto']:.6e} plain {first['plain']:.6e} (at {WIDTHS_RAYS} rays the plain "
+          "version's f32 activations do not fit beside the kernels' scratch)")
+    torch.testing.assert_close(torch.tensor(first["auto"]), torch.tensor(first["plain"]),
+                               rtol=1e-4, atol=0.0)
+    del runs, small_batch, params, leaves
+    torch.cuda.empty_cache()
+
+    # train_nerf at 8x1024 (f32, the compute dtype it trains in)
+    reset_launches(fused_nerf)
+    t0 = time.perf_counter()
+    out = train_nerf.main(["--device", "cuda", "--data", "synthetic", "--img-size", "64",
+                           "--layers", "8", "--width", "1024", "--samples", "128",
+                           "--steps", "3", "--eval-every", "2", "--ckpt-every", "0",
+                           "--log-dir", os.path.join(tmp, "logs_1024"),
+                           "--ckpt-dir", os.path.join(tmp, "ck_1024")])
+    secs = time.perf_counter() - t0
+    driver = {k: v for k, v in fused_nerf.launches.items() if v}
+    if driver.get("nerf_wide_train") != 3 or not np.all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train_nerf 8x1024: launches {driver}, losses {out['losses']}")
+    print(f"phase 24 train_nerf --layers 8 --width 1024 --samples 128 --steps 3 (f32): "
+          f"{secs:.1f} s host time; losses {[round(x, 4) for x in out['losses']]}; launches "
+          f"{driver}")
+    timing = {k: (v, plain_ms if k == "nerf_wide_train" else None) for k, v in timing.items()}
+    return worst, timing, bounds, driver
+
+
+FIELD_WIDE_SIZE = 512  # Tancik et al.'s image-regression resolution
+FIELD_WIDE_STEPS = 200
+
+
+def field_wide_configs(ImageFieldConfig):
+    """Phase 25's fields: 4x256 (the image-regression network of Tancik et
+    al., "Fourier Features Let Networks Learn High Frequency Functions",
+    NeurIPS 2020: 4 layers, 256 channels, ReLU, sigmoid) with the repo's
+    n = 8 encoding; 8x128 (past a tile's shared memory); a 3D-coordinate
+    field with a 16-channel head.  (config, coordinate dimension, output
+    channels)."""
+    return {"4x256": (ImageFieldConfig(num_layers=4, filter_size=256,
+                                       num_encoding_functions=8), 2, 3),
+            "8x128": (ImageFieldConfig(num_layers=8, filter_size=128,
+                                       num_encoding_functions=8), 2, 3),
+            "3d 3x64 16ch": (ImageFieldConfig(num_layers=3, filter_size=64,
+                                              num_encoding_functions=5), 3, 16)}
+
+
+def field_params_for(rng, mlp_layer_sizes, cfg, D, out):
+    sizes = mlp_layer_sizes(D * (1 + 2 * cfg.num_encoding_functions), out, cfg.num_layers,
+                            cfg.filter_size)
+    return {"w": [torch.tensor(rng.standard_normal(s) * np.sqrt(2.0 / s[0]),
+                               dtype=torch.float32, device="cuda") for s in sizes],
+            "b": [torch.tensor(rng.standard_normal(s[1]) * 0.5, dtype=torch.float32,
+                               device="cuda") for s in sizes]}
+
+
+def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_sizes,
+                     make_image_fit_step, fit_image, smi, tmp, seed=37):
+    """Phase 25: the wide field route (``field_wide.cu``) against its plain
+    version: 8x128 and the 3D 16-channel field on 1037 points (phase 10's
+    bounds), the 4x256 field over the whole 512x512 image (outputs within
+    1e-4, dW/db within ``FIELD_IMAGE_GRAD`` of the leaf's largest entry),
+    repeat launches bit-identical, the "high" and "highest" tiers the same
+    bits (exact f32 products on both); each kernel's own call at 512x512
+    against the plain version and its 3xTF32 and f32 bounds, and the fit step (Adam)
+    through the kernels and the plain backend in turns; then 200 ``fit_image``
+    steps at 4x256 on 512x512 (``--layers 4 --width 256 --img-size 512
+    --enc-functions 8``) through the kernels and the plain backend from one
+    init: PSNR >= 8 dB above step 0 and within 0.3 dB of plain, the step's
+    ms in turns.  Returns (worst per kernel, timings, bounds (3xTF32, as
+    phase 12's), launches of the kernel run)."""
+    rng = np.random.default_rng(seed)
+    worst = {"field_wide_fwd": 0.0, "field_wide_bwd": 0.0}
+
+    def kernel(tier, out):
+        return lambda params, coords, nf: fused_mlp.field_forward(params, coords, nf, out,
+                                                                  precision=tier)
+
+    def plain(out):
+        return lambda params, coords, nf: fused_mlp.field_forward_reference(params, coords,
+                                                                            nf, out)
+    for name, (cfg, D, out) in field_wide_configs(ImageFieldConfig).items():
+        nf = cfg.num_encoding_functions
+        params = field_params_for(rng, mlp_layer_sizes, cfg, D, out)
+        if fused_mlp.kernel_width(params, D, nf, out) is not None:
+            raise AssertionError(f"field {name}: routed to the tile kernels")
+        big = name == "4x256"
+        n = FIELD_WIDE_SIZE ** 2 if big else N_CHECK
+        coords = image_grid_coords(FIELD_WIDE_SIZE, "cuda") if big else torch.tensor(
+            rng.random((n, D)), dtype=torch.float32, device="cuda")
+        cot = torch.tensor(rng.standard_normal((n, out)), dtype=torch.float32, device="cuda")
+        reset_launches(fused_mlp)
+        k1 = field_grads(kernel("high", out), params, coords, cot, nf)
+        k2 = field_grads(kernel("highest", out), params, coords, cot, nf)
+        torch.cuda.synchronize()
+        if fused_mlp.launches["field_wide_fwd"] != 2 or fused_mlp.launches["field_wide_bwd"] != 2 \
+                or fused_mlp.launches["field_fwd"] or fused_mlp.launches["field_bwd"]:
+            raise AssertionError(f"field {name}: launches {fused_mlp.launches}")
+        if not all(torch.equal(a, b) for a, b in zip((k1[0], *k1[1]), (k2[0], *k2[1]))):
+            raise AssertionError(f"field {name}: repeat launches (high, highest) differ")
+        if k1[2] is not None:
+            raise AssertionError(f"field {name}: the coords got a gradient")
+        p = field_grads(plain(out), params, coords, cot, nf)
+        e_f = (k1[0] - p[0]).abs().max().item()
+        torch.testing.assert_close(k1[0], p[0], atol=ATOL, rtol=RTOL)
+        if big:
+            e_b = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k1[1], p[1]))
+            grads_close(k1[1], p[1], f"field_wide_bwd {name}", 0.0,
+                        lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
+            e_abs = max((a - b).abs().max().item() for a, b in zip(k1[1], p[1]))
+        else:
+            e_b = e_abs = grads_close(k1[1], p[1], f"field_wide_bwd {name}", GRAD_RTOL,
+                                      grad_atol)
+        worst["field_wide_fwd"] = max(worst["field_wide_fwd"], e_f)
+        worst["field_wide_bwd"] = max(worst["field_wide_bwd"], e_abs)
+        print(f"phase 25 field {name} (D={D}, {out} channels, n={nf}) on {n} points: "
+              f"max|kernel-plain| forward {e_f:.3e}, dW/db {e_b:.3e}"
+              f"{' of the leaf largest entry' if big else ''}; \"high\" and \"highest\" "
+              f"bit-identical; coords gradient None")
+
+    # each kernel's own call at 4x256 on 512x512, against the plain version
+    cfg, D, out = field_wide_configs(ImageFieldConfig)["4x256"]
+    nf = cfg.num_encoding_functions
+    params = field_params_for(np.random.default_rng(0), mlp_layer_sizes, cfg, D, out)
+    leaves = leaves_of(params)
+    coords = image_grid_coords(FIELD_WIDE_SIZE, "cuda")
+    n_px = coords.shape[0]
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((n_px, out)),
+                       dtype=torch.float32, device="cuda")
+    fwd, bwd = mlp_macs(mlp_layer_sizes(D * (1 + 2 * nf), out, cfg.num_layers,
+                                        cfg.filter_size))
+    k_out = fused_mlp.field_forward(params, coords, nf, out)
+    p_out = fused_mlp.field_forward_reference(params, coords, nf, out)
+    calls = {
+        "field_wide_fwd": lambda: fused_mlp.field_forward(params, coords, nf, out),
+        "fwd plain": lambda: fused_mlp.field_forward_reference(params, coords, nf, out),
+        "field_wide_bwd": lambda: torch.autograd.grad(k_out, leaves, cot, retain_graph=True),
+        "bwd plain": lambda: torch.autograd.grad(p_out, leaves, cot, retain_graph=True),
+    }
+    # the fit step (Adam 1e-3) through the kernels and the plain backend
+    target = torch.rand((n_px, out), generator=torch.Generator("cuda").manual_seed(2),
+                        device="cuda")
+    for backend, key in (("auto", "step"), ("plain", "plain step")):
+        prm = {k: [x.detach().clone().requires_grad_(True) for x in v]
+               for k, v in params.items()}
+        fit_step = make_image_fit_step(cfg, torch.optim.Adam(leaves_of(prm), lr=1e-3),
+                                       backend)
+        calls[key] = lambda s=fit_step, p=prm: s(p, coords, target)
+    turns = timed_turns(calls, 3)
+    timing, bounds = {}, {}
+    n_par = sum(x.numel() for x in leaves)
+    # the least time of the function the fit runs: the "high" tier (the
+    # config's default), which 3xTF32 meets, as phase 12 bounds #13/#14;
+    # the f32 FMA bound (the route's own products) printed beside it
+    for name, plain_name, macs, par_bytes in (("field_wide_fwd", "fwd plain", fwd, 4 * n_par),
+                                              ("field_wide_bwd", "bwd plain", bwd, 8 * n_par)):
+        nbytes = n_px * 4 * (D + out) + par_bytes
+        bounds[name] = bound(TF32_PASSES * n_px * macs, PEAK_TF32, nbytes)
+        f32_bound = bound(n_px * macs, PEAK_F32, nbytes)
+        timing[name] = (statistics.median(turns[name]), statistics.median(turns[plain_name]))
+        print(f"phase 25 {name} alone, 4x256 at {FIELD_WIDE_SIZE}x{FIELD_WIDE_SIZE}, on {smi}: "
+              f"kernel {spread(turns[name])}, plain {spread(turns[plain_name])}; "
+              f"{2.0 * n_px * macs / timing[name][0] / 1e9:.2f} TFLOP/s; 3xTF32 bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}, "
+              f"{bounds[name][0] / timing[name][0]:.1%} of it); f32 bound "
+              f"{f32_bound[0]:.4f} ms ({f32_bound[1]}, {f32_bound[0] / timing[name][0]:.1%} of it)")
+    step_ms = {k: statistics.median(turns[k]) for k in ("step", "plain step")}
+    print(f"phase 25 fit step, 4x256 at {FIELD_WIDE_SIZE}x{FIELD_WIDE_SIZE}, Adam 1e-3, in "
+          f"turns: kernels {spread(turns['step'])}, plain {spread(turns['plain step'])}; "
+          f"{n_px / step_ms['step'] * 1e3:.4e} px/s")
+    del k_out, p_out, calls, params, leaves
+
+    base = ["--device", "cuda", "--img", "synthetic", "--optimizer", "adam", "--ckpt-every",
+            "0", "--img-size", str(FIELD_WIDE_SIZE), "--layers", "4", "--width", "256",
+            "--enc-functions", "8", "--lr", "1e-3", "--log-every", "50",
+            "--steps", str(FIELD_WIDE_STEPS)]
+    runs, launches = {}, {}
+    for backend in ("auto", "plain"):
+        reset_launches(fused_mlp)
+        t0 = time.perf_counter()
+        runs[backend] = fit_image.main([
+            *base, "--backend", backend, "--log-dir", os.path.join(tmp, f"wlogs_{backend}"),
+            "--ckpt-dir", os.path.join(tmp, f"wck_{backend}")])
+        secs = time.perf_counter() - t0
+        got = dict(fused_mlp.launches)
+        if backend == "auto":
+            launches = {k: got[k] for k in ("field_wide_fwd", "field_wide_bwd")}
+            if got["field_wide_bwd"] != FIELD_WIDE_STEPS or got["field_bwd"]:
+                raise AssertionError(f"fit 4x256: launches {got} in {FIELD_WIDE_STEPS} steps")
+        elif any(got.values()):
+            raise AssertionError(f"the plain backend launched kernels: {got}")
+        r = runs[backend]
+        with open(os.path.join(tmp, f"wlogs_{backend}", "metrics.jsonl")) as f:
+            stamps = {x["step"]: x["time"] for x in map(json.loads, f)}
+        host_ms = (stamps[99] - stamps[51]) / 48 * 1e3  # no eval in between
+        print(f"phase 25 fit_image 4x256, {FIELD_WIDE_SIZE}x{FIELD_WIDE_SIZE}, "
+              f"{FIELD_WIDE_STEPS} Adam steps (lr 1e-3), backend {backend}: {secs:.2f} s host "
+              f"time, {host_ms:.3f} ms/step between steps 51 and 99 (host clock); launches "
+              f"{got}; eval PSNR dB " + ", ".join(
+                  f"step {s}: {v:.2f}" for s, v in sorted(r["psnr"].items()))
+              + f", final {r['final_psnr']:.2f}")
+    k, p = runs["auto"], runs["plain"]
+    gain = k["final_psnr"] - k["psnr"][0]
+    diff = abs(k["final_psnr"] - p["final_psnr"])
+    print(f"  4x256: {gain:.2f} dB above step 0; final PSNR kernel - plain = "
+          f"{k['final_psnr'] - p['final_psnr']:+.4f} dB")
+    if gain < HIRES_GAIN_DB or diff > HIRES_PLAIN_DB:
+        raise AssertionError(f"fit 4x256: gain {gain:.2f} dB (need {HIRES_GAIN_DB}), "
+                             f"|kernel - plain| {diff:.3f} dB (need <= {HIRES_PLAIN_DB})")
+    extra = {"field_wide_bwd": {"step_ms": step_ms["step"],
+                                "plain_step_ms": step_ms["plain step"]}}
+    return worst, timing, bounds, launches, extra
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -3463,6 +3948,35 @@ def main() -> None:
 
     # ---- phase 22: the loma DSL on the card ----
     phase_dsl(smi)
+
+    # ---- phase 23: the driver surface (entry.py): the flagship loss, the dry runs ----
+    for k, v in phase_entry(fused_nerf, NeRFConfig).items():
+        launches[k] = launches.get(k, 0) + v
+
+    # ---- phase 24: NeRF MLPs at any width (C4) and narrow ones in bf16 (A4) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        w_worst, w_timing, w_bounds, w_launches = phase_widths(
+            fused_nerf, NeRFConfig, make_single_chip_train_step, mlp_layer_sizes, train_nerf,
+            smi, tmp)
+    for k, e in w_worst.items():
+        worst[k] = max(worst[k], e)
+    for k, v in w_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    for k, (ms_k, plain_k) in w_timing.items():  # #7-#9 at 8x1024, beside the flagship
+        extra[k] = {**extra.get(k, {}), "c4_8x1024": {
+            "ms": ms_k, "plain_ms_4096_rays": plain_k, "bound_ms": w_bounds[k][0],
+            "bound_by": w_bounds[k][1]}}
+
+    # ---- phase 25: image fields past the tile kernels (D2) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        f_worst, f_timing, f_bounds, f_launches, f_extra = phase_field_wide(
+            fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_sizes,
+            make_image_fit_step, fit_image, smi, tmp)
+    worst.update(f_worst)
+    timing.update(f_timing)
+    bounds.update(f_bounds)
+    launches.update(f_launches)
+    extra.update(f_extra)
 
     for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share
         extra[name] = {**extra.get(name, {}), "share": bounds[name][0] / timing[name][0]}

@@ -25,6 +25,11 @@ is easy to find; public functions keep its layouts (params
                eager PyTorch with ``torch.func`` autodiff (``dsl.compile``)
 * ``examples`` — the DSL and data demos (``python -m
                lomanerf_tpu_torch.examples.<name>``)
+* ``entry``  — the driver entry points: ``entry()`` (the flagship loss)
+               and ``dryrun_multichip(n)`` (``python -m
+               lomanerf_tpu_torch.entry [n]``)
+* ``parity`` — the golden-oracle harness (the reference loma compiler,
+               driven through ctypes and gcc)
 
 Tensors are made on the device of a function's inputs, or on the ``device``
 it is given; randomness comes from a ``torch.Generator`` argument.  The

@@ -5,12 +5,19 @@
 // (nerf_wide_render_bwd.cu), with the body of their entry points
 // (grad_entry).
 //
-// Render forward per ray chunk: for bf16, the fused MLP (nerf_wide_mlp.cuh:
-// the encoding and every hidden layer of a 128-row tile in one persistent
-// wgmma/TMA kernel, only H_{L-1} written), then composite_kernel (the head,
-// compositing, the colour sum).  For f32, and for the bf16 chain the fused
-// MLP replaced (nerf_wide_render_fwd_mma, kept for comparison), the forward
-// layers on two ping-pong buffers, then composite_kernel.
+// Render forward per ray chunk: for bf16 at pw 128 or 256 with a hidden
+// layer, the fused MLP (nerf_wide_mlp.cuh: the encoding and every hidden
+// layer of a 128-row tile in one persistent wgmma/TMA kernel, only H_{L-1}
+// written), then composite_kernel (the head, compositing, the colour sum).
+// For f32, for bf16 past pw 256 (two 128-row activation buffers of a wider
+// tile alone would exceed a block's shared memory) or with no hidden layer,
+// and for the chain the fused MLP replaced (nerf_wide_render_fwd_mma, kept
+// for comparison), the forward layers on two ping-pong buffers, then
+// composite_kernel.
+//
+// A one-layer MLP (L = 1) is the encoding and the head: the head reads the
+// first kc columns of the encoded slot, and the gradient sequence ends with
+// the head's dW.
 //
 // Gradient sequence per ray chunk (rows = chunk rays * S):
 //   1. the forward layers, saving every layer's input H_0..H_{L-1} in CDT
@@ -99,6 +106,16 @@ cudaError_t forward_layers(const Net& net, const float* origins,
   return cudaSuccess;
 }
 
+// columns of the head's input: H_{L-1} after a hidden layer, else the
+// encoding
+inline int head_cols(const Net& net) { return net.L == 1 ? net.kc : net.pw; }
+
+// the fused bf16 MLP takes pw 128 and 256 and at least one hidden layer
+constexpr int kFusedMaxPW = 256;
+inline bool fused_mlp_takes(const Net& net) {
+  return net.L >= 2 && net.pw <= kFusedMaxPW;
+}
+
 template <typename CDT, int kMode, bool kPerRay>
 cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
                          float* out, float* dz_head, float* dz_prev,
@@ -115,7 +132,7 @@ cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
                                           kCompWarps * 32, smem, stream>>>(
       H, static_cast<const CDT*>(net.W) + static_cast<size_t>(L - 1) * pw * pw,
       net.b + (L - 1) * pw, net.ds, cot, out, dz_head, dz_prev, dzc_prev, n,
-      net.S, pw, net.loma);
+      net.S, pw, head_cols(net), net.loma);
   return cudaGetLastError();
 }
 
@@ -131,9 +148,9 @@ cudaError_t composite(const Net& net, const CDT* H, const float* cot,
 }
 
 // Render forward of n rays in chunks of chunk_rays.  bf16: the fused MLP
-// writes H_{L-1} into acts (one chunk-sized slot), or with layerwise the
-// mma.sync chain it replaced runs on two slots; f32: the forward layers on
-// two slots.
+// writes H_{L-1} into acts (one chunk-sized slot) where it takes the net
+// (fused_mlp_takes), else, or with layerwise, the mma.sync chain it
+// replaced runs on two slots; f32: the forward layers on two slots.
 template <typename CDT>
 cudaError_t render_forward(const Net& net, const float* origins,
                            const float* directions, float* out, CDT* acts,
@@ -145,7 +162,7 @@ cudaError_t render_forward(const Net& net, const float* origins,
     const Net cn = net.from_ray(r0);
     CDT* H = acts;
     if constexpr (std::is_same<CDT, __nv_bfloat16>::value) {
-      if (!layerwise) {
+      if (!layerwise) {  // the caller sets layerwise where the fused MLP does not take the net
         WIDE_TRY(mlp_forward(cn.W, cn.b, cn.ts, origins + 3 * r0, directions + 3 * r0,
                              acts, n, cn.S, cn.L, cn.pw, cn.kc, cn.nf, cn.per_ray,
                              stream));
@@ -211,12 +228,14 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
     CDT* dzb_next = kBf16 ? dzb + chunk_rows * pw : nullptr;
     WIDE_TRY((composite<CDT, kMode>(cn, H, cot + 3 * r0,
                                     kMode == 1 ? sc.ray_loss + r0 : nullptr,
-                                    sc.dz_head, dz, dzb, n, stream)));
-    // the head: dW_{L-1} (pw x 4) and db_{L-1} from the head's d_z
+                                    sc.dz_head, L >= 2 ? dz : nullptr,
+                                    L >= 2 ? dzb : nullptr, n, stream)));
+    // the head: dW_{L-1} (hc x 4) and db_{L-1} from the head's d_z
+    const int hc = head_cols(net);
     WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
-        H, pw, sc.dz_head, kHead, pw, kHead, rows, kRowChunk, nullptr, nullptr,
+        H, pw, sc.dz_head, kHead, hc, kHead, rows, kRowChunk, nullptr, nullptr,
         sc.partials, kHead, stream)));
-    WIDE_TRY(sum_partials(sc.partials, n_rc, pw, kHead,
+    WIDE_TRY(sum_partials(sc.partials, n_rc, hc, kHead,
                           dW + static_cast<size_t>(L - 1) * pw * pw, pw, stream));
     WIDE_TRY(column_sums(sc.dz_head, kHead, rows, kHead, sc.partials,
                          db + (L - 1) * pw, stream));
@@ -266,7 +285,7 @@ int grad_entry(bool per_ray, const void* W, const float* b, const float* ts,
                float* db, float* loss, int n_rays, int chunk_rays, int S, int L,
                int pw, int kc, int num_functions, int loma, int bf16,
                void* stream) {
-  if (L < 2 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
+  if (L < 1 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma, per_ray};

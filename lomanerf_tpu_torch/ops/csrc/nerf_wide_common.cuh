@@ -133,6 +133,10 @@ encode_kernel(const float* __restrict__ origins,
 //
 // Shared memory: the head weights (pw x 4, rounded) and 8 floats per sample
 // per warp.  ds: the (S,) shared steps, or with kPerRay the chunk's (n, S).
+// The head reads the first hc columns of each row of H (row stride pw): pw
+// after a hidden layer, the encoded width kc for a one-layer MLP, whose
+// head reads the encoding.  Without dz_prev (a one-layer MLP: no layer
+// below the head) the adjoint stops at the head's d_z.
 template <typename CDT, int kMode, bool kPerRay>
 __global__ void __launch_bounds__(kCompWarps * 32)
 composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
@@ -140,7 +144,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
                  const float* __restrict__ cot,
                  float* __restrict__ out, float* __restrict__ dz_head,
                  float* __restrict__ dz_prev, CDT* __restrict__ dzc_prev,
-                 int n_rays, int S, int pw, int loma) {
+                 int n_rays, int S, int pw, int hc, int loma) {
   extern __shared__ __align__(16) float smem[];
   float4* wh = reinterpret_cast<float4*>(smem);  // pw rows of 4 columns
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -153,7 +157,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
   float* cc = base + 5 * S;     // c = e + 1e-10
   float* Pp = base + 6 * S;     // inclusive product P_s
   float* aux = base + 7 * S;    // adjoint: d_sigma; render: unused
-  for (int j = threadIdx.x; j < pw; j += blockDim.x) {
+  for (int j = threadIdx.x; j < hc; j += blockDim.x) {
     const CDT* w = w_head + static_cast<size_t>(j) * pw;
     wh[j] = make_float4(to_f32(w[0]), to_f32(w[1]), to_f32(w[2]), to_f32(w[3]));
   }
@@ -165,7 +169,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
   for (int s = lane; s < S; s += 32) {
     const CDT* h = H + (static_cast<size_t>(ray) * S + s) * pw;
     float z[kHead] = {b_head[0], b_head[1], b_head[2], b_head[3]};
-    for (int j = 0; j < pw; j += 4) {
+    for (int j = 0; j < hc; j += 4) {
       float v[4];
       load4(h + j, v);
 #pragma unroll
@@ -270,6 +274,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
     sig[s] = rnd<CDT>(dz[3]);
   }
   __syncwarp();
+  if (dz_prev == nullptr) return;
 
   // the samples in turn, a row's columns across the lanes (coalesced)
   for (int s = 0; s < S; ++s) {

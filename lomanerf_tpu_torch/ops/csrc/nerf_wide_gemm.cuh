@@ -13,6 +13,10 @@
 //                 mask (CDT) has C's row stride ldc; bf16 only, where Cb
 //                 is given, also Cb = bf16(C) (the copy the dW stage reads)
 //   kEpiPartial   C[z][m][n] = acc over rows chunk z       dW = h^T d_z, split-K
+//   kEpiSigmoid   C = f32(sigmoid(acc + bias[n]))          a field's head (f32 only)
+//   kEpiSigmoidGrad  C = mask[m, n] * y * (1 - y),         its d_z from the output
+//                 y = sigmoid(acc + bias[n]); mask (the    cotangent (f32 only)
+//                 cotangent) has C's row stride ldc
 //
 // Two tile kernels, chosen by CDT in gemm(): gemm_mma_kernel (bf16, below)
 // and gemm_kernel (f32): 128 x 128 outputs per block of 256 threads, 8 x 8
@@ -35,7 +39,8 @@ namespace wide {
 namespace {
 
 constexpr int kBM = 128, kBN = 128, kBK = 8, kGemmThreads = 256;
-constexpr int kEpiBiasRelu = 0, kEpiMask = 1, kEpiPartial = 2;
+constexpr int kEpiBiasRelu = 0, kEpiMask = 1, kEpiPartial = 2, kEpiSigmoid = 3,
+              kEpiSigmoidGrad = 4;
 
 template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -122,6 +127,13 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
         const float h = to_f32(mask[static_cast<size_t>(m) * ldc + n]);
         static_cast<float*>(C)[static_cast<size_t>(m) * ldc + n] =
             h > 0.0f ? acc[i][j] : 0.0f;
+      } else if (kEpi == kEpiSigmoid) {
+        static_cast<float*>(C)[static_cast<size_t>(m) * ldc + n] =
+            sigmoidf(acc[i][j] + bias[n]);
+      } else if (kEpi == kEpiSigmoidGrad) {
+        const size_t at = static_cast<size_t>(m) * ldc + n;
+        const float y = sigmoidf(acc[i][j] + bias[n]);
+        static_cast<float*>(C)[at] = to_f32(mask[at]) * y * (1.0f - y);
       } else {
         static_cast<float*>(C)[(static_cast<size_t>(blockIdx.z) * M + m) * N + n] =
             acc[i][j];

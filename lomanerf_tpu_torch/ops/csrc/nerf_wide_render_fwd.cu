@@ -40,7 +40,7 @@ int render_fwd(bool per_ray, const void* W, const float* b, const float* ts,
                float* out, void* acts, int n_rays, int chunk_rays, int S, int L,
                int pw, int kc, int num_functions, int loma, int bf16,
                bool layerwise, void* stream) {
-  if (L < 2 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
+  if (L < 1 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const wide::Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma, per_ray};
@@ -48,7 +48,7 @@ int render_fwd(bool per_ray, const void* W, const float* b, const float* ts,
   if (bf16) {
     return static_cast<int>(wide::render_forward<__nv_bfloat16>(
         net, origins, directions, out, static_cast<__nv_bfloat16*>(acts),
-        n_rays, chunk_rays, layerwise, st));
+        n_rays, chunk_rays, layerwise || !wide::fused_mlp_takes(net), st));
   }
   return static_cast<int>(wide::render_forward<float>(
       net, origins, directions, out, static_cast<float*>(acts), n_rays,
@@ -58,11 +58,13 @@ int render_fwd(bool per_ray, const void* W, const float* b, const float* ts,
 }  // namespace
 
 // C entry points, bound with ctypes.  W: the (L, pw, pw) weight stack in the
-// compute dtype (bf16 != 0: bfloat16, else f32); b: (L, pw) f32; acts:
-// chunk_rays * S * pw elements of scratch in the compute dtype for bf16
-// (H_{L-1} of a chunk), twice that for f32 and for nerf_wide_render_fwd_mma;
-// kc: the encoded width padded to 8 (<= pw; bf16: pw 128 or 256).  Return
-// the first failing launch's cudaError (0 on success); do not synchronise.
+// compute dtype (bf16 != 0: bfloat16, else f32), L >= 1, pw a multiple of
+// 128; b: (L, pw) f32; acts: chunk_rays * S * pw elements of scratch in the
+// compute dtype for bf16 where the fused MLP takes the net (pw 128 or 256,
+// L >= 2: H_{L-1} of a chunk), twice that otherwise and for
+// nerf_wide_render_fwd_mma; kc: the encoded width padded to 8 (<= pw).
+// Return the first failing launch's cudaError (0 on success); do not
+// synchronise.
 //
 // nerf_wide_render_fwd: ts, ds the (S,) f32 depths and steps every ray shares.
 extern "C" int nerf_wide_render_fwd(const void* W, const float* b,

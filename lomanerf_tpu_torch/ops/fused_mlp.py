@@ -1,14 +1,25 @@
 """Fused 2D image field, forward and parameter gradient (port of
 ``lomanerf_tpu.ops.fused_mlp``).
 
-Two hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel:
+Two hand-written CUDA kernels, each the Hopper counterpart of a TPU kernel,
+in two routes.  The tile kernels, for 2D coords, hidden widths up to 128, a
+head of at most 4 channels and a 32-pixel tile that fits a block's shared
+memory (:func:`kernel_width`):
 
 * ``csrc/field_fwd.cu`` — ``fused_mlp._fwd_kernel``: :func:`field_forward`;
 * ``csrc/field_bwd.cu`` — ``fused_mlp._bwd_kernel``: its backward
   (``_FieldFwd.backward``), dW/db from the output cotangent.
 
-Both take the raw ``(N, 2)`` pixel coords and encode them on the chip, and
-run their hidden layers' products by the JAX package's precision tier
+Every other field the JAX kernels take (any width, any depth, heads of up
+to 128 channels, ``(N, D)`` coords of any D) runs on ``csrc/field_wide.cu``
+(``field_wide_fwd`` and ``field_wide_bwd``, ``_FieldWide``): the encoding,
+then one tiled f32 GEMM a layer with the activations in device memory, in
+pixel chunks of :func:`field_wide_chunk`.  Its products are exact f32 FMAs
+on every precision tier.
+
+Both take the raw pixel coords and encode them on the chip (``sincosf`` of
+the exact octave ``2^i x``, as ``core.positional_encoding``).  The tile
+kernels run their hidden layers' products by the JAX package's precision tier
 (:func:`exact_tier`): "highest" as f32 FMAs (exact f32 products, for parity
 work), "high" and "default" on the tensor cores in split TF32 (3xTF32,
 f32-level accuracy).  Their parameters arrive staged
@@ -21,10 +32,10 @@ through two shared-memory slots; :func:`field_smem_bytes` mirrors a block's
 shared memory.
 
 Dispatch follows ``fused_nerf``: on CUDA tensors :func:`field_forward`
-launches the kernel or raises, naming the ROADMAP item of what it does not
-take (:func:`kernel_width`); on CPU tensors it runs the plain PyTorch
-version (:func:`field_forward_reference`, autograd through ``core``).  No
-case falls back quietly from one to the other.
+launches a kernel or raises (only where the JAX package refuses too: more
+than 128 output channels); on CPU tensors it runs the plain PyTorch version
+(:func:`field_forward_reference`: autograd through ``core``, one version
+for both routes).  No case falls back quietly from one to the other.
 
 Like the JAX package, the field differentiates params only: the coords are
 detached, so their gradient comes back ``None`` (where the TPU version
@@ -45,12 +56,15 @@ from lomanerf_tpu_torch.ops.fused_nerf import _f32, _params_of, grad_floats, unp
 
 # kernel launches per C entry point; a run resets them and reads them to
 # show that its steps and renders went through the kernels
-launches = {"field_fwd": 0, "field_bwd": 0}
+launches = {"field_fwd": 0, "field_bwd": 0, "field_wide_fwd": 0, "field_wide_bwd": 0}
 
 WIDTHS = (16, 32, 64, 128)  # padded hidden widths the kernels are built for
 TILE = 32  # pixels per block tile (field_common.cuh)
 _HEAD = 4  # head columns the kernels compute
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
+MAX_OUT = 128  # output channels the JAX field writes (its out[:, :128])
+FIELD_WIDE_BYTES = 4 << 30  # activation and d_z scratch of one field_wide chunk
+ROW_CHUNK = 8192  # rows per split-K partial of field_wide's dW (nerf_wide_common.cuh)
 # the JAX package's precision tiers (``ImageFieldConfig.precision``) ->
 # whether the kernels run exact f32 products (1) or 3xTF32 (0)
 TIERS = {"highest": 1, "high": 0, "default": 0}
@@ -129,10 +143,16 @@ def pack_field_params(params: Params, width: int) -> torch.Tensor:
 
 
 def kernel_width(params: Params, coord_dim: int, num_functions: int,
-                 out_channels: int) -> int:
-    """The padded hidden width (one of :data:`WIDTHS`) the kernels run this
-    field at, after checking that they take it; raises for what they do not
-    take, naming ROADMAP item D2."""
+                 out_channels: int):
+    """The padded hidden width (one of :data:`WIDTHS`) the tile kernels run
+    this field at, or ``None`` where they do not take it and
+    ``field_wide.cu`` does: coords that are not 2D, a head above 4
+    channels, a hidden width above 128, or a 32-pixel tile over a block's
+    shared memory (:func:`field_smem_bytes`).  Raises ``ValueError`` for a
+    first layer that does not take the encoding or a head narrower than
+    ``out_channels``, and ``NotImplementedError`` for more than
+    :data:`MAX_OUT` output channels, which the JAX field does not write
+    either."""
     ws = params["w"]
     in_dim = encoded_dim(coord_dim, num_functions)
     if ws[0].shape[0] != in_dim:
@@ -140,22 +160,15 @@ def kernel_width(params: Params, coord_dim: int, num_functions: int,
                          f"n={num_functions} encoding of {coord_dim}-d coords gives {in_dim}")
     if out_channels > ws[-1].shape[1]:
         raise ValueError(f"out_channels={out_channels} > the head's {ws[-1].shape[1]}")
-    if coord_dim != 2:
-        raise NotImplementedError(f"{coord_dim}-d coords have no CUDA field kernel "
-                                  "yet (ROADMAP queue 2, D2)")
-    if ws[-1].shape[1] > _HEAD:
-        raise NotImplementedError(f"a {ws[-1].shape[1]}-channel head has no CUDA field "
-                                  f"kernel yet (> {_HEAD}; ROADMAP queue 2, D2)")
+    if out_channels > MAX_OUT:
+        raise NotImplementedError(f"out_channels={out_channels}: the JAX field writes at "
+                                  f"most {MAX_OUT} channels (its out[:, :{MAX_OUT}])")
     hidden = max((w.shape[1] for w in ws[:-1]), default=0)
     width = next((w for w in WIDTHS if w >= hidden), None)
-    if width is None:
-        raise NotImplementedError(f"field width {hidden} > {WIDTHS[-1]} has no CUDA "
-                                  "kernel yet (ROADMAP queue 2, D2)")
-    smem = field_smem_bytes(len(ws), in_dim, width)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"a {len(ws)}-layer field at width {width} needs {smem} B of shared "
-            f"memory per block, over the {_SMEM_LIMIT} B a block has (ROADMAP queue 2, D2)")
+    if coord_dim != 2 or ws[-1].shape[1] > _HEAD or width is None:
+        return None
+    if field_smem_bytes(len(ws), in_dim, width) > _SMEM_LIMIT:
+        return None
     return width
 
 
@@ -241,16 +254,136 @@ class _FieldFwd(torch.autograd.Function):
         return (None,) * 5 + unpack_grads(flat, params, width)
 
 
+# ---------------------------------------------------------------------------
+# The wide route (csrc/field_wide.cu): what the tile kernels do not take
+# ---------------------------------------------------------------------------
+
+
+def field_wide_dims(params: Params, coord_dim: int, out_channels: int):
+    """``(enc, hidden, pw)`` of the wide route: the encoded width, the
+    widest hidden layer (0 with none), and the stacks' row stride, the
+    widest of them and ``out_channels`` rounded up to 4."""
+    enc = params["w"][0].shape[0]
+    hidden = max((w.shape[1] for w in params["w"][:-1]), default=0)
+    return enc, hidden, _round_up(max(enc, hidden, out_channels), 4)
+
+
+def pack_field_wide(params: Params, pw: int, out_channels: int):
+    """``W`` (L, pw, pw) and ``b`` (L, pw) f32, on the params' device: layer
+    l's (in, out) weight and bias zero-padded, the head cut to its first
+    ``out_channels`` columns (the only ones the field writes)."""
+    ws, bs = params["w"], params["b"]
+    L = len(ws)
+    W = ws[0].new_zeros((L, pw, pw), dtype=torch.float32)
+    b = ws[0].new_zeros((L, pw), dtype=torch.float32)
+    for l, (w, bl) in enumerate(zip(ws, bs)):
+        c = out_channels if l == L - 1 else w.shape[1]
+        W[l, : w.shape[0], :c] = w.detach()[:, :c]
+        b[l, :c] = bl.detach()[:c]
+    return W.contiguous(), b.contiguous()
+
+
+def unpack_field_wide(dW: torch.Tensor, db: torch.Tensor, params: Params):
+    """(L, pw, pw) / (L, pw) gradient stacks back to the params' shapes:
+    ``(dW_0.., db_0..)``; the head's columns past ``out_channels`` are zero
+    (their cotangent is)."""
+    ws, bs = params["w"], params["b"]
+    dws, dbs = [], []
+    for l, (w, b) in enumerate(zip(ws, bs)):
+        c = min(w.shape[1], dW.shape[2])
+        dw, dbl = torch.zeros_like(w), torch.zeros_like(b)
+        dw[:, :c] = dW[l, : w.shape[0], :c].to(w.dtype)
+        dbl[:c] = db[l, :c].to(b.dtype)
+        dws.append(dw)
+        dbs.append(dbl)
+    return (*dws, *dbs)
+
+
+def field_wide_chunk(L: int, pw: int) -> int:
+    """Pixels per chunk of a wide-route call: the backward's L activation
+    slots and two d_z buffers (rows x pw f32 each) within
+    :data:`FIELD_WIDE_BYTES` (699,050 pixels for a 4x256 field)."""
+    return max(1, FIELD_WIDE_BYTES // (4 * pw * (L + 2)))
+
+
+def _launch_wide_fwd(W, b, coords, num_functions, out_ch, dims) -> torch.Tensor:
+    """One call of ``field_wide_fwd``, every chunk; counted in ``launches``."""
+    from lomanerf_tpu_torch.ops import build
+
+    _, hidden, pw = dims
+    n, D, dev = coords.shape[0], coords.shape[1], coords.device
+    chunk = max(1, min(n, field_wide_chunk(W.shape[0], pw)))
+    acts = torch.empty(2 * chunk * pw, dtype=torch.float32, device=dev)
+    out = torch.empty((n, out_ch), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.load().field_wide_fwd(
+        W.data_ptr(), b.data_ptr(), coords.data_ptr(), out.data_ptr(), acts.data_ptr(), n,
+        chunk, W.shape[0], D, num_functions, hidden, out_ch, pw, stream)
+    if err != 0:
+        raise RuntimeError(f"field_wide_fwd launch failed: cudaError {err}")
+    launches["field_wide_fwd"] += 1
+    return out
+
+
+def _launch_wide_bwd(W, b, coords, dout, num_functions, dims):
+    """One call of ``field_wide_bwd``, every chunk: ``(dW, db)`` stacks.
+    Counted in ``launches``."""
+    from lomanerf_tpu_torch.ops import build
+
+    _, hidden, pw = dims
+    L = W.shape[0]
+    n, D, dev = coords.shape[0], coords.shape[1], coords.device
+    chunk = max(1, min(n, field_wide_chunk(L, pw)))
+    n_parts = -(-chunk // ROW_CHUNK) * pw * pw
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    acts, dz, partials = f32(L * chunk * pw), f32(2 * chunk * pw), f32(n_parts)
+    dW, db = f32(L, pw, pw), f32(L, pw)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.load().field_wide_bwd(
+        W.data_ptr(), b.data_ptr(), coords.data_ptr(), dout.data_ptr(), acts.data_ptr(),
+        dz.data_ptr(), partials.data_ptr(), n_parts, dW.data_ptr(), db.data_ptr(), n, chunk,
+        L, D, num_functions, hidden, dout.shape[1], pw, stream)
+    if err != 0:
+        raise RuntimeError(f"field_wide_bwd launch failed: cudaError {err}")
+    launches["field_wide_bwd"] += 1
+    return dW, db
+
+
+class _FieldWide(torch.autograd.Function):
+    """The wide route behind autograd: forward launches ``field_wide_fwd``,
+    backward ``field_wide_bwd`` with the output cotangent.  Coords get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, coords, num_functions, out_channels, *wb):
+        params = _params_of(wb)
+        dims = field_wide_dims(params, coords.shape[1], out_channels)
+        W, b = pack_field_wide(params, dims[2], out_channels)
+        ctx.save_for_backward(coords, W, b, *wb)
+        ctx.num_functions, ctx.dims = num_functions, dims
+        return _launch_wide_fwd(W, b, coords, num_functions, out_channels, dims)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        coords, W, b, *wb = ctx.saved_tensors
+        dW, db = _launch_wide_bwd(W, b, coords, _f32(grad_out), ctx.num_functions, ctx.dims)
+        return (None,) * 3 + unpack_field_wide(dW, db, _params_of(wb))
+
+
 def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
                   out_channels: int = 3, precision: str = "high") -> torch.Tensor:
-    """Fused encode + MLP + sigmoid field: coords ``(N, 2)`` to
+    """Fused encode + MLP + sigmoid field: coords ``(N, D)`` to
     ``(N, out_channels)``, with the JAX signature less the TPU tile.
     Differentiable w.r.t. params only.  ``precision`` is the JAX package's
-    tier (the models pass their config's; :func:`exact_tier`): on the card
-    "highest" runs the hidden layers' products as exact f32 FMAs, "high"
-    and "default" in split TF32 on the tensor cores (3xTF32: about 2^-21 of
-    each product, f32 sums), more exact than the JAX package's "high"
-    (bf16x3).  The plain version (CPU tensors) is f32 on every tier."""
+    tier (the models pass their config's; :func:`exact_tier`): on the tile
+    kernels "highest" runs the hidden layers' products as exact f32 FMAs,
+    "high" and "default" in split TF32 on the tensor cores (3xTF32: about
+    2^-21 of each product, f32 sums), more exact than the JAX package's
+    "high" (bf16x3); the wide route runs exact f32 FMAs on every tier.  The
+    plain version (CPU tensors) is f32 on every tier."""
     exact = exact_tier(precision)
     coords = coords.detach()
     if coords.device.type == "cpu":
@@ -258,17 +391,21 @@ def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
     if coords.device.type != "cuda":
         raise NotImplementedError(f"no field kernel for device {coords.device}")
     if coords.ndim != 2:
-        raise ValueError(f"coords of shape {tuple(coords.shape)}, expected (N, 2)")
+        raise ValueError(f"coords of shape {tuple(coords.shape)}, expected (N, D)")
     width = kernel_width(params, coords.shape[1], num_functions, out_channels)
     if any(x.device != coords.device for x in [*params["w"], *params["b"]]):
         raise ValueError("coords and params must share one CUDA device")
+    if width is None:
+        return _FieldWide.apply(_f32(coords), num_functions, out_channels,
+                                *params["w"], *params["b"])
     return _FieldFwd.apply(_f32(coords), num_functions, out_channels, width, exact,
                            *params["w"], *params["b"])
 
 
 def field_forward_reference(params: Params, coords: torch.Tensor, num_functions: int,
                             out_channels: int = 3) -> torch.Tensor:
-    """Plain PyTorch version of :func:`field_forward`: the core pipeline's
-    encoding and sigmoid MLP, under autograd (coords detached)."""
+    """Plain PyTorch version of :func:`field_forward`, for both routes: the
+    core pipeline's encoding and sigmoid MLP under autograd (coords
+    detached), cut to ``out_channels``."""
     enc = positional_encoding(coords.detach(), num_functions)
     return image_fit_pred(params, enc)[:, :out_channels]

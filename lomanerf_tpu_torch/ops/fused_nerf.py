@@ -19,13 +19,15 @@ forward runs a ray's samples in groups, :func:`sample_groups`):
   ``csrc/nerf_train_rays.cu`` — ``nerf_train_rays`` (``_nerf_train_kernel_T``):
   :func:`nerf_train_loss`, the loss and its parameter gradients in one call.
 
-Wide MLPs (padded width above 64, hidden widths up to 256, f32 or bf16
-compute, e.g. the 8x256 flagship), tiled GEMMs around a one-warp-per-ray
-compositing kernel.  In bf16 the render's MLP is one persistent kernel per
-ray chunk (``csrc/nerf_wide_mlp.cuh``: the encoding and every hidden layer
-of a row tile on ``wgmma`` fed by TMA, the activations in shared memory;
-alone, with the chain it replaced, in ``ops/wide_mlp``), and each hidden
-layer's dW in the gradient sequence runs on ``csrc/nerf_wide_dw.cuh``
+Wide MLPs (padded width above 64, any width padded to a multiple of 128,
+one layer or more, f32 or bf16 compute, e.g. the 8x256 flagship or an
+8x1024 MLP), tiled GEMMs around a one-warp-per-ray compositing kernel.  In
+bf16 at pw 128 or 256 the render's MLP is one persistent kernel per ray
+chunk (``csrc/nerf_wide_mlp.cuh``: the encoding and every hidden layer of a
+row tile on ``wgmma`` fed by TMA, the activations in shared memory; alone,
+with the chain it replaced, in ``ops/wide_mlp``); wider bf16 MLPs and
+one-layer ones render on that chain (``mma.sync`` layer GEMMs).  Each hidden
+layer's dW in the bf16 gradient sequence runs on ``csrc/nerf_wide_dw.cuh``
 (``wgmma`` fed by TMA, alone in ``ops/wide_dw``); the rest runs layer by
 layer:
 
@@ -45,10 +47,10 @@ one block's 227 KB of shared memory (the gradient kernels keep 64 rays'
 activations and d_z there beside the packed params: e.g. 5x64 at S = 64,
 ~279 KB; ``single64``, 4x64 at S = 64, takes ~213 KB and stays narrow) runs
 on the wide kernels at pw = 128 in f32, as the JAX package sends it to its
-packed wide kernel at pw = 128; its forward, backward and train loss all
-take that route.  On CUDA tensors
-each function launches its kernel or raises, naming the ROADMAP item of
-what it does not take; on CPU tensors it runs the plain PyTorch version
+packed wide kernel at pw = 128; so does a narrow MLP in bf16 (the narrow
+kernels are f32 only), in bf16.  Its forward, backward and train loss all
+take that route.  On CUDA tensors each function launches its kernel or
+raises; on CPU tensors it runs the plain PyTorch version
 (:func:`render_rays_reference` under autograd).  No case falls back quietly
 from one to the other.
 
@@ -73,7 +75,7 @@ _ENTRIES = ("nerf_render_fwd", "nerf_render_bwd", "nerf_train", "nerf_wide_rende
 launches = {name + suffix: 0 for suffix in ("", "_rays") for name in _ENTRIES}
 
 MAX_WIDTH = 64  # widest padded width the narrow kernels' register arrays take
-MAX_WIDE_WIDTH = 256  # widest hidden layer the wide kernels take
+WIDE_FUSED_MAX = 256  # widest pw the bf16 render's fused MLP takes (nerf_wide_chain.cuh)
 _HEAD = 4  # rgba channels the render reads
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block can use
 GRAD_THREADS = 64  # rays per block of the gradient kernels (nerf_grad.cuh)
@@ -122,9 +124,10 @@ def _plan(config, params: Params):
     memory), else wide; a narrow MLP that does not fit (e.g. 5x64 at
     S = 64) goes to the wide kernels at pw = 128, as the JAX package sends
     it to the packed wide kernel at pw = 128 when its T-kernel tile misses
-    VMEM."""
+    VMEM.  The narrow kernels compute in f32 only: a narrow MLP in bf16
+    takes the wide kernels' bf16 rounding plan at pw = 128."""
     ps = _padded_width(config, params)
-    if ps <= MAX_WIDTH:
+    if ps <= MAX_WIDTH and _itemsize(config) == 4:
         hidden = max((w.shape[1] for w in params["w"][:-1]), default=0)
         width = 32 if hidden <= 32 else 64
         if _narrow_fits(config, params, width):
@@ -133,10 +136,12 @@ def _plan(config, params: Params):
 
 
 def _route(config, params: Params):
-    """:func:`_plan` after checking that a kernel takes this case; raises
-    for the cases none takes.  The render forward, its backward and the
-    train loss all take this route, so a backward always runs on the
-    family of its forward."""
+    """:func:`_plan` after checking the MLP's shape: the encoding's width
+    in, an rgba head out (``ValueError`` otherwise).  Every width and depth
+    the JAX kernels take has a kernel: narrow f32 MLPs the narrow ones,
+    the rest the wide ones at any multiple of 128.  The render forward,
+    its backward and the train loss all take this route, so a backward
+    always runs on the family of its forward."""
     ws = params["w"]
     in_dim = 3 * (1 + 2 * config.num_encoding_functions)
     if ws[0].shape[0] != in_dim:
@@ -144,23 +149,7 @@ def _route(config, params: Params):
                          f"n={config.num_encoding_functions} encoding gives {in_dim}")
     if ws[-1].shape[1] < _HEAD:
         raise ValueError("render needs an rgba head (>= 4 output channels)")
-    hidden = max((w.shape[1] for w in ws[:-1]), default=0)
-    bf16 = getattr(config, "compute_dtype", "float32") == "bfloat16"
-    if bf16 and _padded_width(config, params) <= MAX_WIDTH:
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' on a narrow MLP (padded width <= 64) "
-            "has no CUDA kernel yet (ROADMAP queue 2, A4)")
-    kind, width = _plan(config, params)
-    if kind == "narrow":
-        return kind, width
-    if hidden > MAX_WIDE_WIDTH:
-        raise NotImplementedError(
-            f"layer width {hidden} > {MAX_WIDE_WIDTH} has no CUDA kernel yet "
-            "(ROADMAP queue 2, C4)")
-    if len(ws) < 2:
-        raise NotImplementedError(
-            "a one-layer wide MLP has no CUDA kernel yet (ROADMAP queue 2, C4)")
-    return kind, width
+    return _plan(config, params)
 
 
 def _blocks(params: Params, width: int):
@@ -448,12 +437,21 @@ def _itemsize(config) -> int:
     return 2 if getattr(config, "compute_dtype", "float32") == "bfloat16" else 4
 
 
+def fused_mlp_takes(config, L: int, pw: int) -> bool:
+    """Whether the bf16 render runs its MLP on the fused kernel
+    (``csrc/nerf_wide_mlp.cuh``: bf16, pw 128 or 256, a hidden layer);
+    else on the layer-by-layer chain, as ``nerf_wide_chain.cuh``'s
+    ``fused_mlp_takes`` decides."""
+    return _itemsize(config) == 2 and L >= 2 and pw <= WIDE_FUSED_MAX
+
+
 def wide_chunk_rays(config, pw: int) -> int:
     """Rays per chunk of the wide render: one (rays x S, pw) activation
     buffer in the compute dtype within ``WIDE_BUFFER_BYTES`` (65,536 rays
-    for the flagship).  The bf16 render's scratch is one such slot (the
-    fused MLP's H_{L-1}, ``csrc/nerf_wide_mlp.cuh``); the f32 render's is
-    two (the layer GEMMs' ping-pong buffers)."""
+    for the flagship).  The fused bf16 MLP's scratch is one such slot (its
+    H_{L-1}, ``csrc/nerf_wide_mlp.cuh``); the layer GEMMs' is two
+    (ping-pong buffers: f32, and bf16 where :func:`fused_mlp_takes` is
+    false)."""
     return max(1, WIDE_BUFFER_BYTES // (config.num_samples * pw * _itemsize(config)))
 
 
@@ -461,7 +459,10 @@ def wide_grad_chunk_rays(config, pw: int, L: int) -> int:
     """Rays per chunk of a wide gradient call: L activation buffers in the
     compute dtype, two f32 d_z buffers (and, for bf16, their two bf16
     copies, which the dW stage reads) and the head's d_z within
-    ``WIDE_GRAD_BYTES`` (18,682 rays for the flagship)."""
+    ``WIDE_GRAD_BYTES`` (18,682 rays for the flagship, 4,678 for an 8x1024
+    bf16 MLP at S = 128).  The dW stage's split-K partials (pw x pw floats
+    per 8192 rows) lie outside it: pw / 2048 bytes a row against the
+    activations' 10 pw or more, 310 MB at the 8x1024 chunk."""
     isz = _itemsize(config)
     per_ray = config.num_samples * (pw * (L * isz + 8 + (4 if isz == 2 else 0))
                                     + 4 * _HEAD)
@@ -496,7 +497,7 @@ def _launch_wide_render(W, b, t_vals, dists, origins, directions, config) -> tor
     L, pw = W.shape[0], W.shape[1]
     n = origins.shape[0]
     chunk = max(1, min(n, wide_chunk_rays(config, pw)))
-    slots = 1 if W.dtype == torch.bfloat16 else 2
+    slots = 1 if fused_mlp_takes(config, L, pw) else 2
     acts = torch.empty(slots * chunk * config.num_samples * pw, dtype=W.dtype,
                        device=origins.device)
     out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)

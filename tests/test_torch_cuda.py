@@ -195,9 +195,9 @@ def test_train_loss_ray_inputs_get_no_gradient():
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take():
-    """Widths in (64, 256] and wide bf16 launch the wide kernels, per-ray
-    (N, S) depths their *_rays instances; widths above 256 and narrow bf16
-    raise, each naming its ROADMAP item; depths of mismatched shapes raise
+    """Widths above 64 and wide bf16 launch the wide kernels, per-ray
+    (N, S) depths their *_rays instances; widths above 256 (C4) and narrow
+    bf16 (A4) launch them too; depths of mismatched shapes raise
     ValueError."""
     need_card()
     rng = np.random.default_rng(0)
@@ -217,10 +217,12 @@ def test_kernels_refuse_what_they_do_not_take():
         fused_nerf.render_rays(params, o, d, t2, dists, cfg)
     with pytest.raises(ValueError):
         fused_nerf.nerf_train_loss(params, o[:10], d[:10], t2, d2, tgt[:10], cfg)
-    with pytest.raises(NotImplementedError, match="A4"):
-        fused_nerf.render_rays(params, o, d, t, dists, bf16)
-    with pytest.raises(NotImplementedError, match="A4"):
-        fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, bf16)
+    before = dict(fused_nerf.launches)  # narrow bf16 (A4): the wide kernels at pw = 128
+    fused_nerf.render_rays(params, o, d, t, dists, bf16)
+    fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, bf16)
+    torch.cuda.synchronize()
+    assert fused_nerf.launches["nerf_wide_render_fwd"] == before["nerf_wide_render_fwd"] + 1
+    assert fused_nerf.launches["nerf_wide_train"] == before["nerf_wide_train"] + 1
     for wide in (NeRFConfig(filter_size=128),
                  NeRFConfig(filter_size=256, compute_dtype="bfloat16")):
         wide_params = params_from_numpy(*np_params(rng, wide), "cuda")
@@ -233,12 +235,18 @@ def test_kernels_refuse_what_they_do_not_take():
         fused_nerf.render_rays(wide_params, o, d, t2, d2, wide)
         assert fused_nerf.launches["nerf_wide_render_fwd_rays"] == \
             before["nerf_wide_render_fwd_rays"] + 1
-    too_wide = NeRFConfig(filter_size=320)
-    too_wide_params = params_from_numpy(*np_params(rng, too_wide), "cuda")
-    with pytest.raises(NotImplementedError, match="C4"):
-        fused_nerf.render_rays(too_wide_params, o, d, t, dists, too_wide)
-    with pytest.raises(NotImplementedError, match="C4"):
+    # past 256 (C4): the wide kernels at pw = 384, the bf16 render on the chain
+    for too_wide in (NeRFConfig(filter_size=320),
+                     NeRFConfig(filter_size=320, compute_dtype="bfloat16")):
+        too_wide_params = params_from_numpy(*np_params(rng, too_wide), "cuda")
+        assert fused_nerf._route(too_wide, too_wide_params) == ("wide", 384)
+        before = dict(fused_nerf.launches)
+        got = fused_nerf.render_rays(too_wide_params, o, d, t, dists, too_wide)
         fused_nerf.nerf_train_loss(too_wide_params, o, d, t, dists, tgt, too_wide)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert fused_nerf.launches["nerf_wide_render_fwd"] == before["nerf_wide_render_fwd"] + 1
+        assert fused_nerf.launches["nerf_wide_train"] == before["nerf_wide_train"] + 1
 
 
 PERRAY = {  # the narrow MLPs, and two wide ones (f32, and the bf16 flagship's plan)
@@ -572,7 +580,10 @@ def test_field_highest_tier_matches_f64_autograd(preset, n_px):
 @pytest.mark.cuda
 def test_field_kernels_refuse_what_they_do_not_take():
     """Widths above 128, heads above 4 channels and fields whose tile does
-    not fit shared memory raise, naming D2."""
+    not fit shared memory (D2) run on the wide route (``field_wide.cu``):
+    one launch of each of its kernels, outputs and dW/db at the plain
+    version's (phase 10's f32 bounds); more than 128 output channels is
+    refused, as the JAX field writes no more."""
     need_card()
     rng = np.random.default_rng(0)
     coords = torch.rand(64, 2, device="cuda")
@@ -581,8 +592,22 @@ def test_field_kernels_refuse_what_they_do_not_take():
                      (ImageFieldConfig(num_layers=8, filter_size=128,
                                        num_encoding_functions=8), 3)):
         params = params_from_numpy(*np_params(rng, cfg), "cuda")
-        with pytest.raises(NotImplementedError, match="D2"):
-            fused_mlp.field_forward(params, coords, cfg.num_encoding_functions, out)
+        leaves = [p.requires_grad_(True) for p in [*params["w"], *params["b"]]]
+        nf = cfg.num_encoding_functions
+        before = dict(fused_mlp.launches)
+        got = fused_mlp.field_forward(params, coords, nf, out)
+        k = torch.autograd.grad(got.sum(), leaves)
+        torch.cuda.synchronize()
+        assert fused_mlp.launches["field_wide_fwd"] == before["field_wide_fwd"] + 1
+        assert fused_mlp.launches["field_wide_bwd"] == before["field_wide_bwd"] + 1
+        want = fused_mlp.field_forward_reference(params, coords, nf, out)
+        p = torch.autograd.grad(want.sum(), leaves)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        assert_grads_close(k, p)
+    with pytest.raises(NotImplementedError, match="128 channels"):
+        cfg = ImageFieldConfig(out_channels=129)
+        fused_mlp.field_forward(params_from_numpy(*np_params(rng, cfg), "cuda"), coords,
+                                cfg.num_encoding_functions, 129)
 
 
 @pytest.mark.cuda

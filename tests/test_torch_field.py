@@ -388,7 +388,8 @@ def test_kernel_width_and_shared_memory():
     then the activations, the second d_z buffer and the coords; hires: two
     16,512-float slots + 32 x (452 + 128 + 2); 5 x 128: the same slots + 32
     x (580 + 128 + 2)), every shape the kernels took before their redesign
-    still taken, and a raise naming D2 for each case no kernel takes."""
+    still taken, and ``None`` (the wide route, ``field_wide.cu``) for each
+    case the tile kernels do not take (D2)."""
     rng = np.random.default_rng(0)
 
     def params(layers, width, nf=5, out=3):
@@ -408,16 +409,16 @@ def test_kernel_width_and_shared_memory():
             for L in range(1, 13):
                 if parent_smem_bytes(L, 2 * (1 + 2 * nf), width) <= limit:
                     assert fused_mlp.field_smem_bytes(L, 2 * (1 + 2 * nf), width) <= limit
-    for p, nf, out, match in ((params(3, 200), 5, 3, "width 200"),
-                              (params(3, 16, out=5), 5, 5, "5-channel head"),
-                              (params(8, 128, 8), 8, 3, "shared memory")):
-        with pytest.raises(NotImplementedError, match="D2"):
-            fused_mlp.kernel_width(p, 2, nf, out)
-        with pytest.raises(NotImplementedError, match=match):
-            fused_mlp.kernel_width(p, 2, nf, out)
+    for p, nf, out in ((params(3, 200), 5, 3),  # width 200
+                       (params(3, 16, out=5), 5, 5),  # a 5-channel head
+                       (params(8, 128, 8), 8, 3)):  # a tile past shared memory
+        assert fused_mlp.field_smem_bytes(len(p["w"]), p["w"][0].shape[0], 128) > limit \
+            or p["w"][0].shape[1] > 128 or p["w"][-1].shape[1] > 4
+        assert fused_mlp.kernel_width(p, 2, nf, out) is None
     p3 = tcore.params_from_numpy(*np_params(rng, tcore.mlp_layer_sizes(33, 3, 2, 16)), "cpu")
-    with pytest.raises(NotImplementedError, match="3-d coords.*D2"):
-        fused_mlp.kernel_width(p3, 3, 5, 3)
+    assert fused_mlp.kernel_width(p3, 3, 5, 3) is None  # 3-d coords
+    with pytest.raises(NotImplementedError, match="128 channels"):
+        fused_mlp.kernel_width(params(2, 16, out=129), 2, 5, 129)
     with pytest.raises(ValueError, match="first layer"):
         fused_mlp.kernel_width(params(3, 16), 2, 4, 3)
     with pytest.raises(ValueError, match="out_channels"):

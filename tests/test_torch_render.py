@@ -245,24 +245,32 @@ def test_render_block_past_shared_memory_routes_wide(rng):
 
 def test_kernel_refuses_what_it_does_not_take(rng):
     """The JAX dispatch rule routes each MLP to the narrow kernels (every
-    width padded to 8 at most 64) or the wide ones (hidden widths up to 256,
-    f32 or bf16); the cases no CUDA kernel takes raise, naming the ROADMAP
-    item.  Depths of either shape pass the input check; mismatched shapes
-    or ray counts raise ValueError."""
+    width padded to 8 at most 64, f32) or the wide ones (any width padded
+    to a multiple of 128, one layer or more, f32 or bf16): a narrow MLP in
+    bf16 (A4) takes the wide kernels at pw = 128, hidden widths past 256
+    and one-layer wide MLPs (C4) take them too.  What no kernel takes is a
+    malformed MLP: a first layer that does not take the encoding raises
+    ValueError.  Depths of either shape pass the input check; mismatched
+    shapes or ray counts raise ValueError."""
     small = NeRFConfig.small()
     ws, bs = np_params(rng, mlp_layer_sizes(33, 4, 3, 30))
     params = params_from_numpy(ws, bs, "cpu")
     assert fused_nerf._route(small, params) == ("narrow", 32)
-    with pytest.raises(NotImplementedError, match="A4"):  # narrow bf16
-        fused_nerf._route(dataclasses.replace(small, compute_dtype="bfloat16"), params)
-    for width, pw in ((65, 128), (128, 128), (160, 256), (256, 256)):
+    # narrow bf16 (A4): the wide kernels' bf16 rounding plan at pw = 128
+    assert fused_nerf._route(dataclasses.replace(small, compute_dtype="bfloat16"),
+                             params) == ("wide", 128)
+    for width, pw in ((65, 128), (128, 128), (160, 256), (256, 256), (257, 384),
+                      (512, 512), (1000, 1024)):
         wide = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, 3, width)), "cpu")
         for cdt in ("float32", "bfloat16"):
             cfg = dataclasses.replace(small, filter_size=width, compute_dtype=cdt)
             assert fused_nerf._route(cfg, wide) == ("wide", pw)
-    too_wide = params_from_numpy(*np_params(rng, mlp_layer_sizes(33, 4, 3, 257)), "cpu")
-    with pytest.raises(NotImplementedError, match="C4"):
-        fused_nerf._route(small, too_wide)
+    # a one-layer MLP on the n = 12 encoding: 75 inputs, padded width 80
+    one = dataclasses.replace(small, num_layers=1, num_encoding_functions=12)
+    one_params = params_from_numpy(*np_params(rng, mlp_layer_sizes(75, 4, 1, 0)), "cpu")
+    for cdt in ("float32", "bfloat16"):
+        assert fused_nerf._route(dataclasses.replace(one, compute_dtype=cdt),
+                                 one_params) == ("wide", 128)
     with pytest.raises(ValueError):  # the n=4 encoding gives 27 inputs, not 33
         fused_nerf._route(dataclasses.replace(small, num_encoding_functions=4), params)
     # depths: both (S,) or both per-ray (N, S) pass; any other pair raises

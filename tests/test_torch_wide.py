@@ -177,13 +177,17 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
     reads its own rows): per ray chunk, the forward (:func:`forward_sequence`:
     the encoding and the layer GEMMs), the per-ray compositing walk and its
     adjoint, then in reverse the split-K dW partials of row_chunk rows and
-    the db column-sum partials, each added in a fixed order.  ``rnd`` rounds
+    the db column-sum partials, each added in a fixed order.  The head
+    reads the first ``hc`` columns of its input: pw after a hidden layer,
+    the encoded width kc for a one-layer MLP, whose sequence ends with the
+    head's dW.  ``rnd`` rounds
     to the compute dtype.  With ``k_step`` (bf16), the producers of each
     hidden d_z (compositing, the d_h product) also write its rounded copy,
     which the hidden layers' dW stage reads in f32 k-steps
     (:func:`dw_stage`), its partials added in f32 in order; the head's dW
     keeps the f64 partials.  Returns (dW, db, loss)."""
     L, pw = W.shape[0], W.shape[1]
+    hc = kc if L == 1 else pw
     dW, db, loss = np.zeros((L, pw, pw)), np.zeros((L, pw)), 0.0
 
     def add_partials(A, Z, dst):  # dst += sum_z A[z]^T rnd(Z[z]), z in order
@@ -206,9 +210,13 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
         oc, dc, yc = o[c0:c0 + chunk_rays], d[c0:c0 + chunk_rays], cot[c0:c0 + chunk_rays]
         tc, distc = t[c0:c0 + chunk_rays], dists[c0:c0 + chunk_rays]
         n = oc.shape[0]
-        p = (oc[:, None, :] + dc[:, None, :] * tc[:, :, None]).reshape(n * S, 3)
+        # the points in f32, as the encoding kernel rounds them (o + d*t, no
+        # contraction); the rest in f64
+        f32 = np.float32
+        p = (oc[:, None, :].astype(f32) + dc[:, None, :].astype(f32) * tc[:, :, None].astype(f32))
+        p = p.reshape(n * S, 3).astype(np.float64)
         H = forward_sequence(W, b, p, kc, nf, rnd)
-        z = H[-1] @ W[L - 1][:, :4] + b[L - 1][:4]
+        z = H[-1][:, :hc] @ W[L - 1][:hc, :4] + b[L - 1][:4]
         rgb, sig = rnd(1.0 / (1.0 + np.exp(-z[:, :3]))), rnd(np.maximum(z[:, 3], 0.0))
         dz_head = np.zeros((n * S, 4))
         for r in range(n):
@@ -242,8 +250,10 @@ def kernel_sequence(W, b, t, dists, o, d, cot, S, kc, nf, loma, rnd, train,
                 g = rgb[rows][s]
                 dz_head[r * S + s, :3] = dcol * alpha[s] * Ts[s] * g * (1.0 - g)
                 dz_head[r * S + s, 3] = d_sigma if sig[r * S + s] > 0 else 0.0
-        add_partials(H[L - 1], dz_head, dW[L - 1][:, :4])
+        add_partials(H[L - 1][:, :hc], dz_head, dW[L - 1][:hc, :4])
         add_colsums(dz_head, db[L - 1][:4])
+        if L == 1:
+            continue
         dz = (rnd(dz_head) @ W[L - 1][:, :4].T) * (H[L - 1] > 0)
         dzb = rnd(dz)  # the copy compositing writes beside d_z
         for l in range(L - 2, -1, -1):
