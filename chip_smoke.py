@@ -166,9 +166,10 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     version at 4096 rays; runs ``train_nerf --layers 8 --width 1024
     --samples 128 --steps 3``;
 25. holds the wide field route (``field_wide.cu``, D2) against its plain
-    version: 8x128 and a 3D field with a 16-channel head on 1037 points,
-    the 4x256 field over the whole 512x512 image; times each kernel and the
-    fit step there against the plain version; fits 200 ``fit_image`` steps
+    version on both product routes ("high": 3xTF32, "highest": f32 FMAs):
+    8x128 and a 3D field with a 16-channel head on 1037 points, the 4x256
+    field over the whole 512x512 image; times each kernel on both tiers and
+    the fit step there against the plain version; fits 200 ``fit_image`` steps
     of the 4x256 field at 512x512 on the kernels and the plain backend
     from one init (>= 8 dB above step 0, within 0.3 dB of plain).
 
@@ -3536,18 +3537,22 @@ def field_params_for(rng, mlp_layer_sizes, cfg, D, out):
 def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_sizes,
                      make_image_fit_step, fit_image, smi, tmp, seed=37):
     """Phase 25: the wide field route (``field_wide.cu``) against its plain
-    version: 8x128 and the 3D 16-channel field on 1037 points (phase 10's
-    bounds), the 4x256 field over the whole 512x512 image (outputs within
-    1e-4, dW/db within ``FIELD_IMAGE_GRAD`` of the leaf's largest entry),
-    repeat launches bit-identical, the "high" and "highest" tiers the same
-    bits (exact f32 products on both); each kernel's own call at 512x512
-    against the plain version and its 3xTF32 and f32 bounds, and the fit step (Adam)
-    through the kernels and the plain backend in turns; then 200 ``fit_image``
-    steps at 4x256 on 512x512 (``--layers 4 --width 256 --img-size 512
-    --enc-functions 8``) through the kernels and the plain backend from one
-    init: PSNR >= 8 dB above step 0 and within 0.3 dB of plain, the step's
-    ms in turns.  Returns (worst per kernel, timings, bounds (3xTF32, as
-    phase 12's), launches of the kernel run)."""
+    version on both product routes of ``FIELD_TIERS`` ("high": 3xTF32 on the
+    tensor cores, ``field_wide_gemm.cuh``; "highest": exact f32 FMAs): 8x128
+    and the 3D 16-channel field on 1037 points (phase 10's bounds), the
+    4x256 field over the whole 512x512 image (outputs within 1e-4, dW/db
+    within ``FIELD_IMAGE_GRAD`` of the leaf's largest entry), each tier's
+    repeat launches bit-identical, the two tiers' outputs apart; each
+    kernel's own call on both tiers at 512x512 against the plain version
+    and its 3xTF32 and f32 bounds, and the fit step (Adam) through the
+    kernels ("high", the config's tier) and the plain backend in turns;
+    then 200 ``fit_image`` steps at 4x256 on 512x512 (``--layers 4 --width
+    256 --img-size 512 --enc-functions 8``) through the kernels and the
+    plain backend from one init: PSNR >= 8 dB above step 0 and within 0.3
+    dB of plain, the step's ms in turns.  Returns (worst per kernel over
+    both tiers, timings ("high"), bounds (3xTF32, as phase 12's), launches
+    of the kernel run, extra: the "highest" tier's times and the fit
+    step's)."""
     rng = np.random.default_rng(seed)
     worst = {"field_wide_fwd": 0.0, "field_wide_bwd": 0.0}
 
@@ -3568,36 +3573,58 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
         coords = image_grid_coords(FIELD_WIDE_SIZE, "cuda") if big else torch.tensor(
             rng.random((n, D)), dtype=torch.float32, device="cuda")
         cot = torch.tensor(rng.standard_normal((n, out)), dtype=torch.float32, device="cuda")
-        reset_launches(fused_mlp)
-        k1 = field_grads(kernel("high", out), params, coords, cot, nf)
-        k2 = field_grads(kernel("highest", out), params, coords, cot, nf)
-        torch.cuda.synchronize()
-        if fused_mlp.launches["field_wide_fwd"] != 2 or fused_mlp.launches["field_wide_bwd"] != 2 \
-                or fused_mlp.launches["field_fwd"] or fused_mlp.launches["field_bwd"]:
-            raise AssertionError(f"field {name}: launches {fused_mlp.launches}")
-        if not all(torch.equal(a, b) for a, b in zip((k1[0], *k1[1]), (k2[0], *k2[1]))):
-            raise AssertionError(f"field {name}: repeat launches (high, highest) differ")
-        if k1[2] is not None:
-            raise AssertionError(f"field {name}: the coords got a gradient")
         p = field_grads(plain(out), params, coords, cot, nf)
-        e_f = (k1[0] - p[0]).abs().max().item()
-        torch.testing.assert_close(k1[0], p[0], atol=ATOL, rtol=RTOL)
-        if big:
-            e_b = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k1[1], p[1]))
-            grads_close(k1[1], p[1], f"field_wide_bwd {name}", 0.0,
-                        lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
-            e_abs = max((a - b).abs().max().item() for a, b in zip(k1[1], p[1]))
-        else:
-            e_b = e_abs = grads_close(k1[1], p[1], f"field_wide_bwd {name}", GRAD_RTOL,
-                                      grad_atol)
-        worst["field_wide_fwd"] = max(worst["field_wide_fwd"], e_f)
-        worst["field_wide_bwd"] = max(worst["field_wide_bwd"], e_abs)
-        print(f"phase 25 field {name} (D={D}, {out} channels, n={nf}) on {n} points: "
-              f"max|kernel-plain| forward {e_f:.3e}, dW/db {e_b:.3e}"
-              f"{' of the leaf largest entry' if big else ''}; \"high\" and \"highest\" "
-              f"bit-identical; coords gradient None")
+        got = {}
+        for tier in FIELD_TIERS:
+            reset_launches(fused_mlp)
+            k1 = field_grads(kernel(tier, out), params, coords, cot, nf)
+            k2 = field_grads(kernel(tier, out), params, coords, cot, nf)
+            torch.cuda.synchronize()
+            if fused_mlp.launches["field_wide_fwd"] != 2 or \
+                    fused_mlp.launches["field_wide_bwd"] != 2 or \
+                    fused_mlp.launches["field_fwd"] or fused_mlp.launches["field_bwd"]:
+                raise AssertionError(f"field {name} {tier}: launches {fused_mlp.launches}")
+            if not all(torch.equal(a, b) for a, b in zip((k1[0], *k1[1]), (k2[0], *k2[1]))):
+                raise AssertionError(f"field {name} {tier}: repeat launches differ")
+            if k1[2] is not None:
+                raise AssertionError(f"field {name} {tier}: the coords got a gradient")
+            # autograd's backward reads the activations its forward kept (one
+            # chunk); recomputed, they give the same bits
+            dims = fused_mlp.field_wide_dims(params, D, out)
+            packed = fused_mlp.pack_field_wide(params, dims[2], out)
+            again = fused_mlp.unpack_field_wide(*fused_mlp._launch_wide_bwd(
+                *packed, coords, cot, nf, dims, fused_mlp.exact_tier(tier)), params)
+            if not all(torch.equal(x, y) for x, y in zip(again, k1[1])):
+                raise AssertionError(f"field {name} {tier}: the recomputed forward's dW/db "
+                                     "differ from the kept activations'")
+            e_f = (k1[0] - p[0]).abs().max().item()
+            torch.testing.assert_close(k1[0], p[0], atol=ATOL, rtol=RTOL)
+            if big:
+                e_b = max(((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(k1[1], p[1]))
+                grads_close(k1[1], p[1], f"field_wide_bwd {name} {tier}", 0.0,
+                            lambda w: FIELD_IMAGE_GRAD * w.abs().max().item())
+                e_abs = max((a - b).abs().max().item() for a, b in zip(k1[1], p[1]))
+            else:
+                e_b = e_abs = grads_close(k1[1], p[1], f"field_wide_bwd {name} {tier}",
+                                          GRAD_RTOL, grad_atol)
+            worst["field_wide_fwd"] = max(worst["field_wide_fwd"], e_f)
+            worst["field_wide_bwd"] = max(worst["field_wide_bwd"], e_abs)
+            got[tier] = k1
+            print(f"phase 25 field {name} (D={D}, {out} channels, n={nf}) on {n} points, "
+                  f"\"{tier}\": max|kernel-plain| forward {e_f:.3e}, dW/db {e_b:.3e}"
+                  f"{' of the leaf largest entry' if big else ''}; repeat launches and the "
+                  f"recomputed forward's backward bit-identical; coords gradient None")
+        a, b = got["high"], got["highest"]
+        if torch.equal(a[0], b[0]):
+            raise AssertionError(f"field {name}: the \"high\" and \"highest\" outputs are "
+                                 "the same bits (one product route)")
+        print(f"  {name}: max|high - highest| forward {(a[0] - b[0]).abs().max().item():.3e}, "
+              f"dW/db {max((x - y).abs().max().item() for x, y in zip(a[1], b[1])):.3e}")
+        del got, a, b, k1, k2, p
 
-    # each kernel's own call at 4x256 on 512x512, against the plain version
+    # each kernel's own call at 4x256 on 512x512 on both tiers, against the
+    # plain version
     cfg, D, out = field_wide_configs(ImageFieldConfig)["4x256"]
     nf = cfg.num_encoding_functions
     params = field_params_for(np.random.default_rng(0), mlp_layer_sizes, cfg, D, out)
@@ -3608,14 +3635,17 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
                        dtype=torch.float32, device="cuda")
     fwd, bwd = mlp_macs(mlp_layer_sizes(D * (1 + 2 * nf), out, cfg.num_layers,
                                         cfg.filter_size))
-    k_out = fused_mlp.field_forward(params, coords, nf, out)
+    outs = {tier: fused_mlp.field_forward(params, coords, nf, out, precision=tier)
+            for tier in FIELD_TIERS}
     p_out = fused_mlp.field_forward_reference(params, coords, nf, out)
-    calls = {
-        "field_wide_fwd": lambda: fused_mlp.field_forward(params, coords, nf, out),
-        "fwd plain": lambda: fused_mlp.field_forward_reference(params, coords, nf, out),
-        "field_wide_bwd": lambda: torch.autograd.grad(k_out, leaves, cot, retain_graph=True),
-        "bwd plain": lambda: torch.autograd.grad(p_out, leaves, cot, retain_graph=True),
-    }
+    calls = {}
+    for tier in FIELD_TIERS:
+        calls[f"fwd {tier}"] = (lambda t=tier: fused_mlp.field_forward(params, coords, nf, out,
+                                                                       precision=t))
+        calls[f"bwd {tier}"] = (lambda t=tier: torch.autograd.grad(outs[t], leaves, cot,
+                                                                   retain_graph=True))
+    calls["fwd plain"] = lambda: fused_mlp.field_forward_reference(params, coords, nf, out)
+    calls["bwd plain"] = lambda: torch.autograd.grad(p_out, leaves, cot, retain_graph=True)
     # the fit step (Adam 1e-3) through the kernels and the plain backend
     target = torch.rand((n_px, out), generator=torch.Generator("cuda").manual_seed(2),
                         device="cuda")
@@ -3626,28 +3656,36 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
                                        backend)
         calls[key] = lambda s=fit_step, p=prm: s(p, coords, target)
     turns = timed_turns(calls, 3)
-    timing, bounds = {}, {}
+    timing, bounds, tiers = {}, {}, {}
     n_par = sum(x.numel() for x in leaves)
     # the least time of the function the fit runs: the "high" tier (the
     # config's default), which 3xTF32 meets, as phase 12 bounds #13/#14;
-    # the f32 FMA bound (the route's own products) printed beside it
-    for name, plain_name, macs, par_bytes in (("field_wide_fwd", "fwd plain", fwd, 4 * n_par),
-                                              ("field_wide_bwd", "bwd plain", bwd, 8 * n_par)):
-        nbytes = n_px * 4 * (D + out) + par_bytes
+    # the f32 FMA bound ("highest"'s own products) printed beside it.  The
+    # timed backward reads the activations its forward kept (L x n x pw
+    # floats): its work is dW and d_h, no recomputed forward
+    L, pw = len(params["w"]), fused_mlp.field_wide_dims(params, D, out)[2]
+    for name, kind, macs, nbytes in (
+            ("field_wide_fwd", "fwd", fwd, n_px * 4 * (D + out) + 4 * n_par),
+            ("field_wide_bwd", "bwd", bwd - fwd, n_px * 4 * (out + L * pw) + 8 * n_par)):
         bounds[name] = bound(TF32_PASSES * n_px * macs, PEAK_TF32, nbytes)
         f32_bound = bound(n_px * macs, PEAK_F32, nbytes)
-        timing[name] = (statistics.median(turns[name]), statistics.median(turns[plain_name]))
-        print(f"phase 25 {name} alone, 4x256 at {FIELD_WIDE_SIZE}x{FIELD_WIDE_SIZE}, on {smi}: "
-              f"kernel {spread(turns[name])}, plain {spread(turns[plain_name])}; "
-              f"{2.0 * n_px * macs / timing[name][0] / 1e9:.2f} TFLOP/s; 3xTF32 bound "
-              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}, "
-              f"{bounds[name][0] / timing[name][0]:.1%} of it); f32 bound "
-              f"{f32_bound[0]:.4f} ms ({f32_bound[1]}, {f32_bound[0] / timing[name][0]:.1%} of it)")
+        plain_ms = statistics.median(turns[f"{kind} plain"])
+        for tier in FIELD_TIERS:
+            ms = statistics.median(turns[f"{kind} {tier}"])
+            tiers.setdefault(name, {})[tier] = ms
+            print(f"phase 25 {name} \"{tier}\" alone, 4x256 at {FIELD_WIDE_SIZE}x"
+                  f"{FIELD_WIDE_SIZE}, on {smi}: kernel {spread(turns[f'{kind} {tier}'])}, "
+                  f"plain {spread(turns[f'{kind} plain'])}; "
+                  f"{2.0 * n_px * macs / ms / 1e9:.2f} TFLOP/s; 3xTF32 bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}, "
+                  f"{bounds[name][0] / ms:.1%} of it); f32 bound {f32_bound[0]:.4f} ms "
+                  f"({f32_bound[1]}, {f32_bound[0] / ms:.1%} of it)")
+        timing[name] = (tiers[name]["high"], plain_ms)
     step_ms = {k: statistics.median(turns[k]) for k in ("step", "plain step")}
     print(f"phase 25 fit step, 4x256 at {FIELD_WIDE_SIZE}x{FIELD_WIDE_SIZE}, Adam 1e-3, in "
           f"turns: kernels {spread(turns['step'])}, plain {spread(turns['plain step'])}; "
           f"{n_px / step_ms['step'] * 1e3:.4e} px/s")
-    del k_out, p_out, calls, params, leaves
+    del outs, p_out, calls, params, leaves
 
     base = ["--device", "cuda", "--img", "synthetic", "--optimizer", "adam", "--ckpt-every",
             "0", "--img-size", str(FIELD_WIDE_SIZE), "--layers", "4", "--width", "256",
@@ -3686,8 +3724,8 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
     if gain < HIRES_GAIN_DB or diff > HIRES_PLAIN_DB:
         raise AssertionError(f"fit 4x256: gain {gain:.2f} dB (need {HIRES_GAIN_DB}), "
                              f"|kernel - plain| {diff:.3f} dB (need <= {HIRES_PLAIN_DB})")
-    extra = {"field_wide_bwd": {"step_ms": step_ms["step"],
-                                "plain_step_ms": step_ms["plain step"]}}
+    extra = {name: {"highest_ms": tiers[name]["highest"]} for name in tiers}
+    extra["field_wide_bwd"].update(step_ms=step_ms["step"], plain_step_ms=step_ms["plain step"])
     return worst, timing, bounds, launches, extra
 
 

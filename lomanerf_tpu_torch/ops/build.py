@@ -81,11 +81,12 @@ SIGNATURES = {
     "field_fwd_blocks": [_I] * 6,
     "field_bwd_blocks": [_I] * 6,
     # fields past the tile kernels (field_wide.cu): (W, b, coords, out, acts,
-    #  n, chunk, L, D, nf, hidden, out_ch, pw, stream)
-    "field_wide_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    #  n, chunk, L, D, nf, hidden, out_ch, pw, exact, keep, stream); exact as
+    #  for field_fwd, keep: acts keeps every layer's input for the backward
+    "field_wide_fwd": [_P] * 5 + [_I] * 10 + [_P],
     # (W, b, coords, dout, acts, dz, partials, n_parts, dW, db, n, chunk, L,
-    #  D, nf, hidden, out_ch, pw, stream)
-    "field_wide_bwd": [_P] * 7 + [_LL, _P, _P] + [_I] * 8 + [_P],
+    #  D, nf, hidden, out_ch, pw, exact, kept, stream); kept: acts holds them
+    "field_wide_bwd": [_P] * 7 + [_LL, _P, _P] + [_I] * 10 + [_P],
     # the segmented scans (seg_scans.cu, steps in seg_scan.cuh): (x, out,
     #  n_rows, S, op: 0 cumprod / 1 suffix sum / 2 shift down, fill, stream)
     "seg_scans": [_P, _P, _I, _I, _I, ctypes.c_float, _P],

@@ -361,7 +361,8 @@ cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
 
 // part[z][n] = sum of Z[row * ldz + n] over the rows of chunk z (kRowChunk
 // rows each), n < N: 32 columns per block, 8 row lanes each summing every
-// 8th row in order, then lane 0 adds the 8 lane sums in order.
+// 8th row in order (eight rows' loads in flight, then added in order), then
+// lane 0 adds the 8 lane sums in order.
 __global__ void __launch_bounds__(256)
 colsum_kernel(const float* __restrict__ Z, int ldz, int rows, int N,
               float* __restrict__ part) {
@@ -372,7 +373,15 @@ colsum_kernel(const float* __restrict__ Z, int ldz, int rows, int N,
   const int r1 = min(rows, r0 + kRowChunk);
   float s = 0.0f;
   if (n < N) {
-    for (int r = r0 + ty; r < r1; r += 8) s += Z[static_cast<size_t>(r) * ldz + n];
+    int r = r0 + ty;
+    for (; r + 56 < r1; r += 64) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = Z[static_cast<size_t>(r + 8 * u) * ldz + n];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; r < r1; r += 8) s += Z[static_cast<size_t>(r) * ldz + n];
   }
   red[ty][tx] = s;
   __syncthreads();

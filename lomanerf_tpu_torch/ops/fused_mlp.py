@@ -13,16 +13,16 @@ memory (:func:`kernel_width`):
 Every other field the JAX kernels take (any width, any depth, heads of up
 to 128 channels, ``(N, D)`` coords of any D) runs on ``csrc/field_wide.cu``
 (``field_wide_fwd`` and ``field_wide_bwd``, ``_FieldWide``): the encoding,
-then one tiled f32 GEMM a layer with the activations in device memory, in
-pixel chunks of :func:`field_wide_chunk`.  Its products are exact f32 FMAs
-on every precision tier.
+then one tiled GEMM a layer with the activations in device memory, in
+pixel chunks of :func:`field_wide_chunk`.
 
 Both take the raw pixel coords and encode them on the chip (``sincosf`` of
-the exact octave ``2^i x``, as ``core.positional_encoding``).  The tile
-kernels run their hidden layers' products by the JAX package's precision tier
-(:func:`exact_tier`): "highest" as f32 FMAs (exact f32 products, for parity
-work), "high" and "default" on the tensor cores in split TF32 (3xTF32,
-f32-level accuracy).  Their parameters arrive staged
+the exact octave ``2^i x``, as ``core.positional_encoding``).  Both run their
+products by the JAX package's precision tier (:func:`exact_tier`): "highest"
+as f32 FMAs (exact f32 products, for parity work), "high" and "default" on
+the tensor cores in split TF32 (3xTF32, f32-level accuracy): the tile
+kernels their hidden layers' products, the wide route every layer's, the
+head's too.  The tile kernels' parameters arrive staged
 (:func:`pack_field_params`: the image of the kernels' shared memory, so that
 one bulk copy brings a layer in) with the hidden width padded to one of
 :data:`WIDTHS`; the gradient comes back in the packed layout of the narrow
@@ -306,28 +306,36 @@ def field_wide_chunk(L: int, pw: int) -> int:
     return max(1, FIELD_WIDE_BYTES // (4 * pw * (L + 2)))
 
 
-def _launch_wide_fwd(W, b, coords, num_functions, out_ch, dims) -> torch.Tensor:
-    """One call of ``field_wide_fwd``, every chunk; counted in ``launches``."""
+def _launch_wide_fwd(W, b, coords, num_functions, out_ch, dims, exact, keep=False):
+    """One call of ``field_wide_fwd``, every chunk (``exact``:
+    :func:`exact_tier`): ``(out, acts)``.  With ``keep``, where the pixels
+    fit one chunk, ``acts`` holds every layer's input for
+    :func:`_launch_wide_bwd` (L x n x pw floats), else it is None.  Counted
+    in ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
     _, hidden, pw = dims
+    L = W.shape[0]
     n, D, dev = coords.shape[0], coords.shape[1], coords.device
-    chunk = max(1, min(n, field_wide_chunk(W.shape[0], pw)))
-    acts = torch.empty(2 * chunk * pw, dtype=torch.float32, device=dev)
+    chunk = max(1, min(n, field_wide_chunk(L, pw)))
+    keep = keep and n <= chunk
+    acts = torch.empty((L if keep else 2) * chunk * pw, dtype=torch.float32, device=dev)
     out = torch.empty((n, out_ch), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.load().field_wide_fwd(
         W.data_ptr(), b.data_ptr(), coords.data_ptr(), out.data_ptr(), acts.data_ptr(), n,
-        chunk, W.shape[0], D, num_functions, hidden, out_ch, pw, stream)
+        chunk, L, D, num_functions, hidden, out_ch, pw, exact, int(keep), stream)
     if err != 0:
         raise RuntimeError(f"field_wide_fwd launch failed: cudaError {err}")
     launches["field_wide_fwd"] += 1
-    return out
+    return out, (acts if keep else None)
 
 
-def _launch_wide_bwd(W, b, coords, dout, num_functions, dims):
-    """One call of ``field_wide_bwd``, every chunk: ``(dW, db)`` stacks.
-    Counted in ``launches``."""
+def _launch_wide_bwd(W, b, coords, dout, num_functions, dims, exact, acts=None):
+    """One call of ``field_wide_bwd``, every chunk (``exact`` as for
+    :func:`_launch_wide_fwd`): ``(dW, db)`` stacks.  ``acts``: the layer
+    inputs a ``keep`` forward left, or None to recompute them.  Counted in
+    ``launches``."""
     from lomanerf_tpu_torch.ops import build
 
     _, hidden, pw = dims
@@ -339,13 +347,17 @@ def _launch_wide_bwd(W, b, coords, dout, num_functions, dims):
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    acts, dz, partials = f32(L * chunk * pw), f32(2 * chunk * pw), f32(n_parts)
+    kept = acts is not None
+    if kept and acts.numel() != L * n * pw:
+        raise ValueError(f"kept activations of {acts.numel()} floats, need {L * n * pw}")
+    acts = acts if kept else f32(L * chunk * pw)
+    dz, partials = f32(2 * chunk * pw), f32(n_parts)
     dW, db = f32(L, pw, pw), f32(L, pw)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.load().field_wide_bwd(
         W.data_ptr(), b.data_ptr(), coords.data_ptr(), dout.data_ptr(), acts.data_ptr(),
         dz.data_ptr(), partials.data_ptr(), n_parts, dW.data_ptr(), db.data_ptr(), n, chunk,
-        L, D, num_functions, hidden, dout.shape[1], pw, stream)
+        L, D, num_functions, hidden, dout.shape[1], pw, exact, int(kept), stream)
     if err != 0:
         raise RuntimeError(f"field_wide_bwd launch failed: cudaError {err}")
     launches["field_wide_bwd"] += 1
@@ -354,23 +366,39 @@ def _launch_wide_bwd(W, b, coords, dout, num_functions, dims):
 
 class _FieldWide(torch.autograd.Function):
     """The wide route behind autograd: forward launches ``field_wide_fwd``,
-    backward ``field_wide_bwd`` with the output cotangent.  Coords get no
-    gradient."""
+    backward ``field_wide_bwd`` with the output cotangent, both on the
+    product route ``exact`` names (:func:`exact_tier`).  With ``keep`` (a
+    gradient will be taken) the forward keeps every layer's input for the
+    backward where the pixels fit one chunk; else the backward recomputes
+    them (the same bits).  Coords get no gradient."""
 
     @staticmethod
-    def forward(ctx, coords, num_functions, out_channels, *wb):
+    def forward(ctx, coords, num_functions, out_channels, exact, keep, *wb):
         params = _params_of(wb)
         dims = field_wide_dims(params, coords.shape[1], out_channels)
         W, b = pack_field_wide(params, dims[2], out_channels)
         ctx.save_for_backward(coords, W, b, *wb)
-        ctx.num_functions, ctx.dims = num_functions, dims
-        return _launch_wide_fwd(W, b, coords, num_functions, out_channels, dims)
+        ctx.num_functions, ctx.dims, ctx.exact = num_functions, dims, exact
+        out, ctx.acts = _launch_wide_fwd(W, b, coords, num_functions, out_channels, dims, exact,
+                                         keep)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         coords, W, b, *wb = ctx.saved_tensors
-        dW, db = _launch_wide_bwd(W, b, coords, _f32(grad_out), ctx.num_functions, ctx.dims)
-        return (None,) * 3 + unpack_field_wide(dW, db, _params_of(wb))
+        dW, db = _launch_wide_bwd(W, b, coords, _f32(grad_out), ctx.num_functions, ctx.dims,
+                                  ctx.exact, ctx.acts)
+        return (None,) * 5 + unpack_field_wide(dW, db, _params_of(wb))
+
+
+def _on_card(coords: torch.Tensor) -> bool:
+    """True for CUDA coords (the kernels), False for CPU ones (the plain
+    version); any other device raises."""
+    if coords.device.type == "cpu":
+        return False
+    if coords.device.type != "cuda":
+        raise NotImplementedError(f"no field kernel for device {coords.device}")
+    return True
 
 
 def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
@@ -378,25 +406,25 @@ def field_forward(params: Params, coords: torch.Tensor, num_functions: int,
     """Fused encode + MLP + sigmoid field: coords ``(N, D)`` to
     ``(N, out_channels)``, with the JAX signature less the TPU tile.
     Differentiable w.r.t. params only.  ``precision`` is the JAX package's
-    tier (the models pass their config's; :func:`exact_tier`): on the tile
-    kernels "highest" runs the hidden layers' products as exact f32 FMAs,
-    "high" and "default" in split TF32 on the tensor cores (3xTF32: about
-    2^-21 of each product, f32 sums), more exact than the JAX package's
-    "high" (bf16x3); the wide route runs exact f32 FMAs on every tier.  The
+    tier (the models pass their config's; :func:`exact_tier`): "highest"
+    runs the products as exact f32 FMAs, "high" and "default" in split TF32
+    on the tensor cores (3xTF32: about 2^-21 of each product, f32 sums),
+    more exact than the JAX package's "high" (bf16x3); on the tile kernels
+    the hidden layers' products, on the wide route every layer's.  The
     plain version (CPU tensors) is f32 on every tier."""
     exact = exact_tier(precision)
     coords = coords.detach()
-    if coords.device.type == "cpu":
+    if not _on_card(coords):
         return field_forward_reference(params, coords, num_functions, out_channels)
-    if coords.device.type != "cuda":
-        raise NotImplementedError(f"no field kernel for device {coords.device}")
     if coords.ndim != 2:
         raise ValueError(f"coords of shape {tuple(coords.shape)}, expected (N, D)")
     width = kernel_width(params, coords.shape[1], num_functions, out_channels)
     if any(x.device != coords.device for x in [*params["w"], *params["b"]]):
         raise ValueError("coords and params must share one CUDA device")
     if width is None:
-        return _FieldWide.apply(_f32(coords), num_functions, out_channels,
+        keep = torch.is_grad_enabled() and any(
+            x.requires_grad for x in [*params["w"], *params["b"]])
+        return _FieldWide.apply(_f32(coords), num_functions, out_channels, exact, keep,
                                 *params["w"], *params["b"])
     return _FieldFwd.apply(_f32(coords), num_functions, out_channels, width, exact,
                            *params["w"], *params["b"])

@@ -76,6 +76,19 @@ run against another checkout of the port to compare two trees.
   per library from one seeded init); and each tree's dW/db against autograd
   of the plain version at that image, with the (leaf, columns) that
   ReLU-mask flips move past rtol 1e-3 + 1e-4 of the leaf's largest entry.
+* ``--what field_wide``: device time by kernel of ``--steps`` image-fit
+  steps of the wide field route's full-width cell (``chip_smoke.py`` phase
+  25: the 4x256 field, n = 8, at 512x512, the whole image a step, Adam
+  1e-3, ``ImageFieldConfig``'s "high" tier) after two warm-up steps, from
+  one trace, each kernel named by its place in the step
+  (:func:`wide_field_label`): the forward's encoding, each layer's GEMM and
+  the head; the backward's recomputed encoding and layers, the head's d_z,
+  each layer's dW partials, their fixed-order sum, the column sums (db),
+  each layer's ``d_h``; Adam and the rest.  With ``--parent DIR``,
+  instead: ``field_wide_fwd`` and ``field_wide_bwd`` of this tree ("high",
+  with and without the kept activations, and "highest") and of the
+  checkout at ``DIR`` ("high"; built there, under this tree's C ABI) at
+  that cell, in turns in one process.
 * ``--what scans [--parent DIR]``: ``seg_scans`` (#15), each op at the
   262,144 x 30 column, the same values at S = 64 and 128, and 1024 x 128:
   this tree's kernel, the same at tile stride S (bank conflicts at even
@@ -111,6 +124,7 @@ The last line is one JSON object with the numbers.  Run:
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
     python -m lomanerf_tpu_torch.scripts.card_probe --what pipeline --steps 60
     python -m lomanerf_tpu_torch.scripts.card_probe --what field [--parent DIR]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what field_wide [--parent DIR]
     python -m lomanerf_tpu_torch.scripts.card_probe --what walk --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what scans [--parent DIR]
 """
@@ -789,6 +803,158 @@ def field_against(parent: str, rounds: int = 3) -> dict:
     return out
 
 
+WIDE_FIELD_SIZE = 512  # chip_smoke.py phase 25's 4x256 cell
+# nerf_wide_gemm.cuh's epilogue codes, the last template argument of both
+# GEMMs of the wide field route (gemm_kernel, FMAs; gemm3_kernel, 3xTF32)
+_WIDE_EPI = {0: "forward", 1: "d_h", 2: "dW", 3: "head", 4: "head d_z"}
+
+
+def wide_field_label(name: str, cat: str, state: dict) -> str:
+    """The place in a fit step of one kernel of the wide field route, by its
+    trace name, the kernels read in the card's order: ``state`` (a dict,
+    empty at the first) carries the pass and layer.  An encoding starts the
+    forward call or, between the forward's head and the head's d_z, the
+    backward's recomputed forward (where the forward kept no activations);
+    the hidden layers count up from 0; the head's d_z sets the backward's
+    layer to L, each dW partial counts it down, and ``d_h`` belongs to that
+    layer; a fixed-order sum after a column sum is the column sums' (db),
+    else the dW partials'."""
+    if cat != "kernel":
+        return "memset and copy"
+    gemm = re.search(r"gemm3?_kernel<([^>]*)>", name)
+    if "encode_kernel" in name:  # after the forward's head and before its d_z: a recompute
+        state["pass"] = "bwd" if state.get("last") == "head" else "fwd"
+        state["layer"], state["last"] = 0, "encode"
+        return f"{state['pass']}: encode"
+    if gemm:
+        epi = state["last"] = _WIDE_EPI[int(gemm.group(1).split(",")[-1])]
+        if epi == "forward":
+            state["layer"] += 1
+            return f"{state['pass']}: layer {state['layer'] - 1}"
+        if epi == "head":
+            return "fwd: head"
+        if epi == "head d_z":
+            state["layer"] += 1  # L: the head is layer L - 1
+            return "bwd: head d_z"
+        if epi == "dW":
+            state["layer"] -= 1
+        return f"bwd: {epi} layer {state['layer']}"
+    if "colsum_kernel" in name:
+        state["last"] = "colsum"
+        return "bwd: db column sums"
+    if "sum_partials_kernel" in name:
+        return "bwd: db column sums" if state.get("last") == "colsum" else "bwd: dW partial sums"
+    if "multi_tensor_apply_kernel" in name:
+        return "Adam"
+    return "other"
+
+
+def wide_field_fit():
+    """``(model, step)`` of phase 25's 4x256 fit at 512x512: seeded init,
+    Adam 1e-3, two numpy seed-0 uniform targets cycled."""
+    from lomanerf_tpu_torch.models import ImageFieldConfig, ImageFieldModel, image_grid_coords
+    from lomanerf_tpu_torch.train.steps import make_image_fit_step
+
+    cfg = ImageFieldConfig(num_layers=4, filter_size=256, num_encoding_functions=8,
+                           img_size=WIDE_FIELD_SIZE)
+    n = cfg.img_size ** 2
+    coords = image_grid_coords(cfg.img_size, "cuda")
+    rng = np.random.default_rng(0)
+    targets = [torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")
+               for _ in range(2)]
+    model = ImageFieldModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    fit = make_image_fit_step(cfg, torch.optim.Adam(model.parameters(), lr=1e-3))
+    calls = [0]
+
+    def step():
+        fit(model, coords, targets[calls[0] % 2])
+        calls[0] += 1
+    return model, step
+
+
+def field_wide_split(steps: int) -> dict:
+    from lomanerf_tpu_torch.ops import fused_mlp
+
+    model, step = wide_field_fit()
+    if fused_mlp.kernel_width(model.params, 2, 8, 3) is not None:
+        raise SystemExit("card_probe: the 4x256 field is not on the wide route")
+    step(), step()  # warm-up
+    events = device_events(step, steps)
+    ms, launches, state = collections.Counter(), collections.Counter(), {}
+    for name, cat, us, _ in events:
+        key = wide_field_label(name, cat, state)
+        ms[key] += us / 1e3 / steps
+        launches[key] += 1
+    total = sum(ms.values())
+    out = {"what": "field_wide", "steps": steps, "device_ms_per_step": total,
+           "ms": dict(ms), "share": {k: v / total for k, v in ms.items()},
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    print(f"4x256 image-fit step, {WIDE_FIELD_SIZE}x{WIDE_FIELD_SIZE} px, \"high\" tier, "
+          f"{steps} steps traced: device {total:.3f} ms/step")
+    for k, v in ms.items():
+        print(f"  {k:28s} {v:9.3f} ms/step  {v / total:6.1%}  "
+              f"{launches[k] / steps:g} a step")
+    return out
+
+
+def field_wide_against(parent: str, rounds: int = 3) -> dict:
+    """This tree's wide field route against the parent's, in turns (the
+    parent under this tree's C ABI)."""
+    from lomanerf_tpu_torch.models import image_grid_coords
+    from lomanerf_tpu_torch.ops import build, fused_mlp
+
+    old = parent_library(parent)
+    for name in ("field_wide_fwd", "field_wide_bwd"):
+        fn = getattr(old, name)
+        fn.argtypes, fn.restype = build.SIGNATURES[name], ctypes.c_int
+    libs = {"parent": old, "this tree": build.load()}
+    saved = build.load
+
+    def on(lib, fn):
+        build.load = lambda: libs[lib]
+        try:
+            return fn()
+        finally:
+            build.load = saved
+
+    params = wide_field_fit()[0].params
+    coords = image_grid_coords(WIDE_FIELD_SIZE, "cuda")
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((coords.shape[0], 3)),
+                       dtype=torch.float32, device="cuda")
+    dims = fused_mlp.field_wide_dims(params, 2, 3)
+    W, b = fused_mlp.pack_field_wide(params, dims[2], 3)
+    # (library, exact, keep): "kept" keeps the forward's activations for the
+    # backward, as under autograd
+    runs = {"parent": ("parent", 0, False), "this tree high": ("this tree", 0, False),
+            "this tree high kept": ("this tree", 0, True),
+            "this tree highest": ("this tree", 1, False)}
+    kept = on("this tree", lambda: fused_mlp._launch_wide_fwd(W, b, coords, 8, 3, dims, 0,
+                                                              True))[1]
+    out = {"what": "field_wide", "parent": parent, "rounds": rounds}
+    for entry in ("field_wide_fwd", "field_wide_bwd"):
+        fns = {}
+        for key, (lib, exact, keep) in runs.items():
+            if entry == "field_wide_fwd":
+                def fn(lib=lib, exact=exact, keep=keep):
+                    return on(lib, lambda: fused_mlp._launch_wide_fwd(W, b, coords, 8, 3, dims,
+                                                                      exact, keep))
+            else:
+                def fn(lib=lib, exact=exact, keep=keep):
+                    return on(lib, lambda: fused_mlp._launch_wide_bwd(
+                        W, b, coords, cot, 8, dims, exact, kept if keep else None))
+            fns[key] = fn
+        out[entry] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
+    print(f"wide field route at 4x256, {WIDE_FIELD_SIZE}x{WIDE_FIELD_SIZE}, this tree against "
+          f"{parent}, one call each from an idle card, {2 * rounds} in turns (CUDA event "
+          "window, median ms):")
+    for entry in ("field_wide_fwd", "field_wide_bwd"):
+        v = out[entry]
+        print(f"  {entry:15s} " + "  ".join(f"{k} {t:8.3f}" for k, t in v.items())
+              + f"  high kept / parent {v['this tree high kept'] / v['parent']:.4f}")
+    return out
+
+
 # the main path's column, the same 7,864,320 values at S = 64 and 128, and
 # the 1024 x 128 column of the tests
 SCAN_SHAPES = ((262144, 30), (122880, 64), (61440, 128), (1024, 128))
@@ -957,10 +1123,11 @@ def pipeline(steps: int) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--what", choices=("flagship", "small", "frame", "grid_sum", "leaves",
-                                       "walk", "field", "render", "scans", "pipeline"),
+                                       "walk", "field", "field_wide", "render", "scans",
+                                       "pipeline"),
                     required=True)
-    ap.add_argument("--parent", help="root of the checkout --what walk, field, render or "
-                    "scans compares against")
+    ap.add_argument("--parent", help="root of the checkout --what walk, field, field_wide, "
+                    "render or scans compares against")
     ap.add_argument("--preset", choices=("full", "small"), default="full",
                     help="the frame --what frame splits")
     ap.add_argument("--steps", type=int, default=3)
@@ -980,6 +1147,8 @@ def main(argv=None) -> dict:
         out = (walk if args.what == "walk" else render)(args.parent)
     elif args.what == "field" and args.parent:
         out = field_against(args.parent)
+    elif args.what == "field_wide" and args.parent:
+        out = field_wide_against(args.parent)
     elif args.what == "pipeline":
         out = pipeline(args.steps)
     else:
@@ -987,7 +1156,8 @@ def main(argv=None) -> dict:
                "small": lambda: small(args.steps),
                "frame": lambda: small_frame() if args.preset == "small" else frame(args.path),
                "grid_sum": lambda: grid_sum(args.calls),
-               "field": lambda: field_split(args.steps)}[args.what]()
+               "field": lambda: field_split(args.steps),
+               "field_wide": lambda: field_wide_split(args.steps)}[args.what]()
         if not any(out.get(k) for k in ("device_ms_per_step", "device_ms_per_frame",
                                          "device_ms_per_call")):
             raise SystemExit("card_probe: the trace holds no device time")

@@ -13,7 +13,10 @@ interpret mode, ``highest_precision=True``) at the JAX test's bounds
 grads rtol 3e-4 / atol 3e-5).  The kernel's launch sequence (the encoding,
 one GEMM a layer, the head's d_z, split-K dW partials and column sums added
 in a fixed order, pixel chunks) is restated in f64 numpy over the packed
-stacks.  ``chip_smoke.py`` phase 25 holds the kernels themselves.
+stacks, and in f32 with the "high" tier's 3xTF32 products
+(``field_wide_gemm.cuh``, the tile kernels' split arithmetic:
+``test_torch_field.mma_products``) against the JAX field and f64.
+``chip_smoke.py`` phase 25 holds the kernels themselves.
 """
 
 import jax
@@ -27,6 +30,9 @@ from lomanerf_tpu.ops import fused_mlp as j_fused
 from lomanerf_tpu_torch import core as tcore
 from lomanerf_tpu_torch.models import ImageFieldConfig, ImageFieldModel
 from lomanerf_tpu_torch.ops import fused_mlp
+from lomanerf_tpu_torch.scripts import card_probe
+
+from test_torch_field import mma_products
 
 FWD_RTOL, FWD_ATOL, GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5, 3e-4, 3e-5
 # (layers, width, octaves, coordinate dimension, output channels): the
@@ -116,32 +122,66 @@ def test_encode_lanes_are_the_core_encoding(D, nf):
                                got, rtol=0, atol=2e-7)
 
 
-def kernel_sequence(W, b, nf, coords, dout, L, enc, hidden, out_ch, chunk, row_chunk):
-    """numpy (f64) restatement of ``field_wide_bwd`` over the packed stacks:
-    per chunk of ``chunk`` pixels, the encoding (:func:`encode_lanes`), each
-    hidden layer ReLU(h W_l + b_l) on its real columns,
-    the head's d_z = dout * y * (1 - y) on ``out_ch`` columns, then in
-    reverse each layer's dW as split-K partials of ``row_chunk`` rows and
-    db as column-sum partials, each added in order into the running sums,
-    and d_h = d_z W_l^T masked by h_l > 0.  Returns (out, dW, db)."""
+def column_sums(z, row_chunk):
+    """``field_wide_gemm.cuh:column_sums`` in ``z``'s dtype (the order of
+    ``nerf_wide_gemm.cuh``'s): per chunk of ``row_chunk`` rows, lane q < 8
+    sums rows q, q + 8, ... in order, the eight lane sums added in order;
+    the chunks' sums added in order."""
+    total = np.zeros(z.shape[1], z.dtype)
+    for r0 in range(0, z.shape[0], row_chunk):
+        blk = z[r0:r0 + row_chunk]
+        lanes = []
+        for q in range(8):
+            s = np.zeros(z.shape[1], z.dtype)
+            for r in range(q, blk.shape[0], 8):
+                s = s + blk[r]
+            lanes.append(s)
+        part = np.zeros(z.shape[1], z.dtype)
+        for s in lanes:
+            part = part + s
+        total = total + part
+    return total
+
+
+def kernel_sequence(W, b, nf, coords, dout, L, enc, hidden, out_ch, chunk, row_chunk,
+                    passes=None):
+    """numpy restatement of ``field_wide_bwd`` over the packed stacks, in
+    f64 (``passes`` None) or in f32 with the "high" tier's products
+    (``passes`` 3: ``mma_products``, the tile kernels' 3xTF32 split, the
+    head's too; 1: one TF32 pass).  Per chunk of ``chunk`` pixels: the
+    encoding (:func:`encode_lanes`, rounded to the dtype), each hidden layer
+    ReLU(h W_l + b_l) on its real columns, the head's sigmoid and d_z =
+    dout * y * (1 - y) on ``out_ch`` columns; then in reverse each layer's
+    dW as split-K partials of ``row_chunk`` rows (their k-steps from each
+    partial's first row) added in order, db by :func:`column_sums`, and d_h
+    = d_z W_l^T masked by h_l > 0.  Returns (out, dW, db)."""
+    dt = np.float64 if passes is None else np.float32
+    W, b, dout = W.astype(dt), b.astype(dt), dout.astype(dt)
+    one = dt(1)
     pw = W.shape[1]
-    dW, db = np.zeros((L, pw, pw)), np.zeros((L, pw))
-    outs = []
+    dW, db = np.zeros((L, pw, pw), dt), np.zeros((L, pw), dt)
     ins = [enc] + [hidden] * (L - 1)
     cols = [hidden] * (L - 1) + [out_ch]
+    outs = []
+
+    def prod(a, w):
+        return a @ w if passes is None else mma_products(a, w, passes)
     for c0 in range(0, coords.shape[0], chunk):
-        h = [encode_lanes(coords[c0:c0 + chunk].astype(np.float32), nf)[0]]
+        h = [encode_lanes(coords[c0:c0 + chunk].astype(np.float32), nf)[0].astype(dt)]
         for l in range(L - 1):
-            h.append(np.maximum(h[l] @ W[l, :ins[l], :cols[l]] + b[l, :cols[l]], 0.0))
-        y = 1.0 / (1.0 + np.exp(-(h[-1] @ W[L - 1, :ins[-1], :out_ch] + b[L - 1, :out_ch])))
+            h.append(np.maximum(prod(h[l], W[l, :ins[l], :cols[l]]) + b[l, :cols[l]], dt(0)))
+        z = prod(h[-1], W[L - 1, :ins[-1], :out_ch]) + b[L - 1, :out_ch]
+        y = one / (one + np.exp(-z))
         outs.append(y)
-        g = dout[c0:c0 + chunk] * y * (1.0 - y)
+        g = dout[c0:c0 + chunk] * y * (one - y)
         for l in range(L - 1, -1, -1):
+            s = np.zeros((ins[l], cols[l]), dt)
             for r0 in range(0, g.shape[0], row_chunk):
-                dW[l, :ins[l], :cols[l]] += h[l][r0:r0 + row_chunk].T @ g[r0:r0 + row_chunk]
-                db[l, :cols[l]] += g[r0:r0 + row_chunk].sum(0)
+                s = s + prod(h[l][r0:r0 + row_chunk].T, g[r0:r0 + row_chunk])
+            dW[l, :ins[l], :cols[l]] += s
+            db[l, :cols[l]] += column_sums(g, row_chunk)
             if l >= 1:
-                g = (g @ W[l, :ins[l], :cols[l]].T) * (h[l] > 0)
+                g = np.where(h[l] > 0, prod(g, W[l, :ins[l], :cols[l]].T), dt(0))
     return np.concatenate(outs), dW, db
 
 
@@ -163,7 +203,7 @@ def test_kernel_sequence_matches_plain(rng, shape):
     n = 23
     coords = rng.random((n, D)).astype(np.float32)
     dout = rng.standard_normal((n, out))
-    got_out, dW, db = kernel_sequence(W.double().numpy(), b.double().numpy(), nf, coords,
+    got_out, dW, db = kernel_sequence(W.numpy(), b.numpy(), nf, coords,
                                       dout, layers, enc, hidden, out, 9, 4)
     lv = leaves(params)
     want_out = fused_mlp.field_forward(params, torch.from_numpy(coords), nf, out)
@@ -174,6 +214,151 @@ def test_kernel_sequence_matches_plain(rng, shape):
         assert g.shape == w.shape and g.dtype == w.dtype
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
     assert not got[layers - 1][:, out:].any() and not got[-1][out:].any()
+
+
+@pytest.mark.parametrize("shape", ["4x256", "8x128", "3d 16ch"])
+def test_3xtf32_route_meets_the_jax_field_and_f64(rng, shape):
+    """The wide route's "high" tier (``field_wide.cu`` on
+    ``field_wide_gemm.cuh``), restated in numpy on 240 points (chunks of
+    100 pixels, split-K partials of 32 rows: the kernels' 8192 scaled
+    down), meets the JAX fused field's test bounds (interpret mode,
+    ``highest_precision=True``: forward rtol 2e-4 / atol 1e-5, grads rtol
+    3e-4 / atol 3e-5) and the f64 field at ``chip_smoke.py`` phase 25's
+    (outputs 1e-4 abs + 1e-4 rel, dW/db rtol 3e-4 and atol 3e-5 of max(1,
+    the leaf's largest entry)); one TF32 pass lands at least 10x farther
+    from f64 than three."""
+    layers, width, nf, D, out = SHAPES[shape]
+    ws, bs = np_params(rng, layers, width, nf, D, out)
+    n = 240
+    coords = rng.random((n, D)).astype(np.float32)
+    dout = rng.standard_normal((n, out)).astype(np.float32)
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    enc, hidden, pw = fused_mlp.field_wide_dims(params, D, out)
+    W, b = (x.numpy() for x in fused_mlp.pack_field_wide(params, pw, out))
+    got_out, dW, db = kernel_sequence(W, b, nf, coords, dout, layers, enc, hidden, out, 100,
+                                      32, passes=3)
+    got = fused_mlp.unpack_field_wide(torch.from_numpy(dW), torch.from_numpy(db), params)
+
+    k_out, vjp = jax.vjp(lambda p: j_fused.field_forward(p, jnp.asarray(coords), nf, out,
+                                                         rows_tile=32,
+                                                         highest_precision=True),
+                         jcore.params_from_numpy(ws, bs))
+    (k_grads,) = vjp(jnp.asarray(dout))
+    np.testing.assert_allclose(got_out, np.asarray(k_out), rtol=FWD_RTOL, atol=FWD_ATOL)
+    for g, w in zip(got, [*k_grads["w"], *k_grads["b"]]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+    p64 = tcore.params_from_numpy(ws, bs, "cpu", dtype=torch.float64)
+    lv = leaves(p64)
+    want_out = fused_mlp.field_forward_reference(p64, torch.from_numpy(coords).double(), nf,
+                                                 out)
+    want = torch.autograd.grad((want_out * torch.from_numpy(dout).double()).sum(), lv)
+    want_out = want_out.detach().numpy()
+    np.testing.assert_allclose(got_out, want_out, rtol=1e-4, atol=1e-4)
+    for g, w in zip(got, want):
+        w = w.numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=3e-4,
+                                   atol=3e-5 * max(1.0, np.abs(w).max()))
+    one_out = kernel_sequence(W, b, nf, coords, dout, layers, enc, hidden, out, 100, 32,
+                              passes=1)[0]
+    err3, err1 = np.abs(got_out - want_out).max(), np.abs(one_out - want_out).max()
+    assert err1 > 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("tier,exact", [("highest", 1), ("high", 0), ("default", 0)])
+def test_model_tier_reaches_both_wide_launches(rng, monkeypatch, tier, exact):
+    """``_FieldWide`` hands the model's precision tier, as ``field_forward``
+    maps it (``exact_tier``), to the forward and the gradient launch of the
+    wide route (the launchers stubbed with the plain version on CPU
+    tensors), and the backward reads what a ``keep`` forward left."""
+    calls = []
+    cfg = ImageFieldConfig(num_layers=4, filter_size=256, num_encoding_functions=8,
+                           precision=tier)
+    ws, bs = np_params(rng, 4, 256, 8, 2, 3)
+    model = ImageFieldModel.from_numpy(cfg, ws, bs, device="cpu")
+    params = model.params
+    coords = torch.from_numpy(rng.random((37, 2)).astype(np.float32))
+    assert fused_mlp.kernel_width(params, 2, 8, 3) is None
+
+    def fwd(W, b, c, nf, out_ch, dims, exact, keep=False):
+        calls.append(("fwd", exact, keep))
+        out = fused_mlp.field_forward_reference(params, c, nf, out_ch).detach()
+        return out, (torch.zeros(1) if keep else None)
+
+    def bwd(W, b, c, dout, nf, dims, exact, acts=None):
+        calls.append(("bwd", exact, acts is not None))
+        return torch.zeros(W.shape), torch.zeros(b.shape)
+    monkeypatch.setattr(fused_mlp, "_launch_wide_fwd", fwd)
+    monkeypatch.setattr(fused_mlp, "_launch_wide_bwd", bwd)
+    lv = leaves(params)
+    got = fused_mlp.exact_tier(model.config.precision)
+    out = fused_mlp._FieldWide.apply(coords, 8, 3, got, True, *lv)
+    out.sum().backward()
+    with torch.no_grad():
+        fused_mlp._FieldWide.apply(coords, 8, 3, got, False, *lv)
+    assert got == exact
+    assert calls == [("fwd", exact, True), ("bwd", exact, True), ("fwd", exact, False)]
+
+
+@pytest.mark.parametrize("tier,exact", [("highest", 1), ("high", 0), ("default", 0)])
+def test_field_forward_keeps_activations_only_for_a_gradient(rng, monkeypatch, tier, exact):
+    """``field_forward`` itself (its route check stubbed to the card's, and
+    ``_FieldWide`` recorded) hands the wide route its tier and ``keep``:
+    ``keep`` only where grad is enabled and a param requires grad, so that
+    inference under ``no_grad`` or with frozen params keeps no activations
+    (1.07 GB at 4x256 on 512x512)."""
+    seen = []
+    ws, bs = np_params(rng, 4, 256, 8, 2, 3)
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    coords = torch.from_numpy(rng.random((37, 2)).astype(np.float32))
+
+    def apply(c, nf, out_ch, ex, keep, *wb):
+        seen.append((nf, out_ch, ex, keep, len(wb)))
+        return torch.zeros((c.shape[0], out_ch))
+    monkeypatch.setattr(fused_mlp, "_on_card", lambda c: True)
+    monkeypatch.setattr(fused_mlp._FieldWide, "apply", apply)
+
+    def run():
+        fused_mlp.field_forward(params, coords, 8, 3, precision=tier)
+    run()  # frozen params
+    lv = leaves(params)
+    with torch.no_grad():
+        run()
+    run()
+    lv[-1].requires_grad_(False)
+    run()  # one leaf still requires grad
+    n = len(lv)
+    assert seen == [(8, 3, exact, False, n)] * 2 + [(8, 3, exact, True, n)] * 2
+
+
+def test_card_probe_labels_the_wide_route():
+    """``card_probe --what field_wide`` names each kernel of a fit step by
+    its place: the forward's encoding, layers and head; a recomputed
+    forward between the head and its d_z; each layer's dW partials (counted
+    down from the head), their sums, the column sums and ``d_h``; Adam."""
+    def gemm(epi, kern="gemm3_kernel<4, 4, 2, 2, false, false, {}>"):
+        return "void wide3::(anonymous namespace)::" + kern.format(epi) + "(float const*)"
+    head = [gemm(3), "loss"]
+    back = [gemm(4)]
+    for l in (2, 1, 0):
+        back += [gemm(2), "wide::sum_partials_kernel", "colsum_kernel", "sum_partials_kernel"]
+        back += [gemm(1)] if l else []
+    step = ["encode_kernel", gemm(0), gemm(0), *head, *back, "multi_tensor_apply_kernel<x>"]
+    recompute = ["encode_kernel", gemm(0, "gemm_kernel<float, float, float, false, false, {}>"),
+                 gemm(0), *head, "encode_kernel", gemm(0), gemm(0), *back]
+    state = {}
+    got = [card_probe.wide_field_label(n, "kernel", state) for n in step + recompute]
+    assert got[:6] == ["fwd: encode", "fwd: layer 0", "fwd: layer 1", "fwd: head", "other",
+                       "bwd: head d_z"]
+    assert got[6:12] == ["bwd: dW layer 2", "bwd: dW partial sums", "bwd: db column sums",
+                         "bwd: db column sums", "bwd: d_h layer 2", "bwd: dW layer 1"]
+    assert got[step.index("multi_tensor_apply_kernel<x>")] == "Adam"
+    assert got[len(step):len(step) + 9] == [
+        "fwd: encode", "fwd: layer 0", "fwd: layer 1", "fwd: head", "other", "bwd: encode",
+        "bwd: layer 0", "bwd: layer 1", "bwd: head d_z"]
+    assert got[-4:] == ["bwd: dW layer 0", "bwd: dW partial sums", "bwd: db column sums",
+                        "bwd: db column sums"]
+    assert card_probe.wide_field_label("x", "gpu_memset", state) == "memset and copy"
 
 
 def test_route_and_scratch():
