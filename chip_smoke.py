@@ -48,12 +48,14 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    each wide entry point's own call against its plain version; splits the
    step's device time by kernel family (``scripts/card_probe.py`` in a
    process of its own: dW, d_h, forward, compositing, sums), with the
-   wgmma/TMA dW stage launched once per hidden layer; holds that stage
+   wgmma/TMA dW stage launched once per hidden layer and every forward
+   layer and ``d_h`` on the wgmma/TMA layer GEMM (``layer_wgmma_kernel``),
+   none on ``gemm_mma_kernel``; holds that stage
    alone (``wide_dw.wide_dw_gemm``) to f64 and to the ``mma.sync`` kernel
    it replaced at the flagship's 2,097,152 x 256 x 256, at layer 0's 40
    columns and at 1037 x 128 ragged rows, and times it against that
    kernel, ``torch.mm`` and its bound; times the frame also through the
-   ``mma.sync`` chain that the bf16 render's fused MLP (``nerf_wide_mlp.cuh``)
+   layer chain that the bf16 render's fused MLP (``nerf_wide_mlp.cuh``)
    replaced, asserting the same bits, the fused MLP alone on one 65,536-ray
    chunk against its bound and a cuBLAS ``addmm`` + ``relu_`` chain, and #10
    at 16,384 rays new against old (the same bits); splits the frame's
@@ -117,7 +119,9 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     direct walk) and the 262,144 x 30 column, timed there (the card's work
     alone, with the L2 as found and flushed), and checks the SHA-256
     digests of the twelve NeRF entry points' outputs against
-    ``KERNEL_DIGESTS``;
+    ``KERNEL_DIGESTS``, and of the six wide ones at 3x384 and 8x1024 bf16
+    (the layer chain past the fused MLP) against ``C4_DIGESTS``, recorded
+    from the tree whose chain ran ``gemm_mma_kernel``;
 19. runs the grid-overhead sweep (#16,
     ``lomanerf_tpu_torch.scripts.grid_overhead``) at 7,864,320 rows, then
     ``grid_sum`` alone against its plain version and ``torch.sum``, and
@@ -164,7 +168,13 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     the 8x1024 bf16 step at 16,384 rays (TFLOP/s, share of the bf16 peak),
     each wide entry point there, and the step in turns with the plain
     version at 4096 rays; runs ``train_nerf --layers 8 --width 1024
-    --samples 128 --steps 3``;
+    --samples 128 --steps 3``; splits the 8x1024 step's and render's device
+    time by kernel family (``card_probe --config c4``: every forward layer
+    and ``d_h`` on ``layer_wgmma_kernel``); holds the layer GEMM alone
+    (``wide_gemm``, both forms) at one 8x1024 and one flagship gradient
+    chunk's layer to its ``mma.sync`` twin bit for bit and to its plain
+    version, and times it beside both, ``torch.addmm`` + ``relu_`` and its
+    bound;
 25. holds the wide field route (``field_wide.cu``, D2) against its plain
     version on both product routes ("high": 3xTF32, "highest": f32 FMAs):
     8x128 and a 3D field with a 16-channel head on 1037 points, the 4x256
@@ -189,7 +199,8 @@ and its share of the bound beside it, #4's with its share; #14's with
 phase 10's whole-image leaves and flips per route; #3's also with phase
 6's split of the step and phase 21's pipeline summary; #8's also with
 phase 9's fused MLP alone, #10 new against old and the frame's split by
-kernel family; #7-#9's also with phase 24's 8x1024 times and bounds;
+kernel family; #7-#9's also with phase 24's 8x1024 times and bounds, #7's
+and #8's with the 8x1024 splits and the layer GEMM alone;
 #15's ``ms``, ``plain_ms`` and ``library_ms`` the cumprod's
 card work with the L2 flushed, with its share and every op's times, as
 found and flushed, beside them), and ``{"ok": true,
@@ -909,8 +920,8 @@ def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
     """Phase 9: timing by CUDA events, median with min/max, kernel and plain
     in turns.  The flagship train step (``full``, 16,384 rays, Adam 5e-4,
     bench.py's numpy-seeded batches); one 800x800 ``full`` frame through the
-    fused MLP (the main path), through the ``mma.sync`` chain it replaced
-    (``wide_mlp.render_rays_mma``, bit for bit the same frame) and through
+    fused MLP (the main path), through the layer chain it replaced
+    (``wide_mlp.render_rays_layers``, bit for bit the same frame) and through
     the plain version, each chunked as the kernel path is; each wide entry
     point's own call against its plain version.  Returns ``{kernel: (ms,
     plain_ms)}``."""
@@ -967,37 +978,38 @@ def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
     def kernel_frame():
         return model.render_image(K, pose, SERVE_SIZE)
 
-    def mma_frame():
+    def layers_frame():
         o, d = rays.get_rays(SERVE_SIZE, SERVE_SIZE, K, pose)
         tv, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
         W, b = fused_nerf.pack_wide_params(model.params, 256, cfg.compute_dtype)
-        return torch.cat([wide_mlp.render_rays_mma(W, b, tv, dists, oc, dc, cfg)
+        return torch.cat([wide_mlp.render_rays_layers(W, b, tv, dists, oc, dc, cfg)
                           for oc, dc in zip(o.split(chunk), d.split(chunk))]
                          ).reshape(SERVE_SIZE, SERVE_SIZE, 3)
 
     with torch.no_grad():
         _, img_k = cuda_ms(kernel_frame)  # warm-up
-        _, img_m = cuda_ms(mma_frame)
+        _, img_m = cuda_ms(layers_frame)
         _, img_p = cuda_ms(plain_frame)
         err = (img_k - img_p).abs().max().item()
         if not torch.isfinite(img_k).all():
             raise AssertionError("non-finite pixels")
         if not torch.equal(img_k, img_m):
-            raise AssertionError("the fused MLP's frame differs from the mma.sync chain's: "
+            raise AssertionError("the fused MLP's frame differs from the layer chain's: "
                                  f"{int((img_k != img_m).sum())} values apart")
         torch.testing.assert_close(img_k, img_p, atol=wide_tolerances(cfg)[0], rtol=RTOL)
         # the plain frame takes ~3 s: one round of it, more of the two kernels
-        frame = timed_turns({"plain": plain_frame, "mma": mma_frame, "kernel": kernel_frame}, 1)
-        for name, ts in timed_turns({"mma": mma_frame, "kernel": kernel_frame},
+        frame = timed_turns({"plain": plain_frame, "layers": layers_frame,
+                             "kernel": kernel_frame}, 1)
+        for name, ts in timed_turns({"layers": layers_frame, "kernel": kernel_frame},
                                     FRAME_ROUNDS).items():
             frame[name] += ts
     n_rays = SERVE_SIZE * SERVE_SIZE
     flops = n_rays * cfg.num_samples * FULL_MACS_FWD * 2
     print(f"phase 9 800x800 full frame ({n_rays} rays x {cfg.num_samples} samples, "
           f"{flops / 1e12:.2f} TFLOP, chunks of {chunk} rays), max|kernel-plain| = "
-          f"{err:.3e}; the fused MLP's frame equals the mma.sync chain's bit for bit; on "
+          f"{err:.3e}; the fused MLP's frame equals the layer chain's bit for bit; on "
           f"{smi}:")
-    for name, what in (("kernel", "fused MLP"), ("mma", "mma.sync chain"), ("plain", "plain")):
+    for name, what in (("kernel", "fused MLP"), ("layers", "layer chain"), ("plain", "plain")):
         med = statistics.median(frame[name])
         print(f"  {what:14s}: {spread(frame[name])}/frame, {n_rays / med * 1e3:.4e} rays/s, "
               f"{flops / med / 1e9:.2f} TFLOP/s")
@@ -1069,16 +1081,33 @@ def phase_flagship_split(NeRFConfig):
     once per step.  Returns the split."""
     cfg = NeRFConfig.full()
     split = card_probe("flagship", "--steps", "3")
-    dw = split["dw_launches_per_step"]
-    if dw.get("dw_wgmma_kernel") != cfg.num_layers - 1 or dw.get("gemm kEpiPartial") != 1:
+    per = split["launches_per_step"]
+    dw = {k: per.get(k) for k in ("dw_wgmma_kernel", "gemm_mma_kernel kEpiPartial")}
+    if dw != {"dw_wgmma_kernel": cfg.num_layers - 1, "gemm_mma_kernel kEpiPartial": 1}:
         raise AssertionError(f"flagship step: dW launches per step {dw}, need "
                              f"{cfg.num_layers - 1} of dw_wgmma_kernel and the head's one")
+    layer_gemm_launches(per, cfg, 1, "flagship step")
     print("phase 9 flagship step split (utils.profiling.trace, 3 steps): device "
           f"{split['device_ms_per_step']:.3f} ms/step; " + ", ".join(
               f"{k} {split['ms'][k]:.3f} ms ({split['share'][k]:.1%})"
               for k in ("dW", "d_h", "forward", "compositing", "partial and column sums"))
           + f"; dW launches per step {dw}")
     return split
+
+
+def layer_gemm_launches(per, cfg, chunks, what, train=True):
+    """Raise unless the kernels per step or frame ``per`` (``card_probe``'s
+    ``kernel_key`` names) run every bf16 forward layer (L - 1 a chunk) and,
+    for a train step, every ``d_h`` (L - 2 a chunk) on the wgmma/TMA layer
+    GEMM, and none on ``gemm_mma_kernel``."""
+    want = {"layer_wgmma_kernel kEpiBiasRelu": (cfg.num_layers - 1) * chunks,
+            "layer_wgmma_kernel kEpiMask": (cfg.num_layers - 2) * chunks if train else 0}
+    got = {k: per.get(k, 0) for k in want}
+    old = {k: v for k, v in per.items() if k.startswith("gemm_mma_kernel kEpi")
+           and not k.endswith("kEpiPartial")}
+    if got != want or old:
+        raise AssertionError(f"{what}: layer GEMMs {got} and {old}, need {want} and none on "
+                             "gemm_mma_kernel")
 
 
 DW_ROWS = FLAGSHIP_RAYS * 128  # one flagship gradient chunk: 2,097,152 rows
@@ -1159,9 +1188,9 @@ def phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi):
     turns; its H_{L-1} against the chain's on the first 1,024 rays (a
     diagnostic: cuBLAS sums in another order).  Then #10, the per-ray
     render, at the 16,384-ray flagship batch on jittered depths: the fused
-    MLP's colours equal the ``mma.sync`` chain's bit for bit, timed in
-    turns.  Returns ``{"ms", "cublas_ms", "bound_ms", "rays10_ms",
-    "rays10_mma_ms"}``."""
+    MLP's colours equal the layer chain's bit for bit, timed in turns.
+    Returns ``{"ms", "cublas_ms", "bound_ms", "rays10_ms",
+    "rays10_layers_ms"}``."""
     from lomanerf_tpu_torch.core import positional_encoding
 
     cfg = NeRFConfig.full()
@@ -1212,36 +1241,41 @@ def phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi):
     tj, dj = stratified_depths(NeRFModel(cfg), o, d, 3)
     with torch.no_grad():
         new = fused_nerf._launch_wide_render(W, b, tj, dj, o, d, cfg)
-        old = wide_mlp.render_rays_mma(W, b, tj, dj, o, d, cfg)
+        old = wide_mlp.render_rays_layers(W, b, tj, dj, o, d, cfg)
         if not torch.equal(new, old):
             raise AssertionError(f"#10 at the flagship batch: the fused MLP's colours differ "
-                                 f"from the mma.sync chain's ({int((new != old).sum())} apart)")
-        r10 = timed_turns({"mma": lambda: wide_mlp.render_rays_mma(W, b, tj, dj, o, d, cfg),
+                                 f"from the layer chain's ({int((new != old).sum())} apart)")
+        r10 = timed_turns({"layers": lambda: wide_mlp.render_rays_layers(W, b, tj, dj, o, d,
+                                                                         cfg),
                            "fused": lambda: fused_nerf._launch_wide_render(W, b, tj, dj, o, d,
                                                                            cfg)}, 3)
     print(f"phase 9 #10 nerf_wide_render_fwd_rays, {FLAGSHIP_RAYS} rays x 128 jittered samples, "
-          f"on {smi}: fused MLP {spread(r10['fused'])}, mma.sync chain {spread(r10['mma'])}; "
+          f"on {smi}: fused MLP {spread(r10['fused'])}, layer chain {spread(r10['layers'])}; "
           "colours bit-identical")
     return {"ms": med["fused"], "cublas_ms": med["cublas"], "bound_ms": kb[0],
             "rays10_ms": statistics.median(r10["fused"]),
-            "rays10_mma_ms": statistics.median(r10["mma"])}
+            "rays10_layers_ms": statistics.median(r10["layers"])}
 
 
-def phase_frame_split():
+def phase_frame_split(NeRFConfig):
     """Phase 9, an 800x800 ``full`` frame's device time by kernel family
     (``card_probe --what frame``, a process of its own), on the fused MLP
-    and on the ``mma.sync`` chain it replaced: the main path launches
-    ``mlp_wgmma_kernel`` once per chunk and no layer GEMM
-    (``gemm_mma_kernel`` with ``kEpiBiasRelu``).  Returns both splits."""
+    and on the layer chain it replaced: the main path launches
+    ``mlp_wgmma_kernel`` once per chunk and no layer GEMM (``kEpiBiasRelu``
+    on ``layer_wgmma_kernel`` or ``gemm_mma_kernel``), the layer chain every
+    forward layer on ``layer_wgmma_kernel``.  Returns both splits."""
     out = {}
-    for path in ("fused", "mma"):
+    for path in ("fused", "layers"):
         split = card_probe("frame", "--path", path)
         per = split["launches_per_frame"]
         out[path] = split
-        if path == "fused" and (per.get("mlp_wgmma_kernel") != split["chunks"]
-                                or "gemm_mma_kernel kEpiBiasRelu" in per):
+        if path == "fused" and (per.get("mlp_wgmma_kernel") != split["chunks"] or any(
+                k.endswith("kEpiBiasRelu") for k in per)):
             raise AssertionError(f"frame: kernels per frame {per}, need mlp_wgmma_kernel once "
                                  f"per chunk ({split['chunks']}) and no layer GEMM")
+        if path == "layers":
+            layer_gemm_launches(per, NeRFConfig.full(), split["chunks"], "layer-chain frame",
+                                train=False)
         print(f"phase 9 frame split ({path}, utils.profiling.trace, {split['frames']} frames): device "
               f"{split['device_ms_per_frame']:.3f} ms/frame; " + ", ".join(
                   f"{k} {v:.3f} ms ({split['share'][k]:.1%})"
@@ -2658,6 +2692,40 @@ KERNEL_DIGESTS = {
 }
 
 
+# The same digests of the six wide entry points at the bf16 MLPs past the
+# fused MLP's pw 256 (C4_MLPS, phase 24's), whose render runs the layer
+# chain: recorded from the tree whose bf16 forward and d_h GEMMs ran
+# gemm_mma_kernel (mma.sync), so that they hold the chain's move onto
+# wgmma/TMA to those bits.
+C4_MLPS = ("3x384 bfloat16", "8x1024 bfloat16")
+C4_DIGESTS = {
+    "nerf_wide_render_fwd 3x384 bfloat16":
+        "b20c6838bca18417814742a8bf2196c2ed20cbe1442e30a9b41443dd5ea28151",
+    "nerf_wide_train 3x384 bfloat16":
+        "88eccda513d6d67ea2116ec66153b4f8676711c65c5d15b606d7234b1491a1a8",
+    "nerf_wide_render_bwd 3x384 bfloat16":
+        "34463ffbf362d6e278daacbbae075eb11a5439bf1030a1bfcfec81c180fa6853",
+    "nerf_wide_render_fwd_rays 3x384 bfloat16":
+        "14b2762d8c75f1e5731627df35767e319c89abddc3d1e7747ac8fffa3ece18b1",
+    "nerf_wide_train_rays 3x384 bfloat16":
+        "29db43863a3b73826c2894b138f3eba64b4e00bb248433c380c6bc4644491f81",
+    "nerf_wide_render_bwd_rays 3x384 bfloat16":
+        "2211ce85b49a92a7a4414ea5f728927a4ea6df5224eb043058afa66c6b15f89f",
+    "nerf_wide_render_fwd 8x1024 bfloat16":
+        "131aa97096891fb09b146730e4a8596520b9989f3e2599bd9a40f0afa9250b11",
+    "nerf_wide_train 8x1024 bfloat16":
+        "b3d1cd0aa3f53356ff37fdceafe11ed23725431e02e9b27f6de91d5d21181402",
+    "nerf_wide_render_bwd 8x1024 bfloat16":
+        "7b53d2f3332e3b64a406b62cfa069459f49747e654ffbd243aca2aa44608ffc1",
+    "nerf_wide_render_fwd_rays 8x1024 bfloat16":
+        "293d683c8f4aa95659d7e652b31c50248aa5fe10a2f0670dc786a6d632a80121",
+    "nerf_wide_train_rays 8x1024 bfloat16":
+        "21fb2287792c9b6620e31401f8beb8ca7fa933324d173fcf33fdff29e66b81f3",
+    "nerf_wide_render_bwd_rays 8x1024 bfloat16":
+        "2de8acb9663336d1a542e008bee5d98cf96bc1760b7dff887f3dc46fcc1e6892",
+}
+
+
 def kernel_digests(fused_nerf, NeRFConfig, seed=23):
     """SHA-256 of the output bytes of each NeRF entry point (#1-#12) at fixed
     seeded inputs: phase 1 and 4's MLPs (``small``, ``single64``) and phase
@@ -2671,43 +2739,66 @@ def kernel_digests(fused_nerf, NeRFConfig, seed=23):
     f32 = NeRFConfig(num_layers=4, filter_size=128, num_samples=32)
     for base in (NeRFConfig.small(), NeRFConfig.single_view_64(), NeRFConfig.full(), f32):
         for mode in ("loma", "standard"):
-            cfg = dataclasses.replace(base, mode=mode)
-            params = seeded_params(rng, cfg)
-            leaves = leaves_of(params)
-            o, d = seeded_rays(rng, N_CHECK)
-            tgt = torch.tensor(rng.random((N_CHECK, 3)), dtype=torch.float32, device="cuda")
-            cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32,
-                               device="cuda")
-            S = cfg.num_samples
-            tj = np.sort(rng.uniform(cfg.near, cfg.far, (N_CHECK, S)), axis=1)
-            dj = np.concatenate([np.diff(tj, axis=1), np.full((N_CHECK, 1), 1e8)], axis=1)
-            jit = tuple(torch.tensor(x, dtype=torch.float32, device="cuda") for x in (tj, dj))
-            pre = "nerf_wide_" if fused_nerf._route(cfg, params)[0] == "wide" else "nerf_"
-            for (t, dists), suf in ((uniform_depths(cfg), ""), (jit, "_rays")):
-                with torch.no_grad():
-                    col = fused_nerf.render_rays(params, o, d, t, dists, cfg)
-                loss = fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, cfg)
-                train = (loss.detach(), *torch.autograd.grad(loss, leaves))
-                back = torch.autograd.grad(
-                    (fused_nerf.render_rays(params, o, d, t, dists, cfg) * cot).sum(), leaves)
-                for k, outs in (("render_fwd", (col,)), ("train", train),
-                                ("render_bwd", back)):
-                    for x in outs:
-                        digests[pre + k + suf].update(x.detach().cpu().numpy().tobytes())
+            digest_outputs(fused_nerf, dataclasses.replace(base, mode=mode), rng,
+                           lambda name, x: digests[name].update(x))
     return {name: h.hexdigest() for name, h in digests.items()}
+
+
+def digest_outputs(fused_nerf, cfg, rng, update):
+    """The outputs :func:`kernel_digests` hashes for one MLP on 1037 rays,
+    params, rays, targets, cotangent and jittered depths drawn from ``rng``
+    in that order: ``update(entry point, bytes)`` for the colours, the train
+    loss and dW/db and the render backward's dW/db, at uniform (S,) and at
+    (N, S) depths."""
+    params = seeded_params(rng, cfg)
+    leaves = leaves_of(params)
+    o, d = seeded_rays(rng, N_CHECK)
+    tgt = torch.tensor(rng.random((N_CHECK, 3)), dtype=torch.float32, device="cuda")
+    cot = torch.tensor(rng.standard_normal((N_CHECK, 3)), dtype=torch.float32, device="cuda")
+    S = cfg.num_samples
+    tj = np.sort(rng.uniform(cfg.near, cfg.far, (N_CHECK, S)), axis=1)
+    dj = np.concatenate([np.diff(tj, axis=1), np.full((N_CHECK, 1), 1e8)], axis=1)
+    jit = tuple(torch.tensor(x, dtype=torch.float32, device="cuda") for x in (tj, dj))
+    pre = "nerf_wide_" if fused_nerf._route(cfg, params)[0] == "wide" else "nerf_"
+    for (t, dists), suf in ((uniform_depths(cfg), ""), (jit, "_rays")):
+        with torch.no_grad():
+            col = fused_nerf.render_rays(params, o, d, t, dists, cfg)
+        loss = fused_nerf.nerf_train_loss(params, o, d, t, dists, tgt, cfg)
+        train = (loss.detach(), *torch.autograd.grad(loss, leaves))
+        back = torch.autograd.grad(
+            (fused_nerf.render_rays(params, o, d, t, dists, cfg) * cot).sum(), leaves)
+        for k, outs in (("render_fwd", (col,)), ("train", train), ("render_bwd", back)):
+            for x in outs:
+                update(pre + k + suf, x.detach().cpu().numpy().tobytes())
+
+
+def c4_digests(fused_nerf, NeRFConfig, seed=37):
+    """SHA-256 of the wide entry points' outputs (:func:`digest_outputs`)
+    at the bf16 widths past the fused MLP, 3x384 and 8x1024 (phase 24's
+    MLPs), each in both compositing modes, keyed by entry point and MLP."""
+    import hashlib
+
+    rng = np.random.default_rng(seed)
+    digests = {}
+    for name in C4_MLPS:
+        for mode in ("loma", "standard"):
+            cfg = dataclasses.replace(width_configs(NeRFConfig)[name], mode=mode)
+            digest_outputs(fused_nerf, cfg, rng, lambda entry, x: digests.setdefault(
+                f"{entry} {name}", hashlib.sha256()).update(x))
+    return {k: h.hexdigest() for k, h in digests.items()}
 
 
 def phase_digests(fused_nerf, NeRFConfig):
     """Phase 18, the bit check: :func:`kernel_digests` against
-    ``KERNEL_DIGESTS``."""
-    got = kernel_digests(fused_nerf, NeRFConfig)
-    for name, h in got.items():
-        print(f"phase 18 digest {name}: {h}")
-    if got != KERNEL_DIGESTS:
-        apart = [k for k in got if got[k] != KERNEL_DIGESTS.get(k)]
-        raise AssertionError(f"output digests differ from KERNEL_DIGESTS: {apart}")
-    print("phase 18 digests of #1-#12 equal to KERNEL_DIGESTS")
-    return got
+    ``KERNEL_DIGESTS`` and :func:`c4_digests` against ``C4_DIGESTS``."""
+    for what, got, want in (("#1-#12", kernel_digests(fused_nerf, NeRFConfig), KERNEL_DIGESTS),
+                            ("C4", c4_digests(fused_nerf, NeRFConfig), C4_DIGESTS)):
+        for name, h in got.items():
+            print(f"phase 18 digest {name}: {h}")
+        if got != want:
+            apart = sorted(set(got) ^ set(want) | {k for k in got if got[k] != want.get(k)})
+            raise AssertionError(f"{what} output digests differ from the recorded ones: {apart}")
+        print(f"phase 18 digests of {what} ({len(got)}) equal to the recorded ones")
 
 
 GRID_ROWS, GRID_BLOCK = 7864320, 3840  # 262,144 rays x 30; the JAX sweep's first block
@@ -3506,6 +3597,100 @@ def phase_widths(fused_nerf, NeRFConfig, make_single_chip_train_step, mlp_layer_
     return worst, timing, bounds, driver
 
 
+def phase_c4_split(fused_nerf, NeRFConfig):
+    """Phase 24, the 8x1024 bf16 step's and render's device time by kernel
+    family (``card_probe --what flagship|frame --config c4``, processes of
+    their own, 16,384 rays): every bf16 forward layer and every ``d_h`` of
+    the step's gradient chunks, and every layer of the render's ray chunks,
+    on the wgmma/TMA layer GEMM, none on ``gemm_mma_kernel``.  Returns both
+    splits."""
+    cfg = width_configs(NeRFConfig)["8x1024 bfloat16"]
+    pw = fused_nerf._round_up(cfg.filter_size, 128)
+    out = {"step": card_probe("flagship", "--config", "c4", "--steps", "2"),
+           "frame": card_probe("frame", "--config", "c4")}
+    chunks = -(-WIDTHS_RAYS // fused_nerf.wide_grad_chunk_rays(cfg, pw, cfg.num_layers))
+    layer_gemm_launches(out["step"]["launches_per_step"], cfg, chunks, "8x1024 step")
+    layer_gemm_launches(out["frame"]["launches_per_frame"], cfg, out["frame"]["chunks"],
+                        "8x1024 render", train=False)
+    for what, split in out.items():
+        total = split["device_ms_per_step" if what == "step" else "device_ms_per_frame"]
+        print(f"phase 24 8x1024 bf16 {what} split ({WIDTHS_RAYS} rays): device {total:.3f} ms; "
+              + ", ".join(f"{k} {v:.3f} ms ({split['share'][k]:.1%})"
+                          for k, v in split["ms"].items() if v))
+    return {what: {"device_ms": split.get("device_ms_per_step", split.get(
+        "device_ms_per_frame")), "ms": {k: v for k, v in split["ms"].items() if v}}
+        for what, split in out.items()}
+
+
+def phase_layer_gemm(fused_nerf, wide_gemm, NeRFConfig, smi, seed=41):
+    """Phase 24, the wide chain's bf16 layer GEMM alone (``wide_gemm``: the
+    wgmma/TMA kernel, both forms) at one gradient chunk's hidden layer of the
+    8x1024 MLP (598,784 x 1024 . 1024 x 1024) and of the flagship (2,391,296
+    x 256 . 256 x 256): bit for bit its ``mma.sync`` twin's, within the
+    plain version's bounds (the forward one bf16 rounding step of the entry
+    plus 1e-5 of the largest, a ReLU at f32 rounding of 0; ``d_h`` 1e-5 of
+    its largest entry); timed in turns with the twin, the plain version and
+    (the forward) ``torch.addmm`` + ``relu_`` in bf16, against its bound.
+    Returns {shape: {form: numbers}}."""
+    out = {}
+    g = torch.Generator("cuda").manual_seed(seed)
+    for name, cfg in (("8x1024", width_configs(NeRFConfig)["8x1024 bfloat16"]),
+                      ("flagship", NeRFConfig.full())):
+        pw = fused_nerf._round_up(cfg.filter_size, 128)
+        rows = fused_nerf.wide_grad_chunk_rays(cfg, pw, cfg.num_layers) * cfg.num_samples
+        a = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
+        W = (torch.randn((pw, pw), generator=g, device="cuda") / pw ** 0.5).to(torch.bfloat16)
+        b = torch.randn(pw, generator=g, device="cuda") * 0.1
+        mask = torch.relu(a)
+        flop_macs = rows * pw * pw
+        forms = {
+            "forward": ({"kernel": lambda: wide_gemm.wide_layer_gemm(a, W, b, pw),
+                         "mma": lambda: wide_gemm.wide_layer_gemm_mma(a, W, b, pw),
+                         "plain": lambda: wide_gemm.layer_reference(a, W, b, pw),
+                         "addmm": lambda: torch.addmm(b.to(torch.bfloat16), a, W).relu_()},
+                        2 * (2 * rows * pw + pw * pw) + 4 * pw),
+            "d_h": ({"kernel": lambda: wide_gemm.wide_dh_gemm(a, W, mask, pw),
+                     "mma": lambda: wide_gemm.wide_dh_gemm_mma(a, W, mask, pw),
+                     "plain": lambda: wide_gemm.dh_reference(a, W, mask, pw)},
+                    2 * (2 * rows * pw + pw * pw) + 6 * rows * pw)}
+        out[name] = {}
+        for form, (fns, nbytes) in forms.items():
+            got, twin, plain = fns["kernel"](), fns["mma"](), fns["plain"]()
+            torch.cuda.synchronize()
+            if form == "forward":
+                same = torch.equal(got, twin)
+                diff = (got.float() - plain.float()).abs()
+                step = torch.ldexp(torch.ones_like(diff), torch.frexp(
+                    torch.maximum(got.float().abs(), plain.float().abs()))[1] - 8)
+                ok = bool((diff <= step + 1e-5 * plain.float().abs().max()).all())
+                err = diff.max().item()
+            else:
+                same = torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+                err = (got[0] - plain[0]).abs().max().item()
+                ok = err <= 1e-5 * plain[0].abs().max().item()
+            if not same or not ok:
+                raise AssertionError(f"layer GEMM {form} at {name}: equal to its mma.sync twin "
+                                     f"{same}, |kernel - plain| {err:.3e} within bounds {ok}")
+            del got, twin, plain
+            ts = timed_turns(fns, 3)
+            med = {k: statistics.median(v) for k, v in ts.items()}
+            bd = bound(flop_macs, PEAK_BF16, nbytes)
+            out[name][form] = {"ms": med["kernel"], "mma_ms": med["mma"],
+                               "plain_ms": med["plain"], "library_ms": med.get("addmm"),
+                               "bound_ms": bd[0], "bound_by": bd[1], "max_abs_err": err,
+                               "rows": rows, "pw": pw}
+            print(f"phase 24 layer GEMM {form} at {name}'s chunk ({rows} x {pw} . {pw} x {pw}, "
+                  f"bf16, f32 sums) on {smi}: wgmma {spread(ts['kernel'])}, "
+                  f"{2.0 * flop_macs / med['kernel'] / 1e9:.1f} TFLOP/s, "
+                  f"{bd[0] / med['kernel']:.1%} of its bound {bd[0]:.3f} ms ({bd[1]}); "
+                  f"mma.sync {med['mma']:.3f}, plain {med['plain']:.3f}"
+                  + (f", addmm + relu_ {med['addmm']:.3f}" if "addmm" in med else "")
+                  + f"; bits of the mma.sync twin, max|kernel-plain| {err:.3e}")
+        del a, W, b, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 FIELD_WIDE_SIZE = 512  # Tancik et al.'s image-regression resolution
 FIELD_WIDE_STEPS = 200
 
@@ -3758,7 +3943,7 @@ def main() -> None:
     from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
                                            NeRFModel, image_grid_coords)
     from lomanerf_tpu_torch.ops import (build, fused_mlp, fused_nerf, probe, scans, wide_dw,
-                                        wide_mlp)
+                                        wide_gemm, wide_mlp)
     from lomanerf_tpu_torch.scripts import grid_overhead, variants
     from lomanerf_tpu_torch.train import fit_image, make_video, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
@@ -3903,7 +4088,7 @@ def main() -> None:
         "fused_mlp": phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi),
         "frame_split": {path: {"device_ms_per_frame": split["device_ms_per_frame"],
                                "ms": {k: v for k, v in split["ms"].items() if v}}
-                        for path, split in phase_frame_split().items()}}
+                        for path, split in phase_frame_split(NeRFConfig).items()}}
 
     # ---- phase 10: the 2D field's kernels against their plain versions ----
     field_worst, field_image = phase_field_kernels(fused_mlp, ImageFieldConfig,
@@ -4004,6 +4189,13 @@ def main() -> None:
         extra[k] = {**extra.get(k, {}), "c4_8x1024": {
             "ms": ms_k, "plain_ms_4096_rays": plain_k, "bound_ms": w_bounds[k][0],
             "bound_by": w_bounds[k][1]}}
+    c4_split = phase_c4_split(fused_nerf, NeRFConfig)
+    layer_gemm = phase_layer_gemm(fused_nerf, wide_gemm, NeRFConfig, smi)
+    # #7's and #8's entries also carry the 8x1024 splits and the layer GEMM alone
+    extra["nerf_wide_train"]["c4_8x1024"]["split"] = c4_split["step"]
+    extra["nerf_wide_render_fwd"]["c4_8x1024"]["split"] = c4_split["frame"]
+    for k in ("nerf_wide_train", "nerf_wide_render_fwd"):
+        extra[k]["layer_gemm"] = layer_gemm
 
     # ---- phase 25: image fields past the tile kernels (D2) ----
     with tempfile.TemporaryDirectory() as tmp:

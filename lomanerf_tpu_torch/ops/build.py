@@ -58,9 +58,9 @@ SIGNATURES = {
     "nerf_wide_render_fwd_rays": _WIDE_RENDER,
     "nerf_wide_train_rays": _WIDE_GRAD,
     "nerf_wide_render_bwd_rays": _WIDE_GRAD,
-    # the bf16 render on the mma.sync chain the fused MLP replaced: as
+    # the bf16 render on the layer chain the fused MLP replaced: as
     #  _WIDE_RENDER, with per_ray in place of bf16
-    "nerf_wide_render_fwd_mma": _WIDE_RENDER,
+    "nerf_wide_render_fwd_layers": _WIDE_RENDER,
     # the bf16 render's fused MLP alone (nerf_wide_mlp.cuh): (W, b, ts,
     #  origins, directions, out, n_rays, S, L, pw, kc, num_functions,
     #  per_ray, stream)
@@ -69,6 +69,11 @@ SIGNATURES = {
     #  mma.sync kernel it replaced: (H, Dz, ld, M, N, rows, partials, stream)
     "wide_dw_gemm": [_P, _P] + [_I] * 4 + [_P, _P],
     "wide_dw_gemm_mma": [_P, _P] + [_I] * 4 + [_P, _P],
+    # the wide chain's bf16 layer GEMM alone (nerf_wide_layer_gemm.cuh) and
+    #  the mma.sync kernel it replaced: (A, W, b, mask, C, Cb, rows, pw, K,
+    #  dh, stream), dh 0 the forward layer, 1 d_h
+    "wide_layer_gemm": [_P] * 6 + [_I] * 4 + [_P],
+    "wide_layer_gemm_mma": [_P] * 6 + [_I] * 4 + [_P],
     # the 2D field (field_common.cuh): (pk, coords, out, n_blocks, n, L,
     #  in_dim, width, num_functions, out_ch, exact, stream); exact != 0 the
     #  f32 FMA products of the "highest" tier, 0 3xTF32

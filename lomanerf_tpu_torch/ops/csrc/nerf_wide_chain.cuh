@@ -11,9 +11,10 @@
 // written), then composite_kernel (the head, compositing, the colour sum).
 // For f32, for bf16 past pw 256 (two 128-row activation buffers of a wider
 // tile alone would exceed a block's shared memory) or with no hidden layer,
-// and for the chain the fused MLP replaced (nerf_wide_render_fwd_mma, kept
+// and for the chain the fused MLP replaced (nerf_wide_render_fwd_layers, kept
 // for comparison), the forward layers on two ping-pong buffers, then
-// composite_kernel.
+// composite_kernel.  For bf16 the forward layers and the d_h GEMMs run on
+// wgmma fed by TMA (nerf_wide_layer_gemm.cuh, through gemm()).
 //
 // A one-layer MLP (L = 1) is the encoding and the head: the head reads the
 // first kc columns of the encoded slot, and the gradient sequence ends with
@@ -21,7 +22,7 @@
 //
 // Gradient sequence per ray chunk (rows = chunk rays * S):
 //   1. the forward layers, saving every layer's input H_0..H_{L-1} in CDT
-//      (bf16: gemm_mma_kernel, mma.sync);
+//      (bf16: layer_gemm, wgmma/TMA);
 //   2. composite_kernel: the head, compositing, the loss (train) and its
 //      adjoint, writing the head's d_z (rows, 4) and d_z of layer L-2;
 //   3. layer by layer in reverse, l = L-1 .. 0:
@@ -32,7 +33,8 @@
 //                                     of d_z its producers write
 //        db_l += colsum(d_z_l)        the same, from the unrounded f32 d_z
 //        d_z_{l-1} = (rnd(d_z_l) W_l^T) masked by H_l > 0   (l >= 1; for
-//                                     bf16 from the copy, writing the next)
+//                                     bf16 on layer_gemm from the copy,
+//                                     writing the next)
 // dW/db are zeroed once, then every chunk adds to them in chunk order; the
 // loss is the fixed-order sum of the per-ray squared errors.  Nothing is
 // allocated here: the wrapper passes every buffer.
@@ -43,7 +45,7 @@
 #include <type_traits>
 #include <utility>
 
-#include "nerf_wide_mlp.cuh"
+#include "nerf_wide_layer_gemm.cuh"
 
 namespace wide {
 namespace {
@@ -149,8 +151,8 @@ cudaError_t composite(const Net& net, const CDT* H, const float* cot,
 
 // Render forward of n rays in chunks of chunk_rays.  bf16: the fused MLP
 // writes H_{L-1} into acts (one chunk-sized slot) where it takes the net
-// (fused_mlp_takes), else, or with layerwise, the mma.sync chain it
-// replaced runs on two slots; f32: the forward layers on two slots.
+// (fused_mlp_takes), else, or with layerwise, the layer chain runs on two
+// slots; f32: the forward layers on two slots.
 template <typename CDT>
 cudaError_t render_forward(const Net& net, const float* origins,
                            const float* directions, float* out, CDT* acts,

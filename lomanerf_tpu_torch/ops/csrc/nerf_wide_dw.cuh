@@ -90,10 +90,11 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t lbo) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (+)= A (64 x 16) B (16 x 128), B MN-major (transpose bit 1), A MN-major
-// with kTransA 1 (the dW stage) or K-major with 0 (nerf_wide_mlp.cuh);
-// scale_d 0 ignores d's old values
-template <int kTransA>
+// d (+)= A (64 x 16) B (16 x 128), A MN-major with kTransA 1 (the dW stage)
+// or K-major with 0 (nerf_wide_mlp.cuh, nerf_wide_layer_gemm.cuh), B
+// MN-major with kTransB 1 or K-major with 0 (the d_h GEMM's W^T); scale_d 0
+// ignores d's old values
+template <int kTransA, int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -109,11 +110,11 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : DW_R8(0), DW_R8(8), DW_R8(16), DW_R8(24), DW_R8(32), DW_R8(40), DW_R8(48),
         DW_R8(56)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 #undef DW_R8
 
@@ -243,23 +244,33 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of the first `cols` columns of a (rows, ld) bf16 matrix, in
-// boxes of kDwBK rows x kDwBox columns, 128-byte swizzled; reads past
-// `cols` or `rows` fill zeros.
-inline cudaError_t dw_map(CUtensorMap* map, const __nv_bfloat16* X, int cols, int rows,
-                          int ld) {
+// The TMA map of the first `cols` columns of a (rows, ld) row-major matrix
+// of bf16 (or, with f32, float) in boxes of box_rows rows x box_cols
+// columns, 128-byte swizzled (a box row is 128 bytes); reads past `cols`
+// or `rows` fill zeros, writes there are dropped.
+inline cudaError_t tile_map(CUtensorMap* map, const void* X, bool f32, int cols, int rows,
+                            int ld, int box_cols, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {kDwBox, kDwBK};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                              const_cast<__nv_bfloat16*>(X), dims, strides, box, steps,
+  const CUresult res = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              2, const_cast<void*>(X), dims, strides, box, steps,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The TMA map of the first `cols` columns of a (rows, ld) bf16 matrix, in
+// boxes of kDwBK rows x kDwBox columns (tile_map).
+inline cudaError_t dw_map(CUtensorMap* map, const __nv_bfloat16* X, int cols, int rows,
+                          int ld) {
+  return tile_map(map, X, false, cols, rows, ld, kDwBox, kDwBK);
 }
 
 // part[z][m][n] (z < ceil(rows / kRowChunk), m < M, n < N) from H and Dz,

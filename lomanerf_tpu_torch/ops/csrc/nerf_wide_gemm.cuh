@@ -18,8 +18,10 @@
 //                 y = sigmoid(acc + bias[n]); mask (the    cotangent (f32 only)
 //                 cotangent) has C's row stride ldc
 //
-// Two tile kernels, chosen by CDT in gemm(): gemm_mma_kernel (bf16, below)
-// and gemm_kernel (f32): 128 x 128 outputs per block of 256 threads, 8 x 8
+// Three kernels, chosen in gemm(): for bf16 the forward layer and d_h on
+// wgmma/TMA (layer_gemm, nerf_wide_layer_gemm.cuh) and the other forms on
+// gemm_mma_kernel (below); for f32 gemm_kernel: 128 x 128 outputs per
+// block of 256 threads, 8 x 8
 // per thread, k-steps of 8 staged in shared memory as f32 (already rounded
 // to CDT), so the inner loop is plain f32 FMAs.  Every load of gemm_kernel
 // is bounds-checked (zero fill) and every store guarded, so M, N and K are
@@ -342,21 +344,51 @@ gemm_mma_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
   }
 }
 
+// gemm_mma_kernel's launch, in any of its forms (gemm() takes it for bf16
+// where layer_gemm does not apply; the *_mma entry points call it directly
+// to compare with the kernels that replaced it)
+template <typename TA, typename TB, bool kAT, bool kBT, int kEpi>
+cudaError_t gemm_mma(const TA* A, int lda, const TB* B, int ldb, int M, int N, int K,
+                     int k_chunk, const float* bias, const __nv_bfloat16* mask, void* C,
+                     int ldc, cudaStream_t stream, __nv_bfloat16* Cb = nullptr) {
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, (K + k_chunk - 1) / k_chunk);
+  gemm_mma_kernel<TA, TB, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
+      A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc, Cb);
+  return cudaGetLastError();
+}
+
+// The bf16 forward layer and d_h on wgmma fed by TMA, defined in
+// nerf_wide_layer_gemm.cuh (which needs this header's epilogue names).
+template <int kEpi>
+cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
+                       int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
+                       void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream);
+
+// C = the GEMM of the form the template arguments give (k_chunk = K but for
+// kEpiPartial).  bf16: the forward layer (kEpiBiasRelu, [k][n] B) and d_h
+// from the bf16 d_z copy (kEpiMask, [n][k] B) on layer_gemm, every other
+// form on gemm_mma_kernel; f32: gemm_kernel.
 template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
 cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
                  int K, int k_chunk, const float* bias, const CDT* mask,
                  void* C, int ldc, cudaStream_t stream,
                  __nv_bfloat16* Cb = nullptr) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN,
-                  (K + k_chunk - 1) / k_chunk);
   if constexpr (std::is_same<CDT, __nv_bfloat16>::value) {
-    gemm_mma_kernel<TA, TB, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
-        A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc, Cb);
+    constexpr bool kLayer =
+        std::is_same<TA, __nv_bfloat16>::value && std::is_same<TB, __nv_bfloat16>::value &&
+        !kAT && ((kEpi == kEpiBiasRelu && !kBT) || (kEpi == kEpiMask && kBT));
+    if constexpr (kLayer) {
+      return layer_gemm<kEpi>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb, stream);
+    } else {
+      return gemm_mma<TA, TB, kAT, kBT, kEpi>(A, lda, B, ldb, M, N, K, k_chunk, bias, mask,
+                                              C, ldc, stream, Cb);
+    }
   } else {
+    const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, (K + k_chunk - 1) / k_chunk);
     gemm_kernel<TA, TB, CDT, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
         A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // part[z][n] = sum of Z[row * ldz + n] over the rows of chunk z (kRowChunk

@@ -20,10 +20,13 @@
 //   * bf16 (the flagship): one persistent kernel computes the encoding and
 //     every hidden layer of each 128-row tile on the tensor cores (wgmma,
 //     the weights streamed by TMA), the activations kept in shared memory,
-//     and writes only H_{L-1} (nerf_wide_mlp.cuh).  nerf_wide_render_fwd_mma
-//     runs the chain it replaced (encode_kernel, then one mma.sync GEMM per
-//     hidden layer through device memory, nerf_wide_gemm.cuh) for
-//     comparison: the two give the same bits;
+//     and writes only H_{L-1} (nerf_wide_mlp.cuh).  Past pw 256 (two
+//     activation buffers of a tile would exceed a block's shared memory),
+//     and in nerf_wide_render_fwd_layers for comparison, the layer chain:
+//     encode_kernel, then one GEMM per hidden layer through device memory
+//     (nerf_wide_layer_gemm.cuh: wgmma fed by TMA; the mma.sync GEMM of
+//     nerf_wide_gemm.cuh before it, whose bits it keeps); the fused MLP and
+//     the chain give the same bits;
 //   * f32: the encoding kernel, then one tiled FMA GEMM per hidden layer
 //     (gemm_kernel: 128x128 tiles staged in shared memory) with the bias,
 //     ReLU and rounding in the epilogue, activations through device memory
@@ -62,7 +65,7 @@ int render_fwd(bool per_ray, const void* W, const float* b, const float* ts,
 // 128; b: (L, pw) f32; acts: chunk_rays * S * pw elements of scratch in the
 // compute dtype for bf16 where the fused MLP takes the net (pw 128 or 256,
 // L >= 2: H_{L-1} of a chunk), twice that otherwise and for
-// nerf_wide_render_fwd_mma; kc: the encoded width padded to 8 (<= pw).
+// nerf_wide_render_fwd_layers; kc: the encoded width padded to 8 (<= pw).
 // Return the first failing launch's cudaError (0 on success); do not
 // synchronise.
 //
@@ -95,10 +98,10 @@ extern "C" int nerf_wide_render_fwd_rays(const void* W, const float* b,
                     bf16, false, stream);
 }
 
-// nerf_wide_render_fwd_mma: the bf16 render on the chain the fused MLP
-// replaced (encode_kernel, one gemm_mma_kernel per hidden layer, two acts
+// nerf_wide_render_fwd_layers: the bf16 render on the layer chain the fused
+// MLP replaced (encode_kernel, one layer GEMM per hidden layer, two acts
 // slots), ts, ds (S,) or, with per_ray, (N, S); for comparison only.
-extern "C" int nerf_wide_render_fwd_mma(const void* W, const float* b,
+extern "C" int nerf_wide_render_fwd_layers(const void* W, const float* b,
                                         const float* ts, const float* ds,
                                         const float* origins,
                                         const float* directions, float* out,

@@ -25,8 +25,9 @@
 // 8192-row partials, added in a fixed order; for bf16 on wgmma fed by TMA,
 // nerf_wide_dw.cuh, from a bf16 copy of d_z) with db from the f32 d_z, and
 // a GEMM for d_h with the ReLU mask from the stored activation in its
-// epilogue, which also writes the next bf16 copy.  Every sum has a fixed
-// order: repeat launches are bit-identical.
+// epilogue, which also writes the next bf16 copy; for bf16 the forward's
+// and d_h's GEMMs run on wgmma fed by TMA (nerf_wide_layer_gemm.cuh).
+// Every sum has a fixed order: repeat launches are bit-identical.
 
 #include "nerf_wide_chain.cuh"
 
@@ -91,8 +92,49 @@ extern "C" int wide_dw_gemm_mma(const void* H, const float* Dz, int ld, int M, i
       ld % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(wide::gemm_mma<__nv_bfloat16, float, true, false, wide::kEpiPartial>(
+      static_cast<const __nv_bfloat16*>(H), ld, Dz, ld, M, N, rows, wide::kRowChunk, nullptr,
+      nullptr, part, N, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 layer GEMM alone, on (rows, pw) operands of row stride pw and a
+// (pw, pw) W (one layer of the stack), the first K <= pw columns of A read:
+//   dh 0, the forward layer: C (rows, pw) bf16 = bf16(ReLU(A W[:K] + b)),
+//     b (pw,) f32 (mask, Cb unused);
+//   dh 1, d_h: C (rows, pw) f32 = mask > 0 ? A W[:, :K]^T : 0 and Cb (rows,
+//     pw) bf16 = bf16(C), mask (rows, pw) bf16 (b unused).
+// wide_layer_gemm runs the wgmma/TMA kernel of the wide chain
+// (nerf_wide_layer_gemm.cuh); wide_layer_gemm_mma the mma.sync kernel it
+// replaced (gemm_mma_kernel) on the same inputs, kept so that the card can
+// compare the two.
+extern "C" int wide_layer_gemm(const void* A, const void* W, const float* b, const void* mask,
+                               void* C, void* Cb, int rows, int pw, int K, int dh,
+                               void* stream) {
+  const auto* a = static_cast<const __nv_bfloat16*>(A);
+  const auto* w = static_cast<const __nv_bfloat16*>(W);
+  const auto* m = static_cast<const __nv_bfloat16*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      wide::gemm<__nv_bfloat16, float, __nv_bfloat16, true, false, wide::kEpiPartial>(
-          static_cast<const __nv_bfloat16*>(H), ld, Dz, ld, M, N, rows, wide::kRowChunk,
-          nullptr, nullptr, part, N, static_cast<cudaStream_t>(stream)));
+      dh ? wide::layer_gemm<wide::kEpiMask>(a, pw, w, pw, rows, pw, K, nullptr, m, C, pw,
+                                            static_cast<__nv_bfloat16*>(Cb), st)
+         : wide::layer_gemm<wide::kEpiBiasRelu>(a, pw, w, pw, rows, pw, K, b, nullptr, C, pw,
+                                                nullptr, st));
+}
+
+extern "C" int wide_layer_gemm_mma(const void* A, const void* W, const float* b,
+                                   const void* mask, void* C, void* Cb, int rows, int pw,
+                                   int K, int dh, void* stream) {
+  if (rows <= 0 || pw <= 0 || K <= 0 || K > pw || pw % 4 != 0 || K % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* a = static_cast<const __nv_bfloat16*>(A);
+  const auto* w = static_cast<const __nv_bfloat16*>(W);
+  const auto* m = static_cast<const __nv_bfloat16*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  return static_cast<int>(
+      dh ? wide::gemm_mma<bf16, bf16, false, true, wide::kEpiMask>(
+               a, pw, w, pw, rows, pw, K, K, nullptr, m, C, pw, st, static_cast<bf16*>(Cb))
+         : wide::gemm_mma<bf16, bf16, false, false, wide::kEpiBiasRelu>(
+               a, pw, w, pw, rows, pw, K, K, b, nullptr, C, pw, st));
 }

@@ -1,15 +1,17 @@
-"""The bf16 wide render's MLP on one persistent kernel, and the chain it
-replaced, each alone.
+"""The bf16 wide render's MLP on one persistent kernel, and the layer chain
+it replaced, each alone.
 
 The bf16 wide render (#8 ``nerf_wide_render_fwd`` and #10, its ``*_rays``
 instance) computes the encoding and every hidden layer of a 128-row tile in
 one launch per ray chunk (``csrc/nerf_wide_mlp.cuh``: ``wgmma`` with the
 weights fed by TMA, the activations kept in shared memory), then composites.
 :func:`wide_mlp` launches that kernel alone (``nerf_wide_mlp``) and returns
-the last hidden layer's output; :func:`render_rays_mma` runs the whole render
-on the chain it replaced (``nerf_wide_render_fwd_mma``: the encoding kernel,
-one ``mma.sync`` GEMM per hidden layer through device memory, compositing),
-so that the two can be compared bit for bit and timed in turns.  Nothing on
+the last hidden layer's output; :func:`render_rays_layers` runs the whole
+render on the layer chain it replaced (``nerf_wide_render_fwd_layers``: the
+encoding kernel, one GEMM per hidden layer through device memory, the
+``wgmma`` layer GEMM of ``csrc/nerf_wide_layer_gemm.cuh`` since it took over
+from ``mma.sync`` with the same bits, compositing), so that the two can be
+compared bit for bit and timed in turns.  Nothing on
 the main path calls either.  Both take the stacks of
 ``fused_nerf.pack_wide_params`` and check their shapes before they look at
 the device, and take rays, depths and steps as ``render_rays`` does (any
@@ -24,7 +26,7 @@ import torch
 from lomanerf_tpu_torch.ops import fused_nerf
 
 # kernel launches of the C entry points; a run resets and reads them
-launches = {"nerf_wide_mlp": 0, "nerf_wide_render_fwd_mma": 0}
+launches = {"nerf_wide_mlp": 0, "nerf_wide_render_fwd_layers": 0}
 WIDTHS = (128, 256)  # the padded widths of every bf16 MLP the wide route takes
 
 
@@ -73,7 +75,7 @@ def hidden_reference(W, b, t_vals, origins, directions, config) -> torch.Tensor:
 
 
 def render_reference(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
-    """Plain version of :func:`render_rays_mma`: the plain forward's colours."""
+    """Plain version of :func:`render_rays_layers`: the plain forward's colours."""
     return _plain(W, b, t_vals, dists, origins, directions, config, keep=False)[0]
 
 
@@ -105,9 +107,9 @@ def wide_mlp(W, b, t_vals, origins, directions, config) -> torch.Tensor:
     return out
 
 
-def render_rays_mma(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
-    """``(N, 3)`` colours of the bf16 wide render on the ``mma.sync`` chain
-    the fused MLP replaced, in ray chunks of ``fused_nerf.wide_chunk_rays``
+def render_rays_layers(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
+    """``(N, 3)`` colours of the bf16 wide render on the layer chain the
+    fused MLP replaced, in ray chunks of ``fused_nerf.wide_chunk_rays``
     with two activation slots; the plain version on CPU tensors."""
     _check(W, b, t_vals, dists, origins, directions, config)
     t_vals, dists, origins, directions = (
@@ -122,11 +124,11 @@ def render_rays_mma(W, b, t_vals, dists, origins, directions, config) -> torch.T
     acts = torch.empty(2 * chunk * S * pw, dtype=torch.bfloat16, device=W.device)
     out = torch.empty((n, 3), dtype=torch.float32, device=W.device)
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = build.load().nerf_wide_render_fwd_mma(
+    err = build.load().nerf_wide_render_fwd_layers(
         W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
         origins.data_ptr(), directions.data_ptr(), out.data_ptr(), acts.data_ptr(), n,
         chunk, *fused_nerf._wide_args(config, pw, L)[:-1], int(t_vals.ndim == 2), stream)
     if err != 0:
-        raise RuntimeError(f"nerf_wide_render_fwd_mma launch failed: cudaError {err}")
-    launches["nerf_wide_render_fwd_mma"] += 1
+        raise RuntimeError(f"nerf_wide_render_fwd_layers launch failed: cudaError {err}")
+    launches["nerf_wide_render_fwd_layers"] += 1
     return out

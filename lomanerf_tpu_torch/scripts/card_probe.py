@@ -11,7 +11,18 @@ run against another checkout of the port to compare two trees.
   ``kEpiPartial`` epilogue), the ``d_h`` GEMMs (``kEpiMask``), the forward
   GEMMs (``kEpiBiasRelu``), compositing, the partials' and column sums, the
   encoding, the loss sum, memsets and copies, and the rest (Adam, the
-  parameter packing).  Prints ms per step and the share of the device time.
+  parameter packing).  Prints ms per step, the share of the device time and
+  the kernels launched per step by name (a layer GEMM with its epilogue:
+  ``layer_wgmma_kernel kEpiBiasRelu``).  ``--config c4`` takes the 8x1024
+  bf16 MLP (C4: mip-NeRF 360's NeRF MLP, S = 128, standard, init "nerf")
+  at the same batch.  With ``--parent DIR``, instead: the wide kernels of
+  this tree against those of the checkout at ``DIR`` (built there), in
+  turns in one process at the config's 16,384-ray batch: the train call
+  (``nerf_wide_train``: loss and dW/db) and the render (``render_rays``),
+  each pair's outputs required bit-equal, and the Adam step; then, on this
+  tree, the layer GEMM alone (``ops/wide_gemm``: the forward form and the
+  ``d_h`` form, each against its ``gemm_mma_kernel`` twin, bit-equal) at
+  one gradient chunk's layer, beside ``torch.addmm`` + ``relu`` in bf16.
 * ``--what small``: device time by kernel family of ``--steps`` ``small``
   train steps (``NeRFConfig.small()``, bench.py's 262,144 rays x 30
   samples, Adam 5e-4, the same batches and seeds as ``--what flagship``)
@@ -24,11 +35,13 @@ run against another checkout of the port to compare two trees.
 * ``--what frame``: device time by kernel family of ``FRAMES`` 800x800
   ``full`` frames (``NeRFModel.render_image``, seeded init, one pose) after
   a warm-up frame, from one trace: the fused MLP (``mlp_wgmma_kernel``),
-  compositing and the rest; with ``--path mma``, the same frames on the
-  ``mma.sync`` chain the fused MLP replaced (``wide_mlp.render_rays_mma``
-  over the same chunks), whose encoding and layer GEMMs are families of
-  their own.  Prints ms per frame, each family's share and the kernels
-  launched per frame by name.  With ``--preset small``: an 800x800
+  compositing and the rest; with ``--path layers``, the same frames on the
+  layer chain the fused MLP replaced (``wide_mlp.render_rays_layers`` over
+  the same chunks), whose encoding and layer GEMMs are families of their
+  own.  Prints ms per frame, each family's share and the kernels
+  launched per frame by name.  ``--config c4``: a 128x128 frame (16,384
+  rays, the timed batch of chip_smoke's phase 24) of the 8x1024 bf16 MLP,
+  whose render runs the layer chain.  With ``--preset small``: an 800x800
   ``small`` frame (one launch of the narrow render, ``nerf_render_fwd``)
   split into the render kernel and the rest of the frame by kernel
   (``get_rays``, the parameter packing, ``uniform_depths``, the ``cat``),
@@ -115,9 +128,10 @@ run against another checkout of the port to compare two trees.
 
 The last line is one JSON object with the numbers.  Run:
 
-    python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3
+    python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3 [--config c4]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --config c4 --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what small --steps 5
-    python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path mma]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path layers] [--config c4]
     python -m lomanerf_tpu_torch.scripts.card_probe --what frame --preset small
     python -m lomanerf_tpu_torch.scripts.card_probe --what render --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
@@ -152,6 +166,7 @@ FAMILIES = ("fused MLP", "dW", "d_h", "forward", "compositing", "partial and col
             "encoding", "loss sum", "memset and copy", "other")
 _EPILOGUE = {0: "forward", 1: "d_h", 2: "dW"}  # nerf_wide_gemm.cuh's kEpi values
 FRAMES = 2  # 800x800 frames traced by --what frame, after a warm-up frame
+C4_FRAME = 128  # the side of --what frame --config c4: 16,384 rays, phase 24's render
 SMALL_FAMILIES = ("nerf_grad_kernel", "sum_block_partials", "Adam", "other")
 WORK_CATS = ("kernel", "gpu_memset", "gpu_memcpy")  # the card's work in a trace
 MARKER, MARKER_CYCLES = "spin_kernel", 1000  # torch.cuda._sleep's kernel, between two sets
@@ -166,15 +181,39 @@ def family(name: str, cat: str) -> str:
         return "fused MLP"
     if "dw_wgmma_kernel" in name:
         return "dW"
-    gemm = re.search(r"gemm(?:_mma)?_kernel<([^>]*)>", name)
-    if gemm:
-        return _EPILOGUE[int(gemm.group(1).split(",")[-1])]
+    epi = layer_epilogue(name)
+    if epi is not None:
+        return _EPILOGUE[epi]
     for key, fam in (("composite_kernel", "compositing"), ("sum_partials_kernel",
                      "partial and column sums"), ("colsum_kernel", "partial and column sums"),
                      ("encode_kernel", "encoding"), ("loss_sum_kernel", "loss sum")):
         if key in name:
             return fam
     return "other"
+
+
+def layer_epilogue(name: str):
+    """The epilogue (``kEpi``) of a layer GEMM by its trace name: the last
+    template argument of ``gemm_kernel``/``gemm_mma_kernel``, the first of
+    ``layer_wgmma_kernel``; None for any other kernel."""
+    gemm = re.search(r"gemm(?:_mma)?_kernel<([^>]*)>", name)
+    if gemm:
+        return int(gemm.group(1).split(",")[-1])
+    layer = re.search(r"layer_wgmma_kernel<(\d+)", name)
+    return int(layer.group(1)) if layer else None
+
+
+def nerf_config(name: str):
+    """The NeRF configuration ``--config`` names: ``full`` (the 8x256
+    flagship) or ``c4`` (8x1024 bf16 at S = 128, standard, init "nerf":
+    the NeRF MLP of mip-NeRF 360, Barron et al., CVPR 2022, section 5, with
+    the repo's encoding and head; chip_smoke.py phase 24's)."""
+    from lomanerf_tpu_torch.models import NeRFConfig
+
+    if name == "c4":
+        return NeRFConfig(num_layers=8, filter_size=1024, num_samples=128, mode="standard",
+                          init="nerf", compute_dtype="bfloat16")
+    return NeRFConfig.full()
 
 
 def device_events(run, calls: int, after=None):
@@ -251,25 +290,21 @@ def train_steps(cfg, n: int, steps: int):
     return device_events(run, steps)
 
 
-def flagship(steps: int) -> dict:
-    from lomanerf_tpu_torch.models import NeRFConfig
-
-    events = train_steps(NeRFConfig.full(), 16384, steps)
-    ms = collections.Counter()
-    launches = collections.Counter()
+def flagship(steps: int, config: str = "full") -> dict:
+    events = train_steps(nerf_config(config), 16384, steps)
+    ms, launches = collections.Counter(), collections.Counter()
     for name, cat, us, _ in events:
-        fam = family(name, cat)
-        ms[fam] += us / 1e3 / steps
-        if fam == "dW":
-            launches["dw_wgmma_kernel" if "dw_wgmma_kernel" in name else "gemm kEpiPartial"] += 1
+        ms[family(name, cat)] += us / 1e3 / steps
+        if cat == "kernel":
+            launches[kernel_key(name)] += 1
     total = sum(ms.values())
-    out = {"what": "flagship", "steps": steps, "device_ms_per_step": total,
+    out = {"what": "flagship", "config": config, "steps": steps, "device_ms_per_step": total,
            "ms": {k: ms[k] for k in FAMILIES}, "share": {k: ms[k] / total for k in FAMILIES},
-           "dw_launches_per_step": {k: v / steps for k, v in launches.items()}}
-    print(f"flagship train step, {steps} steps traced: device {total:.3f} ms/step")
+           "launches_per_step": {k: v / steps for k, v in sorted(launches.items())}}
+    print(f"{config} train step, 16384 rays, {steps} steps traced: device {total:.3f} ms/step")
     for k in FAMILIES:
         print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
-    print(f"  dW launches per step: {out['dw_launches_per_step']}")
+    print(f"  kernels per step: {out['launches_per_step']}")
     return out
 
 
@@ -307,11 +342,11 @@ def small(steps: int) -> dict:
 
 def kernel_key(name: str) -> str:
     """A kernel's short name: the function, with the epilogue of a layer
-    GEMM (``gemm_mma_kernel kEpiBiasRelu``)."""
-    gemm = re.search(r"(gemm(?:_mma)?_kernel)<([^>]*)>", name)
-    if gemm:
-        epi = ("kEpiBiasRelu", "kEpiMask", "kEpiPartial")[int(gemm.group(2).split(",")[-1])]
-        return f"{gemm.group(1)} {epi}"
+    GEMM (``gemm_mma_kernel kEpiBiasRelu``, ``layer_wgmma_kernel kEpiMask``)."""
+    epi = layer_epilogue(name)
+    if epi is not None:
+        fn = re.search(r"(gemm(?:_mma)?_kernel|layer_wgmma_kernel)<", name).group(1)
+        return f"{fn} {('kEpiBiasRelu', 'kEpiMask', 'kEpiPartial')[epi]}"
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1]
 
@@ -356,12 +391,12 @@ def small_frame() -> dict:
     return out
 
 
-def frame(path: str) -> dict:
+def frame(path: str, config: str = "full") -> dict:
     from lomanerf_tpu_torch.core import normalized_intrinsics, rays
-    from lomanerf_tpu_torch.models import NeRFConfig, NeRFModel
+    from lomanerf_tpu_torch.models import NeRFModel
     from lomanerf_tpu_torch.ops import fused_nerf, wide_mlp
 
-    cfg, size = NeRFConfig.full(), 800
+    cfg, size = nerf_config(config), C4_FRAME if config == "c4" else 800
     model = NeRFModel(cfg, device="cuda")
     model.init(torch.Generator().manual_seed(0))
     K = normalized_intrinsics(1.1106, device="cuda")
@@ -377,7 +412,7 @@ def frame(path: str) -> dict:
         def run():
             o, d = rays.get_rays(size, size, K, pose)
             t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
-            return torch.cat([wide_mlp.render_rays_mma(W, b, t, dists, oc, dc, cfg)
+            return torch.cat([wide_mlp.render_rays_layers(W, b, t, dists, oc, dc, cfg)
                               for oc, dc in zip(o.split(chunk), d.split(chunk))])
     with torch.no_grad():
         run()  # warm-up
@@ -388,11 +423,12 @@ def frame(path: str) -> dict:
         if cat == "kernel":
             launches[kernel_key(name)] += 1
     total = sum(ms.values())
-    out = {"what": "frame", "path": path, "frames": FRAMES, "chunks": -(-size * size // chunk),
+    out = {"what": "frame", "path": path, "config": config, "size": size, "frames": FRAMES,
+           "chunks": -(-size * size // chunk),
            "device_ms_per_frame": total, "ms": {k: ms[k] for k in FAMILIES},
            "share": {k: ms[k] / total for k in FAMILIES},
            "launches_per_frame": {k: v / FRAMES for k, v in sorted(launches.items())}}
-    print(f"800x800 full frame ({path}), {FRAMES} frames traced, {out['chunks']} chunks of "
+    print(f"{size}x{size} {config} frame ({path}), {FRAMES} frames traced, {out['chunks']} chunks of "
           f"{chunk} rays: device {total:.3f} ms/frame")
     for k in FAMILIES:
         if ms[k]:
@@ -626,6 +662,102 @@ def render(parent: str, rounds: int = 3) -> dict:
     return out
 
 
+def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
+    """This tree's wide kernels against the parent's at ``config``'s
+    16,384-ray batch, in turns, and this tree's layer GEMM alone against its
+    ``gemm_mma_kernel`` twin and ``torch.addmm`` (``--what flagship
+    --parent``)."""
+    from lomanerf_tpu_torch.core import rays
+    from lomanerf_tpu_torch.models import NeRFModel
+    from lomanerf_tpu_torch.ops import build, fused_nerf, wide_gemm
+    from lomanerf_tpu_torch.scripts import variants
+    from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
+
+    libs = {"parent": parent_library(parent), "this tree": build.load()}
+    saved = build.load
+
+    def on(lib, fn):
+        build.load = lambda: libs[lib]
+        try:
+            return fn()
+        finally:
+            build.load = saved
+
+    cfg, n = nerf_config(config), 16384
+    rng = np.random.default_rng(0)
+    o, d = (torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device="cuda")
+            for _ in range(2))
+    tgt = torch.tensor(rng.random((n, 3)), dtype=torch.float32, device="cuda")
+    t, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    model = NeRFModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    leaves = list(model.parameters())
+
+    def train():
+        loss = fused_nerf.nerf_train_loss(model.params, o, d, t, dists, tgt, cfg)
+        return (loss.detach(), *torch.autograd.grad(loss, leaves))
+
+    def render():
+        with torch.no_grad():
+            return fused_nerf.render_rays(model.params, o, d, t, dists, cfg)
+
+    out = {"what": "flagship", "config": config, "parent": parent, "rounds": rounds,
+           "device": variants.card()}
+    for what, fn in (("train call", train), ("render", render)):
+        fns = {lib: (lambda lib=lib, fn=fn: on(lib, fn)) for lib in libs}
+        a, b = fns["parent"](), fns["this tree"]()
+        a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit(f"card_probe: the {config} {what} differs from the parent's")
+        out[what] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
+    steps = {}
+    for lib in libs:
+        m = NeRFModel(cfg, device="cuda")
+        m.init(torch.Generator().manual_seed(0))
+        step = make_single_chip_train_step(cfg, torch.optim.Adam(m.parameters(), lr=5e-4))
+        steps[lib] = (lambda lib=lib, m=m, step=step: on(lib, lambda: step(m, o, d, t, dists,
+                                                                           tgt)))
+        steps[lib]()  # warm-up
+    out["step"] = {k: v["window_ms"] for k, v in one_call_ms(steps, rounds).items()}
+    del steps, model, leaves
+    torch.cuda.empty_cache()
+
+    # the layer GEMM alone at one gradient chunk's layer of this config
+    pw = fused_nerf._round_up(cfg.filter_size, 128)
+    rows = fused_nerf.wide_grad_chunk_rays(cfg, pw, cfg.num_layers) * cfg.num_samples
+    g = torch.Generator("cuda").manual_seed(5)
+    h = torch.rand((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
+    dz = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
+    mask = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((pw, pw), generator=g, device="cuda") / pw ** 0.5).to(torch.bfloat16)
+    b = torch.randn(pw, generator=g, device="cuda")
+    fwd = {"wgmma": lambda: wide_gemm.wide_layer_gemm(h, W, b, pw),
+           "mma": lambda: wide_gemm.wide_layer_gemm_mma(h, W, b, pw),
+           "addmm": lambda: torch.addmm(b.to(torch.bfloat16), h, W).relu_()}
+    dh = {"wgmma": lambda: wide_gemm.wide_dh_gemm(dz, W, mask, pw),
+          "mma": lambda: wide_gemm.wide_dh_gemm_mma(dz, W, mask, pw)}
+    if not torch.equal(fwd["wgmma"](), fwd["mma"]()) or not all(
+            torch.equal(x, y) for x, y in zip(dh["wgmma"](), dh["mma"]())):
+        raise SystemExit("card_probe: the layer GEMM differs from its gemm_mma_kernel twin")
+    flop = 2.0 * rows * pw * pw
+    for what, fns in (("layer gemm forward", fwd), ("layer gemm d_h", dh)):
+        out[what] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
+        out[what]["tflops"] = {k: flop / v / 1e9 for k, v in out[what].items()}
+    print(f"{config} wide kernels, this tree against {parent}, 16384 rays, one call each from "
+          f"an idle card, {2 * rounds} in turns (CUDA event window, median ms), on "
+          f"{out['device']}:")
+    for k in ("train call", "render", "step"):
+        v = out[k]
+        print(f"  {k:12s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
+              f"ratio {v['this tree'] / v['parent']:.4f}")
+    print(f"  the layer GEMM alone at {rows} x {pw} . {pw} x {pw} (bf16, f32 sums):")
+    for k in ("layer gemm forward", "layer gemm d_h"):
+        print(f"  {k:20s} " + "  ".join(f"{lib} {ms:8.3f} ms ({out[k]['tflops'][lib]:.1f} "
+                                         "TFLOP/s)" for lib, ms in out[k].items()
+                                         if lib != "tflops"))
+    return out
+
+
 FIELD_FAMILIES = ("field_fwd", "field_bwd", "sum_block_partials", "Adam", "other")
 
 
@@ -704,7 +836,7 @@ def parent_library(parent: str):
         raise SystemExit(f"card_probe: the build at {parent} failed:\n{built.stderr[-4000:]}")
     old = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
     for name, argtypes in build.SIGNATURES.items():
-        if not name.startswith("field_"):
+        if not name.startswith("field_") and hasattr(old, name):  # entries it has
             fn = getattr(old, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     csrc = Path(parent) / "lomanerf_tpu_torch" / "ops" / "csrc"
@@ -1127,11 +1259,13 @@ def main(argv=None) -> dict:
                                        "pipeline"),
                     required=True)
     ap.add_argument("--parent", help="root of the checkout --what walk, field, field_wide, "
-                    "render or scans compares against")
+                    "render, scans or flagship compares against")
+    ap.add_argument("--config", choices=("full", "c4"), default="full",
+                    help="the NeRF MLP --what flagship and frame run")
     ap.add_argument("--preset", choices=("full", "small"), default="full",
                     help="the frame --what frame splits")
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--path", choices=("fused", "mma"), default="fused")
+    ap.add_argument("--path", choices=("fused", "layers"), default="fused")
     ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1145,6 +1279,8 @@ def main(argv=None) -> dict:
         if not args.parent:
             raise SystemExit(f"card_probe: --what {args.what} needs --parent DIR")
         out = (walk if args.what == "walk" else render)(args.parent)
+    elif args.what == "flagship" and args.parent:
+        out = wide_against(args.parent, args.config)
     elif args.what == "field" and args.parent:
         out = field_against(args.parent)
     elif args.what == "field_wide" and args.parent:
@@ -1152,9 +1288,13 @@ def main(argv=None) -> dict:
     elif args.what == "pipeline":
         out = pipeline(args.steps)
     else:
-        out = {"flagship": lambda: flagship(args.steps),
+        if args.what == "frame" and args.config == "c4" and args.path == "layers":
+            raise SystemExit("card_probe: the c4 frame has no fused MLP; its path is the "
+                             "layer chain (--path fused)")
+        out = {"flagship": lambda: flagship(args.steps, args.config),
                "small": lambda: small(args.steps),
-               "frame": lambda: small_frame() if args.preset == "small" else frame(args.path),
+               "frame": lambda: (small_frame() if args.preset == "small"
+                                 else frame(args.path, args.config)),
                "grid_sum": lambda: grid_sum(args.calls),
                "field": lambda: field_split(args.steps),
                "field_wide": lambda: field_wide_split(args.steps)}[args.what]()

@@ -25,7 +25,9 @@ numpy's f64 results and their plain versions, the scans also bit for bit
 to numpy's f32 sequential accumulate and the sum to the numpy restatement
 of its fixed order; the wide chain's bf16 dW stage
 (wgmma/TMA) to f64 of its rounded operands; the bf16 wide render's fused
-MLP (wgmma/TMA) to the ``mma.sync`` chain it replaced, bit for bit.
+MLP (wgmma/TMA) to the layer chain it replaced, bit for bit; and
+the wide chain's bf16 layer GEMM (wgmma/TMA, both forms) to the
+``mma.sync`` kernel it replaced, bit for bit.
 """
 
 import dataclasses
@@ -407,7 +409,7 @@ def test_wide_render_image_chunks_give_identical_pixels():
 # colours against the plain version: phase 7's bf16 bound (wide_tolerances)
 FUSED_COL_ATOL = 2e-3
 # the one case past it, at its measured 3.03e-3 (the fused kernel's colours
-# are the mma.sync chain's bits): scripts/bf16_flips.py bisects it to one
+# are the layer chain's bits): scripts/bf16_flips.py bisects it to one
 # rounding flip at ray 984, hidden layer 2, sample 63, unit 228, where the f64
 # sum lies 4.8e-7 from the bf16 rounding boundary, within the f32 sum's
 # rounding (2.0e-6); the plain version continued from the kernel's layer-2
@@ -425,8 +427,9 @@ FUSED = {"full": NeRFConfig.full(),
 @pytest.mark.parametrize("depths", ["shared", "perray"])
 def test_fused_mlp_render_equals_the_mma_chain(preset, mode, n_rays, S, depths):
     """The bf16 wide render (#8, #10 on per-ray depths) on the fused MLP
-    (``csrc/nerf_wide_mlp.cuh``) gives the colours of the ``mma.sync``
-    chain it replaced (``wide_mlp.render_rays_mma``) bit for bit, at
+    (``csrc/nerf_wide_mlp.cuh``) gives the colours of the layer chain it
+    replaced (``wide_mlp.render_rays_layers``, on the ``wgmma`` layer GEMM
+    that kept ``mma.sync``'s bits) bit for bit, at
     ragged 128-row tiles (1037 and 1 rays at S = 128 and 64); repeat
     launches are bit-identical; both are within ``FUSED_COL_ATOL`` of the
     plain version (a case of ``FUSED_COL_ATOL_MEASURED`` within its own);
@@ -448,14 +451,14 @@ def test_fused_mlp_render_equals_the_mma_chain(preset, mode, n_rays, S, depths):
     before = dict(fused_nerf.launches), dict(wide_mlp.launches)
     new = fused_nerf._launch_wide_render(W, b, t, dists, o, d, cfg)
     again = fused_nerf._launch_wide_render(W, b, t, dists, o, d, cfg)
-    old = wide_mlp.render_rays_mma(W, b, t, dists, o, d, cfg)
+    old = wide_mlp.render_rays_layers(W, b, t, dists, o, d, cfg)
     h, h2 = wide_mlp.wide_mlp(W, b, t, o, d, cfg), wide_mlp.wide_mlp(W, b, t, o, d, cfg)
     plain = wide_mlp.render_reference(W, b, t, dists, o, d, cfg)
     torch.cuda.synchronize()
     entry = "nerf_wide_render_fwd" + ("_rays" if depths == "perray" else "")
     assert fused_nerf.launches[entry] == before[0][entry] + 2
-    assert wide_mlp.launches["nerf_wide_render_fwd_mma"] == \
-        before[1]["nerf_wide_render_fwd_mma"] + 1
+    assert wide_mlp.launches["nerf_wide_render_fwd_layers"] == \
+        before[1]["nerf_wide_render_fwd_layers"] + 1
     assert wide_mlp.launches["nerf_wide_mlp"] == before[1]["nerf_wide_mlp"] + 2
     assert torch.equal(new, old) and torch.equal(new, again)
     atol = FUSED_COL_ATOL_MEASURED.get((preset, mode, n_rays, S, depths), FUSED_COL_ATOL)
@@ -777,6 +780,83 @@ def test_wide_dw_gemm_matches_f64(rows, in_cols, pw):
         exact, scale = a.T @ b, a.abs().T @ b.abs()
         for part in (got[z], old[z]):
             assert ((part.double() - exact).abs() <= 1e-6 * scale + 1e-30).all()
+
+
+# (K, pw) of the layer GEMM: layer 0's 40 columns, hidden layers at K = pw,
+# and K below pw at every pw that holds it
+GEMM_SHAPES = [(K, pw) for pw in (128, 256, 384, 1024)
+               for K in sorted({40, 256, 384, 1024, pw}) if K <= pw]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 33184, 65536])
+@pytest.mark.parametrize("K,pw", GEMM_SHAPES)
+@pytest.mark.parametrize("form", ["forward", "d_h"])
+def test_wide_layer_gemm_equals_its_mma_twin(form, K, pw, rows):
+    """The wide chain's bf16 layer GEMM on wgmma/TMA (``wide_gemm``: the
+    forward layer and ``d_h``, the kernel #7-#12 run past the fused MLP and
+    for every ``d_h``) gives the ``mma.sync`` kernel it replaced
+    (``gemm_mma_kernel``, the ``*_mma`` twins) bit for bit, at ragged rows,
+    layer 0's 40 columns and pw up to 1024; repeat launches bit-identical;
+    the launch counts rise by the calls made; within the plain version's
+    bounds (``tests/test_torch_wide_gemm.py``)."""
+    need_card()
+    from lomanerf_tpu_torch.ops import wide_gemm
+
+    g = torch.Generator("cuda").manual_seed(rows + K + pw)
+    a = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((pw, pw), generator=g, device="cuda") / pw ** 0.5).to(torch.bfloat16)
+    before = dict(wide_gemm.launches)
+    if form == "forward":
+        b = torch.randn(pw, generator=g, device="cuda") * 0.1
+        got, again = wide_gemm.wide_layer_gemm(a, W, b, K), wide_gemm.wide_layer_gemm(a, W, b, K)
+        old = wide_gemm.wide_layer_gemm_mma(a, W, b, K)
+        plain = wide_gemm.layer_reference(a, W, b, K)
+        torch.cuda.synchronize()
+        names = ("wide_layer_gemm", "wide_layer_gemm_mma")
+        assert torch.equal(got, again) and torch.equal(got, old)
+        diff = (got.float() - plain.float()).abs()
+        # one bf16 rounding step of the entry, and a ReLU at f32 rounding of 0
+        step = torch.ldexp(torch.ones_like(diff), torch.frexp(
+            torch.maximum(got.float().abs(), plain.float().abs()))[1] - 8)
+        assert (diff <= step + 1e-5 * plain.float().abs().max()).all()
+    else:
+        mask = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
+        got, again = wide_gemm.wide_dh_gemm(a, W, mask, K), wide_gemm.wide_dh_gemm(a, W, mask, K)
+        old = wide_gemm.wide_dh_gemm_mma(a, W, mask, K)
+        plain = wide_gemm.dh_reference(a, W, mask, K)[0]
+        torch.cuda.synchronize()
+        names = ("wide_dh_gemm", "wide_dh_gemm_mma")
+        for x, y, z in zip(got, again, old):
+            assert torch.equal(x, y) and torch.equal(x, z)
+        assert torch.equal(got[1], got[0].to(torch.bfloat16))
+        assert (got[0] - plain).abs().max() <= 1e-5 * plain.abs().max()
+    assert wide_gemm.launches[names[0]] == before[names[0]] + 2
+    assert wide_gemm.launches[names[1]] == before[names[1]] + 1
+
+
+@pytest.mark.cuda
+def test_wide_layer_gemm_refuses_what_it_does_not_take():
+    """The C entry point refuses a K past pw (cudaErrorInvalidValue); the
+    wrappers refuse f32 operands before any launch."""
+    need_card()
+    from lomanerf_tpu_torch.ops import build, wide_gemm
+
+    a = torch.zeros((37, 128), dtype=torch.bfloat16, device="cuda")
+    W = torch.zeros((128, 128), dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros(128, device="cuda")
+    C = torch.empty((37, 128), dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for entry in ("wide_layer_gemm", "wide_layer_gemm_mma"):
+        err = getattr(build.load(), entry)(a.data_ptr(), W.data_ptr(), b.data_ptr(), None,
+                                           C.data_ptr(), None, 37, 128, 136, 0, stream)
+        assert err != 0
+    before = dict(wide_gemm.launches)
+    with pytest.raises(ValueError):
+        wide_gemm.wide_layer_gemm(a.float(), W, b, 40)
+    with pytest.raises(ValueError):
+        wide_gemm.wide_dh_gemm(a, W, a.float(), 128)
+    assert wide_gemm.launches == before
 
 
 @pytest.mark.cuda

@@ -143,6 +143,14 @@ def test_card_probe_sorts_kernels_into_families():
     assert card_probe.family(mlp, "kernel") == "fused MLP"
     assert card_probe.kernel_key(mlp) == "mlp_wgmma_kernel"
     assert card_probe.kernel_key(gemm.format("_mma_kernel", 0)) == "gemm_mma_kernel kEpiBiasRelu"
+    layer = ("void wide::(anonymous namespace)::layer_wgmma_kernel<{}, 4>(CUtensorMap_st, "
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+             "int, int, int)")
+    for epi, fam, key in ((0, "forward", "kEpiBiasRelu"), (1, "d_h", "kEpiMask")):
+        assert card_probe.family(layer.format(epi), "kernel") == fam
+        assert card_probe.kernel_key(layer.format(epi)) == f"layer_wgmma_kernel {key}"
+    c4 = card_probe.nerf_config("c4")
+    assert (c4.num_layers, c4.filter_size, c4.compute_dtype) == (8, 1024, "bfloat16")
     assert card_probe.family("Memset (Device)", "gpu_memset") == "memset and copy"
     walk = ("void nerf::(anonymous namespace)::nerf_grad_kernel<32, true, false>(float const*, "
             "int, int)")
@@ -154,9 +162,10 @@ def test_card_probe_sorts_kernels_into_families():
     adam = "void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>(...)"
     assert card_probe.small_family(adam, "kernel") == "Adam"
     assert card_probe.small_family("Memset (Device)", "gpu_memset") == "other"
-    for what in ("grid_sum", "frame", "small"):
+    for args in (["grid_sum"], ["frame"], ["small"], ["flagship", "--config", "c4"],
+                 ["frame", "--config", "c4"]):
         with pytest.raises(SystemExit):
-            card_probe.main(["--what", what])
+            card_probe.main(["--what", *args])
 
 
 def test_card_probe_splits_a_trace_at_its_marker():

@@ -1,8 +1,8 @@
 """The bf16 wide render's fused MLP (``ops/wide_mlp``: the kernel of
-``csrc/nerf_wide_mlp.cuh`` alone, and the ``mma.sync`` chain it replaced)
+``csrc/nerf_wide_mlp.cuh`` alone, and the layer chain it replaced)
 against the JAX package and against numpy, on the CPU.
 
-On CPU tensors ``wide_mlp.wide_mlp`` and ``wide_mlp.render_rays_mma`` run
+On CPU tensors ``wide_mlp.wide_mlp`` and ``wide_mlp.render_rays_layers`` run
 their plain versions; they and the port's ``render_rays`` are held to the
 JAX package's W kernel (``_nerf_forward_kernel_W``, shared ``(S,)`` depths)
 and packed kernel (``_nerf_forward_kernel``, per-ray ``(N, S)`` depths) in
@@ -10,8 +10,8 @@ interpret mode, within ``tests/test_torch_wide.py``'s bf16 bounds.  The
 kernel's order (128-row tiles, 32-deep k-steps promoted into f32 sums in
 ascending k, then bias, ReLU and the bf16 round) is restated in numpy and
 held to f64 and to ``test_torch_wide.forward_sequence``; the card tests
-(``tests/test_torch_cuda.py``) hold the kernel to the ``mma.sync`` chain bit
-for bit.  The card scripts' CPU parts are checked here: the plain
+(``tests/test_torch_cuda.py``) hold the kernel to the layer chain bit for
+bit.  The card scripts' CPU parts are checked here: the plain
 continuation of ``scripts/bf16_flips`` and the source edits of
 ``scripts/mlp_variants``.
 """
@@ -65,7 +65,7 @@ def stacks(params, cfg):
 @pytest.mark.parametrize("depths", ["shared", "perray"])
 @pytest.mark.parametrize("layers,width,S", MLPS)
 def test_render_matches_jax_kernels(rng, layers, width, S, depths):
-    """Through the wrapper's plain path (``render_rays_mma`` on CPU tensors)
+    """Through the wrapper's plain path (``render_rays_layers`` on CPU tensors)
     and the port's ``render_rays``, the colours of the JAX W kernel (shared
     depths) or packed kernel (per-ray depths) in interpret mode."""
     cfg, jcfg, (ws, bs), arrays = case(rng, layers, width, S, depths)
@@ -75,7 +75,7 @@ def test_render_matches_jax_kernels(rng, layers, width, S, depths):
     o, d, t, dists = (torch.from_numpy(x) for x in arrays)
     W, b = stacks(params, cfg)
     with torch.no_grad():
-        got = wide_mlp.render_rays_mma(W, b, t, dists, o, d, cfg).numpy()
+        got = wide_mlp.render_rays_layers(W, b, t, dists, o, d, cfg).numpy()
         port = fused_nerf.render_rays(params, o, d, t, dists, cfg).numpy()
     assert got.shape == want.shape == (N, 3)
     assert np.abs(got - want).max() <= BF16_COL_ATOL
@@ -155,14 +155,14 @@ def test_fused_order_matches_f64_and_the_sequence(rng, layers, width, S, depths)
 @pytest.mark.parametrize("depths", ["shared", "perray"])
 @pytest.mark.parametrize("layers,width,S", MLPS)
 def test_cpu_path_equals_render_rays_reference(rng, layers, width, S, depths):
-    """On CPU tensors ``render_rays_mma`` computes what the port's plain
+    """On CPU tensors ``render_rays_layers`` computes what the port's plain
     render computes from the params, bit for bit."""
     cfg, _, (ws, bs), arrays = case(rng, layers, width, S, depths)
     params = tcore.params_from_numpy(ws, bs, "cpu")
     o, d, t, dists = (torch.from_numpy(x) for x in arrays)
     W, b = stacks(params, cfg)
     with torch.no_grad():
-        got = wide_mlp.render_rays_mma(W, b, t, dists, o, d, cfg)
+        got = wide_mlp.render_rays_layers(W, b, t, dists, o, d, cfg)
         want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
     assert torch.equal(got, want)
 
@@ -191,7 +191,7 @@ def test_wide_mlp_refuses_what_it_does_not_take(rng):
     ]
     for W_, b_, t_, dists_, o_, d_, cfg_ in bad:
         with pytest.raises(ValueError):
-            wide_mlp.render_rays_mma(W_, b_, t_, dists_, o_, d_, cfg_)
+            wide_mlp.render_rays_layers(W_, b_, t_, dists_, o_, d_, cfg_)
         if dists_ is dists:
             with pytest.raises(ValueError):
                 wide_mlp.wide_mlp(W_, b_, t_, o_, d_, cfg_)
