@@ -121,7 +121,10 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     digests of the twelve NeRF entry points' outputs against
     ``KERNEL_DIGESTS``, and of the six wide ones at 3x384 and 8x1024 bf16
     (the layer chain past the fused MLP) against ``C4_DIGESTS``, recorded
-    from the tree whose chain ran ``gemm_mma_kernel``;
+    from the tree whose chain ran ``gemm_mma_kernel``, and at 3x384, 4x512
+    and 1x(75->4) f32 with the wide field's "highest" outputs and dW/db
+    against ``F32_DIGESTS``, recorded from the tree whose f32 products ran
+    ``gemm_kernel``;
 19. runs the grid-overhead sweep (#16,
     ``lomanerf_tpu_torch.scripts.grid_overhead``) at 7,864,320 rows, then
     ``grid_sum`` alone against its plain version and ``torch.sum``, and
@@ -174,14 +177,21 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     (``wide_gemm``, both forms) at one 8x1024 and one flagship gradient
     chunk's layer to its ``mma.sync`` twin bit for bit and to its plain
     version, and times it beside both, ``torch.addmm`` + ``relu_`` and its
-    bound;
+    bound; times the 8x1024 step at f32 compute (every product on the f32
+    GEMM) at 4096 rays in turns with the plain version, and holds the f32
+    GEMM alone (``f32_gemm``: forward, ``d_h``, dW) at one layer of the
+    4x256 field at 512x512 and one f32 8x1024 gradient chunk's to its
+    ``gemm_kernel`` twin bit for bit and to its plain version, timed beside
+    both, the library call (``torch.addmm`` + ``relu_``, ``torch.mm``) and
+    its bound;
 25. holds the wide field route (``field_wide.cu``, D2) against its plain
     version on both product routes ("high": 3xTF32, "highest": f32 FMAs):
     8x128 and a 3D field with a 16-channel head on 1037 points, the 4x256
     field over the whole 512x512 image; times each kernel on both tiers and
-    the fit step there against the plain version; fits 200 ``fit_image`` steps
-    of the 4x256 field at 512x512 on the kernels and the plain backend
-    from one init (>= 8 dB above step 0, within 0.3 dB of plain).
+    the fit step there on both tiers against the plain version; fits 200
+    ``fit_image`` steps of the 4x256 field at 512x512 on the kernels and
+    the plain backend from one init (>= 8 dB above step 0, within 0.3 dB
+    of plain).
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
@@ -200,7 +210,9 @@ phase 10's whole-image leaves and flips per route; #3's also with phase
 6's split of the step and phase 21's pipeline summary; #8's also with
 phase 9's fused MLP alone, #10 new against old and the frame's split by
 kernel family; #7-#9's also with phase 24's 8x1024 times and bounds, #7's
-and #8's with the 8x1024 splits and the layer GEMM alone;
+and #8's with the 8x1024 splits and the layer GEMM alone, #7's with the f32
+8x1024 step, #7's and the wide field's with the f32 GEMM alone
+(``gemm_f32_kernel``), the wide field's with their "highest" times;
 #15's ``ms``, ``plain_ms`` and ``library_ms`` the cumprod's
 card work with the L2 flushed, with its share and every op's times, as
 found and flushed, beside them), and ``{"ok": true,
@@ -2726,6 +2738,59 @@ C4_DIGESTS = {
 }
 
 
+# The same digests at f32 compute, recorded from the tree whose f32 products
+# ran gemm_kernel (nerf_wide_gemm.cuh), so that they hold the move onto
+# nerf_wide_f32_gemm.cuh to those bits: the six wide entry points at the f32
+# MLPs of phase 24 (F32_MLPS, both modes, both depth kinds, 1037 rays), and
+# the wide field route's "highest" forward and dW/db at phase 25's three
+# fields on 1037 points (f32_digests).
+F32_MLPS = ("3x384 float32", "4x512 float32", "1x(75->4) float32")
+F32_DIGESTS = {
+    "nerf_wide_render_fwd 3x384 float32":
+        "7180f3901fcfc47b715ead36cff9244883f135d42b7c55a8c4cd79cb872474b2",
+    "nerf_wide_train 3x384 float32":
+        "0fff04f26a36772137d30dd1c46d67265e6434c953973d9f27351229509b2fab",
+    "nerf_wide_render_bwd 3x384 float32":
+        "5b01640b39b5ec22339f4a7cd5eebde0eea57db031f893f2a6593935b0a27750",
+    "nerf_wide_render_fwd_rays 3x384 float32":
+        "6d151ba1a0e5c630dec11a323e79bb54725e5477c1239c609291dda6d2844bb8",
+    "nerf_wide_train_rays 3x384 float32":
+        "37168adf61d3cb44b4c079b1703edea797333c089357a475930124a96979ef4b",
+    "nerf_wide_render_bwd_rays 3x384 float32":
+        "77838d2b30d6a1abe5925b53dca3bd5382ef6c420ec87b664d9d912fe452f88b",
+    "nerf_wide_render_fwd 4x512 float32":
+        "cfc4bb42ca7cce2cfc5f1c941c536f3a0f147a25bc8907bbb20e37623eb144f2",
+    "nerf_wide_train 4x512 float32":
+        "261ad3074d5c9c031eb8742a9c0f5d3412efe0979661616b4b0ec368c934f10b",
+    "nerf_wide_render_bwd 4x512 float32":
+        "5a01dfcafd1e087feb5d9a71d696454d0d3e2865b0ee944b6fe83ce1da0c628d",
+    "nerf_wide_render_fwd_rays 4x512 float32":
+        "fda1e856df46ae3f0aa642d1350c6651b17fd84e4edf738aa8835828b0f105db",
+    "nerf_wide_train_rays 4x512 float32":
+        "e4f4277338f8e0704ae382378c29b7d54e0c832fff6bd95f82da50f786a98c4c",
+    "nerf_wide_render_bwd_rays 4x512 float32":
+        "d42f7942076e4806a384d2f84da37314475511305ee16590e1272dc0d6384f65",
+    "nerf_wide_render_fwd 1x(75->4) float32":
+        "4cfad15a577e44324568205879ac81ae54a06bf91bc9b2bb5c7463a52785712d",
+    "nerf_wide_train 1x(75->4) float32":
+        "aa9efdc2cbcbc21a27de0ec9988585031de1907e8d74ab9c735661074b53a133",
+    "nerf_wide_render_bwd 1x(75->4) float32":
+        "27574929f3882329909087a3881bd762a3da491988b82a0fedab211602f7c7dc",
+    "nerf_wide_render_fwd_rays 1x(75->4) float32":
+        "d7b46f26c9256f9e736a2062e109ae8c9b06c0e8ce2a596e1e479d58f47c786c",
+    "nerf_wide_train_rays 1x(75->4) float32":
+        "41e3baf790a0ee041cfac75a380ca91fb4d2ee990e59e517a315ebb5ff80af7e",
+    "nerf_wide_render_bwd_rays 1x(75->4) float32":
+        "8e7194bc7d9d2f3ddae36bc098f6e99a6d4eb5c1dc3ecfba6deeb362fad81b00",
+    "field_wide highest 4x256":
+        "fd55ebeccbcc9d85d8a5f04056d19bbcd5db07fbe944e0bd64c18ae6f1ea2e39",
+    "field_wide highest 8x128":
+        "6f9784df94bbcf40e62dd11a2a3ac6b3d42e5d6893df5c53543ea2dc0dba8f3a",
+    "field_wide highest 3d 3x64 16ch":
+        "ab83c32ae495ea098113f6cfe83f0b29d57a57c38a7a35ae197b7e216a93ceff",
+}
+
+
 def kernel_digests(fused_nerf, NeRFConfig, seed=23):
     """SHA-256 of the output bytes of each NeRF entry point (#1-#12) at fixed
     seeded inputs: phase 1 and 4's MLPs (``small``, ``single64``) and phase
@@ -2788,11 +2853,45 @@ def c4_digests(fused_nerf, NeRFConfig, seed=37):
     return {k: h.hexdigest() for k, h in digests.items()}
 
 
-def phase_digests(fused_nerf, NeRFConfig):
+def f32_digests(fused_nerf, fused_mlp, NeRFConfig, ImageFieldConfig, mlp_layer_sizes,
+                seed=43):
+    """SHA-256 of the wide entry points' outputs (:func:`digest_outputs`) at
+    the f32 MLPs of ``F32_MLPS``, each in both compositing modes, keyed by
+    entry point and MLP; and of the wide field route's "highest" output and
+    dW/db (:func:`field_grads` for a seeded cotangent) at each field of
+    :func:`field_wide_configs` on 1037 points."""
+    import hashlib
+
+    rng = np.random.default_rng(seed)
+    digests = {}
+    for name in F32_MLPS:
+        for mode in ("loma", "standard"):
+            cfg = dataclasses.replace(width_configs(NeRFConfig)[name], mode=mode)
+            digest_outputs(fused_nerf, cfg, rng, lambda entry, x: digests.setdefault(
+                f"{entry} {name}", hashlib.sha256()).update(x))
+    for name, (cfg, D, out) in field_wide_configs(ImageFieldConfig).items():
+        params = field_params_for(rng, mlp_layer_sizes, cfg, D, out)
+        if fused_mlp.kernel_width(params, D, cfg.num_encoding_functions, out) is not None:
+            raise AssertionError(f"field {name}: routed to the tile kernels")
+        coords = torch.tensor(rng.random((N_CHECK, D)), dtype=torch.float32, device="cuda")
+        cot = torch.tensor(rng.standard_normal((N_CHECK, out)), dtype=torch.float32,
+                           device="cuda")
+        y, grads, _ = field_grads(lambda p, c, nf: fused_mlp.field_forward(
+            p, c, nf, out, precision="highest"), params, coords, cot, cfg.num_encoding_functions)
+        h = digests[f"field_wide highest {name}"] = hashlib.sha256()
+        for x in (y, *grads):
+            h.update(x.detach().cpu().numpy().tobytes())
+    return {k: h.hexdigest() for k, h in digests.items()}
+
+
+def phase_digests(fused_nerf, fused_mlp, NeRFConfig, ImageFieldConfig, mlp_layer_sizes):
     """Phase 18, the bit check: :func:`kernel_digests` against
-    ``KERNEL_DIGESTS`` and :func:`c4_digests` against ``C4_DIGESTS``."""
+    ``KERNEL_DIGESTS``, :func:`c4_digests` against ``C4_DIGESTS`` and
+    :func:`f32_digests` against ``F32_DIGESTS``."""
+    f32 = f32_digests(fused_nerf, fused_mlp, NeRFConfig, ImageFieldConfig, mlp_layer_sizes)
     for what, got, want in (("#1-#12", kernel_digests(fused_nerf, NeRFConfig), KERNEL_DIGESTS),
-                            ("C4", c4_digests(fused_nerf, NeRFConfig), C4_DIGESTS)):
+                            ("C4", c4_digests(fused_nerf, NeRFConfig), C4_DIGESTS),
+                            ("f32", f32, F32_DIGESTS)):
         for name, h in got.items():
             print(f"phase 18 digest {name}: {h}")
         if got != want:
@@ -3577,6 +3676,7 @@ def phase_widths(fused_nerf, NeRFConfig, make_single_chip_train_step, mlp_layer_
                                rtol=1e-4, atol=0.0)
     del runs, small_batch, params, leaves
     torch.cuda.empty_cache()
+    f32_step = phase_f32_step(fused_nerf, cfg, make_single_chip_train_step, fwd, bwd, smi)
 
     # train_nerf at 8x1024 (f32, the compute dtype it trains in)
     reset_launches(fused_nerf)
@@ -3594,7 +3694,158 @@ def phase_widths(fused_nerf, NeRFConfig, make_single_chip_train_step, mlp_layer_
           f"{secs:.1f} s host time; losses {[round(x, 4) for x in out['losses']]}; launches "
           f"{driver}")
     timing = {k: (v, plain_ms if k == "nerf_wide_train" else None) for k, v in timing.items()}
-    return worst, timing, bounds, driver
+    return worst, timing, bounds, driver, f32_step
+
+
+def phase_f32_step(fused_nerf, cfg, make_single_chip_train_step, fwd_macs, bwd_macs, smi):
+    """Phase 24, the 8x1024 MLP at f32 compute (the ``train_nerf --layers 8
+    --width 1024`` default: every product on the f32 GEMM,
+    ``nerf_wide_f32_gemm.cuh``): the Adam 5e-4 step at 4096 rays through
+    the kernels and the plain version from one init, in turns, first losses
+    within rtol 1e-5; its share of the f32 bound (dW, d_h and the forward
+    again at 67 TFLOP/s); each wide entry point's own call there at shared
+    and per-ray depths against its f32 bound.  Returns their numbers."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = bench_batch(np.random.default_rng(2), cfg, WIDTHS_PLAIN_RAYS)
+    runs = {}
+    for backend in ("auto", "plain"):
+        prm = seeded_params(np.random.default_rng(0), cfg)
+        opt = torch.optim.Adam(leaves_of(prm), lr=5e-4)
+
+        def plain_step(p, *b, _opt=opt):
+            _opt.zero_grad(set_to_none=True)
+            loss = fused_nerf.nerf_train_loss_reference(p, *b, cfg)
+            loss.backward()
+            _opt.step()
+            return loss.detach()
+
+        st = make_single_chip_train_step(cfg, opt) if backend == "auto" else plain_step
+        runs[backend] = (lambda p=prm, s=st: s(p, *batch))
+    first = {k: fn().item() for k, fn in runs.items()}
+    torch.testing.assert_close(torch.tensor(first["auto"]), torch.tensor(first["plain"]),
+                               rtol=1e-5, atol=0.0)
+    turns = timed_turns(runs, 2)
+    rows = WIDTHS_PLAIN_RAYS * cfg.num_samples
+    bd = bound(rows * bwd_macs, PEAK_F32, 0)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"phase 24 8x1024 f32 train step at {WIDTHS_PLAIN_RAYS} rays x {cfg.num_samples}, "
+          f"Adam 5e-4, on {smi}, in turns: kernels {spread(turns['auto'])}, plain "
+          f"{spread(turns['plain'])}; {2.0 * rows * bwd_macs / med['auto'] / 1e9:.1f} TFLOP/s, "
+          f"{bd[0] / med['auto']:.1%} of its f32 bound {bd[0]:.3f} ms ({bd[1]}); first losses "
+          f"kernel {first['auto']:.6e} plain {first['plain']:.6e}")
+    del runs
+    # each wide entry point's own call there, at shared and per-ray depths
+    o, d, t, dists, tgt = batch
+    jit = jittered_depths(np.random.default_rng(3), cfg, WIDTHS_PLAIN_RAYS)
+    params = seeded_params(np.random.default_rng(0), cfg)
+    leaves = leaves_of(params)
+    cot = torch.tensor(np.random.default_rng(1).standard_normal((WIDTHS_PLAIN_RAYS, 3)),
+                       dtype=torch.float32, device="cuda")
+    entries = {}
+    for (tt, dd), suf in (((t, dists), ""), (jit, "_rays")):
+        def render(tt=tt, dd=dd):
+            with torch.no_grad():
+                return fused_nerf.render_rays(params, o, d, tt, dd, cfg)
+
+        def train(tt=tt, dd=dd):
+            loss = fused_nerf.nerf_train_loss(params, o, d, tt, dd, tgt, cfg)
+            return torch.autograd.grad(loss, leaves)
+        out = fused_nerf.render_rays(params, o, d, tt, dd, cfg)
+
+        def render_bwd(out=out):
+            return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        for name, fn, macs in (("nerf_wide_render_fwd", render, fwd_macs),
+                               ("nerf_wide_train", train, bwd_macs),
+                               ("nerf_wide_render_bwd", render_bwd, bwd_macs)):
+            fn()
+            ts = [cuda_ms(fn)[0] for _ in range(3)]
+            ebd = bound(rows * macs, PEAK_F32, WIDTHS_PLAIN_RAYS * 36)
+            entries[name + suf] = {"ms": statistics.median(ts), "bound_ms": ebd[0],
+                                   "bound_by": ebd[1]}
+            print(f"phase 24 {name + suf} alone, 8x1024 f32, {WIDTHS_PLAIN_RAYS} rays x "
+                  f"{cfg.num_samples}: {spread(ts)}; f32 bound {ebd[0]:.3f} ms ({ebd[1]}), "
+                  f"{ebd[0] / statistics.median(ts):.1%} of it")
+        del out
+    del batch, o, d, t, dists, tgt, jit, params, leaves, cot
+    torch.cuda.empty_cache()
+    return {"rays": WIDTHS_PLAIN_RAYS, "ms": med["auto"], "plain_ms": med["plain"],
+            "bound_ms": bd[0], "bound_by": bd[1], "share": bd[0] / med["auto"],
+            "entries": entries}
+
+
+# the f32 GEMM alone at the field's layer: the rows of one hidden layer of
+# the 4x256 field at 512x512 (phase 25's cell)
+F32_GEMM_ROWS = 512 * 512
+
+
+def phase_f32_gemm(fused_nerf, f32_gemm, NeRFConfig, smi, seed=47):
+    """Phase 24, the f32 GEMM alone (``f32_gemm``: ``nerf_wide_f32_gemm.cuh``,
+    the forward, ``d_h`` and dW forms) at one hidden layer of the 4x256
+    field at 512x512 (262,144 x 256 . 256 x 256) and at one gradient
+    chunk's hidden layer of the f32 8x1024 MLP (rows x 1024 . 1024 x 1024):
+    bit for bit its ``gemm_kernel`` twin's (``*_fma``), within 1e-5 of the
+    largest entry of the plain version; timed in turns with the twin, the
+    plain version and the library call (``torch.addmm`` + ``relu_``, or
+    ``torch.mm``; f32, TF32 off), against its bound.  Returns {shape:
+    {form: numbers}}."""
+    out = {}
+    g = torch.Generator("cuda").manual_seed(seed)
+    big = dataclasses.replace(width_configs(NeRFConfig)["8x1024 bfloat16"],
+                              compute_dtype="float32")
+    for name, rows, pw in (("field 4x256", F32_GEMM_ROWS, 256),
+                           ("8x1024 f32", fused_nerf.wide_grad_chunk_rays(big, 1024, 8)
+                            * big.num_samples, 1024)):
+        h = torch.rand((rows, pw), generator=g, device="cuda")
+        dz = torch.randn((rows, pw), generator=g, device="cuda")
+        mask = torch.randn((rows, pw), generator=g, device="cuda")
+        W = torch.randn((pw, pw), generator=g, device="cuda") / pw ** 0.5
+        b = torch.randn(pw, generator=g, device="cuda") * 0.1
+        kc = 8192
+        act = 4 * rows * pw  # bytes of one (rows, pw) f32 operand
+        forms = {
+            "forward": ({"kernel": lambda: f32_gemm.f32_layer_gemm(h, W, b, pw),
+                         "fma": lambda: f32_gemm.f32_layer_gemm_fma(h, W, b, pw),
+                         "plain": lambda: f32_gemm.layer_reference(h, W, b, pw),
+                         "library": lambda: torch.addmm(b, h, W).relu_()},
+                        2 * act + 4 * (pw * pw + pw)),
+            "d_h": ({"kernel": lambda: f32_gemm.f32_dh_gemm(dz, W, mask, pw),
+                     "fma": lambda: f32_gemm.f32_dh_gemm_fma(dz, W, mask, pw),
+                     "plain": lambda: f32_gemm.dh_reference(dz, W, mask, pw),
+                     "library": lambda: torch.mm(dz, W.T)},
+                    3 * act + 4 * pw * pw),
+            "dW": ({"kernel": lambda: f32_gemm.f32_dw_gemm(h, dz, pw, kc),
+                    "fma": lambda: f32_gemm.f32_dw_gemm_fma(h, dz, pw, kc),
+                    "plain": lambda: f32_gemm.dw_reference(h, dz, pw, kc),
+                    "library": lambda: torch.mm(h.T, dz)},
+                   2 * act + 4 * -(-rows // kc) * pw * pw)}
+        out[name] = {}
+        for form, (fns, nbytes) in forms.items():
+            got, twin, plain = fns["kernel"](), fns["fma"](), fns["plain"]()
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int32), twin.view(torch.int32))
+            err = (got - plain).abs().max().item()
+            if not same or err > 1e-5 * plain.abs().max().item():
+                raise AssertionError(f"f32 GEMM {form} at {name}: equal to gemm_kernel's bits "
+                                     f"{same}, |kernel - plain| {err:.3e} of "
+                                     f"{plain.abs().max().item():.3e}")
+            del got, twin, plain
+            ts = timed_turns(fns, 3)
+            med = {k: statistics.median(v) for k, v in ts.items()}
+            bd = bound(rows * pw * pw, PEAK_F32, nbytes)
+            out[name][form] = {"ms": med["kernel"], "fma_ms": med["fma"],
+                               "plain_ms": med["plain"], "library_ms": med["library"],
+                               "bound_ms": bd[0], "bound_by": bd[1], "share": bd[0] / med["kernel"],
+                               "max_abs_err": err, "rows": rows, "pw": pw}
+            print(f"phase 24 f32 GEMM {form} at {name} ({rows} x {pw} . {pw} x {pw}) on {smi}: "
+                  f"kernel {spread(ts['kernel'])}, "
+                  f"{2.0 * rows * pw * pw / med['kernel'] / 1e9:.1f} TFLOP/s, "
+                  f"{bd[0] / med['kernel']:.1%} of its bound {bd[0]:.3f} ms ({bd[1]}); "
+                  f"gemm_kernel {med['fma']:.3f}, plain {med['plain']:.3f}, "
+                  f"{'addmm + relu_' if form == 'forward' else 'mm'} {med['library']:.3f}; bits "
+                  f"of gemm_kernel, max|kernel-plain| {err:.3e}")
+        del h, dz, mask, W, b
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_c4_split(fused_nerf, NeRFConfig):
@@ -3834,14 +4085,15 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
     # the fit step (Adam 1e-3) through the kernels and the plain backend
     target = torch.rand((n_px, out), generator=torch.Generator("cuda").manual_seed(2),
                         device="cuda")
-    for backend, key in (("auto", "step"), ("plain", "plain step")):
+    for tier, backend, key in (("high", "auto", "step"), ("highest", "auto", "step highest"),
+                               ("high", "plain", "plain step")):
         prm = {k: [x.detach().clone().requires_grad_(True) for x in v]
                for k, v in params.items()}
-        fit_step = make_image_fit_step(cfg, torch.optim.Adam(leaves_of(prm), lr=1e-3),
-                                       backend)
+        fit_step = make_image_fit_step(dataclasses.replace(cfg, precision=tier),
+                                       torch.optim.Adam(leaves_of(prm), lr=1e-3), backend)
         calls[key] = lambda s=fit_step, p=prm: s(p, coords, target)
     turns = timed_turns(calls, 3)
-    timing, bounds, tiers = {}, {}, {}
+    timing, bounds, tiers, f32_share = {}, {}, {}, {}
     n_par = sum(x.numel() for x in leaves)
     # the least time of the function the fit runs: the "high" tier (the
     # config's default), which 3xTF32 meets, as phase 12 bounds #13/#14;
@@ -3858,6 +4110,8 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
         for tier in FIELD_TIERS:
             ms = statistics.median(turns[f"{kind} {tier}"])
             tiers.setdefault(name, {})[tier] = ms
+            if tier == "highest":
+                f32_share[name] = f32_bound[0] / ms
             print(f"phase 25 {name} \"{tier}\" alone, 4x256 at {FIELD_WIDE_SIZE}x"
                   f"{FIELD_WIDE_SIZE}, on {smi}: kernel {spread(turns[f'{kind} {tier}'])}, "
                   f"plain {spread(turns[f'{kind} plain'])}; "
@@ -3866,10 +4120,12 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
                   f"{bounds[name][0] / ms:.1%} of it); f32 bound {f32_bound[0]:.4f} ms "
                   f"({f32_bound[1]}, {f32_bound[0] / ms:.1%} of it)")
         timing[name] = (tiers[name]["high"], plain_ms)
-    step_ms = {k: statistics.median(turns[k]) for k in ("step", "plain step")}
+    step_ms = {k: statistics.median(turns[k]) for k in ("step", "step highest", "plain step")}
     print(f"phase 25 fit step, 4x256 at {FIELD_WIDE_SIZE}x{FIELD_WIDE_SIZE}, Adam 1e-3, in "
-          f"turns: kernels {spread(turns['step'])}, plain {spread(turns['plain step'])}; "
-          f"{n_px / step_ms['step'] * 1e3:.4e} px/s")
+          f"turns: kernels \"high\" {spread(turns['step'])}, \"highest\" "
+          f"{spread(turns['step highest'])}, plain {spread(turns['plain step'])}; "
+          f"{n_px / step_ms['step'] * 1e3:.4e} px/s (\"high\"), "
+          f"{n_px / step_ms['step highest'] * 1e3:.4e} (\"highest\")")
     del outs, p_out, calls, params, leaves
 
     base = ["--device", "cuda", "--img", "synthetic", "--optimizer", "adam", "--ckpt-every",
@@ -3909,8 +4165,11 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
     if gain < HIRES_GAIN_DB or diff > HIRES_PLAIN_DB:
         raise AssertionError(f"fit 4x256: gain {gain:.2f} dB (need {HIRES_GAIN_DB}), "
                              f"|kernel - plain| {diff:.3f} dB (need <= {HIRES_PLAIN_DB})")
-    extra = {name: {"highest_ms": tiers[name]["highest"]} for name in tiers}
-    extra["field_wide_bwd"].update(step_ms=step_ms["step"], plain_step_ms=step_ms["plain step"])
+    extra = {name: {"highest_ms": tiers[name]["highest"],
+                    "highest_share_of_f32_bound": f32_share[name]} for name in tiers}
+    extra["field_wide_bwd"].update(step_ms=step_ms["step"],
+                                   highest_step_ms=step_ms["step highest"],
+                                   plain_step_ms=step_ms["plain step"])
     return worst, timing, bounds, launches, extra
 
 
@@ -3942,8 +4201,8 @@ def main() -> None:
     from lomanerf_tpu_torch.data import native, synthetic_views
     from lomanerf_tpu_torch.models import (ImageFieldConfig, ImageFieldModel, NeRFConfig,
                                            NeRFModel, image_grid_coords)
-    from lomanerf_tpu_torch.ops import (build, fused_mlp, fused_nerf, probe, scans, wide_dw,
-                                        wide_gemm, wide_mlp)
+    from lomanerf_tpu_torch.ops import (build, f32_gemm, fused_mlp, fused_nerf, probe, scans,
+                                        wide_dw, wide_gemm, wide_mlp)
     from lomanerf_tpu_torch.scripts import grid_overhead, variants
     from lomanerf_tpu_torch.train import fit_image, make_video, train_nerf
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
@@ -4151,7 +4410,7 @@ def main() -> None:
         "share": bounds["seg_scans"][0] / timing["seg_scans"][0],
         "ops": {op: {mode: dict(zip(("ms", "plain_ms", "library_ms"), t))
                      for mode, t in modes.items()} for op, modes in scan_timing.items()}}
-    phase_digests(fused_nerf, NeRFConfig)
+    phase_digests(fused_nerf, fused_mlp, NeRFConfig, ImageFieldConfig, mlp_layer_sizes)
 
     # ---- phase 19: the grid-overhead probe (#16) ----
     worst["grid_sum"], launches["grid_sum"], grid_ms, bounds["grid_sum"], _ = \
@@ -4178,7 +4437,7 @@ def main() -> None:
 
     # ---- phase 24: NeRF MLPs at any width (C4) and narrow ones in bf16 (A4) ----
     with tempfile.TemporaryDirectory() as tmp:
-        w_worst, w_timing, w_bounds, w_launches = phase_widths(
+        w_worst, w_timing, w_bounds, w_launches, f32_step = phase_widths(
             fused_nerf, NeRFConfig, make_single_chip_train_step, mlp_layer_sizes, train_nerf,
             smi, tmp)
     for k, e in w_worst.items():
@@ -4191,11 +4450,17 @@ def main() -> None:
             "bound_by": w_bounds[k][1]}}
     c4_split = phase_c4_split(fused_nerf, NeRFConfig)
     layer_gemm = phase_layer_gemm(fused_nerf, wide_gemm, NeRFConfig, smi)
-    # #7's and #8's entries also carry the 8x1024 splits and the layer GEMM alone
+    f32_gemm_alone = {"kernel": "gemm_f32_kernel", "source": _CSRC + "nerf_wide_f32_gemm.cuh",
+                      **phase_f32_gemm(fused_nerf, f32_gemm, NeRFConfig, smi)}
+    # #7's and #8's entries also carry the 8x1024 splits and the layer GEMM
+    # alone, #7's the f32 8x1024 step; #7's and the wide field's the f32 GEMM
+    # alone
     extra["nerf_wide_train"]["c4_8x1024"]["split"] = c4_split["step"]
+    extra["nerf_wide_train"]["c4_8x1024"]["f32_step_4096_rays"] = f32_step
     extra["nerf_wide_render_fwd"]["c4_8x1024"]["split"] = c4_split["frame"]
     for k in ("nerf_wide_train", "nerf_wide_render_fwd"):
         extra[k]["layer_gemm"] = layer_gemm
+    extra["nerf_wide_train"]["f32_gemm"] = f32_gemm_alone
 
     # ---- phase 25: image fields past the tile kernels (D2) ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -4207,6 +4472,8 @@ def main() -> None:
     bounds.update(f_bounds)
     launches.update(f_launches)
     extra.update(f_extra)
+    for k in ("field_wide_fwd", "field_wide_bwd"):
+        extra[k]["f32_gemm"] = f32_gemm_alone
 
     for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share
         extra[name] = {**extra.get(name, {}), "share": bounds[name][0] / timing[name][0]}

@@ -74,6 +74,12 @@ SIGNATURES = {
     #  dh, stream), dh 0 the forward layer, 1 d_h
     "wide_layer_gemm": [_P] * 6 + [_I] * 4 + [_P],
     "wide_layer_gemm_mma": [_P] * 6 + [_I] * 4 + [_P],
+    # the wide chain's f32 GEMM alone (nerf_wide_f32_gemm.cuh) and the FMA
+    #  kernel it replaced (gemm_kernel): (A, lda, B, ldb, bias, mask, C, ldc,
+    #  M, N, K, k_chunk, form, stream), form 0 forward, 1 d_h, 2 dW, 3 head,
+    #  4 the head's d_z
+    "wide_f32_gemm": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
+    "wide_f32_gemm_fma": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
     # the 2D field (field_common.cuh): (pk, coords, out, n_blocks, n, L,
     #  in_dim, width, num_functions, out_ch, exact, stream); exact != 0 the
     #  f32 FMA products of the "highest" tier, 0 3xTF32

@@ -32,9 +32,10 @@
 //      3xTF32 (field_wide_gemm.cuh: mma.sync with the tile kernels' split
 //      arithmetic, 128x64 block tiles staged by cp.async through a
 //      three-stage ring), "highest" as exact f32 FMAs
-//      (nerf_wide_gemm.cuh:gemm_kernel); hidden layers with bias + ReLU in
+//      (nerf_wide_f32_gemm.cuh); hidden layers with bias + ReLU in
 //      the epilogue, the head (through the same GEMM as the hidden layers,
-//      a 128x16 block tile) with bias + sigmoid (kEpiSigmoid) on out_ch
+//      a narrow block tile: 128x16 in 3xTF32, 256x16 in FMAs) with bias +
+//      sigmoid (kEpiSigmoid) on out_ch
 //      columns, or, in the backward, d_z = dout * y * (1 - y)
 //      (kEpiSigmoidGrad);
 //   3. backward, layer by layer in reverse: dW_l as split-K partials over
@@ -52,6 +53,7 @@
 #include <utility>
 
 #include "field_wide_gemm.cuh"
+#include "nerf_wide_f32_gemm.cuh"
 #include "nerf_wide_gemm.cuh"
 
 namespace {
@@ -98,8 +100,9 @@ struct Field {
 };
 
 // One product of the route, C = epi(A B): exact f32 FMAs for the
-// "highest" tier (nerf_wide_gemm.cuh, which reads the mask at C's row
-// stride), else 3xTF32 on the tensor cores (field_wide_gemm.cuh).
+// "highest" tier (nerf_wide_gemm.cuh:gemm, on nerf_wide_f32_gemm.cuh, which
+// reads the mask at C's row stride), else 3xTF32 on the tensor cores
+// (field_wide_gemm.cuh).
 template <bool kAT, bool kBT, int kEpi>
 cudaError_t product(bool exact, const float* A, int lda, const float* B, int ldb, int M, int N,
                     int K, int k_chunk, const float* bias, const float* mask, int ldm,

@@ -45,6 +45,7 @@
 #include <type_traits>
 #include <utility>
 
+#include "nerf_wide_f32_gemm.cuh"
 #include "nerf_wide_layer_gemm.cuh"
 
 namespace wide {

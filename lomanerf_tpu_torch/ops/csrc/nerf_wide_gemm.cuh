@@ -18,13 +18,15 @@
 //                 y = sigmoid(acc + bias[n]); mask (the    cotangent (f32 only)
 //                 cotangent) has C's row stride ldc
 //
-// Three kernels, chosen in gemm(): for bf16 the forward layer and d_h on
+// Four kernels, chosen in gemm(): for bf16 the forward layer and d_h on
 // wgmma/TMA (layer_gemm, nerf_wide_layer_gemm.cuh) and the other forms on
-// gemm_mma_kernel (below); for f32 gemm_kernel: 128 x 128 outputs per
-// block of 256 threads, 8 x 8
-// per thread, k-steps of 8 staged in shared memory as f32 (already rounded
-// to CDT), so the inner loop is plain f32 FMAs.  Every load of gemm_kernel
-// is bounds-checked (zero fill) and every store guarded, so M, N and K are
+// gemm_mma_kernel (below); for f32 every form on f32_gemm
+// (nerf_wide_f32_gemm.cuh: FMAs on k-tiles staged by cp.async through a
+// ring).  gemm_kernel, the f32 kernel it replaced, stays as its twin
+// (gemm_fma): 128 x 128 outputs per block of 256 threads, 8 x 8 per thread,
+// k-steps of 8 staged in shared memory as f32 (already rounded to CDT), so
+// the inner loop is plain f32 FMAs.  Every load of gemm_kernel is
+// bounds-checked (zero fill) and every store guarded, so M, N and K are
 // arbitrary.
 //
 // Determinism: each output is one thread's sequential sum over its k
@@ -357,17 +359,34 @@ cudaError_t gemm_mma(const TA* A, int lda, const TB* B, int ldb, int M, int N, i
   return cudaGetLastError();
 }
 
+// gemm_kernel's launch, in any of its forms (the *_fma entry points call it
+// directly to compare with the kernel that replaced it)
+template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
+cudaError_t gemm_fma(const TA* A, int lda, const TB* B, int ldb, int M, int N, int K,
+                     int k_chunk, const float* bias, const CDT* mask, void* C, int ldc,
+                     cudaStream_t stream) {
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, (K + k_chunk - 1) / k_chunk);
+  gemm_kernel<TA, TB, CDT, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
+      A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc);
+  return cudaGetLastError();
+}
+
 // The bf16 forward layer and d_h on wgmma fed by TMA, defined in
-// nerf_wide_layer_gemm.cuh (which needs this header's epilogue names).
+// nerf_wide_layer_gemm.cuh, and the f32 GEMM, defined in
+// nerf_wide_f32_gemm.cuh (both need this header's epilogue names).
 template <int kEpi>
 cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
                        int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
                        void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream);
+template <bool kAT, bool kBT, int kEpi>
+cudaError_t f32_gemm(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
+                     int k_chunk, const float* bias, const float* mask, void* C, int ldc,
+                     cudaStream_t stream);
 
 // C = the GEMM of the form the template arguments give (k_chunk = K but for
 // kEpiPartial).  bf16: the forward layer (kEpiBiasRelu, [k][n] B) and d_h
 // from the bf16 d_z copy (kEpiMask, [n][k] B) on layer_gemm, every other
-// form on gemm_mma_kernel; f32: gemm_kernel.
+// form on gemm_mma_kernel; f32: f32_gemm.
 template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
 cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
                  int K, int k_chunk, const float* bias, const CDT* mask,
@@ -384,10 +403,10 @@ cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
                                               C, ldc, stream, Cb);
     }
   } else {
-    const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, (K + k_chunk - 1) / k_chunk);
-    gemm_kernel<TA, TB, CDT, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
-        A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc);
-    return cudaGetLastError();
+    static_assert(std::is_same<TA, float>::value && std::is_same<TB, float>::value,
+                  "f32 compute takes f32 operands");
+    return f32_gemm<kAT, kBT, kEpi>(A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc,
+                                    stream);
   }
 }
 

@@ -28,7 +28,7 @@
 //     nerf_wide_gemm.cuh before it, whose bits it keeps); the fused MLP and
 //     the chain give the same bits;
 //   * f32: the encoding kernel, then one tiled FMA GEMM per hidden layer
-//     (gemm_kernel: 128x128 tiles staged in shared memory) with the bias,
+//     (nerf_wide_f32_gemm.cuh: 128x128 tiles staged by cp.async) with the bias,
 //     ReLU and rounding in the epilogue, activations through device memory
 //     in two ping-pong buffers of one ray chunk;
 //   * then the 4-wide head, the compositing and the colour sum, one warp per

@@ -15,14 +15,19 @@ run against another checkout of the port to compare two trees.
   the kernels launched per step by name (a layer GEMM with its epilogue:
   ``layer_wgmma_kernel kEpiBiasRelu``).  ``--config c4`` takes the 8x1024
   bf16 MLP (C4: mip-NeRF 360's NeRF MLP, S = 128, standard, init "nerf")
-  at the same batch.  With ``--parent DIR``, instead: the wide kernels of
+  at the same batch; ``--config c4f32`` the same MLP at f32 compute (the
+  ``train_nerf --layers 8 --width 1024`` default, every product on the f32
+  GEMM, ``gemm_f32_kernel``) at 4096 rays.  With ``--parent DIR``, instead: the wide kernels of
   this tree against those of the checkout at ``DIR`` (built there), in
-  turns in one process at the config's 16,384-ray batch: the train call
+  turns in one process at the config's batch: the train call
   (``nerf_wide_train``: loss and dW/db) and the render (``render_rays``),
   each pair's outputs required bit-equal, and the Adam step; then, on this
-  tree, the layer GEMM alone (``ops/wide_gemm``: the forward form and the
-  ``d_h`` form, each against its ``gemm_mma_kernel`` twin, bit-equal) at
-  one gradient chunk's layer, beside ``torch.addmm`` + ``relu`` in bf16.
+  tree, the layer GEMM alone (bf16: ``ops/wide_gemm``, the forward form and
+  the ``d_h`` form, each against its ``gemm_mma_kernel`` twin, bit-equal,
+  beside ``torch.addmm`` + ``relu`` in bf16; ``c4f32``: ``ops/f32_gemm``,
+  the forward, ``d_h`` and dW forms against their ``gemm_kernel`` twins,
+  beside ``torch.addmm`` + ``relu_`` and ``torch.mm`` in f32, TF32 off) at
+  one gradient chunk's layer.
 * ``--what small``: device time by kernel family of ``--steps`` ``small``
   train steps (``NeRFConfig.small()``, bench.py's 262,144 rays x 30
   samples, Adam 5e-4, the same batches and seeds as ``--what flagship``)
@@ -41,7 +46,8 @@ run against another checkout of the port to compare two trees.
   own.  Prints ms per frame, each family's share and the kernels
   launched per frame by name.  ``--config c4``: a 128x128 frame (16,384
   rays, the timed batch of chip_smoke's phase 24) of the 8x1024 bf16 MLP,
-  whose render runs the layer chain.  With ``--preset small``: an 800x800
+  whose render runs the layer chain; ``c4f32`` a 64x64 frame (4096 rays) of
+  the f32 one.  With ``--preset small``: an 800x800
   ``small`` frame (one launch of the narrow render, ``nerf_render_fwd``)
   split into the render kernel and the rest of the frame by kernel
   (``get_rays``, the parameter packing, ``uniform_depths``, the ``cat``),
@@ -97,11 +103,13 @@ run against another checkout of the port to compare two trees.
   (:func:`wide_field_label`): the forward's encoding, each layer's GEMM and
   the head; the backward's recomputed encoding and layers, the head's d_z,
   each layer's dW partials, their fixed-order sum, the column sums (db),
-  each layer's ``d_h``; Adam and the rest.  With ``--parent DIR``,
-  instead: ``field_wide_fwd`` and ``field_wide_bwd`` of this tree ("high",
-  with and without the kept activations, and "highest") and of the
-  checkout at ``DIR`` ("high"; built there, under this tree's C ABI) at
-  that cell, in turns in one process.
+  each layer's ``d_h``; Adam and the rest.  ``--tier highest`` fits on the
+  "highest" tier (every product on the f32 GEMM, ``gemm_f32_kernel``).
+  With ``--parent DIR``, instead: ``field_wide_fwd`` and ``field_wide_bwd``
+  of this tree ("high", with and without the kept activations, and
+  "highest") and of the checkout at ``DIR`` ("high" and "highest"; built
+  there, under this tree's C ABI) at that cell, in turns in one process,
+  each tier's outputs required bit-equal across the trees.
 * ``--what scans [--parent DIR]``: ``seg_scans`` (#15), each op at the
   262,144 x 30 column, the same values at S = 64 and 128, and 1024 x 128:
   this tree's kernel, the same at tile stride S (bank conflicts at even
@@ -128,17 +136,18 @@ run against another checkout of the port to compare two trees.
 
 The last line is one JSON object with the numbers.  Run:
 
-    python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3 [--config c4]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --steps 3 [--config c4|c4f32]
     python -m lomanerf_tpu_torch.scripts.card_probe --what flagship --config c4 --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what small --steps 5
-    python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path layers] [--config c4]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what frame [--path layers] [--config c4|c4f32]
     python -m lomanerf_tpu_torch.scripts.card_probe --what frame --preset small
     python -m lomanerf_tpu_torch.scripts.card_probe --what render --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what grid_sum --calls 20
     python -m lomanerf_tpu_torch.scripts.card_probe --what leaves
     python -m lomanerf_tpu_torch.scripts.card_probe --what pipeline --steps 60
     python -m lomanerf_tpu_torch.scripts.card_probe --what field [--parent DIR]
-    python -m lomanerf_tpu_torch.scripts.card_probe --what field_wide [--parent DIR]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what field_wide [--tier highest]
+    python -m lomanerf_tpu_torch.scripts.card_probe --what field_wide --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what walk --parent DIR
     python -m lomanerf_tpu_torch.scripts.card_probe --what scans [--parent DIR]
 """
@@ -166,7 +175,10 @@ FAMILIES = ("fused MLP", "dW", "d_h", "forward", "compositing", "partial and col
             "encoding", "loss sum", "memset and copy", "other")
 _EPILOGUE = {0: "forward", 1: "d_h", 2: "dW"}  # nerf_wide_gemm.cuh's kEpi values
 FRAMES = 2  # 800x800 frames traced by --what frame, after a warm-up frame
-C4_FRAME = 128  # the side of --what frame --config c4: 16,384 rays, phase 24's render
+# the side of --what frame --config c4 (16,384 rays, phase 24's render) and
+# c4f32 (4096 rays), and each config's train batch
+FRAME_SIDE = {"full": 800, "c4": 128, "c4f32": 64}
+CONFIG_RAYS = {"full": 16384, "c4": 16384, "c4f32": 4096}
 SMALL_FAMILIES = ("nerf_grad_kernel", "sum_block_partials", "Adam", "other")
 WORK_CATS = ("kernel", "gpu_memset", "gpu_memcpy")  # the card's work in a trace
 MARKER, MARKER_CYCLES = "spin_kernel", 1000  # torch.cuda._sleep's kernel, between two sets
@@ -194,9 +206,10 @@ def family(name: str, cat: str) -> str:
 
 def layer_epilogue(name: str):
     """The epilogue (``kEpi``) of a layer GEMM by its trace name: the last
-    template argument of ``gemm_kernel``/``gemm_mma_kernel``, the first of
-    ``layer_wgmma_kernel``; None for any other kernel."""
-    gemm = re.search(r"gemm(?:_mma)?_kernel<([^>]*)>", name)
+    template argument of ``gemm_kernel``/``gemm_mma_kernel``/
+    ``gemm_f32_kernel``, the first of ``layer_wgmma_kernel``; None for any
+    other kernel."""
+    gemm = re.search(r"gemm(?:_mma|_f32)?_kernel<([^>]*)>", name)
     if gemm:
         return int(gemm.group(1).split(",")[-1])
     layer = re.search(r"layer_wgmma_kernel<(\d+)", name)
@@ -205,14 +218,16 @@ def layer_epilogue(name: str):
 
 def nerf_config(name: str):
     """The NeRF configuration ``--config`` names: ``full`` (the 8x256
-    flagship) or ``c4`` (8x1024 bf16 at S = 128, standard, init "nerf":
+    flagship), ``c4`` (8x1024 bf16 at S = 128, standard, init "nerf":
     the NeRF MLP of mip-NeRF 360, Barron et al., CVPR 2022, section 5, with
-    the repo's encoding and head; chip_smoke.py phase 24's)."""
+    the repo's encoding and head; chip_smoke.py phase 24's) or ``c4f32``
+    (the same at f32 compute)."""
     from lomanerf_tpu_torch.models import NeRFConfig
 
-    if name == "c4":
+    if name in ("c4", "c4f32"):
         return NeRFConfig(num_layers=8, filter_size=1024, num_samples=128, mode="standard",
-                          init="nerf", compute_dtype="bfloat16")
+                          init="nerf",
+                          compute_dtype="bfloat16" if name == "c4" else "float32")
     return NeRFConfig.full()
 
 
@@ -291,17 +306,19 @@ def train_steps(cfg, n: int, steps: int):
 
 
 def flagship(steps: int, config: str = "full") -> dict:
-    events = train_steps(nerf_config(config), 16384, steps)
+    n = CONFIG_RAYS[config]
+    events = train_steps(nerf_config(config), n, steps)
     ms, launches = collections.Counter(), collections.Counter()
     for name, cat, us, _ in events:
         ms[family(name, cat)] += us / 1e3 / steps
         if cat == "kernel":
             launches[kernel_key(name)] += 1
     total = sum(ms.values())
-    out = {"what": "flagship", "config": config, "steps": steps, "device_ms_per_step": total,
+    out = {"what": "flagship", "config": config, "rays": n, "steps": steps,
+           "device_ms_per_step": total,
            "ms": {k: ms[k] for k in FAMILIES}, "share": {k: ms[k] / total for k in FAMILIES},
            "launches_per_step": {k: v / steps for k, v in sorted(launches.items())}}
-    print(f"{config} train step, 16384 rays, {steps} steps traced: device {total:.3f} ms/step")
+    print(f"{config} train step, {n} rays, {steps} steps traced: device {total:.3f} ms/step")
     for k in FAMILIES:
         print(f"  {k:24s} {ms[k]:9.3f} ms/step  {ms[k] / total:6.1%}")
     print(f"  kernels per step: {out['launches_per_step']}")
@@ -345,7 +362,7 @@ def kernel_key(name: str) -> str:
     GEMM (``gemm_mma_kernel kEpiBiasRelu``, ``layer_wgmma_kernel kEpiMask``)."""
     epi = layer_epilogue(name)
     if epi is not None:
-        fn = re.search(r"(gemm(?:_mma)?_kernel|layer_wgmma_kernel)<", name).group(1)
+        fn = re.search(r"(gemm(?:_mma|_f32)?_kernel|layer_wgmma_kernel)<", name).group(1)
         return f"{fn} {('kEpiBiasRelu', 'kEpiMask', 'kEpiPartial')[epi]}"
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1]
@@ -396,7 +413,7 @@ def frame(path: str, config: str = "full") -> dict:
     from lomanerf_tpu_torch.models import NeRFModel
     from lomanerf_tpu_torch.ops import fused_nerf, wide_mlp
 
-    cfg, size = nerf_config(config), C4_FRAME if config == "c4" else 800
+    cfg, size = nerf_config(config), FRAME_SIDE[config]
     model = NeRFModel(cfg, device="cuda")
     model.init(torch.Generator().manual_seed(0))
     K = normalized_intrinsics(1.1106, device="cuda")
@@ -683,7 +700,7 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
         finally:
             build.load = saved
 
-    cfg, n = nerf_config(config), 16384
+    cfg, n = nerf_config(config), CONFIG_RAYS[config]
     rng = np.random.default_rng(0)
     o, d = (torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device="cuda")
             for _ in range(2))
@@ -725,6 +742,30 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
     # the layer GEMM alone at one gradient chunk's layer of this config
     pw = fused_nerf._round_up(cfg.filter_size, 128)
     rows = fused_nerf.wide_grad_chunk_rays(cfg, pw, cfg.num_layers) * cfg.num_samples
+    out.update(f32_gemm_alone(rows, pw, rounds) if cfg.compute_dtype == "float32"
+               else layer_gemm_alone(rows, pw, rounds))
+    print(f"{config} wide kernels, this tree against {parent}, {n} rays, one call each from "
+          f"an idle card, {2 * rounds} in turns (CUDA event window, median ms), on "
+          f"{out['device']}:")
+    for k in ("train call", "render", "step"):
+        v = out[k]
+        print(f"  {k:12s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
+              f"ratio {v['this tree'] / v['parent']:.4f}")
+    print(f"  the layer GEMM alone at {rows} x {pw} . {pw} x {pw} "
+          f"({'f32' if cfg.compute_dtype == 'float32' else 'bf16, f32 sums'}):")
+    for k in [k for k in out if k.startswith("layer gemm")]:
+        print(f"  {k:20s} " + "  ".join(f"{lib} {ms:8.3f} ms ({out[k]['tflops'][lib]:.1f} "
+                                         "TFLOP/s)" for lib, ms in out[k].items()
+                                         if lib != "tflops"))
+    return out
+
+
+def layer_gemm_alone(rows: int, pw: int, rounds: int) -> dict:
+    """The bf16 layer GEMM alone (``ops/wide_gemm``) at ``rows`` x ``pw``
+    . ``pw`` x ``pw``: each form against its ``gemm_mma_kernel`` twin
+    (bit-equal) and the forward beside ``torch.addmm`` + ``relu_``."""
+    from lomanerf_tpu_torch.ops import wide_gemm
+
     g = torch.Generator("cuda").manual_seed(5)
     h = torch.rand((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
     dz = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
@@ -739,22 +780,46 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
     if not torch.equal(fwd["wgmma"](), fwd["mma"]()) or not all(
             torch.equal(x, y) for x, y in zip(dh["wgmma"](), dh["mma"]())):
         raise SystemExit("card_probe: the layer GEMM differs from its gemm_mma_kernel twin")
-    flop = 2.0 * rows * pw * pw
-    for what, fns in (("layer gemm forward", fwd), ("layer gemm d_h", dh)):
-        out[what] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
-        out[what]["tflops"] = {k: flop / v / 1e9 for k, v in out[what].items()}
-    print(f"{config} wide kernels, this tree against {parent}, 16384 rays, one call each from "
-          f"an idle card, {2 * rounds} in turns (CUDA event window, median ms), on "
-          f"{out['device']}:")
-    for k in ("train call", "render", "step"):
-        v = out[k]
-        print(f"  {k:12s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
-              f"ratio {v['this tree'] / v['parent']:.4f}")
-    print(f"  the layer GEMM alone at {rows} x {pw} . {pw} x {pw} (bf16, f32 sums):")
-    for k in ("layer gemm forward", "layer gemm d_h"):
-        print(f"  {k:20s} " + "  ".join(f"{lib} {ms:8.3f} ms ({out[k]['tflops'][lib]:.1f} "
-                                         "TFLOP/s)" for lib, ms in out[k].items()
-                                         if lib != "tflops"))
+    return gemm_turns({"forward": fwd, "d_h": dh}, 2.0 * rows * pw * pw, rounds)
+
+
+def f32_gemm_alone(rows: int, pw: int, rounds: int) -> dict:
+    """The f32 GEMM alone (``ops/f32_gemm``) at ``rows`` x ``pw`` . ``pw`` x
+    ``pw``: the forward, ``d_h`` and dW (8192-row partials) forms against
+    their ``gemm_kernel`` twins (bit-equal), beside ``torch.addmm`` +
+    ``relu_`` (forward) and ``torch.mm`` (``d_h``; dW over the whole rows)
+    in f32 with TF32 off."""
+    from lomanerf_tpu_torch.ops import f32_gemm
+
+    g = torch.Generator("cuda").manual_seed(5)
+    h = torch.rand((rows, pw), generator=g, device="cuda")
+    dz = torch.randn((rows, pw), generator=g, device="cuda")
+    mask = torch.randn((rows, pw), generator=g, device="cuda")
+    W = torch.randn((pw, pw), generator=g, device="cuda") / pw ** 0.5
+    b = torch.randn(pw, generator=g, device="cuda")
+    forms = {
+        "forward": {"kernel": lambda: f32_gemm.f32_layer_gemm(h, W, b, pw),
+                    "fma": lambda: f32_gemm.f32_layer_gemm_fma(h, W, b, pw),
+                    "addmm": lambda: torch.addmm(b, h, W).relu_()},
+        "d_h": {"kernel": lambda: f32_gemm.f32_dh_gemm(dz, W, mask, pw),
+                "fma": lambda: f32_gemm.f32_dh_gemm_fma(dz, W, mask, pw),
+                "mm": lambda: torch.mm(dz, W.T)},
+        "dW": {"kernel": lambda: f32_gemm.f32_dw_gemm(h, dz, pw, 8192),
+               "fma": lambda: f32_gemm.f32_dw_gemm_fma(h, dz, pw, 8192),
+               "mm": lambda: torch.mm(h.T, dz)}}
+    for form, fns in forms.items():
+        if not torch.equal(fns["kernel"](), fns["fma"]()):
+            raise SystemExit(f"card_probe: the f32 GEMM's {form} differs from its gemm_kernel "
+                             "twin")
+    return gemm_turns(forms, 2.0 * rows * pw * pw, rounds)
+
+
+def gemm_turns(forms: dict, flop: float, rounds: int) -> dict:
+    out = {}
+    for form, fns in forms.items():
+        key = f"layer gemm {form}"
+        out[key] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
+        out[key]["tflops"] = {k: flop / v / 1e9 for k, v in out[key].items()}
     return out
 
 
@@ -937,7 +1002,7 @@ def field_against(parent: str, rounds: int = 3) -> dict:
 
 WIDE_FIELD_SIZE = 512  # chip_smoke.py phase 25's 4x256 cell
 # nerf_wide_gemm.cuh's epilogue codes, the last template argument of both
-# GEMMs of the wide field route (gemm_kernel, FMAs; gemm3_kernel, 3xTF32)
+# GEMMs of the wide field route (gemm_f32_kernel, FMAs; gemm3_kernel, 3xTF32)
 _WIDE_EPI = {0: "forward", 1: "d_h", 2: "dW", 3: "head", 4: "head d_z"}
 
 
@@ -953,7 +1018,7 @@ def wide_field_label(name: str, cat: str, state: dict) -> str:
     else the dW partials'."""
     if cat != "kernel":
         return "memset and copy"
-    gemm = re.search(r"gemm3?_kernel<([^>]*)>", name)
+    gemm = re.search(r"gemm(?:3|_f32)?_kernel<([^>]*)>", name)
     if "encode_kernel" in name:  # after the forward's head and before its d_z: a recompute
         state["pass"] = "bwd" if state.get("last") == "head" else "fwd"
         state["layer"], state["last"] = 0, "encode"
@@ -981,14 +1046,15 @@ def wide_field_label(name: str, cat: str, state: dict) -> str:
     return "other"
 
 
-def wide_field_fit():
-    """``(model, step)`` of phase 25's 4x256 fit at 512x512: seeded init,
-    Adam 1e-3, two numpy seed-0 uniform targets cycled."""
+def wide_field_fit(tier: str = "high"):
+    """``(model, step)`` of phase 25's 4x256 fit at 512x512 on the precision
+    ``tier``: seeded init, Adam 1e-3, two numpy seed-0 uniform targets
+    cycled."""
     from lomanerf_tpu_torch.models import ImageFieldConfig, ImageFieldModel, image_grid_coords
     from lomanerf_tpu_torch.train.steps import make_image_fit_step
 
     cfg = ImageFieldConfig(num_layers=4, filter_size=256, num_encoding_functions=8,
-                           img_size=WIDE_FIELD_SIZE)
+                           img_size=WIDE_FIELD_SIZE, precision=tier)
     n = cfg.img_size ** 2
     coords = image_grid_coords(cfg.img_size, "cuda")
     rng = np.random.default_rng(0)
@@ -1005,10 +1071,10 @@ def wide_field_fit():
     return model, step
 
 
-def field_wide_split(steps: int) -> dict:
+def field_wide_split(steps: int, tier: str = "high") -> dict:
     from lomanerf_tpu_torch.ops import fused_mlp
 
-    model, step = wide_field_fit()
+    model, step = wide_field_fit(tier)
     if fused_mlp.kernel_width(model.params, 2, 8, 3) is not None:
         raise SystemExit("card_probe: the 4x256 field is not on the wide route")
     step(), step()  # warm-up
@@ -1019,10 +1085,10 @@ def field_wide_split(steps: int) -> dict:
         ms[key] += us / 1e3 / steps
         launches[key] += 1
     total = sum(ms.values())
-    out = {"what": "field_wide", "steps": steps, "device_ms_per_step": total,
+    out = {"what": "field_wide", "tier": tier, "steps": steps, "device_ms_per_step": total,
            "ms": dict(ms), "share": {k: v / total for k, v in ms.items()},
            "launches_per_step": {k: v / steps for k, v in launches.items()}}
-    print(f"4x256 image-fit step, {WIDE_FIELD_SIZE}x{WIDE_FIELD_SIZE} px, \"high\" tier, "
+    print(f"4x256 image-fit step, {WIDE_FIELD_SIZE}x{WIDE_FIELD_SIZE} px, \"{tier}\" tier, "
           f"{steps} steps traced: device {total:.3f} ms/step")
     for k, v in ms.items():
         print(f"  {k:28s} {v:9.3f} ms/step  {v / total:6.1%}  "
@@ -1060,6 +1126,7 @@ def field_wide_against(parent: str, rounds: int = 3) -> dict:
     # backward, as under autograd
     runs = {"parent": ("parent", 0, False), "this tree high": ("this tree", 0, False),
             "this tree high kept": ("this tree", 0, True),
+            "parent highest": ("parent", 1, False),
             "this tree highest": ("this tree", 1, False)}
     kept = on("this tree", lambda: fused_mlp._launch_wide_fwd(W, b, coords, 8, 3, dims, 0,
                                                               True))[1]
@@ -1076,6 +1143,10 @@ def field_wide_against(parent: str, rounds: int = 3) -> dict:
                     return on(lib, lambda: fused_mlp._launch_wide_bwd(
                         W, b, coords, cot, 8, dims, exact, kept if keep else None))
             fns[key] = fn
+        for old, new in (("parent", "this tree high"), ("parent highest", "this tree highest")):
+            x, y = fns[old](), fns[new]()
+            if not all(torch.equal(p, q) for p, q in zip(x, y) if p is not None):
+                raise SystemExit(f"card_probe: {entry} {new} differs from {old}")
         out[entry] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
     print(f"wide field route at 4x256, {WIDE_FIELD_SIZE}x{WIDE_FIELD_SIZE}, this tree against "
           f"{parent}, one call each from an idle card, {2 * rounds} in turns (CUDA event "
@@ -1083,7 +1154,8 @@ def field_wide_against(parent: str, rounds: int = 3) -> dict:
     for entry in ("field_wide_fwd", "field_wide_bwd"):
         v = out[entry]
         print(f"  {entry:15s} " + "  ".join(f"{k} {t:8.3f}" for k, t in v.items())
-              + f"  high kept / parent {v['this tree high kept'] / v['parent']:.4f}")
+              + f"  high kept / parent {v['this tree high kept'] / v['parent']:.4f}"
+              + f"  highest / parent's {v['this tree highest'] / v['parent highest']:.4f}")
     return out
 
 
@@ -1260,10 +1332,12 @@ def main(argv=None) -> dict:
                     required=True)
     ap.add_argument("--parent", help="root of the checkout --what walk, field, field_wide, "
                     "render, scans or flagship compares against")
-    ap.add_argument("--config", choices=("full", "c4"), default="full",
+    ap.add_argument("--config", choices=("full", "c4", "c4f32"), default="full",
                     help="the NeRF MLP --what flagship and frame run")
     ap.add_argument("--preset", choices=("full", "small"), default="full",
                     help="the frame --what frame splits")
+    ap.add_argument("--tier", choices=("high", "highest"), default="high",
+                    help="the precision tier --what field_wide fits on")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--path", choices=("fused", "layers"), default="fused")
     ap.add_argument("--calls", type=int, default=20)
@@ -1288,7 +1362,7 @@ def main(argv=None) -> dict:
     elif args.what == "pipeline":
         out = pipeline(args.steps)
     else:
-        if args.what == "frame" and args.config == "c4" and args.path == "layers":
+        if args.what == "frame" and args.config != "full" and args.path == "layers":
             raise SystemExit("card_probe: the c4 frame has no fused MLP; its path is the "
                              "layer chain (--path fused)")
         out = {"flagship": lambda: flagship(args.steps, args.config),
@@ -1297,7 +1371,7 @@ def main(argv=None) -> dict:
                                  else frame(args.path, args.config)),
                "grid_sum": lambda: grid_sum(args.calls),
                "field": lambda: field_split(args.steps),
-               "field_wide": lambda: field_wide_split(args.steps)}[args.what]()
+               "field_wide": lambda: field_wide_split(args.steps, args.tier)}[args.what]()
         if not any(out.get(k) for k in ("device_ms_per_step", "device_ms_per_frame",
                                          "device_ms_per_call")):
             raise SystemExit("card_probe: the trace holds no device time")

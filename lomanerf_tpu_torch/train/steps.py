@@ -83,11 +83,12 @@ def image_fit_loss_fn(params: Params, coords, target, cfg,
     """The sum-MSE of the image field on raw ``(N, 2)`` coords,
     differentiable w.r.t. params."""
     if backend == "fused":
-        # the field kernel forward; its backward is the field's backward kernel
+        # the field kernel forward; its backward is the field's backward
+        # kernel; on the config's precision tier, as the JAX step passes it
         from lomanerf_tpu_torch.ops import fused_mlp
 
         pred = fused_mlp.field_forward(params, coords, cfg.num_encoding_functions,
-                                       cfg.out_channels)
+                                       cfg.out_channels, precision=cfg.precision)
         return sum_mse(pred, target)
     if backend == "plain":
         return image_fit_loss(params, positional_encoding(coords, cfg.num_encoding_functions),

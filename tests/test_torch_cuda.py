@@ -25,9 +25,11 @@ numpy's f64 results and their plain versions, the scans also bit for bit
 to numpy's f32 sequential accumulate and the sum to the numpy restatement
 of its fixed order; the wide chain's bf16 dW stage
 (wgmma/TMA) to f64 of its rounded operands; the bf16 wide render's fused
-MLP (wgmma/TMA) to the layer chain it replaced, bit for bit; and
+MLP (wgmma/TMA) to the layer chain it replaced, bit for bit;
 the wide chain's bf16 layer GEMM (wgmma/TMA, both forms) to the
-``mma.sync`` kernel it replaced, bit for bit.
+``mma.sync`` kernel it replaced, bit for bit; and its exact f32 GEMM
+(``nerf_wide_f32_gemm.cuh``, every form) to the FMA kernel it replaced
+(``gemm_kernel``), bit for bit, signed zeros included.
 """
 
 import dataclasses
@@ -857,6 +859,130 @@ def test_wide_layer_gemm_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         wide_gemm.wide_dh_gemm(a, W, a.float(), 128)
     assert wide_gemm.launches == before
+
+
+def same_bits(x, y):
+    """Bit-equal (``torch.equal`` takes -0 for +0)."""
+    return x.shape == y.shape and torch.equal(x.contiguous().view(torch.int32),
+                                              y.contiguous().view(torch.int32))
+
+
+# the f32 GEMM's forms: the forward layer, the field's head and its d_z
+# (3 columns, row stride 3), d_h (from a hidden layer's d_z, and from a
+# head's: K = 3 at row stride 3), dW's partials (of a hidden layer, and of a
+# head: 3 columns)
+F32_FORMS = ["forward", "head", "head d_z", "d_h", "d_h from a head", "dW", "dW of a head"]
+
+
+def f32_form_calls(form, rows, K, g):
+    """``(wrapper name, call(twin) -> outputs, plain outputs)`` of one form
+    of ``ops/f32_gemm`` on seeded operands: K the contracted width (the
+    input width of dW, 3 for a head's d_h), 256 or 3 output columns; dW at
+    k_chunk 8192 and at rows."""
+    from lomanerf_tpu_torch.ops import f32_gemm
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    N = 3 if form in ("head", "head d_z", "dW of a head") else 256
+    if form in ("forward", "head", "head d_z"):
+        h, W, b = rnd(rows, K), rnd(K, N, scale=K ** -0.5), rnd(N, scale=0.1)
+        if form == "forward":
+            return ("f32_layer_gemm", lambda t: [getattr(f32_gemm, "f32_layer_gemm" + t)(
+                h, W, b, K)], [f32_gemm.layer_reference(h, W, b, K)])
+        dout = rnd(rows, N) if form == "head d_z" else None
+        return ("f32_head_gemm", lambda t: [getattr(f32_gemm, "f32_head_gemm" + t)(
+            h, W, b, K, dout)], [f32_gemm.head_reference(h, W, b, K, dout)])
+    if form.startswith("d_h"):
+        C = 3 if form == "d_h from a head" else K
+        N = K if C == 3 else N
+        dz, W, mask = rnd(rows, C), rnd(N, C, scale=C ** -0.5), rnd(rows, N)
+        return ("f32_dh_gemm", lambda t: [getattr(f32_gemm, "f32_dh_gemm" + t)(
+            dz, W, mask, C)], [f32_gemm.dh_reference(dz, W, mask, C)])
+    h, dz = rnd(rows, K), rnd(rows, N)
+    chunks = (8192, rows)
+    return ("f32_dw_gemm", lambda t: [getattr(f32_gemm, "f32_dw_gemm" + t)(h, dz, K, c)
+                                      for c in chunks],
+            [f32_gemm.dw_reference(h, dz, K, c) for c in chunks])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 1037, 8193, 65536])
+@pytest.mark.parametrize("K", [34, 40, 256, 384, 1024])
+@pytest.mark.parametrize("form", F32_FORMS)
+def test_f32_gemm_equals_its_fma_twin(form, K, rows):
+    """The wide chain's f32 GEMM (``ops/f32_gemm``, ``nerf_wide_f32_gemm.cuh``:
+    every product of #7-#12 at f32 compute and of the wide field's "highest"
+    tier) gives ``gemm_kernel`` (the ``*_fma`` twins) bit for bit in every
+    form, at ragged rows, the field's 34 and the NeRF's 40 input columns,
+    hidden widths to 1024, heads at row stride 3 and dW at k_chunk 8192 and
+    the whole rows; repeat launches bit-identical; the launch counts rise by
+    the calls made; within 1e-4 of the largest entry of the plain version."""
+    need_card()
+    from lomanerf_tpu_torch.ops import f32_gemm
+
+    name, call, plain = f32_form_calls(form, rows, K,
+                                       torch.Generator("cuda").manual_seed(rows * 7 + K))
+    before = dict(f32_gemm.launches)
+    got, again, old = call(""), call(""), call("_fma")
+    torch.cuda.synchronize()
+    for x, y, z, p in zip(got, again, old, plain):
+        assert same_bits(x, y) and same_bits(x, z)
+        assert (x - p).abs().max() <= 1e-4 * p.abs().max()
+    assert f32_gemm.launches[name] == before[name] + 2 * len(got)
+    assert f32_gemm.launches[name + "_fma"] == before[name + "_fma"] + len(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 34, 40, 256, 8193])
+@pytest.mark.parametrize("form", ["d_h", "dW"])
+def test_f32_gemm_keeps_the_signed_zeros_of_its_padding(form, K):
+    """Products that underflow (operands near 1e-25) leave every sum at a
+    signed zero: the last product's sign where the k range is a multiple of
+    8, +0 where gemm_kernel padded it with zero terms.  The f32 GEMM gives
+    the same bits: no zero term more or fewer."""
+    need_card()
+    from lomanerf_tpu_torch.ops import f32_gemm
+
+    g = torch.Generator("cuda").manual_seed(K)
+    if form == "d_h":
+        dz = torch.randn((64, K), generator=g, device="cuda") * 1e-25
+        W = torch.randn((128, K), generator=g, device="cuda") * 1e-25
+        mask = torch.ones((64, 128), device="cuda")
+        got, old = f32_gemm.f32_dh_gemm(dz, W, mask, K), f32_gemm.f32_dh_gemm_fma(dz, W, mask, K)
+        tails = [K]
+    else:
+        h = torch.randn((K, 96), generator=g, device="cuda") * 1e-25
+        dz = torch.randn((K, 80), generator=g, device="cuda") * 1e-25
+        got, old = f32_gemm.f32_dw_gemm(h, dz, 96, 8192), f32_gemm.f32_dw_gemm_fma(h, dz, 96, 8192)
+        tails = [min(8192, K - z * 8192) for z in range(got.shape[0])]
+    torch.cuda.synchronize()
+    assert not got.any() and same_bits(got, old)
+    neg = torch.signbit(got).reshape(len(tails), -1)
+    for part, tail in zip(neg, tails):
+        assert bool(part.any()) == (tail % 8 == 0), (tail, int(part.sum()))
+
+
+@pytest.mark.cuda
+def test_f32_gemm_refuses_what_it_does_not_take():
+    """The C entry points refuse an unknown form and an empty extent
+    (cudaErrorInvalidValue); the wrappers refuse bf16 operands before any
+    launch."""
+    need_card()
+    from lomanerf_tpu_torch.ops import build, f32_gemm
+
+    a = torch.zeros((37, 128), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for entry in ("wide_f32_gemm", "wide_f32_gemm_fma"):
+        fn = getattr(build.load(), entry)
+        for M, form in ((37, 5), (0, 0)):
+            err = fn(a.data_ptr(), 128, a.data_ptr(), 128, a.data_ptr(), None, a.data_ptr(), 128,
+                     M, 128, 128, 128, form, stream)
+            assert err != 0
+    before = dict(f32_gemm.launches)
+    with pytest.raises(ValueError):
+        f32_gemm.f32_layer_gemm(a.to(torch.bfloat16), a[:, :128], a[0], 40)
+    assert f32_gemm.launches == before
 
 
 @pytest.mark.cuda
