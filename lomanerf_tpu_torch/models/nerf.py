@@ -23,6 +23,7 @@ from torch import nn
 
 from lomanerf_tpu_torch.core import encoding, mlp, rays
 from lomanerf_tpu_torch.ops import fused_nerf
+from lomanerf_tpu_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +146,7 @@ class NeRFModel(nn.Module):
         return fused_nerf.nerf_loss(self.params, origins, directions, t_vals,
                                     dists, target, self.config)
 
+    @spanned("lomanerf.nerf.render_image")
     def render_image(self, K, c2w, img_size: int, chunk: Optional[int] = None,
                      mesh=None) -> torch.Tensor:
         """``(img_size, img_size, 3)`` render of pose ``c2w`` on the
@@ -157,7 +159,10 @@ class NeRFModel(nn.Module):
         With ``mesh`` (``parallel.make_mesh``), the frame's rays are sharded
         over its data group and the frame reassembled by an all-gather
         (``parallel.render_step``): every rank of the group must call it,
-        and every rank gets the whole frame, the same bits as without."""
+        and every rank gets the whole frame, the same bits as without.
+
+        Under a profiler the call is the span ``lomanerf.nerf.render_image``,
+        with one ``lomanerf.fused_nerf.render_rays`` a chunk inside it."""
         chunk = chunk or fused_nerf.render_chunk_rays(self.config, self.params)
         if mesh is not None:
             from lomanerf_tpu_torch.parallel import render_step

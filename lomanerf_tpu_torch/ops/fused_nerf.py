@@ -56,6 +56,13 @@ from one to the other.
 
 Like the JAX package, the render and the losses differentiate params only:
 the ray inputs are detached, so their gradients come back ``None``.
+
+Spans (``utils.profiling.span``, recorded only under a profiler):
+``lomanerf.fused_nerf.train_loss`` and ``.render_rays`` around the two
+entry points on every route, ``.pack`` and ``.unpack`` around the parameter
+and gradient layouts, ``.launch.<entry>`` around a C entry's scratch and
+host enqueue, ``.backward`` around each autograd Function's backward (on
+autograd's device thread on the card).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from lomanerf_tpu_torch.core.encoding import positional_encoding
 from lomanerf_tpu_torch.core.losses import sum_mse
 from lomanerf_tpu_torch.core.mlp import Params
 from lomanerf_tpu_torch.core.pipeline import nerf_render_rays
+from lomanerf_tpu_torch.utils.profiling import span, spanned
 
 # kernel launches per C entry point; a run resets them and reads them to
 # show that its render and train steps went through the kernels
@@ -159,6 +167,7 @@ def _blocks(params: Params, width: int):
             for l, w in enumerate(params["w"])]
 
 
+@spanned("lomanerf.fused_nerf.pack")
 def pack_params(params: Params, t_vals: torch.Tensor, dists: torch.Tensor,
                 width: int) -> torch.Tensor:
     """The kernels' flat f32 buffer, on the params' device: per layer, W_l
@@ -185,6 +194,7 @@ def grad_floats(params: Params, width: int) -> int:
     return sum(rows * cols + cols for rows, cols in _blocks(params, width))
 
 
+@spanned("lomanerf.fused_nerf.unpack")
 def unpack_grads(flat: torch.Tensor, params: Params, width: int):
     """The kernels' G gradient floats back to the params' unpadded shapes:
     ``(dW_0.., db_0..)``, zero for head columns past the four it reads."""
@@ -302,18 +312,19 @@ def _launch(pk, t_vals, dists, origins, directions, config, L, width) -> torch.T
             f"{_SMEM_LIMIT} B a block has; render_rays sends such MLPs to the "
             "wide kernels (ROADMAP queue 2, A5)")
     entry = "nerf_render_fwd" + suffix
-    ptrs = (t_vals.data_ptr(), dists.data_ptr()) if suffix else ()
-    out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    err = getattr(build.load(), entry)(
-        pk.data_ptr(), pk.numel(), *ptrs, origins.data_ptr(), directions.data_ptr(),
-        out.data_ptr(), n, config.num_samples, L, config.in_channels,
-        config.num_encoding_functions, width, int(config.mode == "loma"), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches[entry] += 1
-    return out
+    with span("lomanerf.fused_nerf.launch." + entry):
+        ptrs = (t_vals.data_ptr(), dists.data_ptr()) if suffix else ()
+        out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
+        stream = torch.cuda.current_stream(origins.device).cuda_stream
+        err = getattr(build.load(), entry)(
+            pk.data_ptr(), pk.numel(), *ptrs, origins.data_ptr(), directions.data_ptr(),
+            out.data_ptr(), n, config.num_samples, L, config.in_channels,
+            config.num_encoding_functions, width, int(config.mode == "loma"), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        launches[entry] += 1
+        return out
 
 
 def _launch_grad(entry: str, pk, G, t_vals, dists, origins, directions, cot, config,
@@ -334,21 +345,22 @@ def _launch_grad(entry: str, pk, G, t_vals, dists, origins, directions, cot, con
             f"{entry} needs {smem} B of shared memory per block, over the "
             f"{_SMEM_LIMIT} B a block has; the losses and the render backward "
             "send such MLPs to the wide kernels (ROADMAP queue 2, A5)")
-    n_blocks = -(-n // GRAD_THREADS)
-    partials = torch.empty((max(n_blocks, 1), G + 1), dtype=torch.float32,
-                           device=origins.device)
-    out = torch.empty((G + 1,), dtype=torch.float32, device=origins.device)
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    err = getattr(build.load(), entry)(
-        pk.data_ptr(), pk.numel(), G, *ptrs, origins.data_ptr(), directions.data_ptr(),
-        cot.data_ptr(), partials.data_ptr(), out.data_ptr(), n, S, L,
-        config.in_channels, config.num_encoding_functions, width,
-        int(config.mode == "loma"), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches[entry] += 1
-    return out
+    with span("lomanerf.fused_nerf.launch." + entry):
+        n_blocks = -(-n // GRAD_THREADS)
+        partials = torch.empty((max(n_blocks, 1), G + 1), dtype=torch.float32,
+                               device=origins.device)
+        out = torch.empty((G + 1,), dtype=torch.float32, device=origins.device)
+        stream = torch.cuda.current_stream(origins.device).cuda_stream
+        err = getattr(build.load(), entry)(
+            pk.data_ptr(), pk.numel(), G, *ptrs, origins.data_ptr(), directions.data_ptr(),
+            cot.data_ptr(), partials.data_ptr(), out.data_ptr(), n, S, L,
+            config.in_channels, config.num_encoding_functions, width,
+            int(config.mode == "loma"), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        launches[entry] += 1
+        return out
 
 
 def _params_of(wb):
@@ -373,6 +385,7 @@ class _RenderFwd(torch.autograd.Function):
                        width)
 
     @staticmethod
+    @spanned("lomanerf.fused_nerf.backward")
     def backward(ctx, grad_out):
         pk, origins, directions, t_vals, dists, *wb = ctx.saved_tensors
         params = _params_of(wb)
@@ -401,6 +414,7 @@ class _TrainLoss(torch.autograd.Function):
         return out[G]
 
     @staticmethod
+    @spanned("lomanerf.fused_nerf.backward")
     def backward(ctx, g):
         return (None,) * 7 + tuple(g * x for x in ctx.saved_tensors)
 
@@ -410,6 +424,7 @@ class _TrainLoss(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
+@spanned("lomanerf.fused_nerf.pack")
 def pack_wide_params(params: Params, pw: int, compute_dtype: str = "float32"):
     """The wide kernels' parameter stacks, on the params' device: ``W``
     (L, pw, pw) in the compute dtype, layer l's (in, out) weight
@@ -425,6 +440,7 @@ def pack_wide_params(params: Params, pw: int, compute_dtype: str = "float32"):
     return W.to(_DTYPES[compute_dtype]).contiguous(), b.contiguous()
 
 
+@spanned("lomanerf.fused_nerf.unpack")
 def unpack_wide_grads(dW: torch.Tensor, db: torch.Tensor, params: Params):
     """(L, pw, pw) / (L, pw) gradient stacks back to the params' exact
     shapes: ``(dW_0.., db_0..)``."""
@@ -494,22 +510,23 @@ def _launch_wide_render(W, b, t_vals, dists, origins, directions, config) -> tor
     from lomanerf_tpu_torch.ops import build
 
     entry = "nerf_wide_render_fwd" + _suffix(t_vals)
-    L, pw = W.shape[0], W.shape[1]
-    n = origins.shape[0]
-    chunk = max(1, min(n, wide_chunk_rays(config, pw)))
-    slots = 1 if fused_mlp_takes(config, L, pw) else 2
-    acts = torch.empty(slots * chunk * config.num_samples * pw, dtype=W.dtype,
-                       device=origins.device)
-    out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    err = getattr(build.load(), entry)(
-        W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), out.data_ptr(), acts.data_ptr(),
-        n, chunk, *_wide_args(config, pw, L), stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches[entry] += 1
-    return out
+    with span("lomanerf.fused_nerf.launch." + entry):
+        L, pw = W.shape[0], W.shape[1]
+        n = origins.shape[0]
+        chunk = max(1, min(n, wide_chunk_rays(config, pw)))
+        slots = 1 if fused_mlp_takes(config, L, pw) else 2
+        acts = torch.empty(slots * chunk * config.num_samples * pw, dtype=W.dtype,
+                           device=origins.device)
+        out = torch.empty((n, 3), dtype=torch.float32, device=origins.device)
+        stream = torch.cuda.current_stream(origins.device).cuda_stream
+        err = getattr(build.load(), entry)(
+            W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
+            origins.data_ptr(), directions.data_ptr(), out.data_ptr(), acts.data_ptr(),
+            n, chunk, *_wide_args(config, pw, L), stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        launches[entry] += 1
+        return out
 
 
 def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
@@ -522,33 +539,34 @@ def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
     from lomanerf_tpu_torch.ops import build
 
     entry += _suffix(t_vals)
-    L, pw = W.shape[0], W.shape[1]
-    n, S, dev = origins.shape[0], config.num_samples, origins.device
-    chunk = max(1, min(n, wide_grad_chunk_rays(config, pw, L)))
-    rows = chunk * S
-    n_parts = -(-rows // WIDE_ROW_CHUNK) * pw * pw
+    with span("lomanerf.fused_nerf.launch." + entry):
+        L, pw = W.shape[0], W.shape[1]
+        n, S, dev = origins.shape[0], config.num_samples, origins.device
+        chunk = max(1, min(n, wide_grad_chunk_rays(config, pw, L)))
+        rows = chunk * S
+        n_parts = -(-rows // WIDE_ROW_CHUNK) * pw * pw
 
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    acts = torch.empty(L * rows * pw, dtype=W.dtype, device=dev)
-    dz, dz_head, partials = f32(2 * rows * pw), f32(rows * _HEAD), f32(n_parts)
-    # bf16: the rounded copies of the two d_z buffers, the dW stage's operand
-    dzb = torch.empty(2 * rows * pw, dtype=W.dtype, device=dev) \
-        if W.dtype == torch.bfloat16 else None
-    ray_loss, dW, db, loss = f32(max(n, 1)), f32(L, pw, pw), f32(L, pw), f32(1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(build.load(), entry)(
-        W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), cot.data_ptr(), acts.data_ptr(),
-        dz.data_ptr(), None if dzb is None else dzb.data_ptr(), dz_head.data_ptr(),
-        partials.data_ptr(), n_parts,
-        ray_loss.data_ptr(), dW.data_ptr(), db.data_ptr(), loss.data_ptr(), n, chunk,
-        *_wide_args(config, pw, L), stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches[entry] += 1
-    return loss, dW, db
+        acts = torch.empty(L * rows * pw, dtype=W.dtype, device=dev)
+        dz, dz_head, partials = f32(2 * rows * pw), f32(rows * _HEAD), f32(n_parts)
+        # bf16: the rounded copies of the two d_z buffers, the dW stage's operand
+        dzb = torch.empty(2 * rows * pw, dtype=W.dtype, device=dev) \
+            if W.dtype == torch.bfloat16 else None
+        ray_loss, dW, db, loss = f32(max(n, 1)), f32(L, pw, pw), f32(L, pw), f32(1)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(build.load(), entry)(
+            W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
+            origins.data_ptr(), directions.data_ptr(), cot.data_ptr(), acts.data_ptr(),
+            dz.data_ptr(), None if dzb is None else dzb.data_ptr(), dz_head.data_ptr(),
+            partials.data_ptr(), n_parts,
+            ray_loss.data_ptr(), dW.data_ptr(), db.data_ptr(), loss.data_ptr(), n, chunk,
+            *_wide_args(config, pw, L), stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        launches[entry] += 1
+        return loss, dW, db
 
 
 class _WideRender(torch.autograd.Function):
@@ -565,6 +583,7 @@ class _WideRender(torch.autograd.Function):
         return _launch_wide_render(W, b, t_vals, dists, origins, directions, config)
 
     @staticmethod
+    @spanned("lomanerf.fused_nerf.backward")
     def backward(ctx, grad_out):
         origins, directions, t_vals, dists, W, b, *wb = ctx.saved_tensors
         _, dW, db = _launch_wide_grad("nerf_wide_render_bwd", W, b, t_vals, dists,
@@ -588,6 +607,7 @@ class _WideTrainLoss(torch.autograd.Function):
         return loss[0]
 
     @staticmethod
+    @spanned("lomanerf.fused_nerf.backward")
     def backward(ctx, g):
         return (None,) * 7 + tuple(g * x for x in ctx.saved_tensors)
 
@@ -671,6 +691,7 @@ class _WidePlain(torch.autograd.Function):
         return col
 
     @staticmethod
+    @spanned("lomanerf.fused_nerf.backward")
     def backward(ctx, dcol):
         dists, *rest = ctx.saved_tensors
         L = ctx.L
@@ -679,6 +700,7 @@ class _WidePlain(torch.autograd.Function):
         return (None,) * 5 + (*gws, *gbs)
 
 
+@spanned("lomanerf.fused_nerf.render_rays")
 def render_rays(params: Params, origins, directions, t_vals, dists, config) -> torch.Tensor:
     """Fused render of ``(N, 3)`` rays to ``(N, 3)`` colours, with the JAX
     signature: depths and steps ``(S,)`` shared by every ray or per-ray
@@ -717,6 +739,7 @@ def render_rays_reference(params: Params, origins, directions, t_vals, dists,
     )
 
 
+@spanned("lomanerf.fused_nerf.train_loss")
 def nerf_train_loss(params: Params, origins, directions, t_vals, dists, target,
                     config) -> torch.Tensor:
     """Sum-MSE train loss whose gradient comes from one call of a fused

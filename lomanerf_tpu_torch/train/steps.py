@@ -15,6 +15,7 @@ from lomanerf_tpu_torch.core.encoding import positional_encoding
 from lomanerf_tpu_torch.core.losses import sum_mse
 from lomanerf_tpu_torch.core.mlp import Params
 from lomanerf_tpu_torch.core.pipeline import image_fit_loss, nerf_loss_rays
+from lomanerf_tpu_torch.utils.profiling import spanned
 
 BACKENDS = ("auto", "plain")
 
@@ -59,9 +60,13 @@ def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
     this step with ``reduce_fn(params, loss) -> loss``, which sums the
     gradients and the loss over the ranks between the backward and the
     update, and, under tensor parallelism, ``mlp_fn`` (see
-    :func:`nerf_loss_fn`)."""
+    :func:`nerf_loss_fn`).
+
+    Under a profiler the whole step is the span ``lomanerf.steps.train_step``
+    (zero_grad, the optimizer and autograd carry PyTorch's own)."""
     backend = resolve_backend(cfg, backend)
 
+    @spanned("lomanerf.steps.train_step")
     def step(model_or_params, origins, directions, t_vals, dists, target):
         params = (model_or_params.params if isinstance(model_or_params, torch.nn.Module)
                   else model_or_params)

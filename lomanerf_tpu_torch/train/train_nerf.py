@@ -119,6 +119,7 @@ def main(argv=None) -> dict:
     from lomanerf_tpu_torch.train import optim
     from lomanerf_tpu_torch.train.checkpoint import CheckpointManager
     from lomanerf_tpu_torch.train.logging_utils import MetricsLogger, write_png
+    from lomanerf_tpu_torch.utils.profiling import span
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -195,7 +196,7 @@ def main(argv=None) -> dict:
     view = args.eval_view % n_views
     losses, psnrs = [], {}
     for i in range(start_step, args.steps):
-        with torch.profiler.record_function("train_nerf.step"):
+        with span("train_nerf.step"):
             if pipe is not None:
                 o, d, dt, tgt = pipe.next_batch()
                 o = o + d * dt[:, None]

@@ -1,3 +1,4 @@
 """Utilities: profiling hooks."""
 
-from lomanerf_tpu_torch.utils.profiling import device_memory_stats, trace  # noqa: F401
+from lomanerf_tpu_torch.utils.profiling import (  # noqa: F401
+    device_memory_stats, span, spanned, trace)
