@@ -2675,7 +2675,12 @@ NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "n
 # k-step's tensor-core sum and its f32 promotion give the mma.sync kernel's
 # bits, so the four wide gradient entries did not move either) and by the bf16
 # render's MLP moving into one wgmma/TMA kernel (nerf_wide_mlp.cuh: the same
-# promotion, epilogue and encoding arithmetic, so #8 and #10 kept theirs).
+# promotion, epilogue and encoding arithmetic, so #8 and #10 kept theirs).  The
+# four wide gradient entries moved when bf16 db began to be summed from the
+# column partials that compositing and the d_h GEMM write (a row per ray, per
+# 128-row tile) in place of an f32 d_z: db's order alone changed (their loss
+# and dW kept every bit of the tree that summed the f32 d_z, on the card; both
+# orders lie as far from f64 sums of the plain path's d_z, to 4 digits).
 KERNEL_DIGESTS = {
     "nerf_render_fwd":
         "64ba1c0f42400d315d53444f6e0d3757183e1f452497a0006831db6639d28aff",
@@ -2686,9 +2691,9 @@ KERNEL_DIGESTS = {
     "nerf_wide_render_fwd":
         "cae4aee9c7bcb142ee574ceec9ad3de5603b31c08a848f7321b20ddfc188ade4",
     "nerf_wide_train":
-        "6340eca60909ce631c29d4c8b29142afe1b7d7e5c1162e3cc76d9dd5fc2b4532",
+        "dc1d8046fca72d1636928b0a1db6d83bf932988d166fc53b12a333566f9d69a0",
     "nerf_wide_render_bwd":
-        "9b5c38f0aad3c9041942595268b46fed3e9e6aae4c0211bdfe301915a3870ce9",
+        "f7b70e38146df584c62b8914fc7458c2682b756373a56824bc7e7e8bf40d87d2",
     "nerf_render_fwd_rays":
         "b28cdecd22d6d86784a68059e14aa54b1a1a54ea8bf1d2a96b6dc10b9a090d3b",
     "nerf_train_rays":
@@ -2698,9 +2703,9 @@ KERNEL_DIGESTS = {
     "nerf_wide_render_fwd_rays":
         "e3ba605aa78eaf0b57608f6fcffcdef7eee5b2cc648fbaa5ecd5296fbf2975cc",
     "nerf_wide_train_rays":
-        "9fae710293daea3a9ae043618baa31fbb99dad24a71ff2ed4e5c717f62a5641e",
+        "a0b3b1df5a17508ea37f84412e2c6a984236a9c8f5a8a7a4220aa5e290608633",
     "nerf_wide_render_bwd_rays":
-        "35a5f848581e0485550a88f32b09f284d1efeeaddb76502cef257118c46c3572",
+        "247d87474a9df5818c15f535fe7005b71f8d4ca992eb1492453f74390f1ca237",
 }
 
 
@@ -2708,33 +2713,34 @@ KERNEL_DIGESTS = {
 # fused MLP's pw 256 (C4_MLPS, phase 24's), whose render runs the layer
 # chain: recorded from the tree whose bf16 forward and d_h GEMMs ran
 # gemm_mma_kernel (mma.sync), so that they hold the chain's move onto
-# wgmma/TMA to those bits.
+# wgmma/TMA to those bits; the eight gradient entries again when bf16 db
+# moved onto column partials (as KERNEL_DIGESTS': db's order alone).
 C4_MLPS = ("3x384 bfloat16", "8x1024 bfloat16")
 C4_DIGESTS = {
     "nerf_wide_render_fwd 3x384 bfloat16":
         "b20c6838bca18417814742a8bf2196c2ed20cbe1442e30a9b41443dd5ea28151",
     "nerf_wide_train 3x384 bfloat16":
-        "88eccda513d6d67ea2116ec66153b4f8676711c65c5d15b606d7234b1491a1a8",
+        "c8c714f0967b007985929ab8fe1793f9258a2939ae78fe62537bfd8505b5ea03",
     "nerf_wide_render_bwd 3x384 bfloat16":
-        "34463ffbf362d6e278daacbbae075eb11a5439bf1030a1bfcfec81c180fa6853",
+        "b05523dcc9b7074747d4152e5b33b2aff381414a3c50616c9768a425e28f6454",
     "nerf_wide_render_fwd_rays 3x384 bfloat16":
         "14b2762d8c75f1e5731627df35767e319c89abddc3d1e7747ac8fffa3ece18b1",
     "nerf_wide_train_rays 3x384 bfloat16":
-        "29db43863a3b73826c2894b138f3eba64b4e00bb248433c380c6bc4644491f81",
+        "0610c9f5c23a525fbda26ff42815519484a60694f247def0b8a6ed19e97eaa1d",
     "nerf_wide_render_bwd_rays 3x384 bfloat16":
-        "2211ce85b49a92a7a4414ea5f728927a4ea6df5224eb043058afa66c6b15f89f",
+        "0a0f4cac84d2216c69ad6d2a0abce9e116564a91f75344a02289ab45508925af",
     "nerf_wide_render_fwd 8x1024 bfloat16":
         "131aa97096891fb09b146730e4a8596520b9989f3e2599bd9a40f0afa9250b11",
     "nerf_wide_train 8x1024 bfloat16":
-        "b3d1cd0aa3f53356ff37fdceafe11ed23725431e02e9b27f6de91d5d21181402",
+        "8ff741db3f9c990422d2a95eb78895215308926a60bd6904267d6cae98805d33",
     "nerf_wide_render_bwd 8x1024 bfloat16":
-        "7b53d2f3332e3b64a406b62cfa069459f49747e654ffbd243aca2aa44608ffc1",
+        "339508b51f16cb66938cbf3b8cd188dd4f4570e9f23c2e3d4d5ec2cf2a40987a",
     "nerf_wide_render_fwd_rays 8x1024 bfloat16":
         "293d683c8f4aa95659d7e652b31c50248aa5fe10a2f0670dc786a6d632a80121",
     "nerf_wide_train_rays 8x1024 bfloat16":
-        "21fb2287792c9b6620e31401f8beb8ca7fa933324d173fcf33fdff29e66b81f3",
+        "3d68540badf0e42a3a464764ca8aa36a73fc93eb157d097777a32d1548e8cf3e",
     "nerf_wide_render_bwd_rays 8x1024 bfloat16":
-        "2de8acb9663336d1a542e008bee5d98cf96bc1760b7dff887f3dc46fcc1e6892",
+        "b66674b6e06a4413d4de17fe5ff1a588f713eda726260c6d554e513ce4d9b0b3",
 }
 
 

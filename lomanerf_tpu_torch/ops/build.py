@@ -32,10 +32,10 @@ _GRAD = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 # their per-ray instances: t and dists ((N, S) pointers) after G
 _GRAD_RAYS = _GRAD[:3] + [_P, _P] + _GRAD[3:]
 # the wide gradient sequence (nerf_wide_chain.cuh): (W, b, ts, ds, origins,
-# directions, target or dcol, acts, dz, dzb, dz_head, partials, n_parts,
-# ray_loss, dW, db, loss, n_rays, chunk_rays, S, L, pw, kc, num_functions,
-# loma, bf16, stream)
-_WIDE_GRAD = [_P] * 12 + [_LL] + [_P] * 4 + [_I] * 9 + [_P]
+# directions, target or dcol, acts, dz, dzb, db_part, n_db_part, dz_head,
+# partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L, pw, kc,
+# num_functions, loma, bf16, stream)
+_WIDE_GRAD = [_P] * 11 + [_LL] + [_P] * 2 + [_LL] + [_P] * 4 + [_I] * 9 + [_P]
 # (pk, pk_floats, origins, directions, out, n_rays, S, L, in_dim,
 #  num_functions, width, loma, stream)
 _RENDER = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -70,10 +70,11 @@ SIGNATURES = {
     "wide_dw_gemm": [_P, _P] + [_I] * 4 + [_P, _P],
     "wide_dw_gemm_mma": [_P, _P] + [_I] * 4 + [_P, _P],
     # the wide chain's bf16 layer GEMM alone (nerf_wide_layer_gemm.cuh) and
-    #  the mma.sync kernel it replaced: (A, W, b, mask, C, Cb, rows, pw, K,
-    #  dh, stream), dh 0 the forward layer, 1 d_h
-    "wide_layer_gemm": [_P] * 6 + [_I] * 4 + [_P],
-    "wide_layer_gemm_mma": [_P] * 6 + [_I] * 4 + [_P],
+    #  the mma.sync kernel it replaced: (A, W, b, mask, C, Cb, part, rows, pw,
+    #  K, dh, stream), dh 0 the forward layer, 1 d_h (part: its column
+    #  partials, written by the first alone)
+    "wide_layer_gemm": [_P] * 7 + [_I] * 4 + [_P],
+    "wide_layer_gemm_mma": [_P] * 7 + [_I] * 4 + [_P],
     # the wide chain's f32 GEMM alone (nerf_wide_f32_gemm.cuh) and the FMA
     #  kernel it replaced (gemm_kernel): (A, lda, B, ldb, bias, mask, C, ldc,
     #  M, N, K, k_chunk, form, stream), form 0 forward, 1 d_h, 2 dW, 3 head,

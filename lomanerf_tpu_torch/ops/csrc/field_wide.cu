@@ -225,7 +225,7 @@ extern "C" int field_wide_bwd(const float* W, const float* b, const float* coord
             N, st)));
         FIELD_TRY(wide::sum_partials(partials, n_rc, M, N,
                                      dW + static_cast<size_t>(l) * pw * pw, pw, st));
-        FIELD_TRY(wide::column_sums(g, ldg, rows, N, partials,
+        FIELD_TRY(wide::column_sums(g, ldg, rows, N, wide::kRowChunk, partials,
                                      db + static_cast<size_t>(l) * pw, st));
         if (l >= 1) {  // d_h = d_z W_l^T, masked by h_l > 0, at row stride pw
           FIELD_TRY((product<false, true, wide::kEpiMask>(

@@ -31,11 +31,21 @@
 //                                     hidden layers' on wgmma/TMA
 //                                     (nerf_wide_dw.cuh) from the bf16 copy
 //                                     of d_z its producers write
-//        db_l += colsum(d_z_l)        the same, from the unrounded f32 d_z
+//        db_l += colsum(d_z_l)        the unrounded d_z summed in a fixed
+//                                     order: f32 over the f32 d_z in
+//                                     kRowChunk rows, then those partials;
+//                                     bf16 over the column partials its
+//                                     producers write instead of an f32 d_z
+//                                     (a row per ray from composite_kernel,
+//                                     per 128-row tile from layer_gemm), in
+//                                     groups of kRowChunk rows of d_z, then
+//                                     those partials
 //        d_z_{l-1} = (rnd(d_z_l) W_l^T) masked by H_l > 0   (l >= 1; for
 //                                     bf16 on layer_gemm from the copy,
-//                                     writing the next)
-// dW/db are zeroed once, then every chunk adds to them in chunk order; the
+//                                     writing the next copy and its column
+//                                     partials)
+// dW/db are zeroed once, then every chunk adds to them in chunk order, so
+// that chunks of kRowChunk rows give one call's bits (db's groups too); the
 // loss is the fixed-order sum of the per-ray squared errors.  Nothing is
 // allocated here: the wrapper passes every buffer.
 
@@ -122,10 +132,11 @@ inline bool fused_mlp_takes(const Net& net) {
 template <typename CDT, int kMode, bool kPerRay>
 cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
                          float* out, float* dz_head, float* dz_prev,
-                         CDT* dzc_prev, int n, cudaStream_t stream) {
+                         CDT* dzc_prev, float* db_part, int n, cudaStream_t stream) {
   const int L = net.L, pw = net.pw;
   const size_t smem = sizeof(float) * (4 * static_cast<size_t>(pw) +
-                                       static_cast<size_t>(kCompWarps) * 8 * net.S);
+                                       static_cast<size_t>(kCompWarps) * 8 * net.S +
+                                       (db_part != nullptr ? kCompWarps * pw : 0));
   if (smem > 48 * 1024) {  // above 227 KB this refuses with an error
     WIDE_TRY(cudaFuncSetAttribute(composite_kernel<CDT, kMode, kPerRay>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -134,7 +145,7 @@ cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
   composite_kernel<CDT, kMode, kPerRay><<<(n + kCompWarps - 1) / kCompWarps,
                                           kCompWarps * 32, smem, stream>>>(
       H, static_cast<const CDT*>(net.W) + static_cast<size_t>(L - 1) * pw * pw,
-      net.b + (L - 1) * pw, net.ds, cot, out, dz_head, dz_prev, dzc_prev, n,
+      net.b + (L - 1) * pw, net.ds, cot, out, dz_head, dz_prev, dzc_prev, db_part, n,
       net.S, pw, head_cols(net), net.loma);
   return cudaGetLastError();
 }
@@ -142,12 +153,12 @@ cudaError_t composite_as(const Net& net, const CDT* H, const float* cot,
 template <typename CDT, int kMode>
 cudaError_t composite(const Net& net, const CDT* H, const float* cot,
                       float* out, float* dz_head, float* dz_prev,
-                      CDT* dzc_prev, int n, cudaStream_t stream) {
+                      CDT* dzc_prev, float* db_part, int n, cudaStream_t stream) {
   return net.per_ray
              ? composite_as<CDT, kMode, true>(net, H, cot, out, dz_head,
-                                              dz_prev, dzc_prev, n, stream)
+                                              dz_prev, dzc_prev, db_part, n, stream)
              : composite_as<CDT, kMode, false>(net, H, cot, out, dz_head,
-                                               dz_prev, dzc_prev, n, stream);
+                                               dz_prev, dzc_prev, db_part, n, stream);
 }
 
 // Render forward of n rays in chunks of chunk_rays.  bf16: the fused MLP
@@ -176,7 +187,7 @@ cudaError_t render_forward(const Net& net, const float* origins,
                                    acts, chunk_rows, true, &H, stream));
     }
     WIDE_TRY((composite<CDT, 0>(cn, H, nullptr, out + 3 * r0, nullptr,
-                                nullptr, nullptr, n, stream)));
+                                nullptr, nullptr, nullptr, n, stream)));
   }
   return cudaSuccess;
 }
@@ -184,8 +195,10 @@ cudaError_t render_forward(const Net& net, const float* origins,
 // Scratch the gradient sequence reads and writes (f32 unless noted):
 struct GradScratch {
   void* acts;       // L slots of chunk_rows x pw, CDT
-  float* dz;        // 2 x chunk_rows x pw
-  void* dzb;        // bf16 only: 2 x chunk_rows x pw bf16, dz rounded
+  float* dz;        // f32 only: 2 x chunk_rows x pw
+  void* dzb;        // bf16 only: 2 x chunk_rows x pw bf16, d_z rounded
+  float* db_part;   // bf16 only: n_db_part floats, >= db_parts_needed(...)
+  size_t n_db_part;
   float* dz_head;   // chunk_rows x 4
   float* partials;  // n_parts floats, n_parts >= parts_needed(...)
   size_t n_parts;
@@ -195,6 +208,13 @@ struct GradScratch {
 inline size_t parts_needed(int chunk_rays, int S, int pw) {
   const size_t rows = static_cast<size_t>(chunk_rays) * S;
   return (rows + kRowChunk - 1) / kRowChunk * static_cast<size_t>(pw) * pw;
+}
+
+// bf16: rows of d_z's column partials, a row per ray (composite_kernel) or
+// per kLgBM-row tile (layer_gemm), whichever a chunk has more of
+inline size_t db_parts_needed(int chunk_rays, int S, int pw) {
+  const size_t tiles = (static_cast<size_t>(chunk_rays) * S + kLgBM - 1) / kLgBM;
+  return std::max<size_t>(chunk_rays, tiles) * pw;
 }
 
 // kMode 1: train (cot = targets, loss = the masked sum-MSE); 2: render
@@ -208,7 +228,10 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
                           cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<CDT, __nv_bfloat16>::value;
   const int L = net.L, pw = net.pw;
-  if (sc.n_parts < parts_needed(chunk_rays, net.S, pw) || (kBf16 && sc.dzb == nullptr)) {
+  if (sc.n_parts < parts_needed(chunk_rays, net.S, pw) ||
+      (kBf16 ? sc.dzb == nullptr || sc.db_part == nullptr ||
+                   sc.n_db_part < db_parts_needed(chunk_rays, net.S, pw)
+             : sc.dz == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const CDT* W = static_cast<const CDT*>(net.W);
@@ -225,14 +248,18 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
     WIDE_TRY(forward_layers<CDT>(cn, origins + 3 * r0, directions + 3 * r0, n,
                                  acts, chunk_rows, false, &H, stream));
     auto slot = [&](int l) { return acts + static_cast<size_t>(l) * chunk_rows * pw; };
-    float* dz = sc.dz;  // d_z of the current layer's output
-    float* dz_next = sc.dz + chunk_rows * pw;
-    CDT* dzb = kBf16 ? static_cast<CDT*>(sc.dzb) : nullptr;  // its bf16 copy
+    // f32: d_z of the current layer's output; bf16: its copy, and the rows
+    // of its column partials (a row per ray, then per tile)
+    float* dz = kBf16 ? nullptr : sc.dz;
+    float* dz_next = kBf16 ? nullptr : sc.dz + chunk_rows * pw;
+    CDT* dzb = kBf16 ? static_cast<CDT*>(sc.dzb) : nullptr;
     CDT* dzb_next = kBf16 ? dzb + chunk_rows * pw : nullptr;
+    int db_rows = n, db_group = std::max(1, kRowChunk / net.S);
     WIDE_TRY((composite<CDT, kMode>(cn, H, cot + 3 * r0,
                                     kMode == 1 ? sc.ray_loss + r0 : nullptr,
                                     sc.dz_head, L >= 2 ? dz : nullptr,
-                                    L >= 2 ? dzb : nullptr, n, stream)));
+                                    L >= 2 ? dzb : nullptr,
+                                    L >= 2 && kBf16 ? sc.db_part : nullptr, n, stream)));
     // the head: dW_{L-1} (hc x 4) and db_{L-1} from the head's d_z
     const int hc = head_cols(net);
     WIDE_TRY((gemm<CDT, float, CDT, true, false, kEpiPartial>(
@@ -240,7 +267,7 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
         sc.partials, kHead, stream)));
     WIDE_TRY(sum_partials(sc.partials, n_rc, hc, kHead,
                           dW + static_cast<size_t>(L - 1) * pw * pw, pw, stream));
-    WIDE_TRY(column_sums(sc.dz_head, kHead, rows, kHead, sc.partials,
+    WIDE_TRY(column_sums(sc.dz_head, kHead, rows, kHead, kRowChunk, sc.partials,
                          db + (L - 1) * pw, stream));
     for (int l = L - 2; l >= 0; --l) {
       const int in_cols = l == 0 ? net.kc : pw;
@@ -253,13 +280,20 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
       }
       WIDE_TRY(sum_partials(sc.partials, n_rc, in_cols, pw,
                             dW + static_cast<size_t>(l) * pw * pw, pw, stream));
-      WIDE_TRY(column_sums(dz, pw, rows, pw, sc.partials, db + l * pw, stream));
+      if constexpr (kBf16) {  // before the next d_h overwrites the partials
+        WIDE_TRY(column_sums(sc.db_part, pw, db_rows, pw, db_group, sc.partials,
+                             db + l * pw, stream));
+      } else {
+        WIDE_TRY(column_sums(dz, pw, rows, pw, kRowChunk, sc.partials, db + l * pw, stream));
+      }
       if (l >= 1) {
         const CDT* Wl = W + static_cast<size_t>(l) * pw * pw;
         if constexpr (kBf16) {  // rnd(d_z) read from its copy; the next copy written
           WIDE_TRY((gemm<CDT, CDT, CDT, false, true, kEpiMask>(
-              dzb, pw, Wl, pw, rows, pw, pw, pw, nullptr, slot(l), dz_next, pw,
-              stream, dzb_next)));
+              dzb, pw, Wl, pw, rows, pw, pw, pw, nullptr, slot(l), nullptr, pw,
+              stream, dzb_next, sc.db_part)));
+          db_rows = (rows + kLgBM - 1) / kLgBM;
+          db_group = kRowChunk / kLgBM;
         } else {
           WIDE_TRY((gemm<float, CDT, CDT, false, true, kEpiMask>(
               dz, pw, Wl, pw, rows, pw, pw, pw, nullptr, slot(l), dz_next, pw,
@@ -283,17 +317,17 @@ cudaError_t grad_sequence(const Net& net, const float* origins,
 template <int kMode>
 int grad_entry(bool per_ray, const void* W, const float* b, const float* ts,
                const float* ds, const float* origins, const float* directions,
-               const float* cot, void* acts, float* dz, void* dzb, float* dz_head,
-               float* partials, long long n_parts, float* ray_loss, float* dW,
-               float* db, float* loss, int n_rays, int chunk_rays, int S, int L,
-               int pw, int kc, int num_functions, int loma, int bf16,
-               void* stream) {
-  if (L < 1 || pw % 4 != 0 || kc > pw || chunk_rays <= 0) {
+               const float* cot, void* acts, float* dz, void* dzb, float* db_part,
+               long long n_db_part, float* dz_head, float* partials, long long n_parts,
+               float* ray_loss, float* dW, float* db, float* loss, int n_rays,
+               int chunk_rays, int S, int L, int pw, int kc, int num_functions, int loma,
+               int bf16, void* stream) {
+  if (L < 1 || pw % 4 != 0 || kc > pw || chunk_rays <= 0 || n_db_part < 0 || n_parts < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Net net{W, b, ts, ds, S, L, pw, kc, num_functions, loma, per_ray};
-  const GradScratch sc{acts, dz, dzb, dz_head, partials,
-                       static_cast<size_t>(n_parts), ray_loss};
+  const GradScratch sc{acts,    dz,       dzb, db_part, static_cast<size_t>(n_db_part),
+                       dz_head, partials, static_cast<size_t>(n_parts), ray_loss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return static_cast<int>(grad_sequence<__nv_bfloat16, kMode>(

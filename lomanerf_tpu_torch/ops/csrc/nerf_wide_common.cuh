@@ -9,10 +9,11 @@
 //     samples are contiguous, so one warp composites one ray); the encoding
 //     fills columns [0, kc) of its buffer (kc: the encoded width padded to
 //     8, at most pw), the rest is never read;
-//   d_z buffers (rows, pw) f32 (rounded to CDT where a product reads them,
-//     summed unrounded for db) and, for bf16, their rounded copy (rows, pw)
-//     bf16 (the dW stage's operand, nerf_wide_dw.cuh); the head's d_z
-//     (rows, 4) f32;
+//   d_z buffers (rows, pw): f32 (rounded to CDT where a product reads them,
+//     summed unrounded for db) or, for bf16, only the rounded copy (the
+//     operand of dW, nerf_wide_dw.cuh, and of the next d_h), beside rows of
+//     column partials of the unrounded d_z (db's), one per ray here and one
+//     per 128-row tile in the d_h GEMM; the head's d_z (rows, 4) f32;
 //   depths and steps (template flag kPerRay): (S,) f32 shared by every ray,
 //     or per-ray (N, S) f32 row-major, read at [ray * S + s] (the pointers
 //     start at the chunk's first ray).  Only the source differs: a row's
@@ -128,15 +129,18 @@ encode_kernel(const float* __restrict__ origins,
 // the head's d_z (sigmoid' from the rounded rgb, the density's ReLU mask
 // from the rounded density).  Then the warp walks the samples, lanes
 // across the columns: d_z of layer L-2's output, (rnd(d_z_head) .
-// W_head^T) masked by h_{L-1} > 0, written in f32 and, where dzc_prev is
-// given, rounded to CDT beside it.
+// W_head^T) masked by h_{L-1} > 0, written in f32 where dz_prev is given
+// and rounded to CDT where dzc_prev is; where db_part is given, each lane
+// also sums its columns of the unrounded d_z over the samples in order and
+// writes them as the ray's row of db_part ((n, pw) f32).
 //
-// Shared memory: the head weights (pw x 4, rounded) and 8 floats per sample
-// per warp.  ds: the (S,) shared steps, or with kPerRay the chunk's (n, S).
-// The head reads the first hc columns of each row of H (row stride pw): pw
-// after a hidden layer, the encoded width kc for a one-layer MLP, whose
-// head reads the encoding.  Without dz_prev (a one-layer MLP: no layer
-// below the head) the adjoint stops at the head's d_z.
+// Shared memory: the head weights (pw x 4, rounded), 8 floats per sample
+// per warp and, with db_part, pw floats per warp.  ds: the (S,) shared
+// steps, or with kPerRay the chunk's (n, S).  The head reads the first hc
+// columns of each row of H (row stride pw): pw after a hidden layer, the
+// encoded width kc for a one-layer MLP, whose head reads the encoding.
+// Without dz_prev and dzc_prev (a one-layer MLP: no layer below the head)
+// the adjoint stops at the head's d_z.
 template <typename CDT, int kMode, bool kPerRay>
 __global__ void __launch_bounds__(kCompWarps * 32)
 composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
@@ -144,7 +148,8 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
                  const float* __restrict__ cot,
                  float* __restrict__ out, float* __restrict__ dz_head,
                  float* __restrict__ dz_prev, CDT* __restrict__ dzc_prev,
-                 int n_rays, int S, int pw, int hc, int loma) {
+                 float* __restrict__ db_part, int n_rays, int S, int pw, int hc,
+                 int loma) {
   extern __shared__ __align__(16) float smem[];
   float4* wh = reinterpret_cast<float4*>(smem);  // pw rows of 4 columns
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -274,14 +279,18 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
     sig[s] = rnd<CDT>(dz[3]);
   }
   __syncwarp();
-  if (dz_prev == nullptr) return;
+  if (dz_prev == nullptr && dzc_prev == nullptr) return;
 
   // the samples in turn, a row's columns across the lanes (coalesced)
+  float* sums = smem + 4 * pw + kCompWarps * 8 * S + warp * pw;  // with db_part
+  if (db_part != nullptr) {
+    for (int j = lane; j < pw; j += 32) sums[j] = 0.0f;
+  }
   for (int s = 0; s < S; ++s) {
     const size_t row = static_cast<size_t>(ray) * S + s;
     const float dzc[kHead] = {rgb0[s], rgb1[s], rgb2[s], sig[s]};
     const CDT* h = H + row * pw;
-    float* g = dz_prev + row * pw;
+    float* g = dz_prev != nullptr ? dz_prev + row * pw : nullptr;
     CDT* gc = dzc_prev != nullptr ? dzc_prev + row * pw : nullptr;
     for (int j = lane; j < pw; j += 32) {
       const float4 wq = wh[j];
@@ -290,9 +299,13 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
       dh = fmaf(dzc[2], wq.z, dh);
       dh = fmaf(dzc[3], wq.w, dh);
       const float o = to_f32(h[j]) > 0.0f ? dh : 0.0f;
-      g[j] = o;
+      if (g != nullptr) g[j] = o;
       if (gc != nullptr) gc[j] = from_f32<CDT>(o);
+      if (db_part != nullptr) sums[j] += o;
     }
+  }
+  if (db_part != nullptr) {
+    for (int j = lane; j < pw; j += 32) db_part[static_cast<size_t>(ray) * pw + j] = sums[j];
   }
 }
 

@@ -11,7 +11,9 @@
 //   kEpiBiasRelu  C = CDT(ReLU(acc + bias[n]))            the forward layer
 //   kEpiMask      C = f32(mask[m, n] > 0 ? acc : 0)       d_h = d_z W^T (h > 0);
 //                 mask (CDT) has C's row stride ldc; bf16 only, where Cb
-//                 is given, also Cb = bf16(C) (the copy the dW stage reads)
+//                 is given, also Cb = bf16(C) (the copy the dW stage reads),
+//                 and on layer_gemm C optional and the 128-row column
+//                 partials of C in part (db's)
 //   kEpiPartial   C[z][m][n] = acc over rows chunk z       dW = h^T d_z, split-K
 //   kEpiSigmoid   C = f32(sigmoid(acc + bias[n]))          a field's head (f32 only)
 //   kEpiSigmoidGrad  C = mask[m, n] * y * (1 - y),         its d_z from the output
@@ -377,7 +379,8 @@ cudaError_t gemm_fma(const TA* A, int lda, const TB* B, int ldb, int M, int N, i
 template <int kEpi>
 cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
                        int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
-                       void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream);
+                       void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream,
+                       float* part);
 template <bool kAT, bool kBT, int kEpi>
 cudaError_t f32_gemm(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
                      int k_chunk, const float* bias, const float* mask, void* C, int ldc,
@@ -385,19 +388,19 @@ cudaError_t f32_gemm(const float* A, int lda, const float* B, int ldb, int M, in
 
 // C = the GEMM of the form the template arguments give (k_chunk = K but for
 // kEpiPartial).  bf16: the forward layer (kEpiBiasRelu, [k][n] B) and d_h
-// from the bf16 d_z copy (kEpiMask, [n][k] B) on layer_gemm, every other
-// form on gemm_mma_kernel; f32: f32_gemm.
+// from the bf16 d_z copy (kEpiMask, [n][k] B, with its column partials in
+// part) on layer_gemm, every other form on gemm_mma_kernel; f32: f32_gemm.
 template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
 cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
                  int K, int k_chunk, const float* bias, const CDT* mask,
                  void* C, int ldc, cudaStream_t stream,
-                 __nv_bfloat16* Cb = nullptr) {
+                 __nv_bfloat16* Cb = nullptr, float* part = nullptr) {
   if constexpr (std::is_same<CDT, __nv_bfloat16>::value) {
     constexpr bool kLayer =
         std::is_same<TA, __nv_bfloat16>::value && std::is_same<TB, __nv_bfloat16>::value &&
         !kAT && ((kEpi == kEpiBiasRelu && !kBT) || (kEpi == kEpiMask && kBT));
     if constexpr (kLayer) {
-      return layer_gemm<kEpi>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb, stream);
+      return layer_gemm<kEpi>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb, stream, part);
     } else {
       return gemm_mma<TA, TB, kAT, kBT, kEpi>(A, lda, B, ldb, M, N, K, k_chunk, bias, mask,
                                               C, ldc, stream, Cb);
@@ -410,18 +413,18 @@ cudaError_t gemm(const TA* A, int lda, const TB* B, int ldb, int M, int N,
   }
 }
 
-// part[z][n] = sum of Z[row * ldz + n] over the rows of chunk z (kRowChunk
-// rows each), n < N: 32 columns per block, 8 row lanes each summing every
-// 8th row in order (eight rows' loads in flight, then added in order), then
-// lane 0 adds the 8 lane sums in order.
+// part[z][n] = sum of Z[row * ldz + n] over the rows of chunk z (chunk rows
+// each), n < N: 32 columns per block, 8 row lanes each summing every 8th row
+// in order (eight rows' loads in flight, then added in order), then lane 0
+// adds the 8 lane sums in order.
 __global__ void __launch_bounds__(256)
-colsum_kernel(const float* __restrict__ Z, int ldz, int rows, int N,
+colsum_kernel(const float* __restrict__ Z, int ldz, int rows, int N, int chunk,
               float* __restrict__ part) {
   __shared__ float red[8][33];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int n = blockIdx.y * 32 + tx;
-  const int r0 = blockIdx.x * kRowChunk;
-  const int r1 = min(rows, r0 + kRowChunk);
+  const int r0 = blockIdx.x * chunk;
+  const int r1 = min(rows, r0 + chunk);
   float s = 0.0f;
   if (n < N) {
     int r = r0 + ty;
@@ -463,12 +466,15 @@ cudaError_t sum_partials(const float* part, int n_parts, int M, int N,
 }
 
 // db += the column sums of Z (rows, N) with row stride ldz, through the
-// per-chunk partials in `part` and their fixed-order sum.
-cudaError_t column_sums(const float* Z, int ldz, int rows, int N, float* part,
+// partials of each chunk of `chunk` rows in `part` and their fixed-order
+// sum.  Z is a d_z (chunk = kRowChunk) or, for bf16, the rows of column
+// partials that d_z's producer wrote (chunk = as many as cover kRowChunk
+// rows of d_z, so that a ray chunk of kRowChunk rows sums as in one call).
+cudaError_t column_sums(const float* Z, int ldz, int rows, int N, int chunk, float* part,
                         float* db, cudaStream_t stream) {
-  const int n_parts = (rows + kRowChunk - 1) / kRowChunk;
+  const int n_parts = (rows + chunk - 1) / chunk;
   colsum_kernel<<<dim3(n_parts, (N + 31) / 32), 256, 0, stream>>>(Z, ldz, rows,
-                                                                   N, part);
+                                                                   N, chunk, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_partials(part, n_parts, 1, N, db, N, stream);

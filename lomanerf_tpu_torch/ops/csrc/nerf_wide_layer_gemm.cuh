@@ -5,12 +5,14 @@
 //   kEpiBiasRelu  C = bf16(ReLU(A[:, :K] B[:K] + bias))     the forward layer:
 //                 A = H_l (M, lda) bf16, B = W_l [k][n] (K, ldb) bf16, an
 //                 MN-major operand; C (M, N) bf16, row stride ldc
-//   kEpiMask      C = f32(mask > 0 ? A[:, :K] B^T : 0),      d_h of layer l:
-//                 Cb = bf16(C)                                A = the bf16 copy
-//                 of d_z (M, lda), B = W_l [n][k] (N, ldb) bf16, a K-major
-//                 operand (W_l^T); mask = H_l (M, ldc) bf16; C (M, N) f32 and
-//                 its copy Cb (M, N) bf16, the dW stage's operand, both at
-//                 row stride ldc
+//   kEpiMask      D = mask > 0 ? A[:, :K] B^T : 0 in f32,   d_h of layer l:
+//                 Cb = bf16(D), part[i][n] = the sum of       A = the bf16 copy
+//                 D[128 i .. 128 i + 127][n]; C = D where     of d_z (M, lda),
+//                 C is given                                  B = W_l [n][k]
+//                 (N, ldb) bf16, a K-major operand (W_l^T); mask = H_l (M,
+//                 ldc) bf16; Cb (M, N) bf16, the dW stage's operand, and C
+//                 (M, N) f32, both at row stride ldc; part (ceil(M / 128), N)
+//                 f32, the column partials db is summed from (nerf_wide_chain.cuh)
 //
 // Replaces, for the bf16 compute dtype, gemm_mma_kernel (nerf_wide_gemm.cuh:
 // mma.sync m16n8k16, operands staged through registers, one k-step in
@@ -53,11 +55,24 @@
 //     kEpiMask's mask tile is loaded by TMA into the bf16 output buffer when
 //     the tile starts, so its loads are in flight through the whole k-loop,
 //     and each thread overwrites its mask entries with its Cb entries;
+//   * kEpiMask's column partials, from the unrounded f32 outputs in a fixed
+//     order: each thread adds its two rows of a column pair, a shuffle adds
+//     the pair of the next row (lanes 4 apart), and both lanes stage the
+//     sums of those four rows in shared memory (16 row quads x 128 columns a
+//     warpgroup, rows 136 floats apart: no bank conflicts); thread t of a
+//     warpgroup adds column t's row quads, a warp's four in order and then
+//     the four warps in order, and warpgroup 1 adds its sum to warpgroup
+//     0's and stores the tile's row of partials; warpgroup 0's sums go
+//     through two slots handed over by named barriers (ids 5-8), so that it
+//     runs a tile ahead, with no branch on the warpgroup (bar_sync_id).
+//     Without C, only the bf16 copy leaves the SM and the f32 staging boxes
+//     are not allocated (kF32: the probe's form with C, on a ring of three
+//     stages to make room for them);
 //   * ragged edges (rows past M, layer 0's K = kc = 40 columns) are
 //     zero-filled by TMA's out-of-bounds fill and dropped by its stores; a
 //     last stage with one k-step adds no second set.
 // Every output is one thread's fixed sequence of k-steps: repeat launches
-// are bit-identical, and equal to gemm_mma_kernel's.
+// are bit-identical, and equal to gemm_mma_kernel's; so are the partials.
 
 #pragma once
 
@@ -75,15 +90,28 @@ constexpr int kLgBox = 64 * 128;                       // a 64-row x 128-byte bo
 constexpr int kLgStageBytes = (kLgBM + kLgBN) * kLgBK * 2;  // A 16 KB + B 16 KB
 constexpr int kLgThreads = 3 * 128;  // 2 consumer warpgroups + the producer's
 
-// a consumer warpgroup's output buffer: 64 x 128 bf16 (two boxes), or for
-// kEpiMask 64 x 128 f32 (four boxes of 32 columns) then the bf16 copy
-template <int kEpi>
-__host__ __device__ constexpr int lg_out_bytes() {
-  return kEpi == kEpiMask ? 6 * kLgBox : 2 * kLgBox;
+// kEpiMask's column sums: each consumer warpgroup's 16 row quads x 128
+// columns (row stride kLgSumLd floats), then two slots of warpgroup 0's 128
+// and warpgroup 1's unread row
+constexpr int kLgSumLd = kLgBN + 8;
+constexpr int kLgSumBytes = (2 * 16 * kLgSumLd + 3 * kLgBN) * 4;
+
+// stages of the ring: three for kEpiMask with the f32 output, whose staging
+// boxes leave no room for a fourth
+template <int kEpi, bool kF32>
+constexpr int lg_stages() {
+  return kEpi == kEpiMask && kF32 ? 3 : kLgStages;
 }
-template <int kEpi>
-constexpr int lg_smem_bytes() {  // the ring, two output buffers, alignment
-  return kLgStages * kLgStageBytes + 2 * lg_out_bytes<kEpi>() + 1024;
+// a consumer warpgroup's output buffer: 64 x 128 bf16 (two boxes), for
+// kEpiMask with kF32 after 64 x 128 f32 (four boxes of 32 columns)
+template <int kEpi, bool kF32>
+__host__ __device__ constexpr int lg_out_bytes() {
+  return kEpi == kEpiMask && kF32 ? 6 * kLgBox : 2 * kLgBox;
+}
+template <int kEpi, bool kF32>
+constexpr int lg_smem_bytes() {  // the ring, two output buffers, the sums, alignment
+  return lg_stages<kEpi, kF32>() * kLgStageBytes + 2 * lg_out_bytes<kEpi, kF32>() +
+         (kEpi == kEpiMask ? kLgSumBytes : 0) + 1024;
 }
 
 // the tile box at (column c0, row c1) of `map` from shared memory src
@@ -114,25 +142,43 @@ __device__ __forceinline__ uint32_t box_at(int r, int n) {
          (n * kSize & 15);
 }
 
+// kEpiMask's hand-over of column sums between the consumer warpgroups (256
+// threads): barrier 5 + p, warpgroup 0's sums are in slot p; 7 + p,
+// warpgroup 1 has read slot p.  Both warpgroups run the same instructions,
+// with the barrier's id in a register (as wait_turn and pass_turn): a
+// barrier under a branch or a predicate on the warpgroup makes ptxas
+// serialize the wgmma of the whole kernel (C7520), and the d_h k-loop at K =
+// 1024 then ran 1.6 times as long on an H100.
+__device__ __forceinline__ void bar_arrive_id(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_sync_id(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+
 // grid min(tiles, SMs), block kLgThreads, dynamic shared memory
-// lg_smem_bytes<kEpi>(); tm_a (K, M) boxes 64 x 128, tm_b (N, K) boxes 64 x
-// 64 ([k][n]) or (K, N) boxes 64 x 128 ([n][k], kEpiMask), tm_c (N, M) in
-// 64-row boxes of 128 bytes, tm_cb and tm_m (kEpiMask) as tm_c in bf16
-template <int kEpi, int kStages>
+// lg_smem_bytes<kEpi, kF32>(); tm_a (K, M) boxes 64 x 128, tm_b (N, K) boxes
+// 64 x 64 ([k][n]) or (K, N) boxes 64 x 128 ([n][k], kEpiMask), tm_c (N, M)
+// in 64-row boxes of 128 bytes (kEpiMask: read with kF32 only), tm_cb and
+// tm_m (kEpiMask) as tm_c in bf16; part (kEpiMask, or null) (ceil(M / 128),
+// N) f32
+template <int kEpi, int kStages, bool kF32>
 __global__ void __launch_bounds__(kLgThreads, 1)
 layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_b,
                    const __grid_constant__ CUtensorMap tm_c,
                    const __grid_constant__ CUtensorMap tm_cb,
                    const __grid_constant__ CUtensorMap tm_m, const float* __restrict__ bias,
-                   int M, int N, int K) {
+                   int M, int N, int K, float* __restrict__ part) {
   constexpr bool kMask = kEpi == kEpiMask;
-  constexpr int kOut = lg_out_bytes<kEpi>();
+  constexpr int kOut = lg_out_bytes<kEpi, kF32>();
   extern __shared__ uint8_t lg_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], mask_full[2];
   // the ring and the output buffers start at a multiple of 1024 bytes
   uint8_t* ring = lg_raw + ((1024 - (smem_u32(lg_raw) & 1023)) & 1023);
   uint8_t* outs = ring + kStages * kLgStageBytes;
+  // kEpiMask: the warpgroups' staged column sums, then warpgroup 0's slots
+  float* sums = reinterpret_cast<float*>(outs + 2 * kOut);
   const int tiles_n = (N + kLgBN - 1) / kLgBN;
   const int n_tiles = (M + kLgBM - 1) / kLgBM * tiles_n;
   const int n_k = (K + 31) / 32, n_st = (K + kLgBK - 1) / kLgBK;
@@ -181,12 +227,19 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
     // 8 j + 2 (lane % 4) (+ 1 for odd q)
     const int r = (t >> 5) * 16 + (lane >> 2);
     uint8_t* out = outs + wg * kOut;
-    uint8_t* outb = out + (kMask ? 4 * kLgBox : 0);  // the bf16 boxes (the mask's, first)
+    uint8_t* outb = out + (kF32 ? 4 * kLgBox : 0);  // the bf16 boxes (the mask's, first)
+    float* stage = sums + wg * 16 * kLgSumLd;  // kEpiMask: row quad (t / 32) * 4 + lane / 8
     const uint32_t ring_s = smem_u32(ring);
     float acc[64], ks0[64], ks1[64];  // the running sum, two fresh k-step sets
 #pragma unroll
     for (int i = 0; i < 64; ++i) ks0[i] = ks1[i] = 0.0f;
-    if (wg == 1) pass_turn(wg);  // warpgroup 0 issues first
+    if (wg == 1) {
+      pass_turn(wg);  // warpgroup 0 issues first
+      if (kMask) {    // and finds both slots of sums free
+        bar_arrive_id(7);
+        bar_arrive_id(8);
+      }
+    }
     int it = 0, local = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++local) {
       const int m0 = tile / tiles_n * kLgBM + wg * 64, n0 = tile % tiles_n * kLgBN;
@@ -248,17 +301,24 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int n = j * 8 + (lane & 3) * 2;
+        float2 pair;  // kEpiMask: columns n and n + 1 of rows r and r + 8, then r ^ 1 too
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int rr = r + 8 * hr;
           const float v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
           auto* pb = reinterpret_cast<__nv_bfloat162*>(outb + box_at<2>(rr, n));
-          if (kMask) {
+          if constexpr (kMask) {
             const __nv_bfloat162 h = *pb;
             const float o0 = __low2float(h) > 0.0f ? v0 : 0.0f;
             const float o1 = __high2float(h) > 0.0f ? v1 : 0.0f;
-            *reinterpret_cast<float2*>(out + box_at<4>(rr, n)) = make_float2(o0, o1);
+            if (kF32) *reinterpret_cast<float2*>(out + box_at<4>(rr, n)) = make_float2(o0, o1);
             *pb = __floats2bfloat162_rn(o0, o1);
+            if (hr == 0) {
+              pair = make_float2(o0, o1);
+            } else {
+              pair.x += o0;
+              pair.y += o1;
+            }
           } else {
             const int gn = n0 + n;
             const float2 bn = gn < N ? *reinterpret_cast<const float2*>(bias + gn)
@@ -266,12 +326,19 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
             *pb = __floats2bfloat162_rn(fmaxf(v0 + bn.x, 0.0f), fmaxf(v1 + bn.y, 0.0f));
           }
         }
+        if constexpr (kMask) {  // both lanes of a quad store the same sums
+          pair.x += __shfl_xor_sync(0xffffffffu, pair.x, 4);
+          pair.y += __shfl_xor_sync(0xffffffffu, pair.y, 4);
+          *reinterpret_cast<float2*>(stage + ((t >> 5) * 4 + (lane >> 3)) * kLgSumLd + n) = pair;
+        }
       }
       fence_async_smem();
       warpgroup_sync(wg);
       if (t == 0) {
         if (kMask) {
-          for (int q = 0; q < 4; ++q) tma_store(&tm_c, out + q * kLgBox, n0 + 32 * q, m0);
+          if (kF32) {
+            for (int q = 0; q < 4; ++q) tma_store(&tm_c, out + q * kLgBox, n0 + 32 * q, m0);
+          }
           tma_store(&tm_cb, outb, n0, m0);
           tma_store(&tm_cb, outb + kLgBox, n0 + 64, m0);
         } else {
@@ -280,30 +347,46 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         }
         bulk_commit();
       }
+      if constexpr (kMask) {  // the tile's column partials, while the stores run
+        // column t over the warpgroup's row quads (the barrier above made
+        // them visible): a warp's four in order, then the warps in order
+        const float* col = stage + t;
+        float w4[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          w4[w] = col[4 * w * kLgSumLd];
+#pragma unroll
+          for (int g = 1; g < 4; ++g) w4[w] += col[(4 * w + g) * kLgSumLd];
+        }
+        const float mine = ((w4[0] + w4[1]) + w4[2]) + w4[3];
+        // warpgroup 0: wait for slot p free, fill it, mark it full;
+        // warpgroup 1: wait for it full, write a row nobody reads, add slot
+        // p to its own sum, mark the slot free, store the total
+        const int slot = local & 1;
+        float* hand = sums + 2 * 16 * kLgSumLd;
+        bar_sync_id(wg == 0 ? 7 + slot : 5 + slot);
+        hand[(wg == 0 ? slot : 2) * kLgBN + t] = mine;
+        const float total = hand[slot * kLgBN + t] + mine;
+        bar_arrive_id(wg == 0 ? 5 + slot : 7 + slot);
+        if (part != nullptr && wg == 1 && n0 + t < N) {
+          part[static_cast<size_t>(tile / tiles_n) * N + n0 + t] = total;
+        }
+      }
     }
     if (t == 0) bulk_wait();
   }
 }
 
-// C (and, for kEpiMask, Cb) of the forms above; B's ld is ldb.  Every
-// pointer 16-byte aligned, lda, ldb and ldc multiples of 8, N even; bias
-// (N f32) read for kEpiBiasRelu, mask and Cb for kEpiMask.  Anything else
-// is refused with cudaErrorInvalidValue.
-template <int kEpi>
-cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
-                       int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
-                       void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream) {
-  static_assert(kEpi == kEpiBiasRelu || kEpi == kEpiMask, "the forward or the d_h form");
+// layer_gemm's tensor maps and launch, its arguments checked; kF32
+// (kEpiMask): the f32 d_h is written to C too
+template <int kEpi, bool kF32>
+cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
+                              int ldb, int M, int N, int K, const float* bias,
+                              const __nv_bfloat16* mask, void* C, int ldc,
+                              __nv_bfloat16* Cb, cudaStream_t stream, float* part) {
   constexpr bool kMask = kEpi == kEpiMask;
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (M <= 0 || N <= 0 || K <= 0 || K > lda || N > ldc || N % 2 != 0 || lda % 8 != 0 ||
-      ldb % 8 != 0 || ldc % 8 != 0 || (kMask ? K : N) > ldb || !aligned(A) || !aligned(B) ||
-      !aligned(C) || (kMask ? mask == nullptr || Cb == nullptr || !aligned(mask) ||
-                                  !aligned(Cb)
-                            : bias == nullptr || reinterpret_cast<uintptr_t>(bias) % 8)) {
-    return cudaErrorInvalidValue;
-  }
-  constexpr int smem = lg_smem_bytes<kEpi>();
+  constexpr int kStages = lg_stages<kEpi, kF32>();
+  constexpr int smem = lg_smem_bytes<kEpi, kF32>();
   static_assert(smem <= 227 * 1024, "the ring and the output buffers exceed shared memory");
   CUtensorMap tm_a, tm_b, tm_c, tm_cb, tm_m;
   cudaError_t err = tile_map(&tm_a, A, false, K, M, lda, 64, kLgBM);
@@ -311,12 +394,15 @@ cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, 
     err = kMask ? tile_map(&tm_b, B, false, K, N, ldb, 64, kLgBN)
                 : tile_map(&tm_b, B, false, N, K, ldb, 64, 64);
   }
-  if (err == cudaSuccess) err = tile_map(&tm_c, C, kMask, N, M, ldc, kMask ? 32 : 64, 64);
   if (err == cudaSuccess && kMask) err = tile_map(&tm_cb, Cb, false, N, M, ldc, 64, 64);
   if (err == cudaSuccess && kMask) err = tile_map(&tm_m, mask, false, N, M, ldc, 64, 64);
+  if (err == cudaSuccess && (kF32 || !kMask)) {
+    err = tile_map(&tm_c, C, kMask, N, M, ldc, kMask ? 32 : 64, 64);
+  }
   if (!kMask) tm_cb = tm_m = tm_c;  // not read
+  if (kMask && !kF32) tm_c = tm_cb;  // not read
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(layer_wgmma_kernel<kEpi, kLgStages>,
+    err = cudaFuncSetAttribute(layer_wgmma_kernel<kEpi, kStages, kF32>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   int dev = 0, sms = 0;
@@ -325,10 +411,41 @@ cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, 
   if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>((M + kLgBM - 1) / kLgBM) *
                           ((N + kLgBN - 1) / kLgBN);
-  layer_wgmma_kernel<kEpi, kLgStages>
+  layer_wgmma_kernel<kEpi, kStages, kF32>
       <<<static_cast<int>(std::min<long long>(tiles, sms)), kLgThreads, smem, stream>>>(
-          tm_a, tm_b, tm_c, tm_cb, tm_m, bias, M, N, K);
+          tm_a, tm_b, tm_c, tm_cb, tm_m, bias, M, N, K, part);
   return cudaGetLastError();
+}
+
+// C (and, for kEpiMask, Cb and part) of the forms above; B's ld is ldb.
+// Every pointer 16-byte aligned, lda, ldb and ldc multiples of 8, N even;
+// bias (N f32) read for kEpiBiasRelu; mask and Cb for kEpiMask, where C (the
+// f32 d_h) and part may be null.  Anything else is refused with
+// cudaErrorInvalidValue.
+template <int kEpi>
+cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
+                       int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
+                       void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream,
+                       float* part) {
+  static_assert(kEpi == kEpiBiasRelu || kEpi == kEpiMask, "the forward or the d_h form");
+  constexpr bool kMask = kEpi == kEpiMask;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (M <= 0 || N <= 0 || K <= 0 || K > lda || N > ldc || N % 2 != 0 || lda % 8 != 0 ||
+      ldb % 8 != 0 || ldc % 8 != 0 || (kMask ? K : N) > ldb || !aligned(A) || !aligned(B) ||
+      !aligned(C) || (kMask ? mask == nullptr || Cb == nullptr || !aligned(mask) ||
+                                  !aligned(Cb) || reinterpret_cast<uintptr_t>(part) % 4
+                            : C == nullptr || bias == nullptr ||
+                                  reinterpret_cast<uintptr_t>(bias) % 8)) {
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (kMask) {
+    if (C != nullptr) {
+      return launch_layer_gemm<kEpi, true>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
+                                           stream, part);
+    }
+  }
+  return launch_layer_gemm<kEpi, false>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
+                                        stream, part);
 }
 
 }  // namespace

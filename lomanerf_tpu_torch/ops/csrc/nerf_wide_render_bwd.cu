@@ -24,7 +24,8 @@ extern "C" int nerf_wide_render_bwd(const void* W, const float* b,
                                     const float* ts, const float* ds,
                                     const float* origins,
                                     const float* directions, const float* dcol,
-                                    void* acts, float* dz, void* dzb, float* dz_head,
+                                    void* acts, float* dz, void* dzb, float* db_part,
+                                    long long n_db_part, float* dz_head,
                                     float* partials, long long n_parts,
                                     float* ray_loss, float* dW, float* db,
                                     float* loss, int n_rays, int chunk_rays,
@@ -32,8 +33,8 @@ extern "C" int nerf_wide_render_bwd(const void* W, const float* b,
                                     int num_functions, int loma, int bf16,
                                     void* stream) {
   return wide::grad_entry<2>(
-      false, W, b, ts, ds, origins, directions, dcol, acts, dz, dzb, dz_head,
-      partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
+      false, W, b, ts, ds, origins, directions, dcol, acts, dz, dzb, db_part, n_db_part,
+      dz_head, partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }
 
@@ -44,7 +45,8 @@ extern "C" int nerf_wide_render_bwd_rays(const void* W, const float* b,
                                          const float* origins,
                                          const float* directions,
                                          const float* dcol, void* acts,
-                                         float* dz, void* dzb, float* dz_head,
+                                         float* dz, void* dzb, float* db_part,
+                                         long long n_db_part, float* dz_head,
                                          float* partials, long long n_parts,
                                          float* ray_loss, float* dW, float* db,
                                          float* loss, int n_rays,
@@ -52,7 +54,7 @@ extern "C" int nerf_wide_render_bwd_rays(const void* W, const float* b,
                                          int kc, int num_functions, int loma,
                                          int bf16, void* stream) {
   return wide::grad_entry<2>(
-      true, W, b, ts, ds, origins, directions, dcol, acts, dz, dzb, dz_head,
-      partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
+      true, W, b, ts, ds, origins, directions, dcol, acts, dz, dzb, db_part, n_db_part,
+      dz_head, partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }

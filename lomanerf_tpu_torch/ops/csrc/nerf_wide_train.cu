@@ -23,33 +23,37 @@
 // runs the head, compositing, the loss and its adjoint and the head's
 // backward; then, layer by layer in reverse, a split-K GEMM for dW (per
 // 8192-row partials, added in a fixed order; for bf16 on wgmma fed by TMA,
-// nerf_wide_dw.cuh, from a bf16 copy of d_z) with db from the f32 d_z, and
-// a GEMM for d_h with the ReLU mask from the stored activation in its
-// epilogue, which also writes the next bf16 copy; for bf16 the forward's
-// and d_h's GEMMs run on wgmma fed by TMA (nerf_wide_layer_gemm.cuh).
+// nerf_wide_dw.cuh, from a bf16 copy of d_z) with db from the unrounded
+// d_z, and a GEMM for d_h with the ReLU mask from the stored activation in
+// its epilogue; for bf16 the forward's and d_h's GEMMs run on wgmma fed by
+// TMA (nerf_wide_layer_gemm.cuh), and d_z is kept only as that bf16 copy:
+// d_h's epilogue and the compositing write it beside db's column partials
+// of the unrounded values, so no f32 d_z crosses device memory.
 // Every sum has a fixed order: repeat launches are bit-identical.
 
 #include "nerf_wide_chain.cuh"
 
 // C entry points, bound with ctypes.  Arguments as nerf_wide_render_fwd's,
 // with the (N, 3) targets and the scratch of the gradient sequence: acts
-// (L * chunk_rays * S * pw, compute dtype), dz (2 * chunk_rays * S * pw
-// f32), dzb (bf16 only, else null: 2 * chunk_rays * S * pw bf16), dz_head
-// (chunk_rays * S * 4 f32), partials (n_parts f32, at least
-// ceil(chunk_rays * S / 8192) * pw * pw), ray_loss (n_rays f32).  Writes dW
-// (L, pw, pw), db (L, pw) and the loss (one float).
+// (L * chunk_rays * S * pw, compute dtype), dz (f32 only, else null: 2 *
+// chunk_rays * S * pw f32), dzb (bf16 only, else null: 2 * chunk_rays * S *
+// pw bf16), db_part (bf16 only, else null: n_db_part f32, at least
+// max(chunk_rays, ceil(chunk_rays * S / 128)) * pw), dz_head (chunk_rays * S
+// * 4 f32), partials (n_parts f32, at least ceil(chunk_rays * S / 8192) * pw
+// * pw), ray_loss (n_rays f32).  Writes dW (L, pw, pw), db (L, pw) and the
+// loss (one float).
 extern "C" int nerf_wide_train(const void* W, const float* b, const float* ts,
                                const float* ds, const float* origins,
                                const float* directions, const float* target,
-                               void* acts, float* dz, void* dzb, float* dz_head,
-                               float* partials, long long n_parts,
-                               float* ray_loss, float* dW, float* db,
+                               void* acts, float* dz, void* dzb, float* db_part,
+                               long long n_db_part, float* dz_head, float* partials,
+                               long long n_parts, float* ray_loss, float* dW, float* db,
                                float* loss, int n_rays, int chunk_rays, int S,
                                int L, int pw, int kc, int num_functions,
                                int loma, int bf16, void* stream) {
   return wide::grad_entry<1>(
-      false, W, b, ts, ds, origins, directions, target, acts, dz, dzb, dz_head,
-      partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
+      false, W, b, ts, ds, origins, directions, target, acts, dz, dzb, db_part, n_db_part,
+      dz_head, partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }
 
@@ -60,6 +64,7 @@ extern "C" int nerf_wide_train_rays(const void* W, const float* b,
                                     const float* origins,
                                     const float* directions,
                                     const float* target, void* acts, float* dz, void* dzb,
+                                    float* db_part, long long n_db_part,
                                     float* dz_head, float* partials,
                                     long long n_parts, float* ray_loss,
                                     float* dW, float* db, float* loss,
@@ -67,8 +72,8 @@ extern "C" int nerf_wide_train_rays(const void* W, const float* b,
                                     int pw, int kc, int num_functions, int loma,
                                     int bf16, void* stream) {
   return wide::grad_entry<1>(
-      true, W, b, ts, ds, origins, directions, target, acts, dz, dzb, dz_head,
-      partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
+      true, W, b, ts, ds, origins, directions, target, acts, dz, dzb, db_part, n_db_part,
+      dz_head, partials, n_parts, ray_loss, dW, db, loss, n_rays, chunk_rays, S, L,
       pw, kc, num_functions, loma, bf16, stream);
 }
 
@@ -100,30 +105,32 @@ extern "C" int wide_dw_gemm_mma(const void* H, const float* Dz, int ld, int M, i
 // The bf16 layer GEMM alone, on (rows, pw) operands of row stride pw and a
 // (pw, pw) W (one layer of the stack), the first K <= pw columns of A read:
 //   dh 0, the forward layer: C (rows, pw) bf16 = bf16(ReLU(A W[:K] + b)),
-//     b (pw,) f32 (mask, Cb unused);
-//   dh 1, d_h: C (rows, pw) f32 = mask > 0 ? A W[:, :K]^T : 0 and Cb (rows,
-//     pw) bf16 = bf16(C), mask (rows, pw) bf16 (b unused).
+//     b (pw,) f32 (mask, Cb, part unused);
+//   dh 1, d_h: C (rows, pw) f32 = mask > 0 ? A W[:, :K]^T : 0, Cb (rows,
+//     pw) bf16 = bf16(C) and part (ceil(rows / 128), pw) f32 = C's column
+//     sums over each 128-row tile, mask (rows, pw) bf16 (b unused); C and
+//     part may be null (the gradient sequence passes no C).
 // wide_layer_gemm runs the wgmma/TMA kernel of the wide chain
 // (nerf_wide_layer_gemm.cuh); wide_layer_gemm_mma the mma.sync kernel it
-// replaced (gemm_mma_kernel) on the same inputs, kept so that the card can
-// compare the two.
+// replaced (gemm_mma_kernel) on the same inputs (part unused), kept so that
+// the card can compare the two.
 extern "C" int wide_layer_gemm(const void* A, const void* W, const float* b, const void* mask,
-                               void* C, void* Cb, int rows, int pw, int K, int dh,
-                               void* stream) {
+                               void* C, void* Cb, float* part, int rows, int pw, int K,
+                               int dh, void* stream) {
   const auto* a = static_cast<const __nv_bfloat16*>(A);
   const auto* w = static_cast<const __nv_bfloat16*>(W);
   const auto* m = static_cast<const __nv_bfloat16*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       dh ? wide::layer_gemm<wide::kEpiMask>(a, pw, w, pw, rows, pw, K, nullptr, m, C, pw,
-                                            static_cast<__nv_bfloat16*>(Cb), st)
+                                            static_cast<__nv_bfloat16*>(Cb), st, part)
          : wide::layer_gemm<wide::kEpiBiasRelu>(a, pw, w, pw, rows, pw, K, b, nullptr, C, pw,
-                                                nullptr, st));
+                                                nullptr, st, nullptr));
 }
 
 extern "C" int wide_layer_gemm_mma(const void* A, const void* W, const float* b,
-                                   const void* mask, void* C, void* Cb, int rows, int pw,
-                                   int K, int dh, void* stream) {
+                                   const void* mask, void* C, void* Cb, float* /*part*/,
+                                   int rows, int pw, int K, int dh, void* stream) {
   if (rows <= 0 || pw <= 0 || K <= 0 || K > pw || pw % 4 != 0 || K % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

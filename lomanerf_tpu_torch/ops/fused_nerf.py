@@ -74,6 +74,7 @@ from lomanerf_tpu_torch.core.encoding import positional_encoding
 from lomanerf_tpu_torch.core.losses import sum_mse
 from lomanerf_tpu_torch.core.mlp import Params
 from lomanerf_tpu_torch.core.pipeline import nerf_render_rays
+from lomanerf_tpu_torch.ops.wide_gemm import TILE_ROWS
 from lomanerf_tpu_torch.utils.profiling import span, spanned
 
 # kernel launches per C entry point; a run resets them and reads them to
@@ -476,8 +477,11 @@ def wide_grad_chunk_rays(config, pw: int, L: int) -> int:
     compute dtype, two f32 d_z buffers (and, for bf16, their two bf16
     copies, which the dW stage reads) and the head's d_z within
     ``WIDE_GRAD_BYTES`` (18,682 rays for the flagship, 4,678 for an 8x1024
-    bf16 MLP at S = 128).  The dW stage's split-K partials (pw x pw floats
-    per 8192 rows) lie outside it: pw / 2048 bytes a row against the
+    bf16 MLP at S = 128).  For bf16 the budget still counts the two f32 d_z
+    buffers' 8 bytes a sample-column, though the call allocates none (db's
+    column partials that replace them, :func:`_launch_wide_grad`, take a
+    128th of one at S = 128).  The dW stage's split-K partials (pw x pw
+    floats per 8192 rows) lie outside it: pw / 2048 bytes a row against the
     activations' 10 pw or more, 310 MB at the 8x1024 chunk."""
     isz = _itemsize(config)
     per_ray = config.num_samples * (pw * (L * isz + 8 + (4 if isz == 2 else 0))
@@ -550,17 +554,23 @@ def _launch_wide_grad(entry: str, W, b, t_vals, dists, origins, directions, cot,
             return torch.empty(shape, dtype=torch.float32, device=dev)
 
         acts = torch.empty(L * rows * pw, dtype=W.dtype, device=dev)
-        dz, dz_head, partials = f32(2 * rows * pw), f32(rows * _HEAD), f32(n_parts)
-        # bf16: the rounded copies of the two d_z buffers, the dW stage's operand
-        dzb = torch.empty(2 * rows * pw, dtype=W.dtype, device=dev) \
-            if W.dtype == torch.bfloat16 else None
+        dz_head, partials = f32(rows * _HEAD), f32(n_parts)
+        if W.dtype == torch.bfloat16:
+            # d_z only as its rounded copies (the products' operand) and db's
+            # column partials of the unrounded values: a row per ray or per
+            # 128-row tile of d_z
+            dz, dzb = None, torch.empty(2 * rows * pw, dtype=W.dtype, device=dev)
+            n_db_part = max(chunk, -(-rows // TILE_ROWS)) * pw
+            db_part = f32(n_db_part)
+        else:
+            dz, dzb, db_part, n_db_part = f32(2 * rows * pw), None, None, 0
         ray_loss, dW, db, loss = f32(max(n, 1)), f32(L, pw, pw), f32(L, pw), f32(1)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(build.load(), entry)(
             W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
             origins.data_ptr(), directions.data_ptr(), cot.data_ptr(), acts.data_ptr(),
-            dz.data_ptr(), None if dzb is None else dzb.data_ptr(), dz_head.data_ptr(),
-            partials.data_ptr(), n_parts,
+            *(None if x is None else x.data_ptr() for x in (dz, dzb, db_part)), n_db_part,
+            dz_head.data_ptr(), partials.data_ptr(), n_parts,
             ray_loss.data_ptr(), dW.data_ptr(), db.data_ptr(), loss.data_ptr(), n, chunk,
             *_wide_args(config, pw, L), stream)
         if err != 0:
@@ -648,10 +658,22 @@ def _wide_plain_forward(ws, bs, origins, directions, t_vals, dists, config,
 
 def _wide_plain_backward(ws, bs, saved, dcol, dists, config):
     """The adjoint of :func:`_wide_plain_forward` as the TPU kernel's
-    ``_bwd_from_dcol`` computes it: ``d_c = suffix_sum / c`` with P kept per
-    sample, sigmoid' from the rounded rgb, each d_z rounded to the compute
-    dtype before both of its products, db from the unrounded d_z, the ReLU
-    mask from the stored activation."""
+    ``_bwd_from_dcol`` computes it (:func:`_wide_plain_dzs`): dW from each
+    d_z rounded to the compute dtype, db from the unrounded d_z."""
+    L = len(ws)
+    acts = saved[:L]
+    gws, gbs = [torch.zeros_like(x) for x in ws], [torch.zeros_like(x) for x in bs]
+    for l, dz, dzc in _wide_plain_dzs(ws, saved, dcol, dists, config):
+        gws[l][:, : dz.shape[1]] = acts[l].to(torch.float32).T @ dzc
+        gbs[l][: dz.shape[1]] = dz.sum(0)
+    return gws, gbs
+
+
+def _wide_plain_dzs(ws, saved, dcol, dists, config):
+    """``(l, d_z, rnd(d_z))`` of each layer l from the head down, the
+    unrounded d_z in f32: ``d_c = suffix_sum / c`` with P kept per sample,
+    sigmoid' from the rounded rgb, each d_z rounded to the compute dtype
+    before both of its products, the ReLU mask from the stored activation."""
     cdt = _DTYPES[config.compute_dtype]
     L = len(ws)
     acts, (rgb, sigma, alpha, c, P, T, w) = saved[:L], saved[L:]
@@ -666,15 +688,11 @@ def _wide_plain_backward(ws, bs, saved, dcol, dists, config):
     dz = torch.cat([dcol[:, None, :] * w[..., None] * rgb * (1.0 - rgb),
                     torch.where(sigma > 0, d_sigma, 0.0)[..., None]], dim=-1)
     dz = dz.reshape(-1, _HEAD)
-    gws, gbs = [torch.zeros_like(x) for x in ws], [torch.zeros_like(x) for x in bs]
     for l in range(L - 1, -1, -1):
         dzc = _rnd(dz, cdt)
-        wl = _rnd(ws[l][:, : dz.shape[1]], cdt)
-        gws[l][:, : dz.shape[1]] = acts[l].to(torch.float32).T @ dzc
-        gbs[l][: dz.shape[1]] = dz.sum(0)
+        yield l, dz, dzc
         if l > 0:
-            dz = (dzc @ wl.T) * (acts[l] > 0)
-    return gws, gbs
+            dz = (dzc @ _rnd(ws[l][:, : dz.shape[1]], cdt).T) * (acts[l] > 0)
 
 
 class _WidePlain(torch.autograd.Function):

@@ -4,7 +4,9 @@
 The wide gradient kernels (#7, #9, #11, #12) run these products for every
 hidden layer, and the bf16 render past the fused MLP's pw 256 (#8, #10) its
 forward layers, on ``csrc/nerf_wide_layer_gemm.cuh`` (wgmma fed by TMA, each
-32-deep k-step promoted into f32 sums).  Its entry point alone,
+32-deep k-step promoted into f32 sums).  The ``d_h`` form also sums its f32
+output over each 128-row tile (:data:`TILE_ROWS`): the column partials db is
+summed from, so that the gradient kernels write no f32 ``d_h`` at all.  Its entry point alone,
 ``wide_layer_gemm`` (``csrc/nerf_wide_train.cu``), lets the card test and
 time it: :func:`wide_layer_gemm` (the forward form) and
 :func:`wide_dh_gemm` (the ``d_h`` form) launch it; :func:`wide_layer_gemm_mma`
@@ -22,6 +24,7 @@ import torch
 # kernel launches of the C entry points, by wrapper; a run resets and reads them
 launches = {"wide_layer_gemm": 0, "wide_layer_gemm_mma": 0, "wide_dh_gemm": 0,
             "wide_dh_gemm_mma": 0}
+TILE_ROWS = 128  # rows of d_h a column partial sums (the kernel's row tile, kLgBM)
 
 
 def layer_reference(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
@@ -32,11 +35,17 @@ def layer_reference(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, K: int) -
 
 
 def dh_reference(dz: torch.Tensor, W: torch.Tensor, mask: torch.Tensor, K: int):
-    """Plain version of :func:`wide_dh_gemm`: ``(d_h, bf16(d_h))``, ``d_h =
-    dz[:, :K] W[:, :K]^T`` in f32 where ``mask > 0``, else 0."""
+    """Plain version of :func:`wide_dh_gemm`: ``(d_h, bf16(d_h), part)``,
+    ``d_h = dz[:, :K] W[:, :K]^T`` in f32 where ``mask > 0``, else 0, and
+    ``part[i]`` the column sums of its rows ``128 i .. 128 i + 127`` (the
+    rows past the last count as 0), summed in f64 and rounded to f32."""
     d = dz[:, :K].float() @ W[:, :K].float().T
     d = torch.where(mask.float() > 0, d, torch.zeros_like(d))
-    return d, d.to(torch.bfloat16)
+    tiles = -(-d.shape[0] // TILE_ROWS)
+    padded = torch.zeros((tiles * TILE_ROWS, d.shape[1]), dtype=torch.float64, device=d.device)
+    padded[: d.shape[0]] = d
+    part = padded.view(tiles, TILE_ROWS, -1).sum(1).float()
+    return d, d.to(torch.bfloat16), part
 
 
 def _check(a: torch.Tensor, W: torch.Tensor, other: torch.Tensor, K: int, dh: bool) -> None:
@@ -60,22 +69,24 @@ def _check(a: torch.Tensor, W: torch.Tensor, other: torch.Tensor, K: int, dh: bo
         raise NotImplementedError(f"no layer GEMM for device {a.device}")
 
 
-def _launch(entry: str, wrapper: str, a, W, b, mask, K: int):
+def _launch(entry: str, wrapper: str, a, W, b, mask, K: int, part: bool = False):
     from lomanerf_tpu_torch.ops import build
 
     rows, pw = a.shape
     dh = mask is not None
     C = torch.empty((rows, pw), dtype=torch.float32 if dh else torch.bfloat16, device=a.device)
     Cb = torch.empty((rows, pw), dtype=torch.bfloat16, device=a.device) if dh else None
+    P = torch.empty((-(-rows // TILE_ROWS), pw), dtype=torch.float32, device=a.device) \
+        if part else None
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = getattr(build.load(), entry)(
         a.data_ptr(), W.data_ptr(), None if dh else b.data_ptr(),
         mask.data_ptr() if dh else None, C.data_ptr(), Cb.data_ptr() if dh else None,
-        rows, pw, K, int(dh), stream)
+        None if P is None else P.data_ptr(), rows, pw, K, int(dh), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches[wrapper] += 1
-    return (C, Cb) if dh else C
+    return (C, Cb, P) if part else (C, Cb) if dh else C
 
 
 def wide_layer_gemm(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
@@ -98,20 +109,22 @@ def wide_layer_gemm_mma(h, W, b, K: int) -> torch.Tensor:
 
 
 def wide_dh_gemm(dz: torch.Tensor, W: torch.Tensor, mask: torch.Tensor, K: int):
-    """``d_h`` of a layer: ``(d_h (rows, pw) f32, its bf16 copy)``, ``d_h =
-    dz[:, :K] W[:, :K]^T`` where ``mask > 0``, else 0, from the bf16 d_z
-    ``dz`` (rows, pw), the layer's ``W`` (pw, pw) bf16 and its input
-    ``mask`` (rows, pw) bf16: the wgmma/TMA kernel on CUDA tensors, the
-    plain version on CPU ones."""
+    """``d_h`` of a layer: ``(d_h (rows, pw) f32, its bf16 copy, its column
+    partials (ceil(rows / 128), pw) f32)``, ``d_h = dz[:, :K] W[:, :K]^T``
+    where ``mask > 0``, else 0, from the bf16 d_z ``dz`` (rows, pw), the
+    layer's ``W`` (pw, pw) bf16 and its input ``mask`` (rows, pw) bf16; a
+    partial is the column sum of one 128-row tile of ``d_h``: the wgmma/TMA
+    kernel on CUDA tensors, the plain version on CPU ones."""
     _check(dz, W, mask, K, True)
     if dz.device.type == "cpu":
         return dh_reference(dz, W, mask, K)
-    return _launch("wide_layer_gemm", "wide_dh_gemm", dz, W, None, mask, K)
+    return _launch("wide_layer_gemm", "wide_dh_gemm", dz, W, None, mask, K, part=True)
 
 
 def wide_dh_gemm_mma(dz, W, mask, K: int):
-    """:func:`wide_dh_gemm` on the ``mma.sync`` kernel it replaced."""
+    """:func:`wide_dh_gemm` on the ``mma.sync`` kernel it replaced: ``(d_h,
+    its bf16 copy)``, no partials."""
     _check(dz, W, mask, K, True)
     if dz.device.type == "cpu":
-        return dh_reference(dz, W, mask, K)
+        return dh_reference(dz, W, mask, K)[:2]
     return _launch("wide_layer_gemm_mma", "wide_dh_gemm_mma", dz, W, None, mask, K)

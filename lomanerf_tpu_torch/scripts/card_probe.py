@@ -691,14 +691,18 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
     from lomanerf_tpu_torch.train.steps import make_single_chip_train_step
 
     libs = {"parent": parent_library(parent), "this tree": build.load()}
-    saved = build.load
+    # each tree's own wrappers, which know its C ABI (the train step calls
+    # fused_nerf.nerf_train_loss)
+    nerf = {"parent": parent_module(parent, "fused_nerf"), "this tree": fused_nerf}
+    saved = build.load, fused_nerf.nerf_train_loss
 
     def on(lib, fn):
         build.load = lambda: libs[lib]
+        fused_nerf.nerf_train_loss = nerf[lib].nerf_train_loss
         try:
             return fn()
         finally:
-            build.load = saved
+            build.load, fused_nerf.nerf_train_loss = saved
 
     cfg, n = nerf_config(config), CONFIG_RAYS[config]
     rng = np.random.default_rng(0)
@@ -710,23 +714,30 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
     model.init(torch.Generator().manual_seed(0))
     leaves = list(model.parameters())
 
-    def train():
-        loss = fused_nerf.nerf_train_loss(model.params, o, d, t, dists, tgt, cfg)
+    def train(lib):
+        loss = nerf[lib].nerf_train_loss(model.params, o, d, t, dists, tgt, cfg)
         return (loss.detach(), *torch.autograd.grad(loss, leaves))
 
-    def render():
+    def render(lib):
         with torch.no_grad():
-            return fused_nerf.render_rays(model.params, o, d, t, dists, cfg)
+            return nerf[lib].render_rays(model.params, o, d, t, dists, cfg)
 
     out = {"what": "flagship", "config": config, "parent": parent, "rounds": rounds,
            "device": variants.card()}
     for what, fn in (("train call", train), ("render", render)):
-        fns = {lib: (lambda lib=lib, fn=fn: on(lib, fn)) for lib in libs}
+        fns = {lib: (lambda lib=lib, fn=fn: on(lib, lambda: fn(lib))) for lib in libs}
         a, b = fns["parent"](), fns["this tree"]()
         a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        # the loss, dW and colours bit for bit; db (the 1-D leaves) may differ
+        # in its sum order: its largest gap, relative to the leaf's largest entry
+        same = [torch.equal(x, y) for x, y in zip(a, b) if x.ndim != 1]
+        if not all(same):
             raise SystemExit(f"card_probe: the {config} {what} differs from the parent's")
         out[what] = {k: v["window_ms"] for k, v in one_call_ms(fns, rounds).items()}
+        gaps = [((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+                for x, y in zip(a, b) if x.ndim == 1]
+        if gaps:
+            out[what]["db_gap"] = max(gaps)
     steps = {}
     for lib in libs:
         m = NeRFModel(cfg, device="cuda")
@@ -750,7 +761,9 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
     for k in ("train call", "render", "step"):
         v = out[k]
         print(f"  {k:12s} parent {v['parent']:9.3f}  this tree {v['this tree']:9.3f}  "
-              f"ratio {v['this tree'] / v['parent']:.4f}")
+              f"ratio {v['this tree'] / v['parent']:.4f}"
+              + (f"  db apart by {v['db_gap']:.2e} of its largest entry" if "db_gap" in v
+                 else ""))
     print(f"  the layer GEMM alone at {rows} x {pw} . {pw} x {pw} "
           f"({'f32' if cfg.compute_dtype == 'float32' else 'bf16, f32 sums'}):")
     for k in [k for k in out if k.startswith("layer gemm")]:
@@ -889,10 +902,8 @@ def field_split(steps: int) -> dict:
 
 def parent_library(parent: str):
     """The kernels of the checkout at ``parent``, built there, with every
-    entry point's signature set (the field's under this tree's C ABI:
-    ``field_variants.bind_field``; the render forward's is the same in
-    every tree)."""
-    from lomanerf_tpu_torch.ops import build
+    entry point's signature set as that checkout's ``ops/build.py`` sets
+    it (the field's under this tree's C ABI: ``field_variants.bind_field``)."""
     from lomanerf_tpu_torch.scripts import field_variants
 
     built = subprocess.run([sys.executable, "-c", "from lomanerf_tpu_torch.ops import build; "
@@ -900,7 +911,7 @@ def parent_library(parent: str):
     if built.returncode:
         raise SystemExit(f"card_probe: the build at {parent} failed:\n{built.stderr[-4000:]}")
     old = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
-    for name, argtypes in build.SIGNATURES.items():
+    for name, argtypes in parent_module(parent, "build").SIGNATURES.items():
         if not name.startswith("field_") and hasattr(old, name):  # entries it has
             fn = getattr(old, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -908,14 +919,21 @@ def parent_library(parent: str):
     return field_variants.bind_field(old, field_variants.takes_tier(csrc))
 
 
-def parent_packing(parent: str):
-    """The field's parameter packing of the checkout at ``parent``: its own
-    ``fused_mlp.pack_field_params``, loaded from its file."""
+def parent_module(parent: str, name: str):
+    """The module ``lomanerf_tpu_torch.ops.<name>`` of the checkout at
+    ``parent``, loaded from its file (it imports the rest of the port from
+    this tree)."""
     spec = importlib.util.spec_from_file_location(
-        "parent_fused_mlp", Path(parent) / "lomanerf_tpu_torch" / "ops" / "fused_mlp.py")
+        "parent_" + name, Path(parent) / "lomanerf_tpu_torch" / "ops" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.pack_field_params
+    return mod
+
+
+def parent_packing(parent: str):
+    """The field's parameter packing of the checkout at ``parent``: its own
+    ``fused_mlp.pack_field_params``."""
+    return parent_module(parent, "fused_mlp").pack_field_params
 
 
 def field_against(parent: str, rounds: int = 3) -> dict:

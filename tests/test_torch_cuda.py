@@ -29,7 +29,9 @@ MLP (wgmma/TMA) to the layer chain it replaced, bit for bit;
 the wide chain's bf16 layer GEMM (wgmma/TMA, both forms) to the
 ``mma.sync`` kernel it replaced, bit for bit; and its exact f32 GEMM
 (``nerf_wide_f32_gemm.cuh``, every form) to the FMA kernel it replaced
-(``gemm_kernel``), bit for bit, signed zeros included.
+(``gemm_kernel``), bit for bit, signed zeros included.  The bf16 wide
+gradient kernels' db, summed from column partials of the unrounded d_z, is
+held to the f64 column sums of the plain path's f32 d_z.
 """
 
 import dataclasses
@@ -371,6 +373,57 @@ def test_wide_perray_kernels_over_many_ray_chunks(preset, monkeypatch):
             assert (g - w).abs().max() <= 1e-2 * w.abs().max()
     else:
         assert_grads_close(ragged[2:], p[2:])
+
+
+# bf16 db against the f64 column sums of the plain path's f32 d_z, as a
+# share of the column's sum of |d_z|: the two d_z differ by the order of f32
+# sums (and the bf16 roundings that order flips), not by db's own order: on
+# an H100 the worst leaf read 3.5e-4 here, and a column sum of the kernel's
+# f32 d_z read the same to 4 digits.
+DB_GAP = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["nerf_wide_train", "nerf_wide_render_bwd"])
+def test_wide_bf16_db_sums_the_unrounded_d_z(entry):
+    """For bf16 the wide gradient kernels write no f32 d_z: db comes from
+    column partials of the unrounded d_z that compositing and the d_h GEMM
+    write.  One call's db against the f64 column sums of the plain path's
+    f32 d_z (``fused_nerf._wide_plain_dzs``) within ``DB_GAP`` of each
+    column's sum of |d_z|; the loss, dW and db bit-identical across two
+    launches."""
+    need_card()
+    rng = np.random.default_rng(29)
+    cfg = PERRAY["wide-bf16"]
+    params = params_from_numpy(*np_params(rng, cfg), "cuda")
+    o, d = cuda_rays(rng, N_RAYS)
+    t, dists = uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    tgt = torch.from_numpy(rng.random((N_RAYS, 3)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.standard_normal((N_RAYS, 3)).astype(np.float32)).cuda()
+    L = cfg.num_layers
+
+    def run():
+        if entry == "nerf_wide_train":
+            return grads_of(params, lambda: fused_nerf.nerf_train_loss(
+                params, o, d, t, dists, tgt, cfg))
+        return grads_of(params, lambda: (fused_nerf.render_rays(
+            params, o, d, t, dists, cfg) * cot).sum())
+
+    before = fused_nerf.launches[entry]
+    k1, k2 = run(), run()
+    torch.cuda.synchronize()
+    assert fused_nerf.launches[entry] == before + 2
+    assert all(same_bits(x, y) for x, y in zip(k1, k2))
+    with torch.no_grad():
+        ws, bs = [w.detach() for w in params["w"]], [b.detach() for b in params["b"]]
+        col, saved = fused_nerf._wide_plain_forward(ws, bs, o, d, t, dists, cfg)
+        dcol = 2.0 * (col - tgt) if entry == "nerf_wide_train" else cot
+        for l, dz, _ in fused_nerf._wide_plain_dzs(ws, saved, dcol, dists, cfg):
+            got = k1[1 + L + l][: dz.shape[1]].double()
+            want, scale = dz.double().sum(0), dz.double().abs().sum(0)
+            gap = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
+            print(f"{entry} db_{l}: worst |kernel - f64| / sum |d_z| {gap:.3e}")
+            assert gap <= DB_GAP, (l, gap)
 
 
 @pytest.mark.cuda
@@ -829,10 +882,19 @@ def test_wide_layer_gemm_equals_its_mma_twin(form, K, pw, rows):
         plain = wide_gemm.dh_reference(a, W, mask, K)[0]
         torch.cuda.synchronize()
         names = ("wide_dh_gemm", "wide_dh_gemm_mma")
+        assert len(got) == 3 and len(old) == 2
         for x, y, z in zip(got, again, old):
             assert torch.equal(x, y) and torch.equal(x, z)
+        assert torch.equal(got[2], again[2])
         assert torch.equal(got[1], got[0].to(torch.bfloat16))
         assert (got[0] - plain).abs().max() <= 1e-5 * plain.abs().max()
+        # the 128-row column partials against f64 sums of the kernel's own d_h
+        tiles = -(-rows // wide_gemm.TILE_ROWS)
+        d64 = torch.zeros((tiles * wide_gemm.TILE_ROWS, pw), dtype=torch.float64, device="cuda")
+        d64[:rows] = got[0]
+        d64 = d64.view(tiles, wide_gemm.TILE_ROWS, pw)
+        assert got[2].shape == (tiles, pw)
+        assert ((got[2].double() - d64.sum(1)).abs() <= 1e-6 * d64.abs().sum(1) + 1e-30).all()
     assert wide_gemm.launches[names[0]] == before[names[0]] + 2
     assert wide_gemm.launches[names[1]] == before[names[1]] + 1
 
@@ -851,7 +913,7 @@ def test_wide_layer_gemm_refuses_what_it_does_not_take():
     stream = torch.cuda.current_stream().cuda_stream
     for entry in ("wide_layer_gemm", "wide_layer_gemm_mma"):
         err = getattr(build.load(), entry)(a.data_ptr(), W.data_ptr(), b.data_ptr(), None,
-                                           C.data_ptr(), None, 37, 128, 136, 0, stream)
+                                           C.data_ptr(), None, None, 37, 128, 136, 0, stream)
         assert err != 0
     before = dict(wide_gemm.launches)
     with pytest.raises(ValueError):

@@ -16,7 +16,8 @@ order of the f32 sums differs, so a bf16 output may round to the
 neighbouring value: one bf16 rounding step of the entry (2^(e-8) for an
 entry in [2^(e-1), 2^e)), plus 1e-5 of the largest entry where a
 pre-activation within f32 rounding of 0 lands on the other side of the
-ReLU.  The f32 ``d_h`` within 1e-5 of its largest entry.  The card tests
+ReLU.  The f32 ``d_h`` within 1e-5 of its largest entry; its 128-row
+column partials within one f32 rounding of the f64 sums.  The card tests
 (``tests/test_torch_cuda.py``) hold the kernel to the ``mma.sync`` kernel it
 replaced bit for bit.
 """
@@ -104,7 +105,7 @@ def test_forward_form_matches_the_jax_layer_and_numpy(rows, K, pw):
 @pytest.mark.parametrize("rows,K,pw", SHAPES)
 def test_dh_form_matches_the_jax_layer_and_numpy(rows, K, pw):
     _, dz, mask, W, _ = operands(rows, pw, rows * K + pw)
-    d, db = wide_gemm.wide_dh_gemm(dz, W, mask, K)
+    d, db, _ = wide_gemm.wide_dh_gemm(dz, W, mask, K)
     assert d.shape == db.shape == (rows, pw)
     assert d.dtype == torch.float32 and db.dtype == torch.bfloat16
     assert torch.equal(db, d.to(torch.bfloat16))
@@ -125,6 +126,29 @@ def test_dh_form_matches_the_jax_layer_and_numpy(rows, K, pw):
         assert err <= DH_ATOL * scale, f"d_h vs {what}: {err:.3e} of {scale:.3e}"
     assert not (d.numpy()[~keep]).any(), "d_h where the mask is not positive"
     assert_bf16_close(db.float(), bf16(order).float(), "the bf16 copy vs the kernel's order")
+
+
+@pytest.mark.parametrize("pw", [128, 256])
+@pytest.mark.parametrize("rows", [300, 8192 + 1037, 128, 1])
+def test_dh_form_column_partials_sum_each_128_row_tile(rows, pw):
+    """The d_h form's column partials (db's, in place of an f32 d_z): one
+    row per 128-row tile of d_h, ragged rows counting as 0; each tile's row
+    the f64 column sum of its rows of the masked f32 d_h within f32
+    rounding, and their total the whole column sum."""
+    _, dz, mask, W, _ = operands(rows, pw, rows + pw)
+    d, _, part = wide_gemm.wide_dh_gemm(dz, W, mask, pw)
+    tiles = -(-rows // wide_gemm.TILE_ROWS)
+    assert part.shape == (tiles, pw) and part.dtype == torch.float32
+    d64 = d.double().numpy()
+    for i in range(tiles):
+        rows_i = d64[wide_gemm.TILE_ROWS * i:wide_gemm.TILE_ROWS * (i + 1)]
+        want, scale = rows_i.sum(0), np.abs(rows_i).sum(0)
+        gap = np.abs(part[i].double().numpy() - want)
+        assert (gap <= 2.0 ** -24 * (np.abs(want) + 1e-30)).all(), f"tile {i}: {gap.max():.3e}"
+        assert (gap <= 1e-7 * scale + 1e-30).all()
+    total, scale = d64.sum(0), np.abs(d64).sum(0)
+    assert (np.abs(part.double().numpy().sum(0) - total) <= 1e-6 * scale + 1e-30).all()
+    assert torch.equal(wide_gemm.wide_dh_gemm_mma(dz, W, mask, pw)[0], d)
 
 
 def refusals():
@@ -164,4 +188,4 @@ def test_cpu_calls_launch_nothing_and_the_entry_points_are_bound():
     assert set(wide_gemm.launches) == {"wide_layer_gemm", "wide_layer_gemm_mma",
                                        "wide_dh_gemm", "wide_dh_gemm_mma"}
     for entry in ("wide_layer_gemm", "wide_layer_gemm_mma"):
-        assert len(build.SIGNATURES[entry]) == 11
+        assert len(build.SIGNATURES[entry]) == 12
