@@ -191,20 +191,32 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     the fit step there on both tiers against the plain version; fits 200
     ``fit_image`` steps of the 4x256 field at 512x512 on the kernels and
     the plain backend from one init (>= 8 dB above step 0, within 0.3 dB
-    of plain).
+    of plain);
+26. holds the published NeRF (``NeRFConfig.paper()``, ``nerf_paper.cu``:
+    skip connection, view branch, coarse and fine networks) against its
+    plain version at NeRF's 4096 rays (the benchmark cell's batch) and on
+    1037 rays: each pass's train call (loss, weights, every gradient;
+    repeats bit-identical) and render call, the fine pass at the depths
+    drawn from the coarse weights; times each entry's fine-pass call at
+    4096 rays against the plain version's; ``NeRFModel.loss`` and
+    ``render_image`` on its two entries only, then 30 Adam steps at 4096
+    rays, the last 10 timed; its outputs' digests against ``PAPER_DIGESTS``.
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
 scans' own timed runs at the 262,144 x 30 column: no train step or frame
 launches ``seg_scans``), 19 (the sweep), 20 (each rank's data-parallel
 steps and sharded frame), 21 (the three pipeline runs), 23 (``entry()``'s
-loss and each dry-run rank's steps), 24 (the 8x1024 driver) and 25 (the
-4x256 fit) are the main paths: each kernel's launch count is reset before
-its path and read after it.
+loss and each dry-run rank's steps), 24 (the 8x1024 driver), 25 (the
+4x256 fit) and 26 (the model's loss, ``render_image`` and the 30 steps)
+are the main paths: each kernel's launch count is reset before its path
+and read after it.
 The last lines are the card's name and power limit, a JSON line of the
-eighteen kernels (the sixteen TPU kernels' counterparts and the wide
-field route's two; with each one's least time on the card for its work,
-``bound_ms``; #1's ``ms`` is the kernel's own call, with the frames' times
+twenty kernels (the sixteen TPU kernels' counterparts, the wide field
+route's two and the published NeRF's two entries, which replace no TPU
+kernel, with the fine pass's times at 4096 rays and, for the train
+entry, the step's beside them; with each one's least time on the card
+for its work, ``bound_ms``; #1's ``ms`` is the kernel's own call, with the frames' times
 and its share of the bound beside it, #4's with its share; #14's with
 phase 10's whole-image leaves and flips per route; #3's also with phase
 6's split of the step and phase 21's pipeline summary; #8's also with
@@ -325,6 +337,10 @@ KERNELS.update({  # the last two TPU kernels: the seg-scan harness, the grid-ove
 KERNELS.update({  # fields past the tile kernels (D2): the wide route of #13 and #14
     "field_wide_fwd": (_CSRC + "field_wide.cu", "lomanerf_tpu/ops/fused_mlp.py:45"),
     "field_wide_bwd": (_CSRC + "field_wide.cu", "lomanerf_tpu/ops/fused_mlp.py:51"),
+})
+KERNELS.update({  # the published NeRF's two entries: the JAX package has no such model
+    "nerf_paper_train": (_CSRC + "nerf_paper.cu", None),
+    "nerf_paper_render": (_CSRC + "nerf_paper.cu", None),
 })
 SINGLE64_RAYS = 65536  # the bench's single64 rung (bench.py:334)
 STRAT_STEPS, STRAT_FULL_STEPS = 500, 30
@@ -4179,6 +4195,240 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
     return worst, timing, bounds, launches, extra
 
 
+# SHA-256 of the published NeRF's entries' outputs (paper_digests), recorded
+# from a card run of nerf_paper.cu; the train entries' moved when both
+# compositing kernels took the shared walks (composite_walk, adjoint_walk)
+PAPER_DIGESTS = {
+    "nerf_paper_train coarse": "a85ec8b3d686abc915c22861829c27ff65e67a2b4b444bb78a6660c052cc7231",
+    "nerf_paper_render coarse": "4cafbfc36576221d39a00f196b8ee2472c55f758bfbac557a4da004776d017f4",
+    "nerf_paper_train fine": "e7584ecfe3441fb08173924623fc285ebe027970e7f45d4b312c9a4a6c853731",
+    "nerf_paper_render fine": "9f265e94a994acc0b6b55382fb110930dde62bff8940390ef49798a5f8ce97b0",
+}
+PAPER_RAYS, PAPER_STEP_RAYS = 1037, 4096
+
+
+def paper_inputs(NeRFConfig, NeRFModel, rays, n, seed):
+    """``(cfg, model, origins, directions, targets, coarse t, coarse dists)``
+    of ``NeRFConfig.paper()`` on the card: the model's init from ``seed``,
+    standard-normal rays, uniform targets and per-bin jittered coarse
+    depths, all from one CUDA generator."""
+    cfg = NeRFConfig.paper()
+    model = NeRFModel(cfg, device="cuda")
+    model.init(torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    o, d = (torch.randn((n, 3), generator=gen, device="cuda") for _ in range(2))
+    tgt = torch.rand((n, 3), generator=gen, device="cuda")
+    _, t, dists = rays.sample_along_rays(o, d, cfg.near, cfg.far, cfg.num_samples,
+                                         generator=gen)
+    return cfg, model, o, d, tgt, t, dists
+
+
+def paper_plain_pass(fused_nerf, net, o, d, t, dists, tgt, cfg):
+    """The plain version of one pass on the card's tensors (torch ops, TF32
+    off): ``(loss, weights, grads)``."""
+    leaves = [*net["w"], *net["b"]]
+    col, w = fused_nerf.paper_reference(net, o, d, t, dists, cfg)
+    loss = ((col - tgt) ** 2).sum()
+    return loss.detach(), w.detach(), torch.autograd.grad(loss, leaves)
+
+
+def paper_digests(fused_nerf, NeRFConfig, NeRFModel, rays, seed=53):
+    """SHA-256 of ``nerf_paper_train``'s loss, gradients and weights and of
+    ``nerf_paper_render``'s colours and weights for both networks on 1037
+    rays at fixed seeded inputs (the fine pass at the depths drawn evenly
+    from the coarse weights)."""
+    import hashlib
+
+    cfg, model, o, d, tgt, t, dists = paper_inputs(NeRFConfig, NeRFModel, rays, PAPER_RAYS,
+                                                   seed)
+    digests = {}
+    for name, net in zip(("coarse", "fine"), fused_nerf.paper_nets(model.params)):
+        loss, w = fused_nerf.paper_train_loss(net, o, d, t, dists, tgt, cfg, weights=True)
+        grads = torch.autograd.grad(loss, [*net["w"], *net["b"]])
+        with torch.no_grad():
+            col, wr = fused_nerf.paper_render(net, o, d, t, dists, cfg, weights=True)
+        for entry, outs in (("nerf_paper_train", (loss.detach(), w, *grads)),
+                            ("nerf_paper_render", (col, wr))):
+            h = digests.setdefault(f"{entry} {name}", hashlib.sha256())
+            for x in outs:
+                h.update(x.detach().cpu().numpy().tobytes())
+        if name == "coarse":
+            t, dists = rays.fine_depths(t, wr, cfg.num_fine_samples)
+    return {k: h.hexdigest() for k, h in digests.items()}
+
+
+def paper_macs(cfg):
+    """``(forward, train)`` multiply-adds of one row of one network of
+    ``NeRFConfig.paper()``: the train call adds dW (the forward's count) and
+    ``d_h`` of every leaf but the first onto the columns it reaches (the
+    skip layer's onto h_5's 256, not gamma(x)'s; the view layer's onto the
+    feature's 256, not gamma(d)'s)."""
+    sizes = cfg.leaf_sizes()[:12]
+    fwd = sum(fi * fo for fi, fo in sizes)
+    cut = (cfg.skip_layer, cfg.num_layers + 2)  # the skip layer, the view layer
+    dh = sum((cfg.filter_size if i in cut else fi) * fo for i, (fi, fo) in enumerate(sizes)
+             if i)
+    return fwd, 2 * fwd + dh
+
+
+# the published NeRF's gradients on a batch of about 1000 rays, of each
+# leaf's norm, as tests/test_torch_nerf_paper.py holds them at 37 rays: on
+# 2 of 8 seeds 2-3 entries of a trunk leaf read 1.1-1.3e-2 of the leaf's
+# largest entry off the plain version (at 1037 and at 1024 rays alike),
+# past phase 7's 1e-2, where at 4096 rays four seeds read 4.6e-3 at most
+PAPER_SMALL_GRAD = 0.06
+
+
+def paper_check(fused_nerf, rays, cfg, model, o, d, t, dists, tgt):
+    """Both passes of one batch against the plain version: each pass's
+    train call (loss, weights, every gradient; repeats bit-identical) and
+    render call (colours; weights equal to the train call's), coarse at
+    ``t`` and fine at the sorted union with the depths drawn evenly from the
+    coarse weights, at phase 7's bf16 bounds; below NeRF's 4096 rays each
+    gradient within ``PAPER_SMALL_GRAD`` of its leaf's norm instead of
+    phase 7's entrywise bound.  Returns the worst |kernel - plain| per
+    entry (train: weights and gradients; render: colours)."""
+    col_atol, loss_rtol, _ = wide_tolerances(cfg)
+    worst = {"nerf_paper_train": 0.0, "nerf_paper_render": 0.0}
+    for name, net in zip(("coarse", "fine"), fused_nerf.paper_nets(model.params)):
+        leaves = [*net["w"], *net["b"]]
+        loss, w = fused_nerf.paper_train_loss(net, o, d, t, dists, tgt, cfg, weights=True)
+        grads = torch.autograd.grad(loss, leaves)
+        loss2, w2 = fused_nerf.paper_train_loss(net, o, d, t, dists, tgt, cfg, weights=True)
+        grads2 = torch.autograd.grad(loss2, leaves)
+        what = f"{o.shape[0]} rays, {name}"
+        if not all(torch.equal(a, b) for a, b in zip((loss, w, *grads), (loss2, w2, *grads2))):
+            raise AssertionError(f"nerf_paper_train {what}: repeats differ")
+        want_loss, want_w, want_grads = paper_plain_pass(fused_nerf, net, o, d, t, dists, tgt,
+                                                         cfg)
+        torch.testing.assert_close(loss.detach(), want_loss, rtol=loss_rtol, atol=0.0)
+        torch.testing.assert_close(w, want_w, rtol=0.0, atol=col_atol)
+        if o.shape[0] >= PAPER_STEP_RAYS:
+            g_err = wide_grads_close(grads, want_grads, f"nerf_paper_train {what}", cfg)
+        else:
+            g_err = max((g - r).abs().max().item() for g, r in zip(grads, want_grads))
+            for i, (g, r) in enumerate(zip(grads, want_grads)):
+                if float((g - r).norm()) > PAPER_SMALL_GRAD * float(r.norm()) + 1e-6:
+                    raise AssertionError(f"nerf_paper_train {what}, leaf {i}: "
+                                         f"|kernel - plain| {float((g - r).norm()):.3e} "
+                                         f"against the leaf's norm {float(r.norm()):.3e}")
+        w_err = (w - want_w).abs().max().item()
+        with torch.no_grad():
+            col, wr = fused_nerf.paper_render(net, o, d, t, dists, cfg, weights=True)
+            want_col, _ = fused_nerf.paper_reference(net, o, d, t, dists, cfg)
+        torch.testing.assert_close(col, want_col, rtol=0.0, atol=col_atol)
+        if not torch.equal(wr, w):
+            raise AssertionError(f"nerf_paper_render {what}: weights differ from the train "
+                                 "call's")
+        c_err = (col - want_col).abs().max().item()
+        g_rel = max(float((g - r).norm()) / max(float(r.norm()), 1e-30)
+                    for g, r in zip(grads, want_grads))
+        worst["nerf_paper_train"] = max(worst["nerf_paper_train"], g_err, w_err)
+        worst["nerf_paper_render"] = max(worst["nerf_paper_render"], c_err)
+        print(f"phase 26 {what} ({t.shape[1]} samples): loss {float(loss):.6f} plain "
+              f"{float(want_loss):.6f} (rel {abs(float(loss) / float(want_loss) - 1):.2e}); "
+              f"|kernel - plain| weights {w_err:.3e}, colours {c_err:.3e}, grads {g_err:.3e} "
+              f"(of its leaf's norm at most {g_rel:.2e})")
+        if name == "coarse":
+            t, dists = rays.fine_depths(t, wr, cfg.num_fine_samples)
+    return worst
+
+
+def phase_paper(fused_nerf, NeRFConfig, NeRFModel, rays, make_single_chip_train_step, smi,
+                seed=51):
+    """Phase 26, the published NeRF (``nerf_paper.cu``): :func:`paper_check`
+    at NeRF's 4096 rays (the cell's batch: 262,144 coarse and 786,432 fine
+    rows, one chunk each) and on 1037 rays (a ragged batch); each entry's
+    fine-pass call at 4096 rays timed against the plain version's, in
+    turns; on the main path (launches counted) the model's loss and
+    render_image through the kernels only, then 30 Adam steps at 4096 rays
+    through make_single_chip_train_step, the last 10 timed; the digests
+    against ``PAPER_DIGESTS``.  Returns ``(worst, timing, bounds, launches,
+    extra)`` of the two entries."""
+    worst = {"nerf_paper_train": 0.0, "nerf_paper_render": 0.0}
+    for n, s in ((PAPER_STEP_RAYS, seed), (PAPER_RAYS, seed + 2)):
+        cfg, model, o, d, tgt, t, dists = paper_inputs(NeRFConfig, NeRFModel, rays, n, s)
+        for k, e in paper_check(fused_nerf, rays, cfg, model, o, d, t, dists, tgt).items():
+            worst[k] = max(worst[k], e)
+
+    cfg, model, o, d, tgt, t, dists = paper_inputs(NeRFConfig, NeRFModel, rays,
+                                                   PAPER_STEP_RAYS, seed)
+    coarse, fine = fused_nerf.paper_nets(model.params)
+    with torch.no_grad():
+        _, w = fused_nerf.paper_render(coarse, o, d, t, dists, cfg, weights=True)
+    tf, df = rays.fine_depths(t, w, cfg.num_fine_samples)
+    leaves = [*fine["w"], *fine["b"]]
+
+    def train():
+        torch.autograd.grad(fused_nerf.paper_train_loss(fine, o, d, tf, df, tgt, cfg)[0],
+                            leaves)
+
+    def render():
+        with torch.no_grad():
+            fused_nerf.paper_render(fine, o, d, tf, df, cfg)
+
+    def plain_render():
+        with torch.no_grad():
+            fused_nerf.paper_reference(fine, o, d, tf, df, cfg)
+
+    fns = {"nerf_paper_train": train,
+           "plain train": lambda: paper_plain_pass(fused_nerf, fine, o, d, tf, df, tgt, cfg),
+           "nerf_paper_render": render, "plain render": plain_render}
+    for fn in fns.values():  # warm-up
+        fn()
+    med = {k: statistics.median(v) for k, v in timed_turns(fns, 3).items()}
+    rows = PAPER_STEP_RAYS * tf.shape[1]
+    fwd, train_macs = paper_macs(cfg)
+    n_params = sum(fi * fo + fo for fi, fo in cfg.leaf_sizes()[:12])
+    # read once: the rays (and targets), depths and steps, the packed bf16
+    # weights and f32 biases; written once: the colours, or the loss and
+    # the f32 gradients
+    bounds = {"nerf_paper_train": bound(rows * train_macs, PEAK_BF16,
+                                        PAPER_STEP_RAYS * 36 + rows * 8 + n_params * 10),
+              "nerf_paper_render": bound(rows * fwd, PEAK_BF16,
+                                         PAPER_STEP_RAYS * 36 + rows * 8 + n_params * 6)}
+    timing = {k: (med[k], med["plain " + k.split("_")[-1]]) for k in bounds}
+    for k, (ms, plain) in timing.items():
+        print(f"phase 26 {k}, fine pass at {PAPER_STEP_RAYS} rays ({rows} rows; {smi}): "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bounds[k][0]:.3f} ms "
+              f"({bounds[k][1]}), {bounds[k][0] / ms:.1%} of it")
+
+    reset_launches(fused_nerf)
+    model.loss(o, d, t, dists, tgt).backward()
+    img = model.render_image(rays.normalized_intrinsics(1.1, "cuda"),
+                             torch.eye(4, device="cuda"), 64)
+    if not torch.isfinite(img).all():
+        raise AssertionError("phase 26: render_image gave non-finite colours")
+    model.zero_grad(set_to_none=True)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step = make_single_chip_train_step(cfg, opt, generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    losses = [float(step(model, o, d, t, dists, tgt)) for _ in range(20)]
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"phase 26: 20 steps of one batch gave losses {losses}")
+    ms = sorted(cuda_ms(lambda: step(model, o, d, t, dists, tgt))[0] for _ in range(10))
+    launches = {k: fused_nerf.launches[k] for k in bounds}
+    want = {"nerf_paper_train": 2 + 2 * 30, "nerf_paper_render": 2}
+    got = {k: v for k, v in fused_nerf.launches.items() if v}
+    if got != want:
+        raise AssertionError(f"phase 26: main-path launches {got}, expected {want}")
+    step_rows = PAPER_STEP_RAYS * (2 * cfg.num_samples + cfg.num_fine_samples)
+    flop = 2 * step_rows * train_macs
+    print(f"phase 26 step at {PAPER_STEP_RAYS} rays ({smi}): median {ms[5]:.3f} ms "
+          f"(min {ms[0]:.3f}), losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{flop / 1e12:.3f} TFLOP, {flop / (ms[5] * 1e-3) / 1e12:.1f} TFLOP/s; main-path "
+          f"launches {launches}")
+    got = paper_digests(fused_nerf, NeRFConfig, NeRFModel, rays)
+    for k, h in got.items():
+        print(f"phase 26 digest {k}: {h}")
+    if PAPER_DIGESTS and got != PAPER_DIGESTS:
+        raise AssertionError("the published NeRF's output digests differ from the recorded "
+                             "ones")
+    extra = {k: {"rows": rows, "rays": PAPER_STEP_RAYS, "pass": "fine"} for k in bounds}
+    extra["nerf_paper_train"].update(step_ms=ms[5], step_tflop=flop / 1e12)
+    return worst, timing, bounds, launches, extra
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -4480,6 +4730,11 @@ def main() -> None:
     extra.update(f_extra)
     for k in ("field_wide_fwd", "field_wide_bwd"):
         extra[k]["f32_gemm"] = f32_gemm_alone
+
+    # ---- phase 26: the published NeRF (nerf_paper.cu; no TPU counterpart) ----
+    for into, got in zip((worst, timing, bounds, launches, extra), phase_paper(
+            fused_nerf, NeRFConfig, NeRFModel, rays, make_single_chip_train_step, smi)):
+        into.update(got)
 
     for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share
         extra[name] = {**extra.get(name, {}), "share": bounds[name][0] / timing[name][0]}

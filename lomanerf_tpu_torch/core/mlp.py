@@ -81,6 +81,68 @@ def init_mlp(
     return {"w": [w.to(device) for w in ws], "b": [b.to(device) for b in bs]}
 
 
+def paper_layer_sizes(in_x: int, in_d: int, num_layers: int, width: int,
+                      skip_layer: int, view_width: int) -> List[tuple]:
+    """Per-leaf (fan_in, fan_out) of one network of the published NeRF
+    (Mildenhall et al. 2020, Fig. 7), in leaf order: ``num_layers`` ReLU
+    trunk layers of ``width`` (layer ``skip_layer``, 0-based, reads
+    ``[gamma(x) | h]``: NeRF's ``skips=[4]`` is 5 here), the density head
+    ``width -> 1``, the linear feature layer ``width -> width``, the view
+    layer ``[feature | gamma(d)] -> view_width`` and the rgb head
+    ``view_width -> 3``."""
+    sizes, fan_in = [], in_x
+    for i in range(num_layers):
+        if skip_layer and i == skip_layer:
+            fan_in = in_x + width
+        sizes.append((fan_in, width))
+        fan_in = width
+    return sizes + [(width, 1), (width, width), (width + in_d, view_width), (view_width, 3)]
+
+
+def init_paper_net(generator: torch.Generator, sizes: Sequence[tuple],
+                   dtype: torch.dtype = torch.float32,
+                   device: torch.device | str = "cpu") -> Params:
+    """One network of the published NeRF with ``init="nerf"`` applied to
+    both heads: He-normal weights, zero biases, the density and rgb heads'
+    weights x0.1 and a +0.5 density bias (``sizes`` as
+    :func:`paper_layer_sizes` gives them; drawn leaf by leaf from
+    ``generator`` on its device, then moved to ``device``)."""
+    ws, bs = [], []
+    for fan_in, fan_out in sizes:
+        w = torch.randn((fan_in, fan_out), generator=generator, dtype=dtype,
+                        device=generator.device)
+        ws.append(w * math.sqrt(2.0 / fan_in))
+        bs.append(torch.zeros((fan_out,), dtype=dtype, device=generator.device))
+    n = len(sizes)
+    ws[n - 4] = ws[n - 4] * 0.1  # density head
+    ws[n - 1] = ws[n - 1] * 0.1  # rgb head
+    bs[n - 4][0] = 0.5
+    return {"w": [w.to(device) for w in ws], "b": [b.to(device) for b in bs]}
+
+
+def paper_mlp_apply(net: Params, enc_x: torch.Tensor, enc_d: torch.Tensor,
+                    skip_layer: int, rnd=None) -> tuple:
+    """One network of the published NeRF on ``(rows, in_x)`` encoded points
+    and ``(rows, in_d)`` encoded directions: ``(rgb_raw (rows, 3),
+    sigma_raw (rows,))`` before the sigmoid and the ReLU.  ``rnd`` rounds
+    every weight and every stored value (encodings, each layer's output,
+    the feature and density) to a compute dtype (the kernels' plan); the
+    products accumulate in the inputs' dtype."""
+    rnd = rnd or (lambda x: x)
+    ws, bs = net["w"], net["b"]
+    trunk = len(ws) - 4
+    ex, ed = rnd(enc_x), rnd(enc_d)
+    h = ex
+    for i in range(trunk):
+        if skip_layer and i == skip_layer:
+            h = torch.cat([ex, h], dim=-1)
+        h = rnd(torch.relu(h @ rnd(ws[i]) + bs[i]))
+    sigma = rnd(h @ rnd(ws[trunk]) + bs[trunk])[:, 0]
+    feature = rnd(h @ rnd(ws[trunk + 1]) + bs[trunk + 1])
+    v = rnd(torch.relu(torch.cat([feature, ed], dim=-1) @ rnd(ws[trunk + 2]) + bs[trunk + 2]))
+    return v @ rnd(ws[trunk + 3]) + bs[trunk + 3], sigma
+
+
 def params_from_numpy(
     ws: Sequence, bs: Sequence, device: torch.device | str,
     dtype: torch.dtype = torch.float32,

@@ -10,7 +10,7 @@ import torch
 from lomanerf_tpu_torch.core.composite import accumulate_color, render_weights
 from lomanerf_tpu_torch.core.encoding import positional_encoding
 from lomanerf_tpu_torch.core.losses import sum_mse
-from lomanerf_tpu_torch.core.mlp import Params, mlp_apply
+from lomanerf_tpu_torch.core.mlp import Params, mlp_apply, paper_mlp_apply
 
 
 def image_fit_pred(params: Params, coords_encoded: torch.Tensor) -> torch.Tensor:
@@ -58,6 +58,38 @@ def nerf_render_rays(
     points = origins[:, None, :] + directions[:, None, :] * t_vals[..., None]
     enc = positional_encoding(points, num_functions=num_functions)
     return nerf_render(params, enc, dists, mode=mode, mlp_fn=mlp_fn)
+
+
+def paper_render_rays(
+    net: Params,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    t_vals: torch.Tensor,
+    dists: torch.Tensor,
+    num_functions: int,
+    dir_functions: int,
+    skip_layer: int,
+    rnd=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass of the published NeRF (one network) over ``(N, 3)`` rays at
+    ``(N, S)`` (or ``(S,)``) depths: ``(colours (N, 3), weights (N, S))``,
+    standard compositing, the view branch on the unit direction.  ``rnd``
+    as :func:`core.mlp.paper_mlp_apply`'s; the rgb after the sigmoid is
+    rounded by it too."""
+    rnd = rnd or (lambda x: x)
+    n = origins.shape[0]
+    t = t_vals.expand(n, t_vals.shape[-1])
+    s = t.shape[1]
+    points = origins[:, None, :] + directions[:, None, :] * t[..., None]
+    d = directions
+    unit = d / torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])[:, None]
+    enc_x = positional_encoding(points, num_functions).reshape(n * s, -1)
+    enc_d = positional_encoding(unit, dir_functions)
+    enc_d = enc_d[:, None, :].expand(n, s, enc_d.shape[-1]).reshape(n * s, -1)
+    rgb_raw, sigma_raw = paper_mlp_apply(net, enc_x, enc_d, skip_layer, rnd)
+    rgb = rnd(torch.sigmoid(rgb_raw)).reshape(n, s, 3)
+    weights = render_weights(torch.relu(sigma_raw).reshape(n, s), dists, mode="standard")
+    return accumulate_color(weights, rgb), weights
 
 
 def nerf_loss(

@@ -7,8 +7,9 @@ translation per pixel.  ``sample_along_rays`` gives uniform
 ``linspace(near, far, S)`` depths with an optional stratified jitter and
 ``dists`` = forward differences with a 1e8 far sentinel.
 ``stratified_ray_offsets`` shifts each ray's whole depth comb instead, so
-depths stay ``(S,)``; ``generate_random_rays`` is the unit-direction
-random-pixel sampler.
+depths stay ``(S,)``; ``sample_pdf`` and ``fine_depths`` are NeRF's
+hierarchical sampler (the fine pass's depths from the coarse weights);
+``generate_random_rays`` is the unit-direction random-pixel sampler.
 """
 
 from __future__ import annotations
@@ -108,6 +109,59 @@ def stratified_ray_offsets(
     u = torch.rand((num_rays,), generator=generator, dtype=torch.float32,
                    device=generator.device)
     return u * bin_width
+
+
+PDF_EPS = 1e-5  # added to each coarse weight; a smaller CDF step counts as 1
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, num_samples: int,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``(N, num_samples)`` depths drawn by inverse transform from the
+    piecewise-constant density of ``weights`` ``(N, B)`` over the ``B + 1``
+    edges ``bins`` ``(N, B + 1)`` (NeRF's ``sample_pdf``,
+    ``run_nerf_helpers.py``): ``weights + 1e-5`` normalised, its CDF with a
+    leading 0, each draw ``u`` placed by ``searchsorted(cdf, u, right=True)``
+    and interpolated linearly inside its bin, a CDF step below 1e-5 taken
+    as 1.  ``u`` is ``num_samples`` evenly spaced points of [0, 1] without
+    ``generator``, else uniform draws from it (on its device), so the depths
+    are drawn on the weights' device without a host synchronisation.  No
+    gradient flows to ``weights`` or ``bins``."""
+    bins, weights = bins.detach(), weights.detach()
+    n = weights.shape[0]
+    w = weights + PDF_EPS
+    pdf = w / torch.sum(w, dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
+    if generator is None:
+        u = torch.linspace(0.0, 1.0, num_samples, dtype=cdf.dtype, device=cdf.device)
+        u = u.expand(n, num_samples).contiguous()
+    else:
+        u = torch.rand((n, num_samples), generator=generator, dtype=torch.float32,
+                       device=generator.device).to(device=cdf.device, dtype=cdf.dtype)
+    inds = torch.searchsorted(cdf, u, right=True)
+    below = torch.clamp_min(inds - 1, 0)
+    above = torch.clamp_max(inds, cdf.shape[-1] - 1)
+    cdf_b, cdf_a = torch.gather(cdf, 1, below), torch.gather(cdf, 1, above)
+    bin_b, bin_a = torch.gather(bins, 1, below), torch.gather(bins, 1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < PDF_EPS, torch.ones_like(denom), denom)
+    return bin_b + (u - cdf_b) / denom * (bin_a - bin_b)
+
+
+def fine_depths(t_coarse: torch.Tensor, weights: torch.Tensor, num_fine: int,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NeRF's hierarchical sampling: ``num_fine`` depths drawn from the
+    coarse compositing ``weights`` ``(N, S)`` (:func:`sample_pdf` over the
+    bins between the midpoints of the coarse depths, on the inner weights
+    ``weights[:, 1:-1]``), merged with the coarse depths ``t_coarse``
+    (``(S,)`` shared or ``(N, S)``) and sorted: ``(t_vals, dists)``, each
+    ``(N, S + num_fine)``, dists with the 1e8 far sentinel."""
+    n, s = weights.shape
+    t = t_coarse.detach().expand(n, s)
+    mids = 0.5 * (t[:, 1:] + t[:, :-1])
+    drawn = sample_pdf(mids, weights[:, 1:-1], num_fine, generator)
+    t_all = torch.sort(torch.cat([t, drawn], dim=-1), dim=-1).values.contiguous()
+    return t_all, _dists(t_all)
 
 
 def generate_random_rays(

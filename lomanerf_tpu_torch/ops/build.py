@@ -75,6 +75,13 @@ SIGNATURES = {
     #  partials, written by the first alone)
     "wide_layer_gemm": [_P] * 7 + [_I] * 4 + [_P],
     "wide_layer_gemm_mma": [_P] * 7 + [_I] * 4 + [_P],
+    # the published NeRF (nerf_paper.cu): (W, b, ts, ds, origins,
+    #  directions, out, weights, acts, n_rays, S, stream) and (W, b, ts, ds,
+    #  origins, directions, target, weights, acts, dz, dz_head, db_part,
+    #  tile_part, partials, n_parts, ray_loss, dW, db, loss, n_rays,
+    #  chunk_rays, S, stream); weights may be null
+    "nerf_paper_render": [_P] * 9 + [_I] * 2 + [_P],
+    "nerf_paper_train": [_P] * 14 + [_LL] + [_P] * 4 + [_I] * 3 + [_P],
     # the wide chain's f32 GEMM alone (nerf_wide_f32_gemm.cuh) and the FMA
     #  kernel it replaced (gemm_kernel): (A, lda, B, ldb, bias, mask, C, ldc,
     #  M, N, K, k_chunk, form, stream), form 0 forward, 1 d_h, 2 dW, 3 head,

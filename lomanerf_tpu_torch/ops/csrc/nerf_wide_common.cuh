@@ -115,6 +115,87 @@ encode_kernel(const float* __restrict__ origins,
   for (; f < kc; ++f) out[f] = from_f32<CDT>(0.0f);
 }
 
+// Lane 0's walk of one ray's S samples in order, over a warp's
+// shared-memory arrays: the rounded rgb (rgb0-2), alpha (alp) and c = e +
+// 1e-10 (cc).  The inclusive product P_s of c (the scans' step,
+// seg_scan.cuh) into Pp; w_s = alpha_s T_s, T_s the product before s
+// (standard) or through s and 1 at s = 0 (loma); col += w_s rgb_s; w_s to
+// weights[s] where given.
+__device__ __forceinline__ void composite_walk(const float* rgb0, const float* rgb1,
+                                               const float* rgb2, const float* alp,
+                                               const float* cc, float* Pp, int S, int loma,
+                                               float* weights, float (&col)[3]) {
+  float P = 1.0f;
+  for (int s = 0; s < S; ++s) {
+    float T;
+    if (loma) {
+      seg::cumprod_step(P, cc[s]);
+      T = (s == 0) ? 1.0f : P;
+    } else {
+      T = P;
+      seg::cumprod_step(P, cc[s]);
+    }
+    Pp[s] = P;
+    const float w = alp[s] * T;
+    if (weights != nullptr) weights[s] = w;
+    col[0] = fmaf(w, rgb0[s], col[0]);
+    col[1] = fmaf(w, rgb1[s], col[1]);
+    col[2] = fmaf(w, rgb2[s], col[2]);
+  }
+}
+
+// The colour's cotangent of every lane, from lane 0's colour: kMode 1 (train,
+// cot = the ray's target) dcol = 2 (col - target) and the ray's squared
+// error returned; kMode 2 (render backward) dcol = cot.
+template <int kMode>
+__device__ __forceinline__ float colour_adjoint(float (&col)[3], const float* cot,
+                                                float (&dcol)[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) col[k] = __shfl_sync(0xffffffffu, col[k], 0);
+  float loss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (kMode == 1) {
+      const float diff = col[k] - cot[k];
+      loss = fmaf(diff, diff, loss);
+      dcol[k] = 2.0f * diff;
+    } else {
+      dcol[k] = cot[k];
+    }
+  }
+  return loss;
+}
+
+// Lane 0's reverse walk, the adjoint of composite_walk from dcol: the
+// suffix sum as a scalar (d_c = suf / c, never a later P divided by c);
+// d_sigma_s (before the density's ReLU mask) into aux, and w_s over alp
+// (alpha_s is read only here).  dr: the ray's steps.
+__device__ __forceinline__ void adjoint_walk(const float (&dcol)[3], const float* rgb0,
+                                             const float* rgb1, const float* rgb2, float* alp,
+                                             const float* cc, const float* Pp,
+                                             const float* dr, float* aux, int S, int loma) {
+  float suf = 0.0f;    // sum_{s' >= s} d_P_s' P_s'
+  float carry = 0.0f;  // standard mode: d_w_{s+1} alpha_{s+1}
+  for (int s = S - 1; s >= 0; --s) {
+    const float alpha = alp[s];
+    const float Ts = (s == 0) ? 1.0f : (loma ? Pp[s] : Pp[s - 1]);
+    float d_w = dcol[0] * rgb0[s];
+    d_w = fmaf(dcol[1], rgb1[s], d_w);
+    d_w = fmaf(dcol[2], rgb2[s], d_w);
+    float d_P;
+    if (loma) {
+      d_P = (s >= 1) ? d_w * alpha : 0.0f;
+    } else {
+      d_P = (s < S - 1) ? carry : 0.0f;
+      carry = d_w * alpha;
+    }
+    seg::suffix_step(suf, d_P, Pp[s]);
+    const float d_alpha = d_w * Ts - suf / cc[s];
+    aux[s] = d_alpha * dr[s] * (1.0f - alpha);  // d_sigma
+    alp[s] = alpha * Ts;
+  }
+}
+
 // The compositing step of one ray, one warp per ray.  kMode: 0 render
 // (writes the colour), 1 train (cot = targets; writes the ray's squared
 // error and runs the adjoint from 2(col - tgt)), 2 render backward (cot =
@@ -198,24 +279,7 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
   __syncwarp();
 
   float col[3] = {0.0f, 0.0f, 0.0f};
-  if (lane == 0) {
-    float P = 1.0f;
-    for (int s = 0; s < S; ++s) {  // the scans' steps: seg_scan.cuh
-      float T;
-      if (loma) {
-        seg::cumprod_step(P, cc[s]);
-        T = (s == 0) ? 1.0f : P;
-      } else {
-        T = P;
-        seg::cumprod_step(P, cc[s]);
-      }
-      Pp[s] = P;
-      const float w = alp[s] * T;
-      col[0] = fmaf(w, rgb0[s], col[0]);
-      col[1] = fmaf(w, rgb1[s], col[1]);
-      col[2] = fmaf(w, rgb2[s], col[2]);
-    }
-  }
+  if (lane == 0) composite_walk(rgb0, rgb1, rgb2, alp, cc, Pp, S, loma, nullptr, col);
   if (kMode == 0) {
     if (lane == 0) {
 #pragma unroll
@@ -223,41 +287,11 @@ composite_kernel(const CDT* __restrict__ H, const CDT* __restrict__ w_head,
     }
     return;
   }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) col[k] = __shfl_sync(0xffffffffu, col[k], 0);
-  float dcol[3], loss = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    if (kMode == 1) {
-      const float diff = col[k] - cot[3 * ray + k];
-      loss = fmaf(diff, diff, loss);
-      dcol[k] = 2.0f * diff;
-    } else {
-      dcol[k] = cot[3 * ray + k];
-    }
-  }
+  float dcol[3];
+  const float loss = colour_adjoint<kMode>(col, cot + 3 * ray, dcol);
   if (lane == 0) {
     if (kMode == 1) out[ray] = loss;
-    float suf = 0.0f;    // sum_{s' >= s} d_P_s' P_s'
-    float carry = 0.0f;  // standard mode: d_w_{s+1} alpha_{s+1}
-    for (int s = S - 1; s >= 0; --s) {
-      const float alpha = alp[s];
-      const float Ts = (s == 0) ? 1.0f : (loma ? Pp[s] : Pp[s - 1]);
-      float d_w = dcol[0] * rgb0[s];
-      d_w = fmaf(dcol[1], rgb1[s], d_w);
-      d_w = fmaf(dcol[2], rgb2[s], d_w);
-      float d_P;
-      if (loma) {
-        d_P = (s >= 1) ? d_w * alpha : 0.0f;
-      } else {
-        d_P = (s < S - 1) ? carry : 0.0f;
-        carry = d_w * alpha;
-      }
-      seg::suffix_step(suf, d_P, Pp[s]);
-      const float d_alpha = d_w * Ts - suf / cc[s];
-      aux[s] = d_alpha * dr[s] * (1.0f - alpha);  // d_sigma
-      alp[s] = alpha * Ts;  // alpha_s is read only here: it becomes w_s
-    }
+    adjoint_walk(dcol, rgb0, rgb1, rgb2, alp, cc, Pp, dr, aux, S, loma);
   }
   __syncwarp();
 

@@ -376,7 +376,7 @@ cudaError_t gemm_fma(const TA* A, int lda, const TB* B, int ldb, int M, int N, i
 // The bf16 forward layer and d_h on wgmma fed by TMA, defined in
 // nerf_wide_layer_gemm.cuh, and the f32 GEMM, defined in
 // nerf_wide_f32_gemm.cuh (both need this header's epilogue names).
-template <int kEpi>
+template <int kEpi, bool kLinear = false>
 cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
                        int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
                        void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream,

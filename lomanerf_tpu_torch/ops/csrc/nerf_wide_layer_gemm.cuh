@@ -13,6 +13,9 @@
 //                 ldc) bf16; Cb (M, N) bf16, the dW stage's operand, and C
 //                 (M, N) f32, both at row stride ldc; part (ceil(M / 128), N)
 //                 f32, the column partials db is summed from (nerf_wide_chain.cuh)
+//   kLinear       either form without its nonlinearity: the forward without
+//                 the ReLU, d_h without the mask (the published NeRF's linear
+//                 feature layer, nerf_paper.cu)
 //
 // Replaces, for the bf16 compute dtype, gemm_mma_kernel (nerf_wide_gemm.cuh:
 // mma.sync m16n8k16, operands staged through registers, one k-step in
@@ -161,8 +164,9 @@ __device__ __forceinline__ void bar_sync_id(int id) {
 // 64 x 64 ([k][n]) or (K, N) boxes 64 x 128 ([n][k], kEpiMask), tm_c (N, M)
 // in 64-row boxes of 128 bytes (kEpiMask: read with kF32 only), tm_cb and
 // tm_m (kEpiMask) as tm_c in bf16; part (kEpiMask, or null) (ceil(M / 128),
-// N) f32
-template <int kEpi, int kStages, bool kF32>
+// N) f32; kLinear: the forward without its ReLU, d_h without its mask
+// (tm_m not read)
+template <int kEpi, int kStages, bool kF32, bool kLinear = false>
 __global__ void __launch_bounds__(kLgThreads, 1)
 layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_b,
@@ -171,6 +175,7 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_m, const float* __restrict__ bias,
                    int M, int N, int K, float* __restrict__ part) {
   constexpr bool kMask = kEpi == kEpiMask;
+  constexpr bool kReadMask = kMask && !kLinear;
   constexpr int kOut = lg_out_bytes<kEpi, kF32>();
   extern __shared__ uint8_t lg_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], mask_full[2];
@@ -245,7 +250,7 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
       const int m0 = tile / tiles_n * kLgBM + wg * 64, n0 = tile % tiles_n * kLgBN;
       if (t == 0) {
         bulk_wait_read();  // the last tile's stores have read the output buffer
-        if (kMask) {  // this tile's mask, in flight through the k-loop
+        if (kReadMask) {  // this tile's mask, in flight through the k-loop
           mbar_expect_tx(&mask_full[wg], 2 * kLgBox);
           tma_load(outb, &tm_m, n0, m0, &mask_full[wg]);
           tma_load(outb + kLgBox, &tm_m, n0 + 64, m0, &mask_full[wg]);
@@ -297,7 +302,7 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
       // the epilogue, column pairs (n, n + 1) of rows r and r + 8, into the
       // output buffer, then one thread's TMA stores
       warpgroup_sync(wg);  // the buffer is free (thread 0's wait above)
-      if (kMask) mbar_wait(&mask_full[wg], local & 1);
+      if (kReadMask) mbar_wait(&mask_full[wg], local & 1);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int n = j * 8 + (lane & 3) * 2;
@@ -308,9 +313,12 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
           const float v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
           auto* pb = reinterpret_cast<__nv_bfloat162*>(outb + box_at<2>(rr, n));
           if constexpr (kMask) {
-            const __nv_bfloat162 h = *pb;
-            const float o0 = __low2float(h) > 0.0f ? v0 : 0.0f;
-            const float o1 = __high2float(h) > 0.0f ? v1 : 0.0f;
+            float o0 = v0, o1 = v1;
+            if constexpr (kReadMask) {  // the mask, loaded into the buffer
+              const __nv_bfloat162 h = *pb;
+              o0 = __low2float(h) > 0.0f ? v0 : 0.0f;
+              o1 = __high2float(h) > 0.0f ? v1 : 0.0f;
+            }
             if (kF32) *reinterpret_cast<float2*>(out + box_at<4>(rr, n)) = make_float2(o0, o1);
             *pb = __floats2bfloat162_rn(o0, o1);
             if (hr == 0) {
@@ -323,7 +331,11 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
             const int gn = n0 + n;
             const float2 bn = gn < N ? *reinterpret_cast<const float2*>(bias + gn)
                                      : make_float2(0.0f, 0.0f);
-            *pb = __floats2bfloat162_rn(fmaxf(v0 + bn.x, 0.0f), fmaxf(v1 + bn.y, 0.0f));
+            if constexpr (kLinear) {
+              *pb = __floats2bfloat162_rn(v0 + bn.x, v1 + bn.y);
+            } else {
+              *pb = __floats2bfloat162_rn(fmaxf(v0 + bn.x, 0.0f), fmaxf(v1 + bn.y, 0.0f));
+            }
           }
         }
         if constexpr (kMask) {  // both lanes of a quad store the same sums
@@ -378,8 +390,8 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
 }
 
 // layer_gemm's tensor maps and launch, its arguments checked; kF32
-// (kEpiMask): the f32 d_h is written to C too
-template <int kEpi, bool kF32>
+// (kEpiMask): the f32 d_h is written to C too; kLinear as the kernel's
+template <int kEpi, bool kF32, bool kLinear = false>
 cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
                               int ldb, int M, int N, int K, const float* bias,
                               const __nv_bfloat16* mask, void* C, int ldc,
@@ -395,14 +407,17 @@ cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat
                 : tile_map(&tm_b, B, false, N, K, ldb, 64, 64);
   }
   if (err == cudaSuccess && kMask) err = tile_map(&tm_cb, Cb, false, N, M, ldc, 64, 64);
-  if (err == cudaSuccess && kMask) err = tile_map(&tm_m, mask, false, N, M, ldc, 64, 64);
+  if (err == cudaSuccess && kMask && !kLinear) {
+    err = tile_map(&tm_m, mask, false, N, M, ldc, 64, 64);
+  }
   if (err == cudaSuccess && (kF32 || !kMask)) {
     err = tile_map(&tm_c, C, kMask, N, M, ldc, kMask ? 32 : 64, 64);
   }
   if (!kMask) tm_cb = tm_m = tm_c;  // not read
   if (kMask && !kF32) tm_c = tm_cb;  // not read
+  if (kMask && kLinear) tm_m = tm_cb;  // not read
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(layer_wgmma_kernel<kEpi, kStages, kF32>,
+    err = cudaFuncSetAttribute(layer_wgmma_kernel<kEpi, kStages, kF32, kLinear>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   int dev = 0, sms = 0;
@@ -411,7 +426,7 @@ cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat
   if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>((M + kLgBM - 1) / kLgBM) *
                           ((N + kLgBN - 1) / kLgBN);
-  layer_wgmma_kernel<kEpi, kStages, kF32>
+  layer_wgmma_kernel<kEpi, kStages, kF32, kLinear>
       <<<static_cast<int>(std::min<long long>(tiles, sms)), kLgThreads, smem, stream>>>(
           tm_a, tm_b, tm_c, tm_cb, tm_m, bias, M, N, K, part);
   return cudaGetLastError();
@@ -420,9 +435,11 @@ cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat
 // C (and, for kEpiMask, Cb and part) of the forms above; B's ld is ldb.
 // Every pointer 16-byte aligned, lda, ldb and ldc multiples of 8, N even;
 // bias (N f32) read for kEpiBiasRelu; mask and Cb for kEpiMask, where C (the
-// f32 d_h) and part may be null.  Anything else is refused with
+// f32 d_h) and part may be null.  kLinear: the forward layer without its
+// ReLU, or d_h without a mask (mask may be null; the published NeRF's
+// feature layer, nerf_paper.cuh).  Anything else is refused with
 // cudaErrorInvalidValue.
-template <int kEpi>
+template <int kEpi, bool kLinear>
 cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb,
                        int M, int N, int K, const float* bias, const __nv_bfloat16* mask,
                        void* C, int ldc, __nv_bfloat16* Cb, cudaStream_t stream,
@@ -432,7 +449,7 @@ cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, 
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if (M <= 0 || N <= 0 || K <= 0 || K > lda || N > ldc || N % 2 != 0 || lda % 8 != 0 ||
       ldb % 8 != 0 || ldc % 8 != 0 || (kMask ? K : N) > ldb || !aligned(A) || !aligned(B) ||
-      !aligned(C) || (kMask ? mask == nullptr || Cb == nullptr || !aligned(mask) ||
+      !aligned(C) || (kMask ? (!kLinear && mask == nullptr) || Cb == nullptr || !aligned(mask) ||
                                   !aligned(Cb) || reinterpret_cast<uintptr_t>(part) % 4
                             : C == nullptr || bias == nullptr ||
                                   reinterpret_cast<uintptr_t>(bias) % 8)) {
@@ -440,11 +457,11 @@ cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, 
   }
   if constexpr (kMask) {
     if (C != nullptr) {
-      return launch_layer_gemm<kEpi, true>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
+      return launch_layer_gemm<kEpi, true, kLinear>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
                                            stream, part);
     }
   }
-  return launch_layer_gemm<kEpi, false>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
+  return launch_layer_gemm<kEpi, false, kLinear>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
                                         stream, part);
 }
 

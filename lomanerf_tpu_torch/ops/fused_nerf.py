@@ -54,6 +54,14 @@ raises; on CPU tensors it runs the plain PyTorch version
 (:func:`render_rays_reference` under autograd).  No case falls back quietly
 from one to the other.
 
+The published NeRF (``NeRFConfig.paper()``, two networks with the skip
+connection and the view branch; no JAX counterpart) runs one network per
+call on per-ray depths: ``csrc/nerf_paper.cu`` — ``nerf_paper_render``
+(:func:`paper_render`: colours and the compositing weights the sampler
+reads) and ``nerf_paper_train`` (:func:`paper_train_loss`: the loss and
+every gradient, behind ``_PaperTrainLoss``), on the wide chain's kernels
+with the non-uniform layers packed by :func:`pack_paper_params`.
+
 Like the JAX package, the render and the losses differentiate params only:
 the ray inputs are detached, so their gradients come back ``None``.
 
@@ -66,6 +74,9 @@ autograd's device thread on the card).
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -82,6 +93,7 @@ from lomanerf_tpu_torch.utils.profiling import span, spanned
 _ENTRIES = ("nerf_render_fwd", "nerf_render_bwd", "nerf_train", "nerf_wide_render_fwd",
             "nerf_wide_render_bwd", "nerf_wide_train")
 launches = {name + suffix: 0 for suffix in ("", "_rays") for name in _ENTRIES}
+launches.update(nerf_paper_render=0, nerf_paper_train=0)
 
 MAX_WIDTH = 64  # widest padded width the narrow kernels' register arrays take
 WIDE_FUSED_MAX = 256  # widest pw the bf16 render's fused MLP takes (nerf_wide_chain.cuh)
@@ -493,6 +505,8 @@ def render_chunk_rays(config, params: Params) -> int:
     """Default rays per ``render_rays`` call of a frame: one activation
     buffer of about ``WIDE_BUFFER_BYTES`` (the kernel's for a wide MLP, the
     plain version's f32 one for a narrow one), at most 2^20."""
+    if config.view_branch:
+        return paper_chunk_rays(config)
     kind, pw = _plan(config, params)
     if kind == "wide":
         return min(1 << 20, wide_chunk_rays(config, pw))
@@ -795,3 +809,305 @@ def nerf_loss(params: Params, origins, directions, t_vals, dists, target,
     kernel on CUDA tensors)."""
     return sum_mse(render_rays(params, origins, directions, t_vals, dists, config),
                    target)
+
+
+# ---------------------------------------------------------------------------
+# The published NeRF (NeRFConfig.paper(): csrc/nerf_paper.cu)
+# ---------------------------------------------------------------------------
+
+PAPER_LD = 320  # row stride of the sequence's activation and d_z buffers
+# the packed layers (nerf_paper.cu): the trunk's 8, F ([feature | sigma]),
+# the view layer and the rgb head; stored rows, columns and bias length
+PAPER_ROWS = (64, 256, 256, 256, 256, 320, 256, 256, 256, 296, 128)
+PAPER_COLS = (256,) * 8 + (264, 128, 4)
+PAPER_BIAS = (256,) * 8 + (264, 128, 8)
+PAPER_SIG_COL = 256  # sigma's column in F
+PAPER_DIR_ROW = 264  # the direction encoding's first row in the view layer
+PAPER_DB_LD = 136  # floats of a ray's column partials (the view layer's, sigma's)
+# (rows, PAPER_LD) bf16 activation buffers a call (nerf_paper.cu: acts_of);
+# a train call also keeps two d_z buffers of that shape
+_PAPER_SLOTS = {"render": 5, "train": 10}
+
+
+def paper_nets(params: Params):
+    """``(coarse, fine)``: the model's 24 leaves as two networks of 12."""
+    h = len(params["w"]) // 2
+    return ({"w": params["w"][:h], "b": params["b"][:h]},
+            {"w": params["w"][h:], "b": params["b"][h:]})
+
+
+def _paper_offsets(sizes):
+    offs, at = [], 0
+    for n in sizes:
+        offs.append(at)
+        at += n
+    return offs, at
+
+
+_PAPER_W_OFF, _PAPER_W_LEN = _paper_offsets([r * c for r, c in zip(PAPER_ROWS, PAPER_COLS)])
+_PAPER_B_OFF, _PAPER_B_LEN = _paper_offsets(PAPER_BIAS)
+
+
+def _paper_leaf_slots(config):
+    """For each of a network's 12 leaves (weights, then biases), where it lies
+    in the packed layout: ``(layer, row blocks, columns)``, a row block being
+    ``(packed first row, leaf first row, rows)``.  The skip layer's leaf is
+    ``[gamma(x) rows | h_5 rows]`` (NeRF's order) and is packed ``[h_5 |
+    gamma(x)]``; F holds the feature (columns 0-255) and sigma (256); the
+    view layer's feature rows and direction rows sit apart."""
+    width, in_x, in_d = config.filter_size, config.in_channels, config.dir_channels
+    trunk = config.num_layers
+    w = []
+    for i in range(trunk):
+        if i == config.skip_layer:
+            w.append((i, [(0, in_x, width), (width, 0, in_x)], (0, width)))
+        else:
+            w.append((i, [(0, 0, in_x if i == 0 else width)], (0, width)))
+    w += [(trunk, [(0, 0, width)], (PAPER_SIG_COL, PAPER_SIG_COL + 1)),
+          (trunk, [(0, 0, width)], (0, width)),
+          (trunk + 1, [(0, 0, width), (PAPER_DIR_ROW, width, in_d)], (0, config.view_width)),
+          (trunk + 2, [(0, 0, config.view_width)], (0, 3))]
+    b = [(i, c) for i, _, c in w]
+    return w, b
+
+
+def _check_paper(config, net: Params) -> None:
+    """The kernels take the published widths only (``ValueError``
+    otherwise): the plain version takes any."""
+    want = _paper_sizes(config)
+    got = tuple(tuple(x.shape) for x in net["w"])
+    if (config.filter_size, config.view_width, config.num_layers, config.skip_layer,
+            config.num_encoding_functions, config.dir_encoding_functions) != \
+            (256, 128, 8, 5, 10, 4) or got != want:
+        raise ValueError(f"nerf_paper kernels take NeRFConfig.paper()'s widths; got leaves "
+                         f"{got} of {config}")
+
+
+@functools.lru_cache(maxsize=None)
+def _paper_sizes(config):
+    """One network's 12 ``(fan_in, fan_out)`` (``config.leaf_sizes()``'s first
+    half), worked out once per config."""
+    return tuple(config.leaf_sizes()[:12])
+
+
+@functools.lru_cache(maxsize=None)
+def _paper_index(config, device):
+    """The flat positions in the packed layout (``W`` then ``b``, one f32
+    buffer) of every entry of the network's 12 weight leaves (in order,
+    each row-major), then of its 12 biases, as int64 on ``device``; and the
+    weights' and the biases' own positions apart, ``(packed, w_pos,
+    b_pos)``.  Made once per config and device."""
+    slots_w, slots_b = _paper_leaf_slots(config)
+    w_pos = torch.cat([
+        (_PAPER_W_OFF[layer] + PAPER_COLS[layer]
+         * torch.arange(r_pack, r_pack + n)[:, None] + torch.arange(c0, c1)).reshape(-1)
+        for layer, blocks, (c0, c1) in slots_w
+        for r_pack, _, n in sorted(blocks, key=lambda blk: blk[1])])
+    b_pos = torch.cat([_PAPER_B_OFF[layer] + torch.arange(c0, c1) for layer, (c0, c1) in slots_b])
+    return tuple(x.to(device) for x in (torch.cat([w_pos, _PAPER_W_LEN + b_pos]), w_pos, b_pos))
+
+
+@spanned("lomanerf.fused_nerf.pack")
+def pack_paper_params(net: Params, config):
+    """One network's packed parameters on its device (``nerf_paper.cu``): the
+    eleven layers' weights, each zero-padded to ``(PAPER_ROWS[l],
+    PAPER_COLS[l])``, flat in bf16, and their biases, each padded to
+    ``PAPER_BIAS[l]``, flat in f32; one scatter of every leaf into one f32
+    buffer (:func:`_paper_index`), then the weights' part rounded."""
+    ws, bs = net["w"], net["b"]
+    packed = _paper_index(config, ws[0].device)[0]
+    flat = ws[0].new_zeros((_PAPER_W_LEN + _PAPER_B_LEN,), dtype=torch.float32)
+    flat[packed] = torch.cat([x.detach().reshape(-1) for x in [*ws, *bs]]).to(torch.float32)
+    return flat[:_PAPER_W_LEN].to(torch.bfloat16), flat[_PAPER_W_LEN:]
+
+
+@spanned("lomanerf.fused_nerf.unpack")
+def unpack_paper_grads(dW: torch.Tensor, db: torch.Tensor, net: Params, config):
+    """The packed f32 gradients back to the network's 12 leaves, one gather
+    each: ``(dW_0.., db_0..)`` in the leaves' shapes and dtypes."""
+    return _unpack_paper(dW, db, [(x.shape, x.dtype) for x in [*net["w"], *net["b"]]],
+                         config)
+
+
+def _unpack_paper(dW, db, leaves, config):
+    """:func:`unpack_paper_grads` from the leaves' ``(shape, dtype)``."""
+    _, w_pos, b_pos = _paper_index(config, dW.device)
+    out = []
+    for flat, pos, part in ((dW, w_pos, leaves[:12]), (db, b_pos, leaves[12:])):
+        grads = torch.split(flat[pos], [math.prod(shape) for shape, _ in part])
+        out += [g.view(shape).to(dtype) for g, (shape, dtype) in zip(grads, part)]
+    return tuple(out)
+
+
+def paper_chunk_rays(config) -> int:
+    """Rays per chunk of a render of the published NeRF: the fine pass's
+    five ``(rays x S, PAPER_LD)`` bf16 buffers within twice
+    ``WIDE_BUFFER_BYTES`` (13,981 rays at 64 + 128 samples)."""
+    rows = config.num_samples + config.num_fine_samples
+    return max(1, 2 * WIDE_BUFFER_BYTES // (rows * PAPER_LD * 2 * _PAPER_SLOTS["render"]))
+
+
+def paper_grad_chunk_rays(S: int) -> int:
+    """Rays per chunk of a ``nerf_paper_train`` call at S samples: its
+    twelve ``(rows, PAPER_LD)`` bf16 buffers and the head's f32 d_z within
+    ``WIDE_GRAD_BYTES`` (10,836 rays at S = 192)."""
+    return max(1, WIDE_GRAD_BYTES // (S * (PAPER_LD * 2 * (_PAPER_SLOTS["train"] + 2)
+                                           + 4 * _HEAD)))
+
+
+def _paper_rays(t_vals, dists, n):
+    """Per-ray ``(N, S)`` f32 depths and steps (shared ones broadcast)."""
+    s = t_vals.shape[-1]
+    return (_f32(t_vals.expand(n, s)), _f32(dists.expand(n, s)))
+
+
+def _launch_paper_render(W, b, t_vals, dists, origins, directions, want_weights):
+    """One ``nerf_paper_render`` call on ``(N, S)`` depths: ``(colours,
+    weights or None)``; counted in ``launches``."""
+    from lomanerf_tpu_torch.ops import build
+
+    with span("lomanerf.fused_nerf.launch.nerf_paper_render"):
+        n, S = t_vals.shape
+        dev = origins.device
+        acts = torch.empty(_PAPER_SLOTS["render"] * n * S * PAPER_LD, dtype=torch.bfloat16,
+                           device=dev)
+        out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        weights = torch.empty((n, S), dtype=torch.float32, device=dev) if want_weights \
+            else None
+        err = build.load().nerf_paper_render(
+            W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
+            origins.data_ptr(), directions.data_ptr(), out.data_ptr(),
+            None if weights is None else weights.data_ptr(), acts.data_ptr(), n, S,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"nerf_paper_render launch failed: cudaError {err}")
+        launches["nerf_paper_render"] += 1
+        return out, weights
+
+
+def _launch_paper_train(W, b, t_vals, dists, origins, directions, target, want_weights):
+    """One ``nerf_paper_train`` call on ``(N, S)`` depths, all chunks of the
+    rays, with its scratch: ``(loss (1,), dW, db, weights or None)``;
+    counted in ``launches``."""
+    from lomanerf_tpu_torch.ops import build
+
+    with span("lomanerf.fused_nerf.launch.nerf_paper_train"):
+        n, S = t_vals.shape
+        dev = origins.device
+        chunk = max(1, min(n, paper_grad_chunk_rays(S)))
+        rows = chunk * S
+
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        acts = torch.empty(_PAPER_SLOTS["train"] * rows * PAPER_LD, dtype=torch.bfloat16,
+                           device=dev)
+        dz = torch.empty(2 * rows * PAPER_LD, dtype=torch.bfloat16, device=dev)
+        n_parts = -(-rows // WIDE_ROW_CHUNK) * PAPER_ROWS[5] * PAPER_COLS[5]
+        dz_head, db_part = f32(rows * _HEAD), f32(chunk * PAPER_DB_LD)
+        tile_part, partials = f32(-(-rows // TILE_ROWS) * PAPER_COLS[0]), f32(n_parts)
+        ray_loss, dW, db, loss = f32(n), f32(_PAPER_W_LEN), f32(_PAPER_B_LEN), f32(1)
+        weights = f32(n, S) if want_weights else None
+        err = build.load().nerf_paper_train(
+            W.data_ptr(), b.data_ptr(), t_vals.data_ptr(), dists.data_ptr(),
+            origins.data_ptr(), directions.data_ptr(), target.data_ptr(),
+            None if weights is None else weights.data_ptr(), acts.data_ptr(), dz.data_ptr(),
+            dz_head.data_ptr(), db_part.data_ptr(), tile_part.data_ptr(), partials.data_ptr(),
+            n_parts, ray_loss.data_ptr(), dW.data_ptr(), db.data_ptr(), loss.data_ptr(), n,
+            chunk, S, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"nerf_paper_train launch failed: cudaError {err}")
+        launches["nerf_paper_train"] += 1
+        return loss, dW, db, weights
+
+
+class _PaperTrainLoss(torch.autograd.Function):
+    """``nerf_paper_train`` behind autograd: forward makes one call, which
+    returns the loss, every gradient of the network (packed) and (for the
+    coarse pass) the compositing weights, and keeps the packed gradients;
+    backward scales them by the loss's cotangent and unpacks them (two
+    products and two gathers, not one product a leaf).  The weights carry
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, origins, directions, t_vals, dists, target, config, want_weights, *wb):
+        net = _params_of(wb)
+        W, b = pack_paper_params(net, config)
+        loss, dW, db, weights = _launch_paper_train(W, b, t_vals, dists, origins, directions,
+                                                    target, want_weights)
+        ctx.save_for_backward(dW, db)
+        ctx.config, ctx.leaves = config, [(x.shape, x.dtype) for x in wb]
+        if weights is None:
+            weights = loss.new_zeros((0,))
+        ctx.mark_non_differentiable(weights)
+        return loss[0], weights
+
+    @staticmethod
+    @spanned("lomanerf.fused_nerf.backward")
+    def backward(ctx, g, _g_weights):
+        dW, db = ctx.saved_tensors
+        with span("lomanerf.fused_nerf.unpack"):
+            return (None,) * 7 + _unpack_paper(dW * g, db * g, ctx.leaves, ctx.config)
+
+
+def _paper_rnd(config):
+    cdt = _DTYPES[config.compute_dtype]
+    return lambda x: _rnd(x, cdt) if x.dtype == torch.float32 else x
+
+
+def paper_reference(net: Params, origins, directions, t_vals, dists, config):
+    """Plain PyTorch version of one pass of the published NeRF:
+    ``core.pipeline.paper_render_rays`` with the kernels' rounding plan
+    (every weight and stored value rounded to the compute dtype, f32 values
+    only), under autograd: ``(colours, weights)``."""
+    from lomanerf_tpu_torch.core.pipeline import paper_render_rays
+
+    return paper_render_rays(net, origins.detach(), directions.detach(), t_vals.detach(),
+                             dists.detach(), config.num_encoding_functions,
+                             config.dir_encoding_functions, config.skip_layer,
+                             _paper_rnd(config))
+
+
+@spanned("lomanerf.fused_nerf.train_loss")
+def paper_train_loss(net: Params, origins, directions, t_vals, dists, target, config,
+                     weights: bool = False):
+    """One pass of the published NeRF's train loss, one network ``net``:
+    ``(sum-MSE, compositing weights (N, S) or None)``, the loss
+    differentiable w.r.t. the network's leaves only, the weights detached.
+    Depths ``(S,)`` or per-ray ``(N, S)``.  On CUDA tensors one
+    ``nerf_paper_train`` call gives the loss and its gradients; on CPU
+    tensors, the plain version (:func:`paper_reference`)."""
+    origins, directions, t_vals, dists, target = (
+        x.detach() for x in (origins, directions, t_vals, dists, target))
+    if origins.device.type == "cpu":
+        col, w = paper_reference(net, origins, directions, t_vals, dists, config)
+        return sum_mse(col, target), (w.detach() if weights else None)
+    if origins.device.type != "cuda":
+        raise NotImplementedError(f"no train loss for device {origins.device}")
+    _check_paper(config, net)
+    n = origins.shape[0]
+    t, d = _paper_rays(t_vals, dists, n)
+    loss, w = _PaperTrainLoss.apply(_f32(origins), _f32(directions), t, d, _f32(target),
+                                    config, weights, *net["w"], *net["b"])
+    return loss, (w if weights else None)
+
+
+@spanned("lomanerf.fused_nerf.render_rays")
+def paper_render(net: Params, origins, directions, t_vals, dists, config,
+                 weights: bool = False):
+    """One pass of the published NeRF's render, one network ``net``:
+    ``(colours (N, 3), compositing weights (N, S) or None)``, no gradient.
+    On CUDA tensors one ``nerf_paper_render`` call; on CPU tensors the plain
+    version."""
+    origins, directions, t_vals, dists = (
+        x.detach() for x in (origins, directions, t_vals, dists))
+    if origins.device.type == "cpu":
+        with torch.no_grad():
+            col, w = paper_reference(net, origins, directions, t_vals, dists, config)
+        return col, (w if weights else None)
+    if origins.device.type != "cuda":
+        raise NotImplementedError(f"no render for device {origins.device}")
+    _check_paper(config, net)
+    W, b = pack_paper_params(net, config)
+    t, d = _paper_rays(t_vals, dists, origins.shape[0])
+    return _launch_paper_render(W, b, t, d, _f32(origins), _f32(directions), weights)

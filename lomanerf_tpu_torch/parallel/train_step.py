@@ -23,7 +23,7 @@ shards.  :func:`gather_state` is its inverse, for checkpoints.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -177,7 +177,8 @@ def _sum_over_data(mesh: Mesh, params: Params, loss: torch.Tensor) -> torch.Tens
 
 
 def make_train_step(cfg, optimizer: torch.optim.Optimizer, mesh: Mesh, tp: bool = False,
-                    backend: str = "auto") -> Callable:
+                    backend: str = "auto",
+                    generator: Optional[torch.Generator] = None) -> Callable:
     """``step(model_or_params, batch) -> loss`` for this rank's shard
     ``batch`` (a :class:`RayBatch`); the loss returned is the whole batch's
     (summed over the data group), detached.
@@ -188,7 +189,8 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, mesh: Mesh, tp: bool 
     train kernel on CUDA, of its ``*_rays`` instance for ``(N, S)`` depths;
     the plain version on the CPU); ``"plain"``: autograd through the core
     pipeline (``tp_mlp_apply`` under ``tp``).  The optimizer must hold the
-    step's params (after :func:`place_state` under TP)."""
+    step's params (after :func:`place_state` under TP).  ``generator``
+    draws ``NeRFConfig.paper()``'s fine depths (the single-card step's)."""
     if tp and resolve_backend(cfg, backend) == "fused":
         # the fused kernels hold the whole (padded) weight stack per block:
         # width-sharded params would compute something else
@@ -199,7 +201,8 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, mesh: Mesh, tp: bool 
               if tp else None)
     reduce_fn = (functools.partial(_sum_over_data, mesh)
                  if mesh.data_group is not None else None)
-    local = make_single_chip_train_step(cfg, optimizer, backend, mlp_fn, reduce_fn)
+    local = make_single_chip_train_step(cfg, optimizer, backend, mlp_fn, reduce_fn,
+                                        generator)
 
     def step(model_or_params, batch: RayBatch) -> torch.Tensor:
         return local(model_or_params, *batch)

@@ -21,7 +21,9 @@ Run:
 
     python -m lomanerf_tpu_torch.train.make_video --frames orbit_frames --out orbit.mp4
 
-``--preset full`` renders through the wide kernels (65,536-ray chunks).
+``--preset full`` renders through the wide kernels (65,536-ray chunks);
+``--preset paper`` (NeRF as published: coarse, then fine on the depths drawn
+from the coarse weights) through ``nerf_paper_render`` on one rank.
 Under ``torchrun --nproc_per_node=N`` each frame's rays are sharded over
 the ranks (``parallel.render_step``, as the JAX driver shards them over its
 devices) and only rank 0 writes.
@@ -107,7 +109,7 @@ def main(argv=None) -> str:
     src.add_argument("--ckpt-dir",
                      help="render from the latest checkpoint of train_nerf in this dir")
     ap.add_argument("--preset", default=None,
-                    choices=["small", "single64", "full"],
+                    choices=["small", "single64", "full", "paper"],
                     help="NeRFConfig preset (must match the params; overrides "
                          "--layers/--width/--samples/--enc-functions)")
     ap.add_argument("--samples", type=int, default=30)

@@ -33,9 +33,19 @@ def resolve_backend(cfg, backend: str = "auto") -> str:
 
 
 def nerf_loss_fn(params: Params, origins, directions, t_vals, dists, target, cfg,
-                 backend: str = "fused", mlp_fn: Optional[Callable] = None) -> torch.Tensor:
+                 backend: str = "fused", mlp_fn: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The sum-MSE train loss of one ray batch, differentiable w.r.t. params.
-    ``mlp_fn`` replaces the plain pipeline's MLP (``core.pipeline.nerf_render``)."""
+    ``mlp_fn`` replaces the plain pipeline's MLP (``core.pipeline.nerf_render``).
+    For ``NeRFConfig.paper()`` the coarse and the fine passes'
+    (``models.nerf.paper_loss``, the fine depths drawn from ``generator``);
+    it has no plain backend beside its CPU route."""
+    if cfg.view_branch:
+        if backend != "fused" or mlp_fn is not None:
+            raise ValueError("the published NeRF trains on the fused backend only")
+        from lomanerf_tpu_torch.models.nerf import paper_loss
+
+        return paper_loss(cfg, params, origins, directions, t_vals, dists, target, generator)
     if backend == "fused":
         # one kernel call gives the loss AND its gradients
         from lomanerf_tpu_torch.ops import fused_nerf
@@ -50,9 +60,10 @@ def nerf_loss_fn(params: Params, origins, directions, t_vals, dists, target, cfg
 
 def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
                                 backend: str = "auto", mlp_fn: Optional[Callable] = None,
-                                reduce_fn: Optional[Callable] = None) -> Callable:
+                                reduce_fn: Optional[Callable] = None,
+                                generator: Optional[torch.Generator] = None) -> Callable:
     """``step(model_or_params, origins, directions, t_vals, dists, target)
-    -> loss``: zero the gradients, the loss, its backward, one
+    -> loss``: the loss, zero the gradients, its backward, one
     ``optimizer.step()``; returns the loss as a detached 0-d tensor.  The
     optimizer must hold the same parameter tensors.
 
@@ -60,7 +71,10 @@ def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
     this step with ``reduce_fn(params, loss) -> loss``, which sums the
     gradients and the loss over the ranks between the backward and the
     update, and, under tensor parallelism, ``mlp_fn`` (see
-    :func:`nerf_loss_fn`).
+    :func:`nerf_loss_fn`).  For ``NeRFConfig.paper()`` ``t_vals`` and
+    ``dists`` are the coarse depths and one step runs both passes and one
+    update of both networks; ``generator`` draws the fine depths (evenly
+    spaced without one).
 
     Under a profiler the whole step is the span ``lomanerf.steps.train_step``
     (zero_grad, the optimizer and autograd carry PyTorch's own)."""
@@ -70,9 +84,11 @@ def make_single_chip_train_step(cfg, optimizer: torch.optim.Optimizer,
     def step(model_or_params, origins, directions, t_vals, dists, target):
         params = (model_or_params.params if isinstance(model_or_params, torch.nn.Module)
                   else model_or_params)
-        optimizer.zero_grad(set_to_none=True)
         loss = nerf_loss_fn(params, origins, directions, t_vals, dists, target,
-                            cfg, backend, mlp_fn)
+                            cfg, backend, mlp_fn, generator)
+        # after the forward, so that its kernels start sooner; the
+        # forward reads no gradient
+        optimizer.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
         if reduce_fn is not None:

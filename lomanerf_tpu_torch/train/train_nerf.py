@@ -33,7 +33,9 @@ the shared-depth train kernel.
 
 Run: ``python -m lomanerf_tpu_torch.train.train_nerf --preset small --steps 500``
 (the narrow kernels) or ``--preset full --steps 300`` (the 8x256 bf16
-flagship on the wide kernels; ~4 GB of saved activations per 4096-ray step);
+flagship on the wide kernels; ~4 GB of saved activations per 4096-ray step)
+or ``--preset paper --stratified`` (NeRF as published, coarse and fine
+networks; its fine depths are drawn from the run's generator);
 on N cards ``torchrun --nproc_per_node=N -m lomanerf_tpu_torch.train.train_nerf
 --preset small`` (NCCL).
 """
@@ -66,7 +68,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' (built in memory) or a Blender-format dataset dir")
-    ap.add_argument("--preset", default=None, choices=["small", "single64", "full"],
+    ap.add_argument("--preset", default=None, choices=["small", "single64", "full", "paper"],
                     help="NeRFConfig ladder preset (overrides --layers/--width/"
                          "--samples/--mode)")
     ap.add_argument("--img-size", type=int, default=64)
@@ -83,7 +85,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", default="loma", choices=["loma", "standard"],
                     help="transmittance mode (loma = reference parity)")
     ap.add_argument("--stratified", action="store_true",
-                    help="shift each ray's depth comb by a random offset")
+                    help="shift each ray's depth comb by a random offset (--preset paper: "
+                         "a draw in each of the coarse bins, per ray)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda runs the kernels, cpu the plain version")
     ap.add_argument("--pipeline", default="python", choices=["python", "native", "numpy"],
@@ -147,6 +150,9 @@ def main(argv=None) -> dict:
                          num_encoding_functions=args.enc_functions,
                          num_samples=args.samples, near=args.near, far=args.far,
                          mode=args.mode)
+    if cfg.view_branch and (tp or args.pipeline != "python"):
+        raise SystemExit("train_nerf: --preset paper trains with --tp 1 and "
+                         "--pipeline python")
 
     images, poses, focal = _views(args, device)
     n_views, n_pix = images.shape[0], args.img_size * args.img_size
@@ -175,15 +181,17 @@ def main(argv=None) -> dict:
             print(f"resumed from step {start_step}")
     # replicas equal over the data axis; with --tp this rank's shard
     params = place_state(mesh, cfg, model, opt, tp=tp)
-    step_fn = make_train_step(cfg, opt, mesh, tp=tp, backend=args.backend)
+    # each data shard draws its own rays (the JAX trainer's per-host stream);
+    # for --preset paper gen also draws the fine depths
+    seed = args.seed + 7919 * mesh.data_index
+    gen = torch.Generator(device=device).manual_seed(seed)
+    step_fn = make_train_step(cfg, opt, mesh, tp=tp, backend=args.backend,
+                              generator=gen if cfg.view_branch else None)
     # sharded eval frames over the data axis (with --tp: full params, whole frames)
     eval_mesh = mesh if mesh.dp > 1 and not tp else None
 
     logger = MetricsLogger(args.log_dir)
-    # each data shard draws its own rays (the JAX driver's per-host stream)
-    seed = args.seed + 7919 * mesh.data_index
     rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=device).manual_seed(seed)
     pipe = None
     if args.pipeline != "python":
         from lomanerf_tpu_torch.data.native import RayBatchPipeline
@@ -204,7 +212,9 @@ def main(argv=None) -> dict:
                 v = int(rng.integers(n_views))
                 idx = torch.from_numpy(rng.integers(n_pix, size=args.rays_per_batch)).to(device)
                 o, d, tgt = all_o[v, idx], all_d[v, idx], all_t[v, idx]
-                if args.stratified:
+                if args.stratified and cfg.view_branch:
+                    _, t_vals, dists = model.sample(o, d, generator=gen)
+                elif args.stratified:
                     dt = stratified_ray_offsets(gen, args.rays_per_batch, cfg.near, cfg.far,
                                                 cfg.num_samples)
                     o = o + d * dt[:, None]
