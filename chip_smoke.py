@@ -56,9 +56,10 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    columns and at 1037 x 128 ragged rows, and times it against that
    kernel, ``torch.mm`` and its bound; times the frame also through the
    layer chain that the bf16 render's fused MLP (``nerf_wide_mlp.cuh``)
-   replaced, asserting the same bits, the fused MLP alone on one 65,536-ray
-   chunk against its bound and a cuBLAS ``addmm`` + ``relu_`` chain, and #10
-   at 16,384 rays new against old (the same bits); splits the frame's
+   replaced, asserting the same bits off near ties (``wide_mlp.tied_rows``),
+   the fused MLP alone on one 65,536-ray chunk against its bound and a
+   cuBLAS ``addmm`` + ``relu_`` chain, and #10 at 16,384 rays new against
+   old (the same rule); splits the frame's
    device time by kernel family on both paths (``card_probe --what frame``:
    the fused kernel once per chunk, no layer GEMM);
 10. holds the 2D field's kernels (``field_fwd``, ``field_bwd``) on both
@@ -283,6 +284,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 WIDE = ("nerf_wide_train", "nerf_wide_render_fwd", "nerf_wide_render_bwd")
 FLAGSHIP_RAYS = 16384  # the flagship rung's train batch (bench.py:334)
+# share of rows on which the fused MLP and the layer chain may store
+# different H_{L-1} (tests/test_torch_cuda.py's NEAR_TIE_ROWS, and why)
+NEAR_TIE_ROWS = 0.16
 FLAGSHIP_STEPS = 300
 # the JAX run of the flagship driver: 8.08 -> 21.74 -> 24.09 dB at steps 0,
 # 100, 300 (artifacts/convergence_full/metrics.jsonl)
@@ -942,6 +946,35 @@ def mlp_macs(sizes):
     return fwd, 2 * fwd + sum(fi * fo for fi, fo in sizes[1:])
 
 
+def frame_ties(fused_nerf, wide_mlp, cfg, model, rays, K, pose, img_k, img_m):
+    """The fused MLP's frame ``img_k`` against the layer chain's ``img_m``:
+    ``wide_mlp.tied_rows`` over the frame's rays in chunks of
+    ``FLAGSHIP_RAYS``: every value where the two part is a near tie, at most
+    ``NEAR_TIE_ROWS`` of the rows tied, H_{L-1} equal off them and the
+    pixels of the rays without a tied row bit-identical.  Returns (the
+    share of rows tied, the pixels with one)."""
+    o, d = rays.get_rays(SERVE_SIZE, SERVE_SIZE, K, pose)
+    tv, dists = rays.uniform_depths(cfg.near, cfg.far, cfg.num_samples, "cuda")
+    W, b = fused_nerf.pack_wide_params(model.params, 256, cfg.compute_dtype)
+    far, tied = 0, []
+    for oc, dc in zip(o.split(FLAGSHIP_RAYS), d.split(FLAGSHIP_RAYS)):
+        t_c, far_c, hf, hc = wide_mlp.tied_rows(W, b, tv, dists, oc, dc, cfg)
+        if not torch.equal(hf[~t_c], hc[~t_c]):
+            raise AssertionError("frame: H_{L-1} of the fused MLP and the layer chain differ "
+                                 "on a row without a near tie")
+        far += far_c
+        tied.append(t_c)
+        del hf, hc
+    tied = torch.cat(tied)
+    share = tied.float().mean().item()
+    clear = ~tied.view(-1, cfg.num_samples).any(1).view(SERVE_SIZE, SERVE_SIZE)
+    if far or share > NEAR_TIE_ROWS or not torch.equal(img_k[clear], img_m[clear]):
+        raise AssertionError(f"frame against the layer chain: {far} values apart past a near "
+                             f"tie, {share:.2%} of the rows tied, untied pixels apart: "
+                             f"{int((img_k[clear] != img_m[clear]).sum())}")
+    return share, int((~clear).sum())
+
+
 def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
                           make_single_chip_train_step, normalized_intrinsics, rays,
                           smi):
@@ -949,8 +982,9 @@ def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
     in turns.  The flagship train step (``full``, 16,384 rays, Adam 5e-4,
     bench.py's numpy-seeded batches); one 800x800 ``full`` frame through the
     fused MLP (the main path), through the layer chain it replaced
-    (``wide_mlp.render_rays_layers``, bit for bit the same frame) and through
-    the plain version, each chunked as the kernel path is; each wide entry
+    (``wide_mlp.render_rays_layers``: the same frame off near ties,
+    :func:`frame_ties`) and through the plain version, each chunked as the
+    kernel path is; each wide entry
     point's own call against its plain version.  Returns ``{kernel: (ms,
     plain_ms)}``."""
     cfg = NeRFConfig.full()
@@ -1021,9 +1055,8 @@ def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
         err = (img_k - img_p).abs().max().item()
         if not torch.isfinite(img_k).all():
             raise AssertionError("non-finite pixels")
-        if not torch.equal(img_k, img_m):
-            raise AssertionError("the fused MLP's frame differs from the layer chain's: "
-                                 f"{int((img_k != img_m).sum())} values apart")
+        tied_share, tied_px = frame_ties(fused_nerf, wide_mlp, cfg, model, rays, K, pose, img_k,
+                                         img_m)
         torch.testing.assert_close(img_k, img_p, atol=wide_tolerances(cfg)[0], rtol=RTOL)
         # the plain frame takes ~3 s: one round of it, more of the two kernels
         frame = timed_turns({"plain": plain_frame, "layers": layers_frame,
@@ -1035,8 +1068,8 @@ def phase_flagship_timing(fused_nerf, wide_mlp, NeRFConfig, NeRFModel,
     flops = n_rays * cfg.num_samples * FULL_MACS_FWD * 2
     print(f"phase 9 800x800 full frame ({n_rays} rays x {cfg.num_samples} samples, "
           f"{flops / 1e12:.2f} TFLOP, chunks of {chunk} rays), max|kernel-plain| = "
-          f"{err:.3e}; the fused MLP's frame equals the layer chain's bit for bit; on "
-          f"{smi}:")
+          f"{err:.3e}; the fused MLP's frame equals the layer chain's off near ties "
+          f"({tied_share:.3%} of the rows tied, {tied_px} pixels); on {smi}:")
     for name, what in (("kernel", "fused MLP"), ("layers", "layer chain"), ("plain", "plain")):
         med = statistics.median(frame[name])
         print(f"  {what:14s}: {spread(frame[name])}/frame, {n_rays / med * 1e3:.4e} rays/s, "
@@ -1216,8 +1249,11 @@ def phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi):
     turns; its H_{L-1} against the chain's on the first 1,024 rays (a
     diagnostic: cuBLAS sums in another order).  Then #10, the per-ray
     render, at the 16,384-ray flagship batch on jittered depths: the fused
-    MLP's colours equal the layer chain's bit for bit, timed in turns.
-    Returns ``{"ms", "cublas_ms", "bound_ms", "rays10_ms",
+    MLP's H_{L-1} equals the layer chain's on every row without a near tie
+    (``wide_mlp.tied_rows``: each value where they part a near tie, at most
+    ``NEAR_TIE_ROWS`` of the rows), and so do the colours of the rays
+    without one, timed in turns.
+    Returns ``{"ms", "cublas_ms", "bound_ms", "tied_rows", "rays10_ms",
     "rays10_layers_ms"}``."""
     from lomanerf_tpu_torch.core import positional_encoding
 
@@ -1270,18 +1306,25 @@ def phase_fused_mlp(fused_nerf, wide_mlp, NeRFConfig, NeRFModel, smi):
     with torch.no_grad():
         new = fused_nerf._launch_wide_render(W, b, tj, dj, o, d, cfg)
         old = wide_mlp.render_rays_layers(W, b, tj, dj, o, d, cfg)
-        if not torch.equal(new, old):
-            raise AssertionError(f"#10 at the flagship batch: the fused MLP's colours differ "
-                                 f"from the layer chain's ({int((new != old).sum())} apart)")
+        tied, far, hf, hc = wide_mlp.tied_rows(W, b, tj, dj, o, d, cfg)
+        share = tied.float().mean().item()
+        clear = ~tied.view(FLAGSHIP_RAYS, cfg.num_samples).any(1)
+        if far or share > NEAR_TIE_ROWS or not torch.equal(hf[~tied], hc[~tied]) or \
+                not torch.equal(new[clear], old[clear]):
+            raise AssertionError(f"#10 at the flagship batch against the layer chain: {far} values "
+                                 f"apart past a near tie, {share:.2%} of the rows tied, colours "
+                                 f"of untied rays apart: {int((new[clear] != old[clear]).sum())}")
+        del hf, hc
         r10 = timed_turns({"layers": lambda: wide_mlp.render_rays_layers(W, b, tj, dj, o, d,
                                                                          cfg),
                            "fused": lambda: fused_nerf._launch_wide_render(W, b, tj, dj, o, d,
                                                                            cfg)}, 3)
     print(f"phase 9 #10 nerf_wide_render_fwd_rays, {FLAGSHIP_RAYS} rays x 128 jittered samples, "
           f"on {smi}: fused MLP {spread(r10['fused'])}, layer chain {spread(r10['layers'])}; "
-          "colours bit-identical")
+          f"H_{{L-1}} equal to the chain's off near ties ({share:.3%} of the rows tied, "
+          f"{int((~clear).sum())} rays), the other rays' colours bit-identical")
     return {"ms": med["fused"], "cublas_ms": med["cublas"], "bound_ms": kb[0],
-            "rays10_ms": statistics.median(r10["fused"]),
+            "tied_rows": share, "rays10_ms": statistics.median(r10["fused"]),
             "rays10_layers_ms": statistics.median(r10["layers"])}
 
 
@@ -2696,7 +2739,11 @@ NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "n
 # column partials that compositing and the d_h GEMM write (a row per ray, per
 # 128-row tile) in place of an f32 d_z: db's order alone changed (their loss
 # and dW kept every bit of the tree that summed the f32 d_z, on the card; both
-# orders lie as far from f64 sums of the plain path's d_z, to 4 digits).
+# orders lie as far from f64 sums of the plain path's d_z, to 4 digits).  #8
+# and #10 moved when the fused MLP began to sum each layer's whole K in the
+# tensor core's accumulator, not in 32-deep k-steps promoted by IEEE adds:
+# the sums' grouping alone changed (phase 9 and tests/test_torch_cuda.py hold
+# the rows to the layer chain's bits off near ties).
 KERNEL_DIGESTS = {
     "nerf_render_fwd":
         "64ba1c0f42400d315d53444f6e0d3757183e1f452497a0006831db6639d28aff",
@@ -2705,7 +2752,7 @@ KERNEL_DIGESTS = {
     "nerf_render_bwd":
         "7e3e623e002bd74905a6ec696bfe97773ee8101c4b43a9d16a11809782e4fd5d",
     "nerf_wide_render_fwd":
-        "cae4aee9c7bcb142ee574ceec9ad3de5603b31c08a848f7321b20ddfc188ade4",
+        "e808d2cdb43b1ab4c2ec71e6a2658a45fc9b44acaf80343d0cb5c1ed7ad99eab",
     "nerf_wide_train":
         "dc1d8046fca72d1636928b0a1db6d83bf932988d166fc53b12a333566f9d69a0",
     "nerf_wide_render_bwd":
@@ -2717,7 +2764,7 @@ KERNEL_DIGESTS = {
     "nerf_render_bwd_rays":
         "e18229536c2632fa4e91045d8e5b85f9fdffaacfb778ba7b9a4860f10c9c9060",
     "nerf_wide_render_fwd_rays":
-        "e3ba605aa78eaf0b57608f6fcffcdef7eee5b2cc648fbaa5ecd5296fbf2975cc",
+        "8f2709111148c6e97875aa2e65b1edc88e0a1afd0961dc7e1f6525eb4be264f2",
     "nerf_wide_train_rays":
         "a0b3b1df5a17508ea37f84412e2c6a984236a9c8f5a8a7a4220aa5e290608633",
     "nerf_wide_render_bwd_rays":

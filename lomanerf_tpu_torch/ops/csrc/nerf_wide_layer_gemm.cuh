@@ -117,25 +117,6 @@ constexpr int lg_smem_bytes() {  // the ring, two output buffers, the sums, alig
          (kEpi == kEpiMask ? kLgSumBytes : 0) + 1024;
 }
 
-// the tile box at (column c0, row c1) of `map` from shared memory src
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
-                                          int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
-               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// this thread's committed stores have read their shared memory (.read) or
-// completed
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
 // byte offset of (row r < 64, column n < 128) in a run of 128-byte swizzled
 // boxes of 64 rows, `per` columns of `size` bytes each a box row
 template <int kSize>

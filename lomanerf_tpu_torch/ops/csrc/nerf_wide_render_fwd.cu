@@ -19,14 +19,15 @@
 // ray chunk:
 //   * bf16 (the flagship): one persistent kernel computes the encoding and
 //     every hidden layer of each 128-row tile on the tensor cores (wgmma,
-//     the weights streamed by TMA), the activations kept in shared memory,
-//     and writes only H_{L-1} (nerf_wide_mlp.cuh).  Past pw 256 (two
-//     activation buffers of a tile would exceed a block's shared memory),
-//     and in nerf_wide_render_fwd_layers for comparison, the layer chain:
+//     the weights streamed by TMA), the activations kept on the SM, and
+//     writes only H_{L-1} (nerf_wide_mlp.cuh).  Past pw 256 (a tile's
+//     accumulator and activations would exceed a thread's registers), and
+//     in nerf_wide_render_fwd_layers for comparison, the layer chain:
 //     encode_kernel, then one GEMM per hidden layer through device memory
 //     (nerf_wide_layer_gemm.cuh: wgmma fed by TMA; the mma.sync GEMM of
 //     nerf_wide_gemm.cuh before it, whose bits it keeps); the fused MLP and
-//     the chain give the same bits;
+//     the chain group each f32 sum otherwise and store the same bf16 values
+//     off near ties;
 //   * f32: the encoding kernel, then one tiled FMA GEMM per hidden layer
 //     (nerf_wide_f32_gemm.cuh: 128x128 tiles staged by cp.async) with the bias,
 //     ReLU and rounding in the epilogue, activations through device memory

@@ -24,7 +24,7 @@ one layer or more, f32 or bf16 compute, e.g. the 8x256 flagship or an
 8x1024 MLP), tiled GEMMs around a one-warp-per-ray compositing kernel.  In
 bf16 at pw 128 or 256 the render's MLP is one persistent kernel per ray
 chunk (``csrc/nerf_wide_mlp.cuh``: the encoding and every hidden layer of a
-row tile on ``wgmma`` fed by TMA, the activations in shared memory; alone,
+row tile on ``wgmma`` fed by TMA, the activations in registers; alone,
 with the chain it replaced, in ``ops/wide_mlp``); wider bf16 MLPs and
 one-layer ones render on that chain (``mma.sync`` layer GEMMs).  Each hidden
 layer's dW in the bf16 gradient sequence runs on ``csrc/nerf_wide_dw.cuh``

@@ -11,8 +11,11 @@ render on the layer chain it replaced (``nerf_wide_render_fwd_layers``: the
 encoding kernel, one GEMM per hidden layer through device memory, the
 ``wgmma`` layer GEMM of ``csrc/nerf_wide_layer_gemm.cuh`` since it took over
 from ``mma.sync`` with the same bits, compositing), so that the two can be
-compared bit for bit and timed in turns.  Nothing on
-the main path calls either.  Both take the stacks of
+compared and timed in turns.  The two group each f32 sum otherwise (the
+fused MLP sums a layer's whole K in the tensor core's accumulator, the chain
+promotes every 32-deep k-step), so they store the same bf16 values except
+at near ties: :func:`tied_rows` finds those rows.  Nothing on the main
+path calls any of them.  Both take the stacks of
 ``fused_nerf.pack_wide_params`` and check their shapes before they look at
 the device, and take rays, depths and steps as ``render_rays`` does (any
 float type and layout, used as contiguous f32); on CUDA tensors each
@@ -28,6 +31,11 @@ from lomanerf_tpu_torch.ops import fused_nerf
 # kernel launches of the C entry points; a run resets and reads them
 launches = {"nerf_wide_mlp": 0, "nerf_wide_render_fwd_layers": 0}
 WIDTHS = (128, 256)  # the padded widths of every bf16 MLP the wide route takes
+# of the sum of |products|: how far the two kernels' f32 sums of a layer may
+# lie apart, each at most 16 k-steps (K = 256) within 2^-23 of its running
+# sum, which that sum bounds (the tensor core truncates, the chain's
+# promotion adds round to nearest)
+TIE_RTOL = 2 * 16 * 2.0 ** -23
 
 
 def _check(W, b, t_vals, dists, origins, directions, config) -> None:
@@ -107,20 +115,24 @@ def wide_mlp(W, b, t_vals, origins, directions, config) -> torch.Tensor:
     return out
 
 
-def render_rays_layers(W, b, t_vals, dists, origins, directions, config) -> torch.Tensor:
+def render_rays_layers(W, b, t_vals, dists, origins, directions, config, hidden: bool = False):
     """``(N, 3)`` colours of the bf16 wide render on the layer chain the
     fused MLP replaced, in ray chunks of ``fused_nerf.wide_chunk_rays``
-    with two activation slots; the plain version on CPU tensors."""
+    with two activation slots; the plain version on CPU tensors.  With
+    ``hidden``, all rays in one chunk, and ``(colours, H_{L-1})``: the
+    chain's ``(N * S, pw)`` bf16 last hidden output too."""
     _check(W, b, t_vals, dists, origins, directions, config)
     t_vals, dists, origins, directions = (
         fused_nerf._f32(x) for x in (t_vals, dists, origins, directions))
     if W.device.type == "cpu":
-        return render_reference(W, b, t_vals, dists, origins, directions, config)
+        col = render_reference(W, b, t_vals, dists, origins, directions, config)
+        return (col, hidden_reference(W, b, t_vals, origins, directions, config)) if hidden \
+            else col
     from lomanerf_tpu_torch.ops import build
 
     L, pw = W.shape[:2]
     n, S = origins.shape[0], config.num_samples
-    chunk = max(1, min(n, fused_nerf.wide_chunk_rays(config, pw)))
+    chunk = n if hidden else max(1, min(n, fused_nerf.wide_chunk_rays(config, pw)))
     acts = torch.empty(2 * chunk * S * pw, dtype=torch.bfloat16, device=W.device)
     out = torch.empty((n, 3), dtype=torch.float32, device=W.device)
     stream = torch.cuda.current_stream(W.device).cuda_stream
@@ -131,4 +143,54 @@ def render_rays_layers(W, b, t_vals, dists, origins, directions, config) -> torc
     if err != 0:
         raise RuntimeError(f"nerf_wide_render_fwd_layers launch failed: cudaError {err}")
     launches["nerf_wide_render_fwd_layers"] += 1
+    if hidden:  # the chain's two slots alternate: H_{L-1} is in slot (L - 1) % 2
+        return out, acts.view(2, n * S, pw)[(L - 1) % 2]
     return out
+
+
+def tied_rows(W, b, t_vals, dists, origins, directions, config):
+    """Where the fused MLP and the layer chain may part: ``(tied, far,
+    fused, chain)``.  For each hidden layer m, from the same stored input,
+    the fused kernel's output (:func:`wide_mlp` on the stack cut after
+    layer m) against the chain's (m = 0: :func:`render_rays_layers` on the
+    same cut, from the same encoding; after it the chain's layer GEMM alone,
+    ``wide_gemm.wide_layer_gemm``, on the fused kernel's H_m).  ``tied``
+    ``(N * S,)`` marks the rows where some layer's two outputs differ;
+    ``far`` counts the differing values that are no near tie: a near tie
+    stores two adjacent bf16 values, or a ReLU zero beside a value within
+    :data:`TIE_RTOL` of the sum of |products| (at m = 0 from the plain
+    encoding, which only scales the bound).  ``fused`` and ``chain`` are
+    the two H_{L-1} of the whole stack; off the tied rows they are equal
+    when the sums' grouping alone differs.  On CPU tensors both sides run
+    their plain versions."""
+    from lomanerf_tpu_torch.core import positional_encoding
+    from lomanerf_tpu_torch.ops import wide_gemm
+
+    _check(W, b, t_vals, dists, origins, directions, config)
+    L, pw = W.shape[:2]
+    n, S = origins.shape[0], config.num_samples
+    t32, o32, d32 = (fused_nerf._f32(x) for x in (t_vals, origins, directions))
+    pts = o32[:, None, :] + d32[:, None, :] * t32.expand(n, S)[..., None]
+    tied = torch.zeros(n * S, dtype=torch.bool, device=W.device)
+    far, prev = 0, None
+    for m in range(L - 1):
+        cut_W, cut_b = W[:m + 2], b[:m + 2]
+        fused = wide_mlp(cut_W, cut_b, t_vals, origins, directions, config)
+        if m == 0:
+            chain = render_rays_layers(cut_W, cut_b, t_vals, dists, origins, directions, config,
+                                       hidden=True)[1]
+            mags = positional_encoding(pts, config.num_encoding_functions).reshape(n * S, -1)
+            scale = mags.abs() @ W[0, :mags.shape[1]].float().abs()
+        else:
+            chain = wide_gemm.wide_layer_gemm(prev, W[m], b[m], pw)
+            scale = prev.float().abs() @ W[m].float().abs()
+        f, c = fused.float(), chain.float()
+        apart = f != c
+        top = torch.maximum(f.abs(), c.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(torch.where(top > 0, top, 1.0))) - 7)
+        near = (f - c).abs() <= torch.maximum(ulp, TIE_RTOL * scale)
+        far += int((apart & ~near).sum())
+        tied |= apart.any(1)
+        prev = fused
+    chain = render_rays_layers(W, b, t_vals, dists, origins, directions, config, hidden=True)[1]
+    return tied, far, prev, chain

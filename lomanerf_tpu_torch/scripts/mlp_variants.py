@@ -1,6 +1,6 @@
-"""What each part of the fused MLP's k-step costs on the card: variants of
-``ops/csrc/nerf_wide_mlp.cuh``, each with one piece taken out or one
-number changed, timed in turns on one 65,536-ray ``full`` chunk (8,388,608
+"""What each part of the fused MLP's layer costs on the card: variants of
+``ops/csrc/nerf_wide_mlp.cuh``, each with one piece taken out, timed in
+turns on one 65,536-ray ``full`` chunk (8,388,608
 rows, the size of ``chip_smoke.py``'s phase-9 chunk).
 
 Each variant is the header with the textual edits of ``VARIANTS`` (every
@@ -40,58 +40,33 @@ ROUNDS = 5  # rounds of turns: each variant is timed 2 * ROUNDS times
 _KERNEL = "mlp_wgmma_kernel"
 OUT = build.BUILD_ROOT.parent / "mlp_variants"
 
-_WAIT_FULL = "mbar_wait(&full[s], ((it + k) / kMlpStages) & 1);"
-_LOADS = """              mbar_expect_tx(&full[s], kMlpStageBytes);
-              tma_load(st, map, pass * kMlpBN, row, &full[s]);
-              tma_load(st + kMlpStageBytes / 2, map, pass * kMlpBN + 64, row, &full[s]);"""
-_STORES = """              *reinterpret_cast<__nv_bfloat162*>(nxt + act_at(r, n)) = lo;
-              *reinterpret_cast<__nv_bfloat162*>(nxt + act_at(r + 8, n)) = hi;"""
-_STAGES = "constexpr int kMlpStages = 4;"
+_WAIT_FULL = "mbar_wait(&full[s], ((it + st) / kMlpStages) & 1);"
 _REFILL = "if (it >= kMlpStages) mbar_wait(&empty[s], ((it / kMlpStages) - 1) & 1);"
-_REFILL_AFTER_COPY = ("if (it >= kMlpStages) {\n"
-                      "mbar_wait(&empty[s], ((it / kMlpStages) - 1) & 1);\n"
-                      "mbar_wait(&full[s], ((it / kMlpStages) - 1) & 1);\n}")
-_PRODUCER_END = "      }\n    }\n  } else {  // consumer warpgroup"
-_PRODUCER_DRAINS = ("      }\n"
-                    "      for (int j = it > kMlpStages ? it - kMlpStages : 0; j < it; ++j) {\n"
-                    "        mbar_wait(&full[j % kMlpStages], (j / kMlpStages) & 1);\n"
-                    "      }\n    }\n  } else {  // consumer warpgroup")
-
-
-def _stages(n: int):
-    return [(_STAGES, f"constexpr int kMlpStages = {n};", 1)]
-
+_STORE = "stmatrix_x4(act_s + act_at(st_r, (j + st_j) * 8),"
+_ENCODE = """      encode_rows<kPerRay>(act, wg, t, tile_row, rows, S, origins, directions, ts, nf,
+                           n_st0 * kMlpBK);
+"""
 
 # name -> (edits (old, new, times), whether the arithmetic is whole)
 VARIANTS = {
     "as is": ([], True),
-    # the consumers never wait for a weight slice to land (they read what the
-    # stage holds): what their waits on the weights cost.  The producer waits
-    # instead, for a stage's last copy before it refills the stage and for
-    # the last copies before it exits, so the barriers stay in phase
-    "no weight waits": ([(_WAIT_FULL, "", 1), (_REFILL, _REFILL_AFTER_COPY, 1),
-                         (_PRODUCER_END, _PRODUCER_DRAINS, 1)], False),
-    # the producer arrives on the full barrier without a copy: the waits and
-    # the ring's turns stay, no weight byte moves (the L2's share)
-    "no weight loads": ([(_LOADS, "              mbar_arrive(&full[s]);", 1)], False),
-    # the f32 promotion adds of each k-step into the running sum
-    "no promotion adds": ([("for (int q = 0; q < 64; ++q) acc[q] += ks0[q];", "", 1),
-                           ("for (int q = 0; q < 64; ++q) acc[q] += ks1[q];", "", 1)], False),
-    # the epilogue's stores of a layer's output into shared memory, its
-    # arithmetic kept (the stores sit behind a condition that never holds)
-    "no activation stores, math kept": ([(_STORES, "if (rows < 0) {\n" + _STORES + "\n}", 1)],
-                                        False),
-    # the stores and, with nothing to read it, the epilogue's arithmetic of
-    # every layer but the last (the compiler drops it)
-    "no activation stores": ([(_STORES, "", 1)], False),
-    # the two consumer warpgroups issue when they like
-    "no turns": ([('asm volatile("bar.sync %0, 256;" ::"r"(wg + 3) : "memory");', "", 1),
-                  ('asm volatile("bar.arrive %0, 256;" ::"r"((wg ^ 1) + 3) : "memory");', "",
-                   1)], True),
-    "2 stages": (_stages(2), True),
-    "3 stages": (_stages(3), True),
-    "6 stages": (_stages(6), True),
-    "8 stages": (_stages(8), True),
+    # the stmatrix of H_{L-1} into shared memory (the hidden layers' outputs
+    # stay in registers), its arithmetic kept (the stores sit behind a
+    # condition that never holds; the TMA stores then send what rows hold)
+    "no epilogue stores": ([(_STORE, "if (rows < 0) " + _STORE, 1)], False),
+    # the weights never keep a consumer waiting: the producer fills the ring
+    # once and copies nothing more, and the consumers wait only for that
+    # first fill (later stages compute with whatever the ring holds): what
+    # the waits for weights from L2 cost
+    "no weight waits": ([(_REFILL, "if (it >= kMlpStages) continue;", 1),
+                         (_WAIT_FULL, "if (it + st < kMlpStages) mbar_wait(&full[s], 0);", 1)],
+                        False),
+    # the encoding of each tile (its sincosf): layer 0 reads what the rows hold
+    "no encoding": ([(_ENCODE, "", 1)], False),
+    # the two consumer warpgroups issue when they like, not a layer each in turn
+    "no ping-pong": ([('asm volatile("bar.sync %0, 256;" ::"r"(wg + 3) : "memory");', "", 1),
+                      ('asm volatile("bar.arrive %0, 256;" ::"r"((wg ^ 1) + 3) : "memory");', "",
+                       1)], True),
 }
 
 _ENTRY = r"""
@@ -149,7 +124,11 @@ def main() -> dict:
                 raise RuntimeError(f"variant launch failed: cudaError {err}")
             return out
         calls[name] = call
-    same = {name: bool(torch.equal(call(), want)) for name, call in calls.items()}
+    print(f"mlp_variants: {len(libs)} variants compiled", flush=True)
+    same = {}
+    for name, call in calls.items():  # one at a time, so that a variant that hangs is named
+        print(f"mlp_variants: checking {name!r}", flush=True)
+        same[name] = bool(torch.equal(call(), want))
     for name, (_, whole) in VARIANTS.items():
         if whole and not same[name]:
             raise SystemExit(f"mlp_variants: {name!r} leaves the arithmetic whole but its "

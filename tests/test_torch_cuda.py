@@ -25,7 +25,7 @@ numpy's f64 results and their plain versions, the scans also bit for bit
 to numpy's f32 sequential accumulate and the sum to the numpy restatement
 of its fixed order; the wide chain's bf16 dW stage
 (wgmma/TMA) to f64 of its rounded operands; the bf16 wide render's fused
-MLP (wgmma/TMA) to the layer chain it replaced, bit for bit;
+MLP (wgmma/TMA) to the layer chain it replaced, bit for bit off near ties;
 the wide chain's bf16 layer GEMM (wgmma/TMA, both forms) to the
 ``mma.sync`` kernel it replaced, bit for bit; and its exact f32 GEMM
 (``nerf_wide_f32_gemm.cuh``, every form) to the FMA kernel it replaced
@@ -463,13 +463,21 @@ def test_wide_render_image_chunks_give_identical_pixels():
 
 # colours against the plain version: phase 7's bf16 bound (wide_tolerances)
 FUSED_COL_ATOL = 2e-3
-# the one case past it, at its measured 3.03e-3 (the fused kernel's colours
-# are the layer chain's bits): scripts/bf16_flips.py bisects it to one
+# the one case past it, at its measured 3.03e-3 (when the fused kernel's colours
+# were the layer chain's bits): scripts/bf16_flips.py bisects it to one
 # rounding flip at ray 984, hidden layer 2, sample 63, unit 228, where the f64
 # sum lies 4.8e-7 from the bf16 rounding boundary, within the f32 sum's
 # rounding (2.0e-6); the plain version continued from the kernel's layer-2
 # output leaves 1.2e-7 of the colour error
 FUSED_COL_ATOL_MEASURED = {("full", "standard", N_RAYS, 64, "perray"): 3.1e-3}
+# share of rows on which the fused MLP and the layer chain may store
+# different H_{L-1} (wide_mlp.tied_rows): 2.5x the largest share measured on
+# an H100 over the cases of 66,368 rows or more (6.22%, full at S = 64), the
+# rule test_torch_wide_mlp's NEAR_TIE_ROWS was set by; the tensor core's
+# accumulator truncates, where that test's numpy order rounds to nearest (a
+# numpy model of truncation put full at 6.3% before the card ran).  A
+# one-ray case of 64 rows read 10.9% (7 rows).
+NEAR_TIE_ROWS = 0.16
 FUSED = {"full": NeRFConfig.full(),
          "4x128-bf16": dataclasses.replace(NeRFConfig.full(), num_layers=4, filter_size=128)}
 
@@ -482,10 +490,13 @@ FUSED = {"full": NeRFConfig.full(),
 @pytest.mark.parametrize("depths", ["shared", "perray"])
 def test_fused_mlp_render_equals_the_mma_chain(preset, mode, n_rays, S, depths):
     """The bf16 wide render (#8, #10 on per-ray depths) on the fused MLP
-    (``csrc/nerf_wide_mlp.cuh``) gives the colours of the layer chain it
-    replaced (``wide_mlp.render_rays_layers``, on the ``wgmma`` layer GEMM
-    that kept ``mma.sync``'s bits) bit for bit, at
-    ragged 128-row tiles (1037 and 1 rays at S = 128 and 64); repeat
+    (``csrc/nerf_wide_mlp.cuh``) against the layer chain it replaced
+    (``wide_mlp.render_rays_layers``, on the ``wgmma`` layer GEMM that kept
+    ``mma.sync``'s bits), at ragged 128-row tiles (1037 and 1 rays at S =
+    128 and 64): the two sum each layer in another grouping, so their
+    H_{L-1} are equal on every row without a near tie (``wide_mlp.tied_rows``:
+    every value where they part a near tie, at most ``NEAR_TIE_ROWS`` of
+    the rows tied), and so are the colours of the rays without one; repeat
     launches are bit-identical; both are within ``FUSED_COL_ATOL`` of the
     plain version (a case of ``FUSED_COL_ATOL_MEASURED`` within its own);
     the H_{L-1} of ``wide_mlp.wide_mlp`` is finite and its repeats
@@ -515,10 +526,16 @@ def test_fused_mlp_render_equals_the_mma_chain(preset, mode, n_rays, S, depths):
     assert wide_mlp.launches["nerf_wide_render_fwd_layers"] == \
         before[1]["nerf_wide_render_fwd_layers"] + 1
     assert wide_mlp.launches["nerf_wide_mlp"] == before[1]["nerf_wide_mlp"] + 2
-    assert torch.equal(new, old) and torch.equal(new, again)
+    assert torch.equal(new, again)
     atol = FUSED_COL_ATOL_MEASURED.get((preset, mode, n_rays, S, depths), FUSED_COL_ATOL)
     torch.testing.assert_close(new, plain, atol=atol, rtol=1e-4)
     assert h.shape == (n_rays * S, pw) and torch.equal(h, h2) and torch.isfinite(h.float()).all()
+    tied, far, fused, chain = wide_mlp.tied_rows(W, b, t, dists, o, d, cfg)
+    assert far == 0 and torch.equal(fused, h)
+    assert tied.float().mean().item() <= NEAR_TIE_ROWS, tied.float().mean().item()
+    assert torch.equal(h[~tied], chain[~tied])
+    clear = ~tied.view(n_rays, S).any(1)
+    assert torch.equal(new[clear], old[clear])
 
 
 @pytest.mark.cuda

@@ -7,11 +7,12 @@ their plain versions; they and the port's ``render_rays`` are held to the
 JAX package's W kernel (``_nerf_forward_kernel_W``, shared ``(S,)`` depths)
 and packed kernel (``_nerf_forward_kernel``, per-ray ``(N, S)`` depths) in
 interpret mode, within ``tests/test_torch_wide.py``'s bf16 bounds.  The
-kernel's order (128-row tiles, 32-deep k-steps promoted into f32 sums in
+kernel's order (128-row tiles, one f32 sum a layer over 16-deep k-steps in
 ascending k, then bias, ReLU and the bf16 round) is restated in numpy and
 held to f64 and to ``test_torch_wide.forward_sequence``; the card tests
 (``tests/test_torch_cuda.py``) hold the kernel to the layer chain bit for
-bit.  The card scripts' CPU parts are checked here: the plain
+bit off near ties (``wide_mlp.tied_rows``, whose plain path is checked
+here).  The card scripts' CPU parts are checked here: the plain
 continuation of ``scripts/bf16_flips`` and the source edits of
 ``scripts/mlp_variants``.
 """
@@ -33,7 +34,7 @@ from lomanerf_tpu_torch.ops import fused_nerf, wide_mlp
 
 N = 37  # 37 x 8 and 37 x 12 rows: a ragged last 128-row tile
 MLPS = [(3, 128, 8), (4, 256, 12)]  # (layers, width, S): pw 128 and 256
-TILE, K_STEP = 128, 32  # the kernel's rows per tile and promotion depth
+TILE, K_STEP = 128, 16  # the kernel's rows per tile and wgmma k-step depth
 ORDER_RTOL = 1e-6  # of the f64 sum of |products|: f32 sums of exact products
 # share of rows with a near-tie in some layer: worst measured 2.0% (9 of 444
 # rows) over numpy seeds 215 and 0-5 of the four cases below; 2.5x that
@@ -86,12 +87,12 @@ def fused_order(W, b, enc, n_k0):
     """numpy restatement of ``mlp_wgmma_kernel``'s order over the stacks
     (f64 arrays of bf16 values) from the bf16 encoding ``enc`` (rows, kc):
     rows padded with zeros to whole 128-row tiles, layer 0's columns and
-    W_0's rows with zeros to ``n_k0`` 32-deep k-steps; per hidden layer the
-    f32 running sum of the k-steps in ascending k, each k-step's exact sum
-    rounded to f32 (the tensor core's two 16-deep products summed into a
-    fresh set), then ``bf16(ReLU(f32(acc + b)))``.  Returns the stored
-    activations and, per layer, (pre-activation, exact f64 sum, sum of
-    |products|), cut to the rows of ``enc``."""
+    W_0's rows with zeros to ``n_k0`` 16-deep k-steps; per hidden layer one
+    f32 sum of the k-steps in ascending k, each k-step's exact sum added to
+    it with one rounding (the tensor core's accumulator: one wgmma a
+    k-step, scale-d 0 on the first), then ``bf16(ReLU(f32(acc + b)))``.
+    Returns the stored activations and, per layer, (pre-activation, exact
+    f64 sum, sum of |products|), cut to the rows of ``enc``."""
     rows, L, pw = enc.shape[0], W.shape[0], W.shape[1]
     A = np.zeros((-(-rows // TILE) * TILE, n_k0 * K_STEP))
     A[:rows, :enc.shape[1]] = enc
@@ -100,8 +101,8 @@ def fused_order(W, b, enc, n_k0):
         Wl = W[l, :A.shape[1]]
         acc = np.zeros((A.shape[0], pw), np.float32)
         for k0 in range(0, A.shape[1], K_STEP):
-            part = (A[:, k0:k0 + K_STEP] @ Wl[k0:k0 + K_STEP]).astype(np.float32)
-            acc = acc + part  # f32 + f32: IEEE round to nearest
+            part = A[:, k0:k0 + K_STEP] @ Wl[k0:k0 + K_STEP]
+            acc = (acc + part).astype(np.float32)  # exact f64 sum, one round to f32
         sums.append((acc[:rows], A[:rows] @ Wl, np.abs(A[:rows]) @ np.abs(Wl)))
         A = bf16_round(np.maximum(acc + b[l].astype(np.float32), np.float32(0.0)))
         H.append(A[:rows])
@@ -165,6 +166,27 @@ def test_cpu_path_equals_render_rays_reference(rng, layers, width, S, depths):
         got = wide_mlp.render_rays_layers(W, b, t, dists, o, d, cfg)
         want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depths", ["shared", "perray"])
+@pytest.mark.parametrize("layers,width,S", MLPS)
+def test_tied_rows_on_the_plain_path(rng, layers, width, S, depths):
+    """On CPU tensors ``wide_mlp.tied_rows`` runs both sides' plain
+    versions, which store the same values: no row tied, no value far, and
+    both H_{L-1} the plain render's; ``render_rays_layers(hidden=True)``
+    returns the plain colours beside that H_{L-1}."""
+    cfg, _, (ws, bs), arrays = case(rng, layers, width, S, depths)
+    params = tcore.params_from_numpy(ws, bs, "cpu")
+    o, d, t, dists = (torch.from_numpy(x) for x in arrays)
+    W, b = stacks(params, cfg)
+    with torch.no_grad():
+        tied, far, fused, chain = wide_mlp.tied_rows(W, b, t, dists, o, d, cfg)
+        col, hidden = wide_mlp.render_rays_layers(W, b, t, dists, o, d, cfg, hidden=True)
+        want = fused_nerf.render_rays_reference(params, o, d, t, dists, cfg)
+    assert tied.shape == (N * S,) and not tied.any() and far == 0
+    assert torch.equal(fused, chain) and torch.equal(hidden, chain)
+    assert torch.equal(chain, wide_mlp.wide_mlp(W, b, t, o, d, cfg))
+    assert torch.equal(col, want)
 
 
 def test_wide_mlp_refuses_what_it_does_not_take(rng):
