@@ -10,10 +10,9 @@ its backward (``csrc/nerf_render_bwd.cu``) and the fused train loss
 kernel composites with (``csrc/seg_scan.cuh``), alone
 (``csrc/seg_scans.cu``); ``probe`` — the grid-overhead probe's tile sum
 (``csrc/grid_sum.cu``); ``wide_dw`` — the wide gradient sequence's bf16 dW
-stage alone (``csrc/nerf_wide_dw.cuh``: wgmma fed by TMA) and the
-``mma.sync`` kernel it replaced; ``wide_gemm`` and ``f32_gemm`` — the wide
-chain's bf16 layer GEMM (``csrc/nerf_wide_layer_gemm.cuh``) and its exact
-f32 GEMM (``csrc/nerf_wide_f32_gemm.cuh``, also the wide field's "highest"
-tier) alone, beside the kernels they replaced; ``build`` — nvcc at first
-use, bound with ctypes.
+stage alone (``csrc/nerf_wide_dw.cuh``: wgmma fed by TMA); ``wide_gemm``
+and ``f32_gemm`` — the wide chain's bf16 layer GEMM
+(``csrc/nerf_wide_layer_gemm.cuh``) and its exact f32 GEMM
+(``csrc/nerf_wide_f32_gemm.cuh``, also the wide field's "highest" tier)
+alone; ``build`` — nvcc at first use, bound with ctypes.
 """

@@ -65,16 +65,13 @@ SIGNATURES = {
     #  origins, directions, out, n_rays, S, L, pw, kc, num_functions,
     #  per_ray, stream)
     "nerf_wide_mlp": [_P] * 6 + [_I] * 7 + [_P],
-    # the wide sequence's bf16 dW stage alone (nerf_wide_dw.cuh) and the
-    #  mma.sync kernel it replaced: (H, Dz, ld, M, N, rows, partials, stream)
+    # the wide sequence's bf16 dW stage alone (nerf_wide_dw.cuh): (H, Dz,
+    #  ld, M, N, rows, partials, stream)
     "wide_dw_gemm": [_P, _P] + [_I] * 4 + [_P, _P],
-    "wide_dw_gemm_mma": [_P, _P] + [_I] * 4 + [_P, _P],
-    # the wide chain's bf16 layer GEMM alone (nerf_wide_layer_gemm.cuh) and
-    #  the mma.sync kernel it replaced: (A, W, b, mask, C, Cb, part, rows, pw,
-    #  K, dh, stream), dh 0 the forward layer, 1 d_h (part: its column
-    #  partials, written by the first alone)
+    # the wide chain's bf16 layer GEMM alone (nerf_wide_layer_gemm.cuh): (A,
+    #  W, b, mask, C, Cb, part, rows, pw, K, dh, stream), dh 0 the forward
+    #  layer, 1 d_h (part: its column partials)
     "wide_layer_gemm": [_P] * 7 + [_I] * 4 + [_P],
-    "wide_layer_gemm_mma": [_P] * 7 + [_I] * 4 + [_P],
     # the published NeRF (nerf_paper.cu): (W, b, ts, ds, origins,
     #  directions, out, weights, acts, n_rays, S, stream) and (W, b, ts, ds,
     #  origins, directions, target, weights, acts, dz, dz_head, db_part,
@@ -82,12 +79,10 @@ SIGNATURES = {
     #  chunk_rays, S, stream); weights may be null
     "nerf_paper_render": [_P] * 9 + [_I] * 2 + [_P],
     "nerf_paper_train": [_P] * 14 + [_LL] + [_P] * 4 + [_I] * 3 + [_P],
-    # the wide chain's f32 GEMM alone (nerf_wide_f32_gemm.cuh) and the FMA
-    #  kernel it replaced (gemm_kernel): (A, lda, B, ldb, bias, mask, C, ldc,
-    #  M, N, K, k_chunk, form, stream), form 0 forward, 1 d_h, 2 dW, 3 head,
-    #  4 the head's d_z
+    # the wide chain's f32 GEMM alone (nerf_wide_f32_gemm.cuh): (A, lda, B,
+    #  ldb, bias, mask, C, ldc, M, N, K, k_chunk, form, stream), form 0
+    #  forward, 1 d_h, 2 dW, 3 head, 4 the head's d_z
     "wide_f32_gemm": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
-    "wide_f32_gemm_fma": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
     # the 2D field (field_common.cuh): (pk, coords, out, n_blocks, n, L,
     #  in_dim, width, num_functions, out_ch, exact, stream); exact != 0 the
     #  f32 FMA products of the "highest" tier, 0 3xTF32

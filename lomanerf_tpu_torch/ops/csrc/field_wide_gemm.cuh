@@ -1,7 +1,7 @@
 // A 3xTF32 tensor-core GEMM for the wide image-field route (field_wide.cu)
 // on Hopper (sm_90a): the products of the JAX package's "high" and
-// "default" tiers.  The "highest" tier keeps nerf_wide_gemm.cuh:gemm_kernel
-// (exact f32 FMAs).
+// "default" tiers.  The "highest" tier runs nerf_wide_f32_gemm.cuh's
+// f32_gemm (exact f32 FMAs).
 //
 //   out(m, n) = sum_k A(m, k) B(k, n)                    (3xTF32)
 //   A(m, k) = kAT ? A[k * lda + m] : A[m * lda + k]

@@ -12,7 +12,7 @@
 // For f32, for bf16 past pw 256 (two 128-row activation buffers of a wider
 // tile alone would exceed a block's shared memory) or with no hidden layer,
 // and for the chain the fused MLP replaced (nerf_wide_render_fwd_layers, kept
-// for comparison), the forward layers on two ping-pong buffers, then
+// as the reference of the card's check of the fused MLP), the forward layers on two ping-pong buffers, then
 // composite_kernel.  For bf16 the forward layers and the d_h GEMMs run on
 // wgmma fed by TMA (nerf_wide_layer_gemm.cuh, through gemm()).
 //

@@ -11,10 +11,7 @@
 // kEpiSigmoid, kEpiSigmoidGrad; the mask at C's row stride ldc), any M, N,
 // K, lda, ldb and ldc, and split-K by the caller's k_chunk.
 //
-// Replaces gemm_kernel (nerf_wide_gemm.cuh: 8-deep k-steps staged by scalar,
-// bounds-checked loads between two barriers, nothing in flight while the
-// block multiplies), kept there as the twin that the *_fma entry points
-// launch.  These are the layer products of the TPU kernels' _mlp_forward and
+// These are the layer products of the TPU kernels' _mlp_forward and
 // _bwd_from_dcol (lomanerf_tpu/ops/fused_nerf.py:79, :168) inside
 // _nerf_train_kernel_W (:1477), _nerf_forward_kernel_W (:1515),
 // _nerf_backward_kernel_W (:1537) and their per-ray twins (:140, :223,
@@ -39,9 +36,9 @@
 //     128 x 128 (8 x 8 a thread: 64 FFMAs to 4 LDS.128 a k), 64 x 64 (4 x
 //     4, four blocks an SM) for a split-K dW whose 128 x 128 grid would
 //     leave more than a quarter of the SMs idle (the encoding's 34 or 40
-//     rows), and 256 x 16 (4 x 4) for N <= 16 (the heads: the old kernel
-//     ran 128 columns for 3; their dW 64 x 16, so that a 256-wide layer
-//     still spreads over 4 blocks a k-chunk);
+//     rows), and 256 x 16 (4 x 4) for N <= 16 (the heads, whose 3 columns
+//     would leave a 128-column tile nearly idle; their dW 64 x 16, so
+//     that a 256-wide layer still spreads over 4 blocks a k-chunk);
 //   * k-tiles of kFK = 32 of both operands are staged by cp.async through
 //     a kFStages-deep ring in dynamic shared memory, with one barrier a
 //     k-tile: the next two tiles' copies fly while this one multiplies.
@@ -60,17 +57,17 @@
 //   * the epilogue goes through shared memory (the ring, free by then):
 //     each thread takes four-column groups down the tile's rows, loads all
 //     their mask entries at once (d_h and the head's d_z read one), applies
-//     the old kernel's arithmetic and stores 16 B a group where C's rows
+//     the epilogue's arithmetic and stores 16 B a group where C's rows
 //     (and the mask's and bias's) are 16-B aligned, so rows leave
 //     coalesced.
 //
 // Bits.  Each output is one thread's fmaf chain from +0 over ascending k in
 // [kbeg, kend), then zero terms (+0 x +0) up to the next multiple of 8
-// from kbeg, exactly as gemm_kernel ran it: full k-tiles run all 32 k, the
-// last one its k up to that multiple of 8 (a zero term turns a -0 sum into
-// +0, so no more and no fewer are added).  The tile shape, the staging and
-// the thread of an output do not enter the sum: repeat launches are
-// bit-identical and equal to gemm_kernel's.
+// from kbeg: full k-tiles run all 32 k, the last one its k up to that
+// multiple of 8 (a zero term turns a -0 sum into +0, so no more and no
+// fewer are added: chip_smoke.py's F32_DIGESTS pin these bits).  The tile
+// shape, the staging and the thread of an output do not enter the sum:
+// repeat launches are bit-identical.
 
 #pragma once
 

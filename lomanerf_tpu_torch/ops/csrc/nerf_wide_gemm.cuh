@@ -20,19 +20,17 @@
 //                 y = sigmoid(acc + bias[n]); mask (the    cotangent (f32 only)
 //                 cotangent) has C's row stride ldc
 //
-// Four kernels, chosen in gemm(): for bf16 the forward layer and d_h on
-// wgmma/TMA (layer_gemm, nerf_wide_layer_gemm.cuh) and the other forms on
-// gemm_mma_kernel (below); for f32 every form on f32_gemm
-// (nerf_wide_f32_gemm.cuh: FMAs on k-tiles staged by cp.async through a
-// ring).  gemm_kernel, the f32 kernel it replaced, stays as its twin
-// (gemm_fma): 128 x 128 outputs per block of 256 threads, 8 x 8 per thread,
-// k-steps of 8 staged in shared memory as f32 (already rounded to CDT), so
-// the inner loop is plain f32 FMAs.  Every load of gemm_kernel is
-// bounds-checked (zero fill) and every store guarded, so M, N and K are
-// arbitrary.
+// Three kernels, chosen in gemm(), one for each product:
+//   * layer_gemm (nerf_wide_layer_gemm.cuh): wgmma fed by TMA, for the bf16
+//     forward layer ([k][n] B) and d_h from the bf16 d_z copy ([n][k] B);
+//   * gemm_mma_kernel (below): mma.sync, for the bf16 forms layer_gemm does
+//     not take; on the main path the heads' split-K dW partials from the
+//     f32 d_z of the head (the hidden layers' dW runs on nerf_wide_dw.cuh);
+//   * f32_gemm (nerf_wide_f32_gemm.cuh): FMAs on k-tiles staged by cp.async
+//     through a ring, for every f32 form.
 //
-// Determinism: each output is one thread's sequential sum over its k
-// range; split-K partials and column sums are added in a fixed order by
+// Determinism: the order of every sum is fixed by the tile plan, and
+// split-K partials and column sums are added in a fixed order by
 // sum_partials_kernel, so repeat launches are bit-identical.
 
 #pragma once
@@ -44,109 +42,9 @@
 namespace wide {
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 8, kGemmThreads = 256;
+constexpr int kBM = 128, kBN = 128, kGemmThreads = 256;
 constexpr int kEpiBiasRelu = 0, kEpiMask = 1, kEpiPartial = 2, kEpiSigmoid = 3,
               kEpiSigmoidGrad = 4;
-
-template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
-            int ldb, int M, int N, int K, int k_chunk,
-            const float* __restrict__ bias, const CDT* __restrict__ mask,
-            void* __restrict__ C, int ldc) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int t = threadIdx.x;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int kbeg = blockIdx.z * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-  const int ty = t >> 4, tx = t & 15;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int m, k;
-      if (kAT) {
-        k = t >> 5, m = (t & 31) * 4 + i;
-      } else {
-        m = t >> 1, k = (t & 1) * 4 + i;
-      }
-      const int gm = m0 + m, gk = k0 + k;
-      float v = 0.0f;
-      if (gm < M && gk < kend) {
-        v = rnd<CDT>(to_f32(kAT ? A[static_cast<size_t>(gk) * lda + gm]
-                                : A[static_cast<size_t>(gm) * lda + gk]));
-      }
-      As[k][m] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int n, k;
-      if (kBT) {
-        n = t >> 1, k = (t & 1) * 4 + i;
-      } else {
-        k = t >> 5, n = (t & 31) * 4 + i;
-      }
-      const int gn = n0 + n, gk = k0 + k;
-      float v = 0.0f;
-      if (gn < N && gk < kend) {
-        v = rnd<CDT>(to_f32(kBT ? B[static_cast<size_t>(gn) * ldb + gk]
-                                : B[static_cast<size_t>(gk) * ldb + gn]));
-      }
-      Bs[k][n] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8 + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 8 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx * 8 + j;
-      if (n >= N) continue;
-      if (kEpi == kEpiBiasRelu) {
-        static_cast<CDT*>(C)[static_cast<size_t>(m) * ldc + n] =
-            from_f32<CDT>(fmaxf(acc[i][j] + bias[n], 0.0f));
-      } else if (kEpi == kEpiMask) {
-        const float h = to_f32(mask[static_cast<size_t>(m) * ldc + n]);
-        static_cast<float*>(C)[static_cast<size_t>(m) * ldc + n] =
-            h > 0.0f ? acc[i][j] : 0.0f;
-      } else if (kEpi == kEpiSigmoid) {
-        static_cast<float*>(C)[static_cast<size_t>(m) * ldc + n] =
-            sigmoidf(acc[i][j] + bias[n]);
-      } else if (kEpi == kEpiSigmoidGrad) {
-        const size_t at = static_cast<size_t>(m) * ldc + n;
-        const float y = sigmoidf(acc[i][j] + bias[n]);
-        static_cast<float*>(C)[at] = to_f32(mask[at]) * y * (1.0f - y);
-      } else {
-        static_cast<float*>(C)[(static_cast<size_t>(blockIdx.z) * M + m) * N + n] =
-            acc[i][j];
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 tensor cores: mma.sync m16n8k16 (bf16 x bf16 -> f32).
@@ -158,10 +56,10 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
 // of a warp hit 32 distinct banks.  Global loads move 4 elements a thread
 // (8 bytes of bf16 or 16 of f32, rounded to bf16 on the way: the rounding
 // plan's rnd), into registers for the next k-step while the current one
-// multiplies.  Operands stored k-major in device memory (A for the head's
-// dW = h^T d_z, B for every forward layer's W and the head's d_z) are
-// scattered into the [m][k] / [n][k] order as they are stored (the hidden
-// layers' dW runs on nerf_wide_dw.cuh); the mapping of vectors to
+// multiplies.  Operands stored k-major in device memory (both of the heads'
+// dW = h^T d_z: H and the head's d_z) are scattered into the [m][k] /
+// [n][k] order as they are stored (the hidden layers' dW runs on
+// nerf_wide_dw.cuh); the mapping of vectors to
 // lanes puts a warp's 32 lanes on 32 different k, so those stores do not
 // conflict.  Needs M and N (the contiguous dims) and K-chunk edges at
 // multiples of 4, 8-byte aligned rows.  The products of two bf16 values
@@ -349,8 +247,7 @@ gemm_mma_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B,
 }
 
 // gemm_mma_kernel's launch, in any of its forms (gemm() takes it for bf16
-// where layer_gemm does not apply; the *_mma entry points call it directly
-// to compare with the kernels that replaced it)
+// where layer_gemm does not apply)
 template <typename TA, typename TB, bool kAT, bool kBT, int kEpi>
 cudaError_t gemm_mma(const TA* A, int lda, const TB* B, int ldb, int M, int N, int K,
                      int k_chunk, const float* bias, const __nv_bfloat16* mask, void* C,
@@ -358,18 +255,6 @@ cudaError_t gemm_mma(const TA* A, int lda, const TB* B, int ldb, int M, int N, i
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, (K + k_chunk - 1) / k_chunk);
   gemm_mma_kernel<TA, TB, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
       A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc, Cb);
-  return cudaGetLastError();
-}
-
-// gemm_kernel's launch, in any of its forms (the *_fma entry points call it
-// directly to compare with the kernel that replaced it)
-template <typename TA, typename TB, typename CDT, bool kAT, bool kBT, int kEpi>
-cudaError_t gemm_fma(const TA* A, int lda, const TB* B, int ldb, int M, int N, int K,
-                     int k_chunk, const float* bias, const CDT* mask, void* C, int ldc,
-                     cudaStream_t stream) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, (K + k_chunk - 1) / k_chunk);
-  gemm_kernel<TA, TB, CDT, kAT, kBT, kEpi><<<grid, kGemmThreads, 0, stream>>>(
-      A, lda, B, ldb, M, N, K, k_chunk, bias, mask, C, ldc);
   return cudaGetLastError();
 }
 

@@ -80,26 +80,13 @@ extern "C" int nerf_wide_train_rays(const void* W, const float* b,
 // The dW stage alone, bf16: part[z][m][n] = the sum over the rows of
 // partial z (8192 each) of H[r][m] * Dz[r][n], m < M, n < N, for H and Dz
 // (rows, ld) row-major; part holds ceil(rows / 8192) * M * N floats.
-// wide_dw_gemm runs the wgmma/TMA kernel of the gradient sequence
-// (nerf_wide_dw.cuh) on a bf16 Dz; wide_dw_gemm_mma the mma.sync kernel it
-// replaced (gemm_mma_kernel, kEpiPartial) on an f32 Dz rounded to bf16 as
-// it is read, kept so that the card can compare the two.
+// It runs the wgmma/TMA kernel of the gradient sequence (nerf_wide_dw.cuh)
+// on a bf16 Dz.
 extern "C" int wide_dw_gemm(const void* H, const void* Dz, int ld, int M, int N,
                             int rows, float* part, void* stream) {
   return static_cast<int>(wide::dw_gemm(static_cast<const __nv_bfloat16*>(H),
                                         static_cast<const __nv_bfloat16*>(Dz), ld, M,
                                         N, rows, part, static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int wide_dw_gemm_mma(const void* H, const float* Dz, int ld, int M, int N,
-                                int rows, float* part, void* stream) {
-  if (rows <= 0 || M <= 0 || N <= 0 || M > ld || N > ld || M % 4 != 0 || N % 4 != 0 ||
-      ld % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(wide::gemm_mma<__nv_bfloat16, float, true, false, wide::kEpiPartial>(
-      static_cast<const __nv_bfloat16*>(H), ld, Dz, ld, M, N, rows, wide::kRowChunk, nullptr,
-      nullptr, part, N, static_cast<cudaStream_t>(stream)));
 }
 
 // The bf16 layer GEMM alone, on (rows, pw) operands of row stride pw and a
@@ -110,10 +97,7 @@ extern "C" int wide_dw_gemm_mma(const void* H, const float* Dz, int ld, int M, i
 //     pw) bf16 = bf16(C) and part (ceil(rows / 128), pw) f32 = C's column
 //     sums over each 128-row tile, mask (rows, pw) bf16 (b unused); C and
 //     part may be null (the gradient sequence passes no C).
-// wide_layer_gemm runs the wgmma/TMA kernel of the wide chain
-// (nerf_wide_layer_gemm.cuh); wide_layer_gemm_mma the mma.sync kernel it
-// replaced (gemm_mma_kernel) on the same inputs (part unused), kept so that
-// the card can compare the two.
+// It runs the wgmma/TMA kernel of the wide chain (nerf_wide_layer_gemm.cuh).
 extern "C" int wide_layer_gemm(const void* A, const void* W, const float* b, const void* mask,
                                void* C, void* Cb, float* part, int rows, int pw, int K,
                                int dh, void* stream) {
@@ -126,22 +110,4 @@ extern "C" int wide_layer_gemm(const void* A, const void* W, const float* b, con
                                             static_cast<__nv_bfloat16*>(Cb), st, part)
          : wide::layer_gemm<wide::kEpiBiasRelu>(a, pw, w, pw, rows, pw, K, b, nullptr, C, pw,
                                                 nullptr, st, nullptr));
-}
-
-extern "C" int wide_layer_gemm_mma(const void* A, const void* W, const float* b,
-                                   const void* mask, void* C, void* Cb, float* /*part*/,
-                                   int rows, int pw, int K, int dh, void* stream) {
-  if (rows <= 0 || pw <= 0 || K <= 0 || K > pw || pw % 4 != 0 || K % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* a = static_cast<const __nv_bfloat16*>(A);
-  const auto* w = static_cast<const __nv_bfloat16*>(W);
-  const auto* m = static_cast<const __nv_bfloat16*>(mask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  return static_cast<int>(
-      dh ? wide::gemm_mma<bf16, bf16, false, true, wide::kEpiMask>(
-               a, pw, w, pw, rows, pw, K, K, nullptr, m, C, pw, st, static_cast<bf16*>(Cb))
-         : wide::gemm_mma<bf16, bf16, false, false, wide::kEpiBiasRelu>(
-               a, pw, w, pw, rows, pw, K, K, b, nullptr, C, pw, st));
 }

@@ -13,11 +13,9 @@ the card test and time it in the forms the two routes run:
 * :func:`f32_head_gemm`: the field's head ``sigmoid(h[:, :K] W[:K] + b)``,
   or with ``dout`` its ``d_z = dout y (1 - y)``.
 
-Each ``*_fma`` twin runs the FMA kernel it replaced (``gemm_kernel``) on the
-same inputs through ``wide_f32_gemm_fma``, so that the two can be compared
-bit for bit.  On CUDA tensors each wrapper launches its kernel or raises;
-on CPU tensors it runs the plain version (``*_reference``).  Operands are
-contiguous f32; a row stride is the operand's width (3 for a head).
+On CUDA tensors each wrapper launches the kernel or raises; on CPU tensors
+it runs the plain version (``*_reference``).  Operands are contiguous f32;
+a row stride is the operand's width (3 for a head).
 
 :func:`tile_shape`, :func:`stage_copies` and :func:`k_terms` mirror the
 kernel's block tile, its staging of one k-tile and the terms each output
@@ -30,8 +28,7 @@ import torch
 
 FORMS = {"forward": 0, "d_h": 1, "dW": 2, "head": 3, "head_grad": 4}
 # kernel launches of the C entry points, by wrapper; a run resets and reads them
-launches = {f"f32_{name}_gemm{twin}": 0 for name in ("layer", "dh", "dw", "head")
-            for twin in ("", "_fma")}
+launches = {f"f32_{name}_gemm": 0 for name in ("layer", "dh", "dw", "head")}
 
 K_TILE = 32  # nerf_wide_f32_gemm.cuh's kFK
 
@@ -136,22 +133,21 @@ def _need(ok: bool, what: str, msg: str) -> None:
         raise ValueError(f"{what}: {msg}")
 
 
-def _launch(wrapper: str, fma: bool, form: str, A, B, bias, mask, C, M, N, K, k_chunk):
+def _launch(wrapper: str, form: str, A, B, bias, mask, C, M, N, K, k_chunk):
     from lomanerf_tpu_torch.ops import build
 
-    entry = "wide_f32_gemm_fma" if fma else "wide_f32_gemm"
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = getattr(build.load(), entry)(
+    err = build.load().wide_f32_gemm(
         A.data_ptr(), A.shape[1], B.data_ptr(), B.shape[1],
         None if bias is None else bias.data_ptr(), None if mask is None else mask.data_ptr(),
         C.data_ptr(), C.shape[-1], M, N, K, k_chunk, FORMS[form], stream)
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        raise RuntimeError(f"wide_f32_gemm launch failed: cudaError {err}")
     launches[wrapper] += 1
     return C
 
 
-def _layer(fma: bool, h, W, b, K: int, head: bool, dout=None):
+def _layer(h, W, b, K: int, head: bool, dout=None):
     what = "f32_head_gemm" if head else "f32_layer_gemm"
     _check(what, h, W, b, *([] if dout is None else [dout]))
     rows = h.shape[0] if h.ndim == 2 else 0
@@ -164,34 +160,28 @@ def _layer(fma: bool, h, W, b, K: int, head: bool, dout=None):
         return head_reference(h, W, b, K, dout) if head else layer_reference(h, W, b, K)
     form = ("head" if dout is None else "head_grad") if head else "forward"
     C = torch.empty((rows, N), dtype=torch.float32, device=h.device)
-    return _launch(what + ("_fma" if fma else ""), fma, form, h, W, b, dout, C, rows, N, K, K)
+    return _launch(what, form, h, W, b, dout, C, rows, N, K, K)
 
 
 def f32_layer_gemm(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
     """The forward layer: ``(rows, n)`` f32 ``ReLU(h[:, :K] W[:K] + b)`` of a
     layer input ``h`` (rows, >= K), its ``W`` (>= K, n) ``[in][out]`` and
     ``b`` (n,): the f32 GEMM on CUDA tensors, the plain version on CPU ones."""
-    return _layer(False, h, W, b, K, head=False)
-
-
-def f32_layer_gemm_fma(h, W, b, K: int) -> torch.Tensor:
-    """:func:`f32_layer_gemm` on the FMA kernel it replaced."""
-    return _layer(True, h, W, b, K, head=False)
+    return _layer(h, W, b, K, head=False)
 
 
 def f32_head_gemm(h, W, b, K: int, dout=None) -> torch.Tensor:
     """The field's head, ``sigmoid(h[:, :K] W[:K] + b)`` (rows, n), or with
     ``dout`` (rows, n) its ``d_z = dout y (1 - y)``: the f32 GEMM on CUDA
     tensors, the plain version on CPU ones."""
-    return _layer(False, h, W, b, K, head=True, dout=dout)
+    return _layer(h, W, b, K, head=True, dout=dout)
 
 
-def f32_head_gemm_fma(h, W, b, K: int, dout=None) -> torch.Tensor:
-    """:func:`f32_head_gemm` on the FMA kernel it replaced."""
-    return _layer(True, h, W, b, K, head=True, dout=dout)
-
-
-def _dh(fma: bool, dz, W, mask, K: int):
+def f32_dh_gemm(dz: torch.Tensor, W: torch.Tensor, mask: torch.Tensor, K: int) -> torch.Tensor:
+    """``d_h`` of a layer, (rows, n) f32: ``dz[:, :K] W[:, :K]^T`` where
+    ``mask > 0``, else 0, from ``dz`` (rows, >= K), the layer's ``W`` (n, >=
+    K) ``[in][out]`` and its input ``mask`` (rows, n): the f32 GEMM on CUDA
+    tensors, the plain version on CPU ones."""
     what = "f32_dh_gemm"
     _check(what, dz, W, mask)
     _need(dz.ndim == 2 and W.ndim == 2 and mask.ndim == 2, what,
@@ -202,24 +192,14 @@ def _dh(fma: bool, dz, W, mask, K: int):
     if dz.device.type == "cpu":
         return dh_reference(dz, W, mask, K)
     C = torch.empty((rows, N), dtype=torch.float32, device=dz.device)
-    return _launch(what + ("_fma" if fma else ""), fma, "d_h", dz, W, None, mask, C, rows, N,
-                   K, K)
+    return _launch(what, "d_h", dz, W, None, mask, C, rows, N, K, K)
 
 
-def f32_dh_gemm(dz: torch.Tensor, W: torch.Tensor, mask: torch.Tensor, K: int) -> torch.Tensor:
-    """``d_h`` of a layer, (rows, n) f32: ``dz[:, :K] W[:, :K]^T`` where
-    ``mask > 0``, else 0, from ``dz`` (rows, >= K), the layer's ``W`` (n, >=
-    K) ``[in][out]`` and its input ``mask`` (rows, n): the f32 GEMM on CUDA
-    tensors, the plain version on CPU ones."""
-    return _dh(False, dz, W, mask, K)
-
-
-def f32_dh_gemm_fma(dz, W, mask, K: int) -> torch.Tensor:
-    """:func:`f32_dh_gemm` on the FMA kernel it replaced."""
-    return _dh(True, dz, W, mask, K)
-
-
-def _dw(fma: bool, h, dz, M: int, k_chunk: int):
+def f32_dw_gemm(h: torch.Tensor, dz: torch.Tensor, M: int, k_chunk: int) -> torch.Tensor:
+    """dW's split-K partials, ``(ceil(rows / k_chunk), M, n)`` f32: part z =
+    ``h[rows of chunk z, :M]^T dz[rows of chunk z]`` of a layer input ``h``
+    (rows, >= M) and ``dz`` (rows, n): the f32 GEMM on CUDA tensors, the
+    plain version on CPU ones."""
     what = "f32_dw_gemm"
     _check(what, h, dz)
     _need(h.ndim == 2 and dz.ndim == 2 and h.shape[0] == dz.shape[0], what,
@@ -229,18 +209,4 @@ def _dw(fma: bool, h, dz, M: int, k_chunk: int):
     if h.device.type == "cpu":
         return dw_reference(h, dz, M, k_chunk)
     C = torch.empty((-(-rows // k_chunk), M, N), dtype=torch.float32, device=h.device)
-    return _launch(what + ("_fma" if fma else ""), fma, "dW", h, dz, None, None, C, M, N, rows,
-                   k_chunk)
-
-
-def f32_dw_gemm(h: torch.Tensor, dz: torch.Tensor, M: int, k_chunk: int) -> torch.Tensor:
-    """dW's split-K partials, ``(ceil(rows / k_chunk), M, n)`` f32: part z =
-    ``h[rows of chunk z, :M]^T dz[rows of chunk z]`` of a layer input ``h``
-    (rows, >= M) and ``dz`` (rows, n): the f32 GEMM on CUDA tensors, the
-    plain version on CPU ones."""
-    return _dw(False, h, dz, M, k_chunk)
-
-
-def f32_dw_gemm_fma(h, dz, M: int, k_chunk: int) -> torch.Tensor:
-    """:func:`f32_dw_gemm` on the FMA kernel it replaced."""
-    return _dw(True, h, dz, M, k_chunk)
+    return _launch(what, "dW", h, dz, None, None, C, M, N, rows, k_chunk)

@@ -26,7 +26,8 @@ bf16 at pw 128 or 256 the render's MLP is one persistent kernel per ray
 chunk (``csrc/nerf_wide_mlp.cuh``: the encoding and every hidden layer of a
 row tile on ``wgmma`` fed by TMA, the activations in registers; alone,
 with the chain it replaced, in ``ops/wide_mlp``); wider bf16 MLPs and
-one-layer ones render on that chain (``mma.sync`` layer GEMMs).  Each hidden
+one-layer ones render on that chain (layer GEMMs on ``wgmma`` fed by TMA,
+``csrc/nerf_wide_layer_gemm.cuh``).  Each hidden
 layer's dW in the bf16 gradient sequence runs on ``csrc/nerf_wide_dw.cuh``
 (``wgmma`` fed by TMA, alone in ``ops/wide_dw``); the rest runs layer by
 layer:

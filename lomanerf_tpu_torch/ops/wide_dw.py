@@ -6,11 +6,9 @@ The wide gradient kernels (#7, #9, #11, #12) run this stage for every
 hidden layer on ``csrc/nerf_wide_dw.cuh`` (wgmma fed by TMA, a 32-row
 promotion into f32 sums), reading the bf16 copy of d_z that its producers
 write.  Its entry point alone, ``wide_dw_gemm`` (``csrc/nerf_wide_train.cu``),
-lets the card test and time the stage; ``wide_dw_gemm_mma`` runs the
-``mma.sync`` kernel it replaced (``gemm_mma_kernel`` with ``kEpiPartial``,
-on an f32 d_z rounded as it is read) so that the two can be compared.  On
-CUDA tensors each launches its kernel or raises; on CPU tensors it runs the
-plain version (:func:`wide_dw_reference`).
+lets the card test and time the stage.  On CUDA tensors :func:`wide_dw_gemm`
+launches the kernel or raises; on CPU tensors it runs the plain version
+(:func:`wide_dw_reference`).
 """
 
 from __future__ import annotations
@@ -18,7 +16,7 @@ from __future__ import annotations
 import torch
 
 # kernel launches of the C entry points; a run resets and reads them
-launches = {"wide_dw_gemm": 0, "wide_dw_gemm_mma": 0}
+launches = {"wide_dw_gemm": 0}
 ROW_CHUNK = 8192  # rows per partial (nerf_wide_common.cuh: kRowChunk)
 
 
@@ -41,22 +39,7 @@ def wide_dw_reference(h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> torch.
                      dp.view(n, ROW_CHUNK, pw))
 
 
-def _launch(entry: str, h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> torch.Tensor:
-    from lomanerf_tpu_torch.ops import build
-
-    rows, pw = h.shape
-    part = torch.empty((n_partials(rows), in_cols, pw), dtype=torch.float32,
-                       device=h.device)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = getattr(build.load(), entry)(h.data_ptr(), dz.data_ptr(), pw, in_cols, pw, rows,
-                                       part.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches[entry] += 1
-    return part
-
-
-def _check(h: torch.Tensor, dz: torch.Tensor, in_cols: int, dz_dtype) -> None:
+def _check(h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> None:
     if h.ndim != 2 or dz.shape != h.shape or h.shape[0] == 0:
         raise ValueError(f"need h and dz of one (rows, pw) shape, got {tuple(h.shape)} and "
                          f"{tuple(dz.shape)}")
@@ -64,8 +47,8 @@ def _check(h: torch.Tensor, dz: torch.Tensor, in_cols: int, dz_dtype) -> None:
     if pw % 8 or in_cols % 8 or not 0 < in_cols <= pw:
         raise ValueError(f"pw {pw} and in_cols {in_cols}: need multiples of 8, "
                          "0 < in_cols <= pw")
-    if h.dtype != torch.bfloat16 or dz.dtype != dz_dtype:
-        raise ValueError(f"need bf16 h and {dz_dtype} dz, got {h.dtype} and {dz.dtype}")
+    if h.dtype != torch.bfloat16 or dz.dtype != torch.bfloat16:
+        raise ValueError(f"need bf16 h and dz, got {h.dtype} and {dz.dtype}")
     if h.device != dz.device or not (h.is_contiguous() and dz.is_contiguous()):
         raise ValueError("h and dz must be contiguous, on one device")
     if h.device.type not in ("cpu", "cuda"):
@@ -76,16 +59,18 @@ def wide_dw_gemm(h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> torch.Tenso
     """The dW partials ``(n_parts, in_cols, pw)`` f32 of a layer input ``h``
     and the bf16 copy of its output's d_z ``dz``, both ``(rows, pw)`` bf16:
     the wgmma/TMA kernel on CUDA tensors, the plain version on CPU ones."""
-    _check(h, dz, in_cols, torch.bfloat16)
+    _check(h, dz, in_cols)
     if h.device.type == "cpu":
         return wide_dw_reference(h, dz, in_cols)
-    return _launch("wide_dw_gemm", h, dz, in_cols)
+    from lomanerf_tpu_torch.ops import build
 
-
-def wide_dw_gemm_mma(h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> torch.Tensor:
-    """:func:`wide_dw_gemm` on the ``mma.sync`` kernel it replaced, from an
-    f32 ``dz`` rounded to bf16 as it is read."""
-    _check(h, dz, in_cols, torch.float32)
-    if h.device.type == "cpu":
-        return wide_dw_reference(h, dz, in_cols)
-    return _launch("wide_dw_gemm_mma", h, dz, in_cols)
+    rows, pw = h.shape
+    part = torch.empty((n_partials(rows), in_cols, pw), dtype=torch.float32,
+                       device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = build.load().wide_dw_gemm(h.data_ptr(), dz.data_ptr(), pw, in_cols, pw, rows,
+                                    part.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"wide_dw_gemm launch failed: cudaError {err}")
+    launches["wide_dw_gemm"] += 1
+    return part

@@ -6,15 +6,12 @@ hidden layer, and the bf16 render past the fused MLP's pw 256 (#8, #10) its
 forward layers, on ``csrc/nerf_wide_layer_gemm.cuh`` (wgmma fed by TMA, each
 32-deep k-step promoted into f32 sums).  The ``d_h`` form also sums its f32
 output over each 128-row tile (:data:`TILE_ROWS`): the column partials db is
-summed from, so that the gradient kernels write no f32 ``d_h`` at all.  Its entry point alone,
-``wide_layer_gemm`` (``csrc/nerf_wide_train.cu``), lets the card test and
-time it: :func:`wide_layer_gemm` (the forward form) and
-:func:`wide_dh_gemm` (the ``d_h`` form) launch it; :func:`wide_layer_gemm_mma`
-and :func:`wide_dh_gemm_mma` run the ``mma.sync`` kernel it replaced
-(``gemm_mma_kernel``) on the same inputs, so that the two can be compared
-bit for bit.  On CUDA tensors each launches its kernel or raises; on CPU
-tensors it runs the plain version (:func:`layer_reference`,
-:func:`dh_reference`).
+summed from, so that the gradient kernels write no f32 ``d_h`` at all.  Its
+entry point alone, ``wide_layer_gemm`` (``csrc/nerf_wide_train.cu``), lets
+the card test and time it: :func:`wide_layer_gemm` (the forward form) and
+:func:`wide_dh_gemm` (the ``d_h`` form) launch it.  On CUDA tensors each
+launches the kernel or raises; on CPU tensors it runs the plain version
+(:func:`layer_reference`, :func:`dh_reference`).
 """
 
 from __future__ import annotations
@@ -22,8 +19,7 @@ from __future__ import annotations
 import torch
 
 # kernel launches of the C entry points, by wrapper; a run resets and reads them
-launches = {"wide_layer_gemm": 0, "wide_layer_gemm_mma": 0, "wide_dh_gemm": 0,
-            "wide_dh_gemm_mma": 0}
+launches = {"wide_layer_gemm": 0, "wide_dh_gemm": 0}
 TILE_ROWS = 128  # rows of d_h a column partial sums (the kernel's row tile, kLgBM)
 
 
@@ -69,7 +65,7 @@ def _check(a: torch.Tensor, W: torch.Tensor, other: torch.Tensor, K: int, dh: bo
         raise NotImplementedError(f"no layer GEMM for device {a.device}")
 
 
-def _launch(entry: str, wrapper: str, a, W, b, mask, K: int, part: bool = False):
+def _launch(wrapper: str, a, W, b, mask, K: int):
     from lomanerf_tpu_torch.ops import build
 
     rows, pw = a.shape
@@ -77,16 +73,16 @@ def _launch(entry: str, wrapper: str, a, W, b, mask, K: int, part: bool = False)
     C = torch.empty((rows, pw), dtype=torch.float32 if dh else torch.bfloat16, device=a.device)
     Cb = torch.empty((rows, pw), dtype=torch.bfloat16, device=a.device) if dh else None
     P = torch.empty((-(-rows // TILE_ROWS), pw), dtype=torch.float32, device=a.device) \
-        if part else None
+        if dh else None
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = getattr(build.load(), entry)(
+    err = build.load().wide_layer_gemm(
         a.data_ptr(), W.data_ptr(), None if dh else b.data_ptr(),
         mask.data_ptr() if dh else None, C.data_ptr(), Cb.data_ptr() if dh else None,
-        None if P is None else P.data_ptr(), rows, pw, K, int(dh), stream)
+        P.data_ptr() if dh else None, rows, pw, K, int(dh), stream)
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        raise RuntimeError(f"wide_layer_gemm launch failed: cudaError {err}")
     launches[wrapper] += 1
-    return (C, Cb, P) if part else (C, Cb) if dh else C
+    return (C, Cb, P) if dh else C
 
 
 def wide_layer_gemm(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
@@ -97,15 +93,7 @@ def wide_layer_gemm(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor, K: int) -
     _check(h, W, b, K, False)
     if h.device.type == "cpu":
         return layer_reference(h, W, b, K)
-    return _launch("wide_layer_gemm", "wide_layer_gemm", h, W, b, None, K)
-
-
-def wide_layer_gemm_mma(h, W, b, K: int) -> torch.Tensor:
-    """:func:`wide_layer_gemm` on the ``mma.sync`` kernel it replaced."""
-    _check(h, W, b, K, False)
-    if h.device.type == "cpu":
-        return layer_reference(h, W, b, K)
-    return _launch("wide_layer_gemm_mma", "wide_layer_gemm_mma", h, W, b, None, K)
+    return _launch("wide_layer_gemm", h, W, b, None, K)
 
 
 def wide_dh_gemm(dz: torch.Tensor, W: torch.Tensor, mask: torch.Tensor, K: int):
@@ -118,13 +106,4 @@ def wide_dh_gemm(dz: torch.Tensor, W: torch.Tensor, mask: torch.Tensor, K: int):
     _check(dz, W, mask, K, True)
     if dz.device.type == "cpu":
         return dh_reference(dz, W, mask, K)
-    return _launch("wide_layer_gemm", "wide_dh_gemm", dz, W, None, mask, K, part=True)
-
-
-def wide_dh_gemm_mma(dz, W, mask, K: int):
-    """:func:`wide_dh_gemm` on the ``mma.sync`` kernel it replaced: ``(d_h,
-    its bf16 copy)``, no partials."""
-    _check(dz, W, mask, K, True)
-    if dz.device.type == "cpu":
-        return dh_reference(dz, W, mask, K)[:2]
-    return _launch("wide_layer_gemm_mma", "wide_dh_gemm_mma", dz, W, None, mask, K)
+    return _launch("wide_dh_gemm", dz, W, None, mask, K)

@@ -7,7 +7,7 @@ run against another checkout of the port to compare two trees.
   steps, from one ``utils.profiling.trace`` session (``torch.profiler``:
   only the first session of a process records the card's kernels).  Each
   kernel of the trace is put in a family by its name: the dW GEMMs (the
-  wgmma/TMA stage, ``dw_wgmma_kernel``, and ``gemm*_kernel`` with the
+  wgmma/TMA stage, ``dw_wgmma_kernel``, and ``gemm_*_kernel`` with the
   ``kEpiPartial`` epilogue), the ``d_h`` GEMMs (``kEpiMask``), the forward
   GEMMs (``kEpiBiasRelu``), compositing, the partials' and column sums, the
   encoding, the loss sum, memsets and copies, and the rest (Adam, the
@@ -22,12 +22,11 @@ run against another checkout of the port to compare two trees.
   turns in one process at the config's batch: the train call
   (``nerf_wide_train``: loss and dW/db) and the render (``render_rays``),
   each pair's outputs required bit-equal, and the Adam step; then, on this
-  tree, the layer GEMM alone (bf16: ``ops/wide_gemm``, the forward form and
-  the ``d_h`` form, each against its ``gemm_mma_kernel`` twin, bit-equal,
-  beside ``torch.addmm`` + ``relu`` in bf16; ``c4f32``: ``ops/f32_gemm``,
-  the forward, ``d_h`` and dW forms against their ``gemm_kernel`` twins,
-  beside ``torch.addmm`` + ``relu_`` and ``torch.mm`` in f32, TF32 off) at
-  one gradient chunk's layer.
+  tree, the layer GEMM alone (bf16: ``ops/wide_gemm``, the forward form
+  beside ``torch.addmm`` + ``relu`` in bf16, and the ``d_h`` form;
+  ``c4f32``: ``ops/f32_gemm``, the forward, ``d_h`` and dW forms, beside
+  ``torch.addmm`` + ``relu_`` and ``torch.mm`` in f32, TF32 off) at one
+  gradient chunk's layer.
 * ``--what small``: device time by kernel family of ``--steps`` ``small``
   train steps (``NeRFConfig.small()``, bench.py's 262,144 rays x 30
   samples, Adam 5e-4, the same batches and seeds as ``--what flagship``)
@@ -206,10 +205,9 @@ def family(name: str, cat: str) -> str:
 
 def layer_epilogue(name: str):
     """The epilogue (``kEpi``) of a layer GEMM by its trace name: the last
-    template argument of ``gemm_kernel``/``gemm_mma_kernel``/
-    ``gemm_f32_kernel``, the first of ``layer_wgmma_kernel``; None for any
-    other kernel."""
-    gemm = re.search(r"gemm(?:_mma|_f32)?_kernel<([^>]*)>", name)
+    template argument of ``gemm_mma_kernel``/``gemm_f32_kernel``, the first
+    of ``layer_wgmma_kernel``; None for any other kernel."""
+    gemm = re.search(r"gemm_(?:mma|f32)_kernel<([^>]*)>", name)
     if gemm:
         return int(gemm.group(1).split(",")[-1])
     layer = re.search(r"layer_wgmma_kernel<(\d+)", name)
@@ -362,7 +360,7 @@ def kernel_key(name: str) -> str:
     GEMM (``gemm_mma_kernel kEpiBiasRelu``, ``layer_wgmma_kernel kEpiMask``)."""
     epi = layer_epilogue(name)
     if epi is not None:
-        fn = re.search(r"(gemm(?:_mma|_f32)?_kernel|layer_wgmma_kernel)<", name).group(1)
+        fn = re.search(r"(gemm_(?:mma|f32)_kernel|layer_wgmma_kernel)<", name).group(1)
         return f"{fn} {('kEpiBiasRelu', 'kEpiMask', 'kEpiPartial')[epi]}"
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1]
@@ -681,9 +679,8 @@ def render(parent: str, rounds: int = 3) -> dict:
 
 def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
     """This tree's wide kernels against the parent's at ``config``'s
-    16,384-ray batch, in turns, and this tree's layer GEMM alone against its
-    ``gemm_mma_kernel`` twin and ``torch.addmm`` (``--what flagship
-    --parent``)."""
+    16,384-ray batch, in turns, and this tree's layer GEMM alone beside
+    ``torch.addmm`` (``--what flagship --parent``)."""
     from lomanerf_tpu_torch.core import rays
     from lomanerf_tpu_torch.models import NeRFModel
     from lomanerf_tpu_torch.ops import build, fused_nerf, wide_gemm
@@ -775,8 +772,8 @@ def wide_against(parent: str, config: str, rounds: int = 3) -> dict:
 
 def layer_gemm_alone(rows: int, pw: int, rounds: int) -> dict:
     """The bf16 layer GEMM alone (``ops/wide_gemm``) at ``rows`` x ``pw``
-    . ``pw`` x ``pw``: each form against its ``gemm_mma_kernel`` twin
-    (bit-equal) and the forward beside ``torch.addmm`` + ``relu_``."""
+    . ``pw`` x ``pw``: both forms, the forward beside ``torch.addmm`` +
+    ``relu_``."""
     from lomanerf_tpu_torch.ops import wide_gemm
 
     g = torch.Generator("cuda").manual_seed(5)
@@ -786,22 +783,16 @@ def layer_gemm_alone(rows: int, pw: int, rounds: int) -> dict:
     W = (torch.randn((pw, pw), generator=g, device="cuda") / pw ** 0.5).to(torch.bfloat16)
     b = torch.randn(pw, generator=g, device="cuda")
     fwd = {"wgmma": lambda: wide_gemm.wide_layer_gemm(h, W, b, pw),
-           "mma": lambda: wide_gemm.wide_layer_gemm_mma(h, W, b, pw),
            "addmm": lambda: torch.addmm(b.to(torch.bfloat16), h, W).relu_()}
-    dh = {"wgmma": lambda: wide_gemm.wide_dh_gemm(dz, W, mask, pw),
-          "mma": lambda: wide_gemm.wide_dh_gemm_mma(dz, W, mask, pw)}
-    if not torch.equal(fwd["wgmma"](), fwd["mma"]()) or not all(
-            torch.equal(x, y) for x, y in zip(dh["wgmma"](), dh["mma"]())):
-        raise SystemExit("card_probe: the layer GEMM differs from its gemm_mma_kernel twin")
+    dh = {"wgmma": lambda: wide_gemm.wide_dh_gemm(dz, W, mask, pw)}
     return gemm_turns({"forward": fwd, "d_h": dh}, 2.0 * rows * pw * pw, rounds)
 
 
 def f32_gemm_alone(rows: int, pw: int, rounds: int) -> dict:
     """The f32 GEMM alone (``ops/f32_gemm``) at ``rows`` x ``pw`` . ``pw`` x
-    ``pw``: the forward, ``d_h`` and dW (8192-row partials) forms against
-    their ``gemm_kernel`` twins (bit-equal), beside ``torch.addmm`` +
-    ``relu_`` (forward) and ``torch.mm`` (``d_h``; dW over the whole rows)
-    in f32 with TF32 off."""
+    ``pw``: the forward, ``d_h`` and dW (8192-row partials) forms, beside
+    ``torch.addmm`` + ``relu_`` (forward) and ``torch.mm`` (``d_h``; dW over
+    the whole rows) in f32 with TF32 off."""
     from lomanerf_tpu_torch.ops import f32_gemm
 
     g = torch.Generator("cuda").manual_seed(5)
@@ -812,18 +803,11 @@ def f32_gemm_alone(rows: int, pw: int, rounds: int) -> dict:
     b = torch.randn(pw, generator=g, device="cuda")
     forms = {
         "forward": {"kernel": lambda: f32_gemm.f32_layer_gemm(h, W, b, pw),
-                    "fma": lambda: f32_gemm.f32_layer_gemm_fma(h, W, b, pw),
                     "addmm": lambda: torch.addmm(b, h, W).relu_()},
         "d_h": {"kernel": lambda: f32_gemm.f32_dh_gemm(dz, W, mask, pw),
-                "fma": lambda: f32_gemm.f32_dh_gemm_fma(dz, W, mask, pw),
                 "mm": lambda: torch.mm(dz, W.T)},
         "dW": {"kernel": lambda: f32_gemm.f32_dw_gemm(h, dz, pw, 8192),
-               "fma": lambda: f32_gemm.f32_dw_gemm_fma(h, dz, pw, 8192),
                "mm": lambda: torch.mm(h.T, dz)}}
-    for form, fns in forms.items():
-        if not torch.equal(fns["kernel"](), fns["fma"]()):
-            raise SystemExit(f"card_probe: the f32 GEMM's {form} differs from its gemm_kernel "
-                             "twin")
     return gemm_turns(forms, 2.0 * rows * pw * pw, rounds)
 
 
@@ -1036,7 +1020,7 @@ def wide_field_label(name: str, cat: str, state: dict) -> str:
     else the dW partials'."""
     if cat != "kernel":
         return "memset and copy"
-    gemm = re.search(r"gemm(?:3|_f32)?_kernel<([^>]*)>", name)
+    gemm = re.search(r"gemm(?:3|_f32)_kernel<([^>]*)>", name)
     if "encode_kernel" in name:  # after the forward's head and before its d_z: a recompute
         state["pass"] = "bwd" if state.get("last") == "head" else "fwd"
         state["layer"], state["last"] = 0, "encode"

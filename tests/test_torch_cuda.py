@@ -26,10 +26,10 @@ to numpy's f32 sequential accumulate and the sum to the numpy restatement
 of its fixed order; the wide chain's bf16 dW stage
 (wgmma/TMA) to f64 of its rounded operands; the bf16 wide render's fused
 MLP (wgmma/TMA) to the layer chain it replaced, bit for bit off near ties;
-the wide chain's bf16 layer GEMM (wgmma/TMA, both forms) to the
-``mma.sync`` kernel it replaced, bit for bit; and its exact f32 GEMM
-(``nerf_wide_f32_gemm.cuh``, every form) to the FMA kernel it replaced
-(``gemm_kernel``), bit for bit, signed zeros included.  The bf16 wide
+the wide chain's bf16 layer GEMM (wgmma/TMA, both forms) and its exact f32
+GEMM (``nerf_wide_f32_gemm.cuh``, every form) to f64 and to their plain
+versions, repeat launches bit for bit, the f32 GEMM's signed zeros to the
+count of its zero terms.  The bf16 wide
 gradient kernels' db, summed from column partials of the unrounded d_z, is
 held to the f64 column sums of the plain path's f32 d_z.
 """
@@ -831,27 +831,23 @@ def test_wide_dw_gemm_matches_f64(rows, in_cols, pw):
     #7, #9, #11 and #12 run per hidden layer) within 1e-6 of the f64 sum of
     |products| of the f64 product of its rounded operands, per 8192-row
     partial, at ragged rows and at layer 0's 40 columns; repeat launches
-    bit-identical; the ``mma.sync`` kernel it replaced within the same."""
+    bit-identical."""
     need_card()
     from lomanerf_tpu_torch.ops import wide_dw
 
     g = torch.Generator("cuda").manual_seed(rows)
     h = torch.relu(torch.randn((rows, pw), generator=g, device="cuda")).to(torch.bfloat16)
-    d32 = torch.randn((rows, pw), generator=g, device="cuda") * 1e-3
-    db = d32.to(torch.bfloat16)
+    db = (torch.randn((rows, pw), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
     before = dict(wide_dw.launches)
     got, again = wide_dw.wide_dw_gemm(h, db, in_cols), wide_dw.wide_dw_gemm(h, db, in_cols)
-    old = wide_dw.wide_dw_gemm_mma(h, d32, in_cols)
     torch.cuda.synchronize()
     assert wide_dw.launches["wide_dw_gemm"] == before["wide_dw_gemm"] + 2
-    assert wide_dw.launches["wide_dw_gemm_mma"] == before["wide_dw_gemm_mma"] + 1
     assert got.shape == (-(-rows // 8192), in_cols, pw) and torch.equal(got, again)
     for z in range(got.shape[0]):
         a = h[8192 * z:8192 * (z + 1), :in_cols].double()
         b = db[8192 * z:8192 * (z + 1)].double()
         exact, scale = a.T @ b, a.abs().T @ b.abs()
-        for part in (got[z], old[z]):
-            assert ((part.double() - exact).abs() <= 1e-6 * scale + 1e-30).all()
+        assert ((got[z].double() - exact).abs() <= 1e-6 * scale + 1e-30).all()
 
 
 # (K, pw) of the layer GEMM: layer 0's 40 columns, hidden layers at K = pw,
@@ -867,11 +863,10 @@ GEMM_SHAPES = [(K, pw) for pw in (128, 256, 384, 1024)
 def test_wide_layer_gemm_equals_its_mma_twin(form, K, pw, rows):
     """The wide chain's bf16 layer GEMM on wgmma/TMA (``wide_gemm``: the
     forward layer and ``d_h``, the kernel #7-#12 run past the fused MLP and
-    for every ``d_h``) gives the ``mma.sync`` kernel it replaced
-    (``gemm_mma_kernel``, the ``*_mma`` twins) bit for bit, at ragged rows,
-    layer 0's 40 columns and pw up to 1024; repeat launches bit-identical;
-    the launch counts rise by the calls made; within the plain version's
-    bounds (``tests/test_torch_wide_gemm.py``)."""
+    for every ``d_h``) within the plain version's bounds
+    (``tests/test_torch_wide_gemm.py``) of the plain version and of f64, at
+    ragged rows, layer 0's 40 columns and pw up to 1024; repeat launches
+    bit-identical; the launch counts rise by the calls made."""
     need_card()
     from lomanerf_tpu_torch.ops import wide_gemm
 
@@ -882,29 +877,30 @@ def test_wide_layer_gemm_equals_its_mma_twin(form, K, pw, rows):
     if form == "forward":
         b = torch.randn(pw, generator=g, device="cuda") * 0.1
         got, again = wide_gemm.wide_layer_gemm(a, W, b, K), wide_gemm.wide_layer_gemm(a, W, b, K)
-        old = wide_gemm.wide_layer_gemm_mma(a, W, b, K)
         plain = wide_gemm.layer_reference(a, W, b, K)
+        exact = torch.relu(a[:, :K].double() @ W[:K].double() + b.double())
         torch.cuda.synchronize()
-        names = ("wide_layer_gemm", "wide_layer_gemm_mma")
-        assert torch.equal(got, again) and torch.equal(got, old)
-        diff = (got.float() - plain.float()).abs()
-        # one bf16 rounding step of the entry, and a ReLU at f32 rounding of 0
-        step = torch.ldexp(torch.ones_like(diff), torch.frexp(
-            torch.maximum(got.float().abs(), plain.float().abs()))[1] - 8)
-        assert (diff <= step + 1e-5 * plain.float().abs().max()).all()
+        name = "wide_layer_gemm"
+        assert torch.equal(got, again)
+        for want in (plain.double(), exact):
+            diff = (got.double() - want).abs()
+            # one bf16 rounding step of the entry, and a ReLU at f32 rounding of 0
+            step = torch.ldexp(torch.ones_like(diff), torch.frexp(
+                torch.maximum(got.double().abs(), want.abs()))[1] - 8)
+            assert (diff <= step + 1e-5 * want.abs().max()).all()
     else:
         mask = torch.randn((rows, pw), generator=g, device="cuda").to(torch.bfloat16)
         got, again = wide_gemm.wide_dh_gemm(a, W, mask, K), wide_gemm.wide_dh_gemm(a, W, mask, K)
-        old = wide_gemm.wide_dh_gemm_mma(a, W, mask, K)
         plain = wide_gemm.dh_reference(a, W, mask, K)[0]
+        exact = torch.where(mask > 0, a[:, :K].double() @ W[:, :K].double().T, 0.0)
         torch.cuda.synchronize()
-        names = ("wide_dh_gemm", "wide_dh_gemm_mma")
-        assert len(got) == 3 and len(old) == 2
-        for x, y, z in zip(got, again, old):
-            assert torch.equal(x, y) and torch.equal(x, z)
-        assert torch.equal(got[2], again[2])
+        name = "wide_dh_gemm"
+        assert len(got) == 3
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
         assert torch.equal(got[1], got[0].to(torch.bfloat16))
         assert (got[0] - plain).abs().max() <= 1e-5 * plain.abs().max()
+        assert (got[0].double() - exact).abs().max() <= 1e-5 * exact.abs().max()
         # the 128-row column partials against f64 sums of the kernel's own d_h
         tiles = -(-rows // wide_gemm.TILE_ROWS)
         d64 = torch.zeros((tiles * wide_gemm.TILE_ROWS, pw), dtype=torch.float64, device="cuda")
@@ -912,8 +908,7 @@ def test_wide_layer_gemm_equals_its_mma_twin(form, K, pw, rows):
         d64 = d64.view(tiles, wide_gemm.TILE_ROWS, pw)
         assert got[2].shape == (tiles, pw)
         assert ((got[2].double() - d64.sum(1)).abs() <= 1e-6 * d64.abs().sum(1) + 1e-30).all()
-    assert wide_gemm.launches[names[0]] == before[names[0]] + 2
-    assert wide_gemm.launches[names[1]] == before[names[1]] + 1
+    assert wide_gemm.launches[name] == before[name] + 2
 
 
 @pytest.mark.cuda
@@ -928,10 +923,9 @@ def test_wide_layer_gemm_refuses_what_it_does_not_take():
     b = torch.zeros(128, device="cuda")
     C = torch.empty((37, 128), dtype=torch.bfloat16, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for entry in ("wide_layer_gemm", "wide_layer_gemm_mma"):
-        err = getattr(build.load(), entry)(a.data_ptr(), W.data_ptr(), b.data_ptr(), None,
-                                           C.data_ptr(), None, None, 37, 128, 136, 0, stream)
-        assert err != 0
+    err = build.load().wide_layer_gemm(a.data_ptr(), W.data_ptr(), b.data_ptr(), None,
+                                       C.data_ptr(), None, None, 37, 128, 136, 0, stream)
+    assert err != 0
     before = dict(wide_gemm.launches)
     with pytest.raises(ValueError):
         wide_gemm.wide_layer_gemm(a.float(), W, b, 40)
@@ -954,10 +948,12 @@ F32_FORMS = ["forward", "head", "head d_z", "d_h", "d_h from a head", "dW", "dW 
 
 
 def f32_form_calls(form, rows, K, g):
-    """``(wrapper name, call(twin) -> outputs, plain outputs)`` of one form
+    """``(wrapper name, call() -> outputs, plain(f) -> outputs)`` of one form
     of ``ops/f32_gemm`` on seeded operands: K the contracted width (the
     input width of dW, 3 for a head's d_h), 256 or 3 output columns; dW at
-    k_chunk 8192 and at rows."""
+    k_chunk 8192 and at rows.  ``plain`` runs the plain version on the
+    operands mapped by ``f``: ``torch.Tensor.double`` gives the f64
+    result."""
     from lomanerf_tpu_torch.ops import f32_gemm
 
     def rnd(*shape, scale=1.0):
@@ -967,22 +963,22 @@ def f32_form_calls(form, rows, K, g):
     if form in ("forward", "head", "head d_z"):
         h, W, b = rnd(rows, K), rnd(K, N, scale=K ** -0.5), rnd(N, scale=0.1)
         if form == "forward":
-            return ("f32_layer_gemm", lambda t: [getattr(f32_gemm, "f32_layer_gemm" + t)(
-                h, W, b, K)], [f32_gemm.layer_reference(h, W, b, K)])
+            return ("f32_layer_gemm", lambda: [f32_gemm.f32_layer_gemm(h, W, b, K)],
+                    lambda f: [f32_gemm.layer_reference(f(h), f(W), f(b), K)])
         dout = rnd(rows, N) if form == "head d_z" else None
-        return ("f32_head_gemm", lambda t: [getattr(f32_gemm, "f32_head_gemm" + t)(
-            h, W, b, K, dout)], [f32_gemm.head_reference(h, W, b, K, dout)])
+        return ("f32_head_gemm", lambda: [f32_gemm.f32_head_gemm(h, W, b, K, dout)],
+                lambda f: [f32_gemm.head_reference(f(h), f(W), f(b), K,
+                                                   None if dout is None else f(dout))])
     if form.startswith("d_h"):
         C = 3 if form == "d_h from a head" else K
         N = K if C == 3 else N
         dz, W, mask = rnd(rows, C), rnd(N, C, scale=C ** -0.5), rnd(rows, N)
-        return ("f32_dh_gemm", lambda t: [getattr(f32_gemm, "f32_dh_gemm" + t)(
-            dz, W, mask, C)], [f32_gemm.dh_reference(dz, W, mask, C)])
+        return ("f32_dh_gemm", lambda: [f32_gemm.f32_dh_gemm(dz, W, mask, C)],
+                lambda f: [f32_gemm.dh_reference(f(dz), f(W), f(mask), C)])
     h, dz = rnd(rows, K), rnd(rows, N)
     chunks = (8192, rows)
-    return ("f32_dw_gemm", lambda t: [getattr(f32_gemm, "f32_dw_gemm" + t)(h, dz, K, c)
-                                      for c in chunks],
-            [f32_gemm.dw_reference(h, dz, K, c) for c in chunks])
+    return ("f32_dw_gemm", lambda: [f32_gemm.f32_dw_gemm(h, dz, K, c) for c in chunks],
+            lambda f: [f32_gemm.dw_reference(f(h), f(dz), K, c) for c in chunks])
 
 
 @pytest.mark.cuda
@@ -992,24 +988,31 @@ def f32_form_calls(form, rows, K, g):
 def test_f32_gemm_equals_its_fma_twin(form, K, rows):
     """The wide chain's f32 GEMM (``ops/f32_gemm``, ``nerf_wide_f32_gemm.cuh``:
     every product of #7-#12 at f32 compute and of the wide field's "highest"
-    tier) gives ``gemm_kernel`` (the ``*_fma`` twins) bit for bit in every
-    form, at ragged rows, the field's 34 and the NeRF's 40 input columns,
-    hidden widths to 1024, heads at row stride 3 and dW at k_chunk 8192 and
-    the whole rows; repeat launches bit-identical; the launch counts rise by
-    the calls made; within 1e-4 of the largest entry of the plain version."""
+    tier) in every form, at ragged rows, the field's 34 and the NeRF's 40
+    input columns, hidden widths to 1024, heads at row stride 3 and dW at
+    k_chunk 8192 and the whole rows: within 1e-4 of the largest entry of the
+    plain version; within 1e-6 of f64's sum of |terms| of each output
+    (``plain`` on |operands| in f64; the heads, whose sigmoid hides that sum,
+    within 1e-5 of f64's largest entry); repeat launches bit-identical; the
+    launch counts rise by the calls made."""
     need_card()
     from lomanerf_tpu_torch.ops import f32_gemm
 
     name, call, plain = f32_form_calls(form, rows, K,
                                        torch.Generator("cuda").manual_seed(rows * 7 + K))
     before = dict(f32_gemm.launches)
-    got, again, old = call(""), call(""), call("_fma")
+    got, again = call(), call()
     torch.cuda.synchronize()
-    for x, y, z, p in zip(got, again, old, plain):
-        assert same_bits(x, y) and same_bits(x, z)
+    exact = plain(torch.Tensor.double)
+    if form.startswith("head"):
+        tol = [1e-5 * e.abs().max() for e in exact]
+    else:  # a linear or ReLU epilogue: |result| <= the sum of |terms|
+        tol = [1e-6 * t for t in plain(lambda x: x.double().abs())]
+    for x, y, p, e, t in zip(got, again, plain(lambda x: x), exact, tol):
+        assert same_bits(x, y)
         assert (x - p).abs().max() <= 1e-4 * p.abs().max()
+        assert ((x.double() - e).abs() <= t).all()
     assert f32_gemm.launches[name] == before[name] + 2 * len(got)
-    assert f32_gemm.launches[name + "_fma"] == before[name + "_fma"] + len(got)
 
 
 @pytest.mark.cuda
@@ -1018,8 +1021,8 @@ def test_f32_gemm_equals_its_fma_twin(form, K, rows):
 def test_f32_gemm_keeps_the_signed_zeros_of_its_padding(form, K):
     """Products that underflow (operands near 1e-25) leave every sum at a
     signed zero: the last product's sign where the k range is a multiple of
-    8, +0 where gemm_kernel padded it with zero terms.  The f32 GEMM gives
-    the same bits: no zero term more or fewer."""
+    8, +0 where the kernel pads it with zero terms (``f32_gemm.k_terms``):
+    no zero term more or fewer."""
     need_card()
     from lomanerf_tpu_torch.ops import f32_gemm
 
@@ -1028,15 +1031,15 @@ def test_f32_gemm_keeps_the_signed_zeros_of_its_padding(form, K):
         dz = torch.randn((64, K), generator=g, device="cuda") * 1e-25
         W = torch.randn((128, K), generator=g, device="cuda") * 1e-25
         mask = torch.ones((64, 128), device="cuda")
-        got, old = f32_gemm.f32_dh_gemm(dz, W, mask, K), f32_gemm.f32_dh_gemm_fma(dz, W, mask, K)
+        got, again = f32_gemm.f32_dh_gemm(dz, W, mask, K), f32_gemm.f32_dh_gemm(dz, W, mask, K)
         tails = [K]
     else:
         h = torch.randn((K, 96), generator=g, device="cuda") * 1e-25
         dz = torch.randn((K, 80), generator=g, device="cuda") * 1e-25
-        got, old = f32_gemm.f32_dw_gemm(h, dz, 96, 8192), f32_gemm.f32_dw_gemm_fma(h, dz, 96, 8192)
+        got, again = f32_gemm.f32_dw_gemm(h, dz, 96, 8192), f32_gemm.f32_dw_gemm(h, dz, 96, 8192)
         tails = [min(8192, K - z * 8192) for z in range(got.shape[0])]
     torch.cuda.synchronize()
-    assert not got.any() and same_bits(got, old)
+    assert not got.any() and same_bits(got, again)
     neg = torch.signbit(got).reshape(len(tails), -1)
     for part, tail in zip(neg, tails):
         assert bool(part.any()) == (tail % 8 == 0), (tail, int(part.sum()))
@@ -1044,7 +1047,7 @@ def test_f32_gemm_keeps_the_signed_zeros_of_its_padding(form, K):
 
 @pytest.mark.cuda
 def test_f32_gemm_refuses_what_it_does_not_take():
-    """The C entry points refuse an unknown form and an empty extent
+    """The C entry point refuses an unknown form and an empty extent
     (cudaErrorInvalidValue); the wrappers refuse bf16 operands before any
     launch."""
     need_card()
@@ -1052,12 +1055,10 @@ def test_f32_gemm_refuses_what_it_does_not_take():
 
     a = torch.zeros((37, 128), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for entry in ("wide_f32_gemm", "wide_f32_gemm_fma"):
-        fn = getattr(build.load(), entry)
-        for M, form in ((37, 5), (0, 0)):
-            err = fn(a.data_ptr(), 128, a.data_ptr(), 128, a.data_ptr(), None, a.data_ptr(), 128,
-                     M, 128, 128, 128, form, stream)
-            assert err != 0
+    for M, form in ((37, 5), (0, 0)):
+        err = build.load().wide_f32_gemm(a.data_ptr(), 128, a.data_ptr(), 128, a.data_ptr(),
+                                         None, a.data_ptr(), 128, M, 128, 128, 128, form, stream)
+        assert err != 0
     before = dict(f32_gemm.launches)
     with pytest.raises(ValueError):
         f32_gemm.f32_layer_gemm(a.to(torch.bfloat16), a[:, :128], a[0], 40)

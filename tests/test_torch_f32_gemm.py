@@ -13,16 +13,16 @@ an identity encoding; and to an f64 numpy restatement.
 Tolerances.  Both sides are f32 sums of the same exact products in another
 order: 1e-5 of the largest entry against the JAX package (sums of up to 1024
 terms), 1e-6 of the largest against f64.  The card tests
-(``tests/test_torch_cuda.py``) hold the kernel to ``gemm_kernel``, the FMA
-kernel it replaced, bit for bit.
+(``tests/test_torch_cuda.py``) hold the kernel to f64 and to repeat
+launches bit for bit; ``chip_smoke.py``'s ``F32_DIGESTS`` pin its bits.
 
 The staging restatement checks :func:`f32_gemm.stage_copies` (the copies of
 one k-tile, ``stage_tile``) over ragged shapes: every element of a tile is
 written exactly once, holds the operand's value inside its extents and zero
 past them, and every 16-B copy starts 16-B aligned; that a warp's fragment
 reads hit distinct banks; and that each output sums as many terms
-(:func:`f32_gemm.k_terms`) as ``gemm_kernel`` gave it (its k range rounded
-up to 8).
+(:func:`f32_gemm.k_terms`) as the kernel's sum order fixes (its k range
+rounded up to 8).
 """
 
 import jax
@@ -253,17 +253,14 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(case):
 def test_cpu_calls_launch_nothing_and_the_entry_points_are_bound():
     h, W, b, dz, mask = (f32(x) for x in operands(37, 40, 128, 1))
     before = dict(f32_gemm.launches)
-    for twin in ("", "_fma"):
-        a = getattr(f32_gemm, "f32_layer_gemm" + twin)(h, W, b, 40)
-        assert torch.equal(a, f32_gemm.layer_reference(h, W, b, 40))
-        getattr(f32_gemm, "f32_head_gemm" + twin)(h, W, b, 40, dout=dz)
-        getattr(f32_gemm, "f32_dh_gemm" + twin)(dz, W, mask, 128)
-        getattr(f32_gemm, "f32_dw_gemm" + twin)(h, dz, 40, 16)
+    a = f32_gemm.f32_layer_gemm(h, W, b, 40)
+    assert torch.equal(a, f32_gemm.layer_reference(h, W, b, 40))
+    f32_gemm.f32_head_gemm(h, W, b, 40, dout=dz)
+    f32_gemm.f32_dh_gemm(dz, W, mask, 128)
+    f32_gemm.f32_dw_gemm(h, dz, 40, 16)
     assert f32_gemm.launches == before
-    assert set(f32_gemm.launches) == {f"f32_{n}_gemm{t}" for n in ("layer", "dh", "dw", "head")
-                                      for t in ("", "_fma")}
-    for entry in ("wide_f32_gemm", "wide_f32_gemm_fma"):
-        assert len(build.SIGNATURES[entry]) == 14
+    assert set(f32_gemm.launches) == {f"f32_{n}_gemm" for n in ("layer", "dh", "dw", "head")}
+    assert len(build.SIGNATURES["wide_f32_gemm"]) == 14
     assert (build.CSRC / "wide_f32_gemm.cu").exists()
     assert (build.CSRC / "nerf_wide_f32_gemm.cuh").exists()
 

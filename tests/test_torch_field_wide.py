@@ -344,7 +344,7 @@ def test_card_probe_labels_the_wide_route():
         back += [gemm(2), "wide::sum_partials_kernel", "colsum_kernel", "sum_partials_kernel"]
         back += [gemm(1)] if l else []
     step = ["encode_kernel", gemm(0), gemm(0), *head, *back, "multi_tensor_apply_kernel<x>"]
-    recompute = ["encode_kernel", gemm(0, "gemm_kernel<float, float, float, false, false, {}>"),
+    recompute = ["encode_kernel", gemm(0, "gemm_f32_kernel<128, 128, 8, 8, false, false, {}>"),
                  gemm(0), *head, "encode_kernel", gemm(0), gemm(0), *back]
     state = {}
     got = [card_probe.wide_field_label(n, "kernel", state) for n in step + recompute]

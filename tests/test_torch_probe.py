@@ -129,7 +129,7 @@ def test_card_probe_sorts_kernels_into_families():
     gemm = "void wide::(anonymous namespace)::gemm{}<__nv_bfloat16, float, true, false, {}>(int)"
     assert card_probe.family(gemm.format("_mma_kernel", 2), "kernel") == "dW"
     assert card_probe.family(gemm.format("_mma_kernel", 1), "kernel") == "d_h"
-    assert card_probe.family(gemm.format("_kernel", 0), "kernel") == "forward"
+    assert card_probe.family(gemm.format("_f32_kernel", 0), "kernel") == "forward"
     assert card_probe.family("void wide::(anonymous namespace)::dw_wgmma_kernel<8>"
                              "(CUtensorMap_st, CUtensorMap_st, int)", "kernel") == "dW"
     for name, fam in (("composite_kernel<__nv_bfloat16, 1, false>", "compositing"),

@@ -349,9 +349,7 @@ def test_dw_stage_plain_matches_its_order(rng, rows, in_cols, pw):
     """``wide_dw.wide_dw_gemm``'s plain version (what the CPU runs) against
     the numpy restatement of the kernel's order (32-row k-steps promoted
     into f32 sums, 8192-row partials) within 1e-6 of the f64 sum of
-    |products|, at a ragged last partial, one short partial and one whole;
-    ``wide_dw_gemm_mma``'s plain version on the f32 d_z gives the same
-    partials."""
+    |products|, at a ragged last partial, one short partial and one whole."""
     from lomanerf_tpu_torch.ops import wide_dw
 
     h = torch.from_numpy(np.maximum(rng.standard_normal((rows, pw)), 0).astype(np.float32))
@@ -368,7 +366,6 @@ def test_dw_stage_plain_matches_its_order(rng, rows, in_cols, pw):
         exact = A[sl].T @ Z[sl]
         assert np.all(np.abs(got[z].double().numpy() - exact) <= 1e-6 * scale + 1e-30)
         assert np.all(np.abs(want[z] - exact) <= 1e-6 * scale + 1e-30)
-    assert torch.equal(wide_dw.wide_dw_gemm_mma(hb, d32, in_cols), got)
 
 
 def test_dw_stage_refuses_what_it_does_not_take():
@@ -379,8 +376,6 @@ def test_dw_stage_refuses_what_it_does_not_take():
                  (h, h[:32], 128), (h.t().contiguous().t(), h, 128)):
         with pytest.raises(ValueError):
             wide_dw.wide_dw_gemm(*args)
-    with pytest.raises(ValueError):
-        wide_dw.wide_dw_gemm_mma(h, h, 128)
 
 
 @pytest.mark.parametrize("mode", ["loma", "standard"])
