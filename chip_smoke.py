@@ -121,7 +121,7 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     digests of the twelve NeRF entry points' outputs against
     ``KERNEL_DIGESTS``, and of the six wide ones at 3x384 and 8x1024 bf16
     (the layer chain past the fused MLP) against ``C4_DIGESTS``, recorded
-    from the tree whose chain ran ``gemm_mma_kernel``, and at 3x384, 4x512
+    from the tree whose layer GEMM promotes each 64-deep stage, and at 3x384, 4x512
     and 1x(75->4) f32 with the wide field's "highest" outputs and dW/db
     against ``F32_DIGESTS``, recorded from the tree whose f32 products ran
     the FMA GEMM that ``gemm_f32_kernel`` replaced;
@@ -720,7 +720,7 @@ def wide_tolerances(cfg):
     """(colour atol, loss rtol, grad bound of the leaf's largest entry) of a
     wide kernel against its plain version.  f32: the narrow kernels' bounds.
     bf16: both sides round the same values at the same places, but a sum in
-    another order (here the tensor cores' 32-deep k-steps) can move a value
+    another order (here the tensor cores' 64-deep stages) can move a value
     across a bf16 rounding boundary and the flip propagates;
     tests/test_torch_wide.py measured such flips between the plain version
     and the JAX kernels up to 5.5e-4 on colours, 1.75e-5 on the loss and
@@ -2733,7 +2733,9 @@ NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "n
 # and #10 moved when the fused MLP began to sum each layer's whole K in the
 # tensor core's accumulator, not in 32-deep k-steps promoted by IEEE adds:
 # the sums' grouping alone changed (phase 9 and tests/test_torch_cuda.py hold
-# the rows to the layer chain's bits off near ties).
+# the rows to the layer chain's bits off near ties).  The four wide gradient
+# entries moved again when the layer GEMM (nerf_wide_layer_gemm.cuh) began
+# to promote each 64-deep stage, not each 32-deep k-step: the grouping alone.
 KERNEL_DIGESTS = {
     "nerf_render_fwd":
         "64ba1c0f42400d315d53444f6e0d3757183e1f452497a0006831db6639d28aff",
@@ -2744,9 +2746,9 @@ KERNEL_DIGESTS = {
     "nerf_wide_render_fwd":
         "e808d2cdb43b1ab4c2ec71e6a2658a45fc9b44acaf80343d0cb5c1ed7ad99eab",
     "nerf_wide_train":
-        "dc1d8046fca72d1636928b0a1db6d83bf932988d166fc53b12a333566f9d69a0",
+        "e9a66f067b1c58d21228fbcb4b891c99bcb56c3e357147b08c41c4237bca5c2b",
     "nerf_wide_render_bwd":
-        "f7b70e38146df584c62b8914fc7458c2682b756373a56824bc7e7e8bf40d87d2",
+        "0c79b3c175c2f60ed677e818571dd8026236cb44377579daa8df7d6f320cef1a",
     "nerf_render_fwd_rays":
         "b28cdecd22d6d86784a68059e14aa54b1a1a54ea8bf1d2a96b6dc10b9a090d3b",
     "nerf_train_rays":
@@ -2756,9 +2758,9 @@ KERNEL_DIGESTS = {
     "nerf_wide_render_fwd_rays":
         "8f2709111148c6e97875aa2e65b1edc88e0a1afd0961dc7e1f6525eb4be264f2",
     "nerf_wide_train_rays":
-        "a0b3b1df5a17508ea37f84412e2c6a984236a9c8f5a8a7a4220aa5e290608633",
+        "04d4208c4ecfa1f270a9f251ce53fd74d15401bbd691e268d6721418ef9b382d",
     "nerf_wide_render_bwd_rays":
-        "247d87474a9df5818c15f535fe7005b71f8d4ca992eb1492453f74390f1ca237",
+        "578e7a9f6197eef5d610c9eb19506cc7c44d28695bd26909a06e8301f5be686b",
 }
 
 
@@ -2767,33 +2769,35 @@ KERNEL_DIGESTS = {
 # chain: recorded from the tree whose bf16 forward and d_h GEMMs ran
 # gemm_mma_kernel (mma.sync), so that they hold the chain's move onto
 # wgmma/TMA to those bits; the eight gradient entries again when bf16 db
-# moved onto column partials (as KERNEL_DIGESTS': db's order alone).
+# moved onto column partials (as KERNEL_DIGESTS': db's order alone); all
+# twelve when the layer GEMM began to promote each 64-deep stage, not each
+# 32-deep k-step.
 C4_MLPS = ("3x384 bfloat16", "8x1024 bfloat16")
 C4_DIGESTS = {
     "nerf_wide_render_fwd 3x384 bfloat16":
-        "b20c6838bca18417814742a8bf2196c2ed20cbe1442e30a9b41443dd5ea28151",
+        "0fc5c0e44f290a69753f632716997903063fb726071f3a63ff5ec37a87e9395b",
     "nerf_wide_train 3x384 bfloat16":
-        "c8c714f0967b007985929ab8fe1793f9258a2939ae78fe62537bfd8505b5ea03",
+        "9374a82f3c314c1d9e5e2043f16f29702c0f0bb1a83f8b312bb505082e975760",
     "nerf_wide_render_bwd 3x384 bfloat16":
-        "b05523dcc9b7074747d4152e5b33b2aff381414a3c50616c9768a425e28f6454",
+        "4c783977fb22ccc88e24baa8a698b4d51421fe1c7be6c0e7f3f078d67503da76",
     "nerf_wide_render_fwd_rays 3x384 bfloat16":
-        "14b2762d8c75f1e5731627df35767e319c89abddc3d1e7747ac8fffa3ece18b1",
+        "2ef9bc5fd982217fb8574ec2ddcb83eca3963ca25381cc132a9c225a49b5834f",
     "nerf_wide_train_rays 3x384 bfloat16":
-        "0610c9f5c23a525fbda26ff42815519484a60694f247def0b8a6ed19e97eaa1d",
+        "206c1850e8bbac8b01f60154ee59067508fa462c037d87c8a0094b679d5b2216",
     "nerf_wide_render_bwd_rays 3x384 bfloat16":
-        "0a0f4cac84d2216c69ad6d2a0abce9e116564a91f75344a02289ab45508925af",
+        "f7e6f2de30107c588961d8ccacaf610b612b171226d7ef324fed2b93caf34222",
     "nerf_wide_render_fwd 8x1024 bfloat16":
-        "131aa97096891fb09b146730e4a8596520b9989f3e2599bd9a40f0afa9250b11",
+        "4870e44eaa1ac98a8919bdb52622fefab4181986448cb9ba659f634a6fd5ae0a",
     "nerf_wide_train 8x1024 bfloat16":
-        "8ff741db3f9c990422d2a95eb78895215308926a60bd6904267d6cae98805d33",
+        "c8823bed1d7112d2afe1eb0690230b459b21f1889447ddf3249550be5a870da4",
     "nerf_wide_render_bwd 8x1024 bfloat16":
-        "339508b51f16cb66938cbf3b8cd188dd4f4570e9f23c2e3d4d5ec2cf2a40987a",
+        "f1b7a3f1fab7c7b399f0dcd309e4f4c0b16036b96681b79328b7c49878370fd6",
     "nerf_wide_render_fwd_rays 8x1024 bfloat16":
-        "293d683c8f4aa95659d7e652b31c50248aa5fe10a2f0670dc786a6d632a80121",
+        "f513cac2a8cbe907d6779a6ef4bc695a4186c69d3b08cd7c8f85109ee9b415e6",
     "nerf_wide_train_rays 8x1024 bfloat16":
-        "3d68540badf0e42a3a464764ca8aa36a73fc93eb157d097777a32d1548e8cf3e",
+        "7b4820ee0e57838f6a22e48ef61bc459199ed05060df62ee6b8c954449a641f8",
     "nerf_wide_render_bwd_rays 8x1024 bfloat16":
-        "b66674b6e06a4413d4de17fe5ff1a588f713eda726260c6d554e513ce4d9b0b3",
+        "bf2b4121f4513cacf3f40718ad59972b863404b76c24a7b771da584e556a1640",
 }
 
 
@@ -4228,12 +4232,13 @@ def phase_field_wide(fused_mlp, ImageFieldConfig, image_grid_coords, mlp_layer_s
 
 # SHA-256 of the published NeRF's entries' outputs (paper_digests), recorded
 # from a card run of nerf_paper.cu; the train entries' moved when both
-# compositing kernels took the shared walks (composite_walk, adjoint_walk)
+# compositing kernels took the shared walks (composite_walk, adjoint_walk),
+# all four when the layer GEMM began to promote each 64-deep stage
 PAPER_DIGESTS = {
-    "nerf_paper_train coarse": "a85ec8b3d686abc915c22861829c27ff65e67a2b4b444bb78a6660c052cc7231",
-    "nerf_paper_render coarse": "4cafbfc36576221d39a00f196b8ee2472c55f758bfbac557a4da004776d017f4",
-    "nerf_paper_train fine": "e7584ecfe3441fb08173924623fc285ebe027970e7f45d4b312c9a4a6c853731",
-    "nerf_paper_render fine": "9f265e94a994acc0b6b55382fb110930dde62bff8940390ef49798a5f8ce97b0",
+    "nerf_paper_train coarse": "0188259f75763f6af6d011db9744622502d4957610354ca43f5702f711b7840e",
+    "nerf_paper_render coarse": "ac673ccdf300e73f56b3c9c5cba708ea3ea18ad4e66c7b2fc9c03b9d2851dca6",
+    "nerf_paper_train fine": "b532d18bfe94adbdf32b3bd210b61cf3da1a11c4ed4a7a33f5b8b98732756d16",
+    "nerf_paper_render fine": "6951dc44270a9172eb7fe3b891a263b571030f557ff8d4274b8beca47f90b563",
 }
 PAPER_RAYS, PAPER_STEP_RAYS = 1037, 4096
 

@@ -39,43 +39,55 @@
 //     128 columns (wgmma m64n128k16), and a producer warpgroup whose first
 //     thread issues the TMA copies and whose registers setmaxnreg hands to
 //     the consumers (40 and 232), as nerf_wide_mlp.cuh does;
-//   * a ring of kLgStages stages of 64-deep k-slices, guarded by full and
-//     empty mbarriers: A's 128 rows x 64 columns in one box, B's 64 x 128
-//     in one box ([n][k], K-major) or two ([k][n], MN-major, 64 columns
+//   * a ring of 64-deep k-slices, as many stages as a block's 227 KB hold
+//     beside the output buffers, at most four (lg_stages), guarded by full
+//     and empty mbarriers: A's 128 rows x 64 columns in one box, B's 64 x
+//     128 in one box ([n][k], K-major) or two ([k][n], MN-major, 64 columns
 //     each), all 128-byte swizzled, so no thread stages or converts an
 //     operand; the producer runs ahead across tiles;
-//   * a stage is two 32-deep k-steps: each two wgmma into a fresh
-//     accumulator set (scale-d 0 on the first), then IEEE f32 adds of each
-//     set into the running sum, k-steps in ascending order: gemm_mma_kernel's
-//     promotion every 32 (the tensor core's own accumulation truncates) and
-//     its order, so every output keeps its bits;
-//   * the two consumer warpgroups take turns to issue their products (named
-//     barriers, nerf_wide_mlp.cuh's wait_turn / pass_turn), so that one's
-//     wgmma run while the other adds;
+//   * f32 sums promoted a stage at a time: each 64-deep stage's four k16
+//     steps go into a fresh accumulator set (scale-d 0 on the first), and
+//     the set is added to the running sum by IEEE f32 adds, the stages in
+//     ascending k.  The tensor core's own accumulation truncates: summed
+//     over a whole K of 1024 in it, 5 to 14 times as many outputs of an
+//     8x1024 chunk's layer took the other side of the ReLU from f64 as when
+//     promoted every 32 deep, as gemm_mma_kernel did; promoted every 64 deep
+//     they stay as near f64 (scripts/gemm_variants);
+//   * the two sets take turns, a stage each, and each stage is a commit
+//     group: once the next stage's group is issued, wait_group 1 shows that
+//     a stage has finished, and the thread frees it and adds its set while
+//     the next one's products run (three sets of 64 registers: the running
+//     sum and the two fresh ones).  The loop takes the stages in pairs, so
+//     that ptxas sees which set is in flight where each add reads the other
+//     (else it serializes every wgmma of the kernel, C7514, and an 8x1024
+//     layer ran about 1.8 times as long);
+//   * the two consumer warpgroups take turns to issue a stage (named
+//     barriers, nerf_wide_mlp.cuh's wait_turn / pass_turn), and each waits
+//     and adds outside its turn, so that one's adds and epilogue run under
+//     the other's products;
 //   * the epilogue writes its 64 x 128 outputs into shared memory in the
 //     128-byte swizzle (no bank conflicts for bf16 pairs) and one thread
-//     stores them by TMA, which completes behind the next tile's products;
+//     stores them by TMA, which completes behind the next products;
 //     kEpiMask's mask tile is loaded by TMA into the bf16 output buffer when
 //     the tile starts, so its loads are in flight through the whole k-loop,
-//     and each thread overwrites its mask entries with its Cb entries;
+//     and each thread overwrites its mask entries with its Cb entries; the
+//     f32 C, where given, goes from registers to device memory;
 //   * kEpiMask's column partials, from the unrounded f32 outputs in a fixed
 //     order: each thread adds its two rows of a column pair, a shuffle adds
 //     the pair of the next row (lanes 4 apart), and both lanes stage the
-//     sums of those four rows in shared memory (16 row quads x 128 columns a
-//     warpgroup, rows 136 floats apart: no bank conflicts); thread t of a
-//     warpgroup adds column t's row quads, a warp's four in order and then
-//     the four warps in order, and warpgroup 1 adds its sum to warpgroup
-//     0's and stores the tile's row of partials; warpgroup 0's sums go
-//     through two slots handed over by named barriers (ids 5-8), so that it
-//     runs a tile ahead, with no branch on the warpgroup (bar_sync_id).
-//     Without C, only the bf16 copy leaves the SM and the f32 staging boxes
-//     are not allocated (kF32: the probe's form with C, on a ring of three
-//     stages to make room for them);
-//   * ragged edges (rows past M, layer 0's K = kc = 40 columns) are
-//     zero-filled by TMA's out-of-bounds fill and dropped by its stores; a
-//     last stage with one k-step adds no second set.
-// Every output is one thread's fixed sequence of k-steps: repeat launches
-// are bit-identical, and equal to gemm_mma_kernel's; so are the partials.
+//     sums of those four rows in shared memory (16 row quads x 128 columns
+//     a warpgroup, quad g's 8-column groups XOR g % 4: no bank conflicts);
+//     thread t of a warpgroup adds column t's row quads, a warp's four in
+//     order and then the four warps in order, and warpgroup 1 adds its sum
+//     to warpgroup 0's and stores the tile's row of partials; warpgroup 0's
+//     sums go through two slots handed over by named barriers (ids 5-8), so
+//     that it runs a tile ahead, with no branch on the warpgroup
+//     (bar_sync_id);
+//   * ragged edges (rows past M, columns past N, layer 0's K = kc = 40
+//     columns) are zero-filled by TMA's out-of-bounds fill and dropped by
+//     its stores.
+// Every output is one thread's fixed sequence of wgmma and adds: repeat
+// launches are bit-identical; so are the partials.
 
 #pragma once
 
@@ -86,44 +98,38 @@
 namespace wide {
 namespace {
 
-constexpr int kLgBM = 128, kLgBN = 128;  // outputs per tile
-constexpr int kLgBK = 64;                // k per stage: two promotion steps
-constexpr int kLgStages = 4;
-constexpr int kLgBox = 64 * 128;                       // a 64-row x 128-byte box: 8 KB
+constexpr int kLgBM = 128, kLgBN = 128;     // outputs per tile
+constexpr int kLgBK = 64;                   // k per stage: two 32-deep k-steps
+constexpr int kLgBox = 64 * 128;            // a 64-row x 128-byte box: 8 KB
 constexpr int kLgStageBytes = (kLgBM + kLgBN) * kLgBK * 2;  // A 16 KB + B 16 KB
-constexpr int kLgThreads = 3 * 128;  // 2 consumer warpgroups + the producer's
+constexpr int kLgOut = 2 * kLgBox;          // a consumer warpgroup's 64 x 128 bf16
+constexpr int kLgThreads = 3 * 128;         // 2 consumer warpgroups + the producer's
+constexpr int kLgSmem = 227 * 1024;         // a block's shared memory on the H100
+constexpr int kLgStatic = 256;              // room for the static mbarriers
+constexpr int kLgMaxStages = 4;
 
 // kEpiMask's column sums: each consumer warpgroup's 16 row quads x 128
-// columns (row stride kLgSumLd floats), then two slots of warpgroup 0's 128
-// and warpgroup 1's unread row
-constexpr int kLgSumLd = kLgBN + 8;
-constexpr int kLgSumBytes = (2 * 16 * kLgSumLd + 3 * kLgBN) * 4;
+// columns, then two slots of warpgroup 0's 128 and warpgroup 1's unread row
+constexpr int kLgSumBytes = (2 * 16 * kLgBN + 3 * kLgBN) * 4;
 
-// stages of the ring: three for kEpiMask with the f32 output, whose staging
-// boxes leave no room for a fourth
-template <int kEpi, bool kF32>
+// the output buffers, the sums, alignment
+template <int kEpi>
+constexpr int lg_fixed_bytes() {
+  return 2 * kLgOut + (kEpi == kEpiMask ? kLgSumBytes : 0) + 1024;
+}
+template <int kEpi>
 constexpr int lg_stages() {
-  return kEpi == kEpiMask && kF32 ? 3 : kLgStages;
+  return std::min(kLgMaxStages, (kLgSmem - kLgStatic - lg_fixed_bytes<kEpi>()) / kLgStageBytes);
 }
-// a consumer warpgroup's output buffer: 64 x 128 bf16 (two boxes), for
-// kEpiMask with kF32 after 64 x 128 f32 (four boxes of 32 columns)
-template <int kEpi, bool kF32>
-__host__ __device__ constexpr int lg_out_bytes() {
-  return kEpi == kEpiMask && kF32 ? 6 * kLgBox : 2 * kLgBox;
-}
-template <int kEpi, bool kF32>
-constexpr int lg_smem_bytes() {  // the ring, two output buffers, the sums, alignment
-  return lg_stages<kEpi, kF32>() * kLgStageBytes + 2 * lg_out_bytes<kEpi, kF32>() +
-         (kEpi == kEpiMask ? kLgSumBytes : 0) + 1024;
+template <int kEpi>
+constexpr int lg_smem_bytes() {
+  return lg_stages<kEpi>() * kLgStageBytes + lg_fixed_bytes<kEpi>();
 }
 
-// byte offset of (row r < 64, column n < 128) in a run of 128-byte swizzled
-// boxes of 64 rows, `per` columns of `size` bytes each a box row
-template <int kSize>
+// byte offset of (row r < 64, column n < 128) bf16 in a run of 128-byte
+// swizzled boxes of 64 rows x 64 columns
 __device__ __forceinline__ uint32_t box_at(int r, int n) {
-  constexpr int per = 128 / kSize;
-  return (n / per) * kLgBox + r * 128 + ((((n % per) * kSize >> 4) ^ (r & 7)) << 4) +
-         (n * kSize & 15);
+  return (n >> 6) * kLgBox + r * 128 + ((((n & 63) >> 3) ^ (r & 7)) << 4) + (n & 7) * 2;
 }
 
 // kEpiMask's hand-over of column sums between the consumer warpgroups (256
@@ -141,33 +147,32 @@ __device__ __forceinline__ void bar_sync_id(int id) {
 }
 
 // grid min(tiles, SMs), block kLgThreads, dynamic shared memory
-// lg_smem_bytes<kEpi, kF32>(); tm_a (K, M) boxes 64 x 128, tm_b (N, K) boxes
-// 64 x 64 ([k][n]) or (K, N) boxes 64 x 128 ([n][k], kEpiMask), tm_c (N, M)
-// in 64-row boxes of 128 bytes (kEpiMask: read with kF32 only), tm_cb and
-// tm_m (kEpiMask) as tm_c in bf16; part (kEpiMask, or null) (ceil(M / 128),
-// N) f32; kLinear: the forward without its ReLU, d_h without its mask
-// (tm_m not read)
-template <int kEpi, int kStages, bool kF32, bool kLinear = false>
+// lg_smem_bytes<kEpi>(); tm_a (K, M) boxes 64 x 128, tm_b (N, K) boxes 64 x
+// 64 ([k][n]) or (K, N) boxes 64 x 128 ([n][k], kEpiMask), tm_c the bf16
+// output (N, M) in 64 x 64 boxes (kEpiMask: Cb), tm_m (kEpiMask) the mask as
+// tm_c; c32 (kEpiMask, or null) the f32 C and part (kEpiMask, or null)
+// (ceil(M / 128), N) f32, both of row stride ldc and N; kLinear: the
+// forward without its ReLU, d_h without its mask (tm_m not read)
+template <int kEpi, int kStages, bool kLinear = false>
 __global__ void __launch_bounds__(kLgThreads, 1)
 layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_b,
                    const __grid_constant__ CUtensorMap tm_c,
-                   const __grid_constant__ CUtensorMap tm_cb,
                    const __grid_constant__ CUtensorMap tm_m, const float* __restrict__ bias,
-                   int M, int N, int K, float* __restrict__ part) {
+                   float* __restrict__ c32, float* __restrict__ part, int M, int N, int K,
+                   int ldc) {
   constexpr bool kMask = kEpi == kEpiMask;
   constexpr bool kReadMask = kMask && !kLinear;
-  constexpr int kOut = lg_out_bytes<kEpi, kF32>();
   extern __shared__ uint8_t lg_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], mask_full[2];
   // the ring and the output buffers start at a multiple of 1024 bytes
   uint8_t* ring = lg_raw + ((1024 - (smem_u32(lg_raw) & 1023)) & 1023);
   uint8_t* outs = ring + kStages * kLgStageBytes;
   // kEpiMask: the warpgroups' staged column sums, then warpgroup 0's slots
-  float* sums = reinterpret_cast<float*>(outs + 2 * kOut);
+  float* sums = reinterpret_cast<float*>(outs + 2 * kLgOut);
   const int tiles_n = (N + kLgBN - 1) / kLgBN;
   const int n_tiles = (M + kLgBM - 1) / kLgBM * tiles_n;
-  const int n_k = (K + 31) / 32, n_st = (K + kLgBK - 1) / kLgBK;
+  const int n_st = (K + kLgBK - 1) / kLgBK;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -212,11 +217,13 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
     // 16 w + 15; register 4 j + q is row lane / 4 (+ 8 for q >= 2), column
     // 8 j + 2 (lane % 4) (+ 1 for odd q)
     const int r = (t >> 5) * 16 + (lane >> 2);
-    uint8_t* out = outs + wg * kOut;
-    uint8_t* outb = out + (kF32 ? 4 * kLgBox : 0);  // the bf16 boxes (the mask's, first)
-    float* stage = sums + wg * 16 * kLgSumLd;  // kEpiMask: row quad (t / 32) * 4 + lane / 8
+    uint8_t* out = outs + wg * kLgOut;  // the bf16 boxes (kEpiMask: the mask's, first)
+    // kEpiMask: row quad g = (t / 32) * 4 + lane / 8, its 8-column groups
+    // XOR g % 4
+    float* stage = sums + wg * 16 * kLgBN;
+    const int quad = (t >> 5) * 4 + (lane >> 3);
     const uint32_t ring_s = smem_u32(ring);
-    float acc[64], ks0[64], ks1[64];  // the running sum, two fresh k-step sets
+    float acc[64], ks0[64], ks1[64];  // the running sum, two fresh stage sets
 #pragma unroll
     for (int i = 0; i < 64; ++i) ks0[i] = ks1[i] = 0.0f;
     if (wg == 1) {
@@ -233,54 +240,70 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         bulk_wait_read();  // the last tile's stores have read the output buffer
         if (kReadMask) {  // this tile's mask, in flight through the k-loop
           mbar_expect_tx(&mask_full[wg], 2 * kLgBox);
-          tma_load(outb, &tm_m, n0, m0, &mask_full[wg]);
-          tma_load(outb + kLgBox, &tm_m, n0 + 64, m0, &mask_full[wg]);
+          tma_load(out, &tm_m, n0, m0, &mask_full[wg]);
+          tma_load(out + kLgBox, &tm_m, n0 + 64, m0, &mask_full[wg]);
         }
       }
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-      for (int st = 0; st < n_st; ++st, ++it) {
-        const bool two = 2 * st + 1 < n_k;  // the stage's second k-step holds data
+      // the k-loop, a stage at a time: issue() puts its four k16 steps (A's
+      // columns 16 j, 32 bytes a step in the swizzled row; B's rows 16 j,
+      // [k][n]: 2048 bytes a step, or columns 16 j, [n][k]) into a fresh set
+      // as one commit group; once the next stage's group is issued,
+      // wait_group 1 shows that it has finished, and add() frees its stage
+      // (one arrival a warp) and adds its set to the running sum.  ks0 and
+      // ks1 take turns, so that at the top of the loop ks0's group is the
+      // one in flight: ptxas then sees which set each add may read
+      // (otherwise it serializes every wgmma, C7514)
+      auto issue = [&](float(&ks)[64]) {
         const int s = it % kStages;
-        // k16 step j of the stage: A's columns 16 j (32 bytes a step in the
-        // swizzled row), B's rows 16 j ([k][n]: 2048 bytes a step) or
-        // columns 16 j ([n][k])
         const uint32_t a = ring_s + s * kLgStageBytes + wg * kLgBox;
         const uint32_t b = ring_s + s * kLgStageBytes + kLgBM * kLgBK * 2;
-        auto mma = [&](float(&ks)[64], int j, int scale_d) {
-          if constexpr (kEpi == kEpiMask) {
-            wgmma_m64n128<0, 0>(ks, k_desc(a + 32 * j), k_desc(b + 32 * j), scale_d);
-          } else {
-            wgmma_m64n128<0, 1>(ks, k_desc(a + 32 * j), mn_desc(b + 2048 * j, kLgBox),
-                                scale_d);
-          }
-        };
-        fence_regs(ks0);
-        fence_regs(ks1);
+        fence_acc(ks);
         wait_turn(wg);
         mbar_wait(&full[s], (it / kStages) & 1);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-        mma(ks0, 0, 0);
-        mma(ks0, 1, 1);
-        if (two) {
-          mma(ks1, 2, 0);
-          mma(ks1, 3, 1);
+#pragma unroll
+        for (int j = 0; j < kLgBK / 16; ++j) {
+          if constexpr (kMask) {
+            wgmma_m64n128<0, 0>(ks, k_desc(a + 32 * j), k_desc(b + 32 * j), j > 0);
+          } else {
+            wgmma_m64n128<0, 1>(ks, k_desc(a + 32 * j), mn_desc(b + 2048 * j, kLgBox), j > 0);
+          }
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         pass_turn(wg);
+        ++it;
+      };
+      auto add = [&](float(&ks)[64], int stage_it) {
+        fence_acc(ks);
+        if (lane == 0) mbar_arrive(&empty[stage_it % kStages]);
+#pragma unroll
+        for (int q = 0; q < 64; ++q) acc[q] += ks[q];
+        fence_acc(ks);
+      };
+      issue(ks0);
+      int st = 1;
+      for (; st + 1 < n_st; st += 2) {
+        issue(ks1);
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        add(ks0, it - 2);
+        issue(ks0);
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        add(ks1, it - 2);
+      }
+      if (st < n_st) {  // an even count of stages: the last one into ks1
+        issue(ks1);
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        add(ks0, it - 2);
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-        fence_regs(ks0);
-        fence_regs(ks1);
-        if (lane == 0) mbar_arrive(&empty[s]);  // the stage is free again
-#pragma unroll
-        for (int q = 0; q < 64; ++q) acc[q] += ks0[q];
-        if (two) {
-#pragma unroll
-          for (int q = 0; q < 64; ++q) acc[q] += ks1[q];
-        }
+        add(ks1, it - 1);
+      } else {
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        add(ks0, it - 1);
       }
 
-      // the epilogue, column pairs (n, n + 1) of rows r and r + 8, into the
+      // the epilogue: column pairs (n, n + 1) of rows r and r + 8 into the
       // output buffer, then one thread's TMA stores
       warpgroup_sync(wg);  // the buffer is free (thread 0's wait above)
       if (kReadMask) mbar_wait(&mask_full[wg], local & 1);
@@ -292,15 +315,18 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         for (int hr = 0; hr < 2; ++hr) {
           const int rr = r + 8 * hr;
           const float v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
-          auto* pb = reinterpret_cast<__nv_bfloat162*>(outb + box_at<2>(rr, n));
+          auto* pb = reinterpret_cast<__nv_bfloat162*>(out + box_at(rr, n));
           if constexpr (kMask) {
             float o0 = v0, o1 = v1;
             if constexpr (kReadMask) {  // the mask, loaded into the buffer
-              const __nv_bfloat162 h = *pb;
-              o0 = __low2float(h) > 0.0f ? v0 : 0.0f;
-              o1 = __high2float(h) > 0.0f ? v1 : 0.0f;
+              const __nv_bfloat162 m = *pb;
+              o0 = __low2float(m) > 0.0f ? v0 : 0.0f;
+              o1 = __high2float(m) > 0.0f ? v1 : 0.0f;
             }
-            if (kF32) *reinterpret_cast<float2*>(out + box_at<4>(rr, n)) = make_float2(o0, o1);
+            if (c32 != nullptr && m0 + rr < M && n0 + n < N) {
+              *reinterpret_cast<float2*>(c32 + static_cast<size_t>(m0 + rr) * ldc + n0 + n) =
+                  make_float2(o0, o1);
+            }
             *pb = __floats2bfloat162_rn(o0, o1);
             if (hr == 0) {
               pair = make_float2(o0, o1);
@@ -322,41 +348,33 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         if constexpr (kMask) {  // both lanes of a quad store the same sums
           pair.x += __shfl_xor_sync(0xffffffffu, pair.x, 4);
           pair.y += __shfl_xor_sync(0xffffffffu, pair.y, 4);
-          *reinterpret_cast<float2*>(stage + ((t >> 5) * 4 + (lane >> 3)) * kLgSumLd + n) = pair;
+          *reinterpret_cast<float2*>(stage + quad * kLgBN + (n ^ ((quad & 3) << 3))) = pair;
         }
       }
       fence_async_smem();
       warpgroup_sync(wg);
       if (t == 0) {
-        if (kMask) {
-          if (kF32) {
-            for (int q = 0; q < 4; ++q) tma_store(&tm_c, out + q * kLgBox, n0 + 32 * q, m0);
-          }
-          tma_store(&tm_cb, outb, n0, m0);
-          tma_store(&tm_cb, outb + kLgBox, n0 + 64, m0);
-        } else {
-          tma_store(&tm_c, out, n0, m0);
-          tma_store(&tm_c, out + kLgBox, n0 + 64, m0);
-        }
+        tma_store(&tm_c, out, n0, m0);
+        tma_store(&tm_c, out + kLgBox, n0 + 64, m0);
         bulk_commit();
       }
       if constexpr (kMask) {  // the tile's column partials, while the stores run
         // column t over the warpgroup's row quads (the barrier above made
         // them visible): a warp's four in order, then the warps in order
-        const float* col = stage + t;
+        auto col = [&](int g) { return stage[g * kLgBN + (t ^ ((g & 3) << 3))]; };
         float w4[4];
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
-          w4[w] = col[4 * w * kLgSumLd];
+          w4[w] = col(4 * w);
 #pragma unroll
-          for (int g = 1; g < 4; ++g) w4[w] += col[(4 * w + g) * kLgSumLd];
+          for (int g = 1; g < 4; ++g) w4[w] += col(4 * w + g);
         }
         const float mine = ((w4[0] + w4[1]) + w4[2]) + w4[3];
         // warpgroup 0: wait for slot p free, fill it, mark it full;
         // warpgroup 1: wait for it full, write a row nobody reads, add slot
         // p to its own sum, mark the slot free, store the total
         const int slot = local & 1;
-        float* hand = sums + 2 * 16 * kLgSumLd;
+        float* hand = sums + 2 * 16 * kLgBN;
         bar_sync_id(wg == 0 ? 7 + slot : 5 + slot);
         hand[(wg == 0 ? slot : 2) * kLgBN + t] = mine;
         const float total = hand[slot * kLgBN + t] + mine;
@@ -370,36 +388,33 @@ layer_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-// layer_gemm's tensor maps and launch, its arguments checked; kF32
-// (kEpiMask): the f32 d_h is written to C too; kLinear as the kernel's
-template <int kEpi, bool kF32, bool kLinear = false>
+// layer_gemm's tensor maps and launch, its arguments checked; kLinear as the
+// kernel's
+template <int kEpi, bool kLinear>
 cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
                               int ldb, int M, int N, int K, const float* bias,
                               const __nv_bfloat16* mask, void* C, int ldc,
                               __nv_bfloat16* Cb, cudaStream_t stream, float* part) {
   constexpr bool kMask = kEpi == kEpiMask;
-  constexpr int kStages = lg_stages<kEpi, kF32>();
-  constexpr int smem = lg_smem_bytes<kEpi, kF32>();
-  static_assert(smem <= 227 * 1024, "the ring and the output buffers exceed shared memory");
-  CUtensorMap tm_a, tm_b, tm_c, tm_cb, tm_m;
+  constexpr int kStages = lg_stages<kEpi>();
+  constexpr int smem = lg_smem_bytes<kEpi>();
+  static_assert(kStages >= 3, "the ring needs a stage in flight and one filling");
+  static_assert(smem + 8 * (2 * kStages + 2) <= kLgSmem,
+                "the ring and the output buffers exceed shared memory");
+  auto* kernel = layer_wgmma_kernel<kEpi, kStages, kLinear>;
+  CUtensorMap tm_a, tm_b, tm_c, tm_m;
   cudaError_t err = tile_map(&tm_a, A, false, K, M, lda, 64, kLgBM);
   if (err == cudaSuccess) {
     err = kMask ? tile_map(&tm_b, B, false, K, N, ldb, 64, kLgBN)
                 : tile_map(&tm_b, B, false, N, K, ldb, 64, 64);
   }
-  if (err == cudaSuccess && kMask) err = tile_map(&tm_cb, Cb, false, N, M, ldc, 64, 64);
+  if (err == cudaSuccess) err = tile_map(&tm_c, kMask ? Cb : C, false, N, M, ldc, 64, 64);
+  tm_m = tm_c;  // not read but by kEpiMask with its mask
   if (err == cudaSuccess && kMask && !kLinear) {
     err = tile_map(&tm_m, mask, false, N, M, ldc, 64, 64);
   }
-  if (err == cudaSuccess && (kF32 || !kMask)) {
-    err = tile_map(&tm_c, C, kMask, N, M, ldc, kMask ? 32 : 64, 64);
-  }
-  if (!kMask) tm_cb = tm_m = tm_c;  // not read
-  if (kMask && !kF32) tm_c = tm_cb;  // not read
-  if (kMask && kLinear) tm_m = tm_cb;  // not read
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(layer_wgmma_kernel<kEpi, kStages, kF32, kLinear>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -407,9 +422,9 @@ cudaError_t launch_layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat
   if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>((M + kLgBM - 1) / kLgBM) *
                           ((N + kLgBN - 1) / kLgBN);
-  layer_wgmma_kernel<kEpi, kStages, kF32, kLinear>
-      <<<static_cast<int>(std::min<long long>(tiles, sms)), kLgThreads, smem, stream>>>(
-          tm_a, tm_b, tm_c, tm_cb, tm_m, bias, M, N, K, part);
+  kernel<<<static_cast<int>(std::min<long long>(tiles, sms)), kLgThreads, smem, stream>>>(
+      tm_a, tm_b, tm_c, tm_m, bias, kMask ? static_cast<float*>(C) : nullptr, part, M, N, K,
+      ldc);
   return cudaGetLastError();
 }
 
@@ -436,14 +451,8 @@ cudaError_t layer_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, 
                                   reinterpret_cast<uintptr_t>(bias) % 8)) {
     return cudaErrorInvalidValue;
   }
-  if constexpr (kMask) {
-    if (C != nullptr) {
-      return launch_layer_gemm<kEpi, true, kLinear>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
-                                           stream, part);
-    }
-  }
-  return launch_layer_gemm<kEpi, false, kLinear>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
-                                        stream, part);
+  return launch_layer_gemm<kEpi, kLinear>(A, lda, B, ldb, M, N, K, bias, mask, C, ldc, Cb,
+                                          stream, part);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // The bf16 wide render's MLP in one persistent kernel per ray chunk, on
 // Hopper's warpgroup tensor cores (wgmma) with the weights fed by TMA: the
 // encoding and every hidden layer of a 128-row tile, the activations kept
-// in shared memory, only the last hidden layer's output H_{L-1} written to
-// device memory (row-major (rows, pw) bf16, what composite_kernel reads).
+// in registers (the encoding and H_{L-1} pass through one shared buffer),
+// only the last hidden layer's output H_{L-1} written to device memory
+// (row-major (rows, pw) bf16, what composite_kernel reads).
 //
 // Replaces, for the bf16 compute dtype, the layer-by-layer forward of the
 // render (nerf_wide_chain.cuh:forward_layers: encode_kernel, then one
@@ -71,7 +72,7 @@
 //     past the chunk are encoded as zeros.
 // Every output is one thread's fixed sequence of wgmma: repeat launches are
 // bit-identical.  The f32 sum is grouped otherwise than the layer chain's
-// (nerf_wide_layer_gemm.cuh promotes every 32-deep k-step by IEEE adds; the
+// (nerf_wide_layer_gemm.cuh promotes every 64-deep stage by IEEE adds; the
 // tensor core's accumulator truncates), so an output whose exact sum lies
 // within the sums' rounding of a bf16 rounding boundary may store the
 // adjacent bf16 value: a near tie (wide_mlp.tied_rows), on ~6% of the

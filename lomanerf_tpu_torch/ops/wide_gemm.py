@@ -4,7 +4,7 @@
 The wide gradient kernels (#7, #9, #11, #12) run these products for every
 hidden layer, and the bf16 render past the fused MLP's pw 256 (#8, #10) its
 forward layers, on ``csrc/nerf_wide_layer_gemm.cuh`` (wgmma fed by TMA, each
-32-deep k-step promoted into f32 sums).  The ``d_h`` form also sums its f32
+64-deep stage promoted into f32 sums while the next one's products run).  The ``d_h`` form also sums its f32
 output over each 128-row tile (:data:`TILE_ROWS`): the column partials db is
 summed from, so that the gradient kernels write no f32 ``d_h`` at all.  Its
 entry point alone, ``wide_layer_gemm`` (``csrc/nerf_wide_train.cu``), lets

@@ -4,18 +4,17 @@ it replaced, each alone.
 The bf16 wide render (#8 ``nerf_wide_render_fwd`` and #10, its ``*_rays``
 instance) computes the encoding and every hidden layer of a 128-row tile in
 one launch per ray chunk (``csrc/nerf_wide_mlp.cuh``: ``wgmma`` with the
-weights fed by TMA, the activations kept in shared memory), then composites.
+weights fed by TMA, the activations kept in registers), then composites.
 :func:`wide_mlp` launches that kernel alone (``nerf_wide_mlp``) and returns
 the last hidden layer's output; :func:`render_rays_layers` runs the whole
 render on the layer chain it replaced (``nerf_wide_render_fwd_layers``: the
 encoding kernel, one GEMM per hidden layer through device memory, the
-``wgmma`` layer GEMM of ``csrc/nerf_wide_layer_gemm.cuh`` since it took over
-from ``mma.sync`` with the same bits, compositing), so that the two can be
-compared and timed in turns.  The two group each f32 sum otherwise (the
-fused MLP sums a layer's whole K in the tensor core's accumulator, the chain
-promotes every 32-deep k-step), so they store the same bf16 values except
-at near ties: :func:`tied_rows` finds those rows.  Nothing on the main
-path calls any of them.  Both take the stacks of
+``wgmma`` layer GEMM of ``csrc/nerf_wide_layer_gemm.cuh``, compositing), so
+that the two can be compared and timed in turns.  The two group each f32 sum
+otherwise (the fused MLP sums a layer's whole K in the tensor core's
+accumulator, the chain promotes every 64-deep stage), so they store the same
+bf16 values except at near ties: :func:`tied_rows` finds those rows.
+Nothing on the main path calls any of them.  Both take the stacks of
 ``fused_nerf.pack_wide_params`` and check their shapes before they look at
 the device, and take rays, depths and steps as ``render_rays`` does (any
 float type and layout, used as contiguous f32); on CUDA tensors each

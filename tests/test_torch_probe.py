@@ -143,9 +143,9 @@ def test_card_probe_sorts_kernels_into_families():
     assert card_probe.family(mlp, "kernel") == "fused MLP"
     assert card_probe.kernel_key(mlp) == "mlp_wgmma_kernel"
     assert card_probe.kernel_key(gemm.format("_mma_kernel", 0)) == "gemm_mma_kernel kEpiBiasRelu"
-    layer = ("void wide::(anonymous namespace)::layer_wgmma_kernel<{}, 4>(CUtensorMap_st, "
+    layer = ("void wide::(anonymous namespace)::layer_wgmma_kernel<{}, 4, false>("
              "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
-             "int, int, int)")
+             "float*, float*, int, int, int, int)")
     for epi, fam, key in ((0, "forward", "kEpiBiasRelu"), (1, "d_h", "kEpiMask")):
         assert card_probe.family(layer.format(epi), "kernel") == fam
         assert card_probe.kernel_key(layer.format(epi)) == f"layer_wgmma_kernel {key}"

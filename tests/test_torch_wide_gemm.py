@@ -8,8 +8,10 @@ held to the JAX package's own layer products on the same bf16 operands:
 ``_mlp_forward`` (``lomanerf_tpu/ops/fused_nerf.py:79``, two layers at
 ``cdt=bfloat16``; its ``acts[1]`` is the forward layer) and the masked
 ``_dot_t`` of ``_bwd_from_dcol`` (``:218``), and to a numpy restatement of
-the kernel's order: each 32-deep k-step summed in f64 and rounded to f32,
-the k-steps added in ascending order in f32, then the epilogue.
+the kernel's order: each 64-deep stage summed in f64 and rounded to f32,
+the stages added in ascending order in f32, then the epilogue.  The
+restatement rounds each stage's sum to nearest where the card's tensor
+core, inside a stage, truncates; the one-step tolerance below covers that.
 
 Tolerances.  The products of two bf16 values are exact in f32; only the
 order of the f32 sums differs, so a bf16 output may round to the
@@ -31,7 +33,7 @@ import torch
 from lomanerf_tpu.ops import fused_nerf as j_fused
 from lomanerf_tpu_torch.ops import build, wide_gemm
 
-K_STEP = 32  # the kernel's promotion depth
+K_STEP = 64  # the kernel's promotion depth: a stage
 FLIP_ATOL = 1e-5  # of the largest entry: a ReLU or mask decision at f32 rounding of 0
 DH_ATOL = 1e-5  # of the largest |d_h|: f32 sums of exact products in another order
 # (rows, K, pw): ragged rows, layer 0's 40 columns, hidden layers at pw 128-384
@@ -71,8 +73,8 @@ def assert_bf16_close(got, want, what):
 
 
 def kernel_order(a, B, K):
-    """a[:, :K] B[:K] in the kernel's order: each 32-deep k-step's exact
-    products summed in f64, rounded to f32, the k-steps added in ascending
+    """a[:, :K] B[:K] in the kernel's order: each 64-deep stage's exact
+    products summed in f64, rounded to f32, the stages added in ascending
     order in f32 (the first onto 0)."""
     a, B = np.asarray(a.float(), np.float64), np.asarray(B.float(), np.float64)
     acc = np.zeros((a.shape[0], B.shape[1]), np.float32)
@@ -182,3 +184,32 @@ def test_cpu_calls_launch_nothing_and_the_entry_points_are_bound():
     assert wide_gemm.launches == before
     assert set(wide_gemm.launches) == {"wide_layer_gemm", "wide_dh_gemm"}
     assert len(build.SIGNATURES["wide_layer_gemm"]) == 12
+
+
+def test_gemm_variants_edit_the_current_source():
+    """Every variant of ``scripts/gemm_variants`` applies to the layer GEMM's
+    source as it stands (each edit matches as often as it names), the first
+    is the source unchanged, and each changes what it names; the script
+    refuses to run without a card."""
+    from lomanerf_tpu_torch.scripts import gemm_variants
+
+    sources = {name: gemm_variants.patched(edits)
+               for name, (edits, _) in gemm_variants.VARIANTS.items()}
+    assert sources.pop("as is") == gemm_variants.HEADER.read_text()
+    assert len(set(sources.values())) == len(sources)
+    assert all(src != gemm_variants.HEADER.read_text() for src in sources.values())
+    with pytest.raises(SystemExit):
+        gemm_variants.patched([("no such line", "", 1)])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            gemm_variants.main([])
+
+
+def test_smoke_seeds_refuses_without_a_card():
+    """``scripts/smoke_seeds`` (chip_smoke phase 24's first check at other
+    seeds) parses its seeds and refuses to run without a card."""
+    from lomanerf_tpu_torch.scripts import smoke_seeds
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            smoke_seeds.main(["--seeds", "31,32"])
