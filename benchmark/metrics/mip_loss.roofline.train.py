@@ -1,0 +1,10 @@
+"""``mip_loss_kernel``'s share of its roofline in a train step: the three
+losses' and their cotangents' bound (its operations and bytes as the kind's
+``work`` counts them under ``kernels``) over the device time of the kernels
+of that name in the step, in %."""
+
+from benchmark import kernel_roofline
+
+
+def read(run):
+    return kernel_roofline.share(run, "mip_loss_kernel")

@@ -199,7 +199,17 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
     drawn from the coarse weights; times each entry's fine-pass call at
     4096 rays against the plain version's; ``NeRFModel.loss`` and
     ``render_image`` on its two entries only, then 30 Adam steps at 4096
-    rays, the last 10 timed; its outputs' digests against ``PAPER_DIGESTS``.
+    rays, the last 10 timed; its outputs' digests against ``PAPER_DIGESTS``;
+27. holds mip-NeRF 360 (``NeRFConfig.mipnerf360()``, ``mip360.cu``: the
+    proposal network, the interval resampler, the contracted integrated
+    encoding, the NeRF MLP at 8 x 1024 and the three losses) against its
+    plain version at the benchmark cell's 16,384 rays and on 1037 rays:
+    each of the seven entries' outputs, the whole step's loss terms,
+    intervals and every gradient (repeats bit-identical) and the render;
+    times each entry at 16,384 rays against its plain piece; the model's
+    loss and ``render_image`` on the seven entries only, then 20 Adam steps
+    at 16,384 rays (lr 2e-5), the last 10 timed; its outputs' digests
+    against ``MIP360_DIGESTS``.
 
 Phases 2-3 (serving), 5 and 8 (training, the render backwards' steps), 11
 (the image fit), 14 (the stratified runs), 15 (the wide route), 18 (the
@@ -207,14 +217,17 @@ scans' own timed runs at the 262,144 x 30 column: no train step or frame
 launches ``seg_scans``), 19 (the sweep), 20 (each rank's data-parallel
 steps and sharded frame), 21 (the three pipeline runs), 23 (``entry()``'s
 loss and each dry-run rank's steps), 24 (the 8x1024 driver), 25 (the
-4x256 fit) and 26 (the model's loss, ``render_image`` and the 30 steps)
-are the main paths: each kernel's launch count is reset before its path
-and read after it.
+4x256 fit), 26 (the model's loss, ``render_image`` and the 30 steps) and
+27 (the model's loss, ``render_image`` and the 20 steps) are the main
+paths: each kernel's launch count is reset before its path and read after
+it.
 The last lines are the card's name and power limit, a JSON line of the
-twenty kernels (the sixteen TPU kernels' counterparts, the wide field
-route's two and the published NeRF's two entries, which replace no TPU
-kernel, with the fine pass's times at 4096 rays and, for the train
-entry, the step's beside them; with each one's least time on the card
+twenty-seven kernels (the sixteen TPU kernels' counterparts, the wide
+field route's two, the published NeRF's two entries and mip-NeRF 360's
+seven, which replace no TPU kernel, the published NeRF's with the fine
+pass's times at 4096 rays and, for the train entry, the step's beside
+them, mip-NeRF 360's at 16,384 rays and, for the NeRF backward, the
+step's beside them; with each one's least time on the card
 for its work, ``bound_ms``; #1's ``ms`` is the kernel's own call, with the frames' times
 and its share of the bound beside it, #4's with its share; #14's with
 phase 10's whole-image leaves and flips per route; #3's also with phase
@@ -236,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -344,6 +358,10 @@ KERNELS.update({  # the published NeRF's two entries: the JAX package has no suc
     "nerf_paper_train": (_CSRC + "nerf_paper.cu", None),
     "nerf_paper_render": (_CSRC + "nerf_paper.cu", None),
 })
+KERNELS.update({  # mip-NeRF 360's seven entries: no such model either
+    name: (_CSRC + "mip360.cu", None)
+    for name in ("mip_encode", "mip_resample", "mip_prop_forward", "mip_prop_backward",
+                 "mip_nerf_forward", "mip_nerf_backward", "mip_losses")})
 SINGLE64_RAYS = 65536  # the bench's single64 rung (bench.py:334)
 STRAT_STEPS, STRAT_FULL_STEPS = 500, 30
 
@@ -4465,6 +4483,317 @@ def phase_paper(fused_nerf, NeRFConfig, NeRFModel, rays, make_single_chip_train_
     return worst, timing, bounds, launches, extra
 
 
+# SHA-256 of mip-NeRF 360's entries' outputs (mip360_digests), recorded from
+# a card run of mip360.cu
+MIP360_DIGESTS = {
+    "step terms and intervals": "9c7dc96d038055d998fe1cad4398498aa63b173450637db673dee2367a20d83f",
+    "step proposal gradients": "750e25f0139fcc1b0e8c7ce908c8a2bf7e7d6d2718f9ee45f9b10be2bc6a72af",
+    "step nerf gradients": "fcf38e5220eda7d2323cc3a14b8746ed0290888a17f5496eeae5c2ead22a314e",
+    "render colours": "c889187b2f44e02ac6f401a4eb298ef506472b24e5e58d5f48798f2e961e8da5",
+}
+MIP360_RAYS, MIP360_STEP_RAYS = 1037, 16384
+# each gradient of the whole step within this share of its leaf's norm, as
+# tests/test_torch_mip360.py holds it: the kernels round each d_z to bf16
+# where the plain version keeps f32
+MIP360_GRAD = 0.15
+
+
+def mip360_inputs(NeRFConfig, NeRFModel, n, seed):
+    """``(cfg, model, origins, directions, targets)`` of
+    ``NeRFConfig.mipnerf360()`` on the card: the model's init, cameras inside
+    the unit ball looking about the origin and uniform targets, all from one
+    CUDA generator seeded ``seed``."""
+    cfg = NeRFConfig.mipnerf360()
+    model = NeRFModel(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.init(gen)
+    o = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device="cuda"),
+                                      dim=-1) * 0.8
+    d = -o / 0.8 + 0.3 * torch.randn((n, 3), generator=gen, device="cuda")
+    return cfg, model, o, d, torch.rand((n, 3), generator=gen, device="cuda")
+
+
+class Mip360Pieces:
+    """Every entry's inputs and outputs of one step at fixed jitter, and
+    callables that run each entry (``run``) and its plain piece
+    (``plain``) alone on them."""
+
+    def __init__(self, mip360, plain, cfg, model, o, d, tgt, seed):
+        self.cfg, self.o, self.d, self.tgt = cfg, o, d, tgt
+        self.rnd = mip360._rnd(cfg)
+        self.prop, self.nerf = plain.split_nets(model.params, cfg)
+        n = o.shape[0]
+        self.xi = mip360.draw_jitter(cfg, n, torch.Generator("cuda").manual_seed(seed))
+        Wp, bp = mip360.pack_params(self.prop, "prop")
+        Wn, bn = mip360.pack_params(self.nerf, "nerf")
+        s1 = mip360.resample(None, None, 64, self.xi[0], o)
+        w1, acts1 = mip360._prop_round(Wp, bp, s1, o, d, cfg)
+        s2 = mip360.resample(s1, w1, 64, self.xi[1], o)
+        w2, acts2 = mip360._prop_round(Wp, bp, s2, o, d, cfg)
+        s3 = mip360.resample(s2, w2, 32, self.xi[2], o)
+        col, w3, acts_n = mip360._nerf_forward(Wn, bn, s3, o, d, cfg, True)
+        rounds = [(s1, w1), (s2, w2)]
+        terms, dcol, dw3, dws = mip360.losses(col, tgt, s3, w3, rounds)
+        sc = mip360._scratch(n, n * 32, n * 64, o.device)
+        self.out = dict(s1=s1, w1=w1, s2=s2, w2=w2, s3=s3, col=col, w3=w3, terms=terms,
+                        dcol=dcol, dw3=dw3, dws=dws)
+        feats = torch.empty(mip360.PROP_SLOTS * n * 64 * mip360.PROP_LD, dtype=torch.bfloat16,
+                            device="cuda")
+        self.feats = feats
+        self.run = {
+            "mip_encode": lambda: mip360.encode(s2, o, d, cfg, feats, mip360.PROP_LD, 0),
+            "mip_resample": lambda: mip360.resample(s1, w1, 64, self.xi[1], o),
+            "mip_prop_forward": lambda: mip360._prop_round(Wp, bp, s2, o, d, cfg),
+            "mip_prop_backward": lambda: mip360._prop_backward(
+                Wp, bp, s2, d, acts2, dws[1], sc, *mip360._zeros(mip360.PROP, o.device), cfg),
+            "mip_nerf_forward": lambda: mip360._nerf_forward(Wn, bn, s3, o, d, cfg, True),
+            "mip_nerf_backward": lambda: mip360._nerf_backward(
+                Wn, bn, s3, d, acts_n, dcol, dw3, sc, *mip360._zeros(mip360.NERF, o.device), cfg),
+            "mip_losses": lambda: mip360.losses(col, tgt, s3, w3, rounds)}
+
+        def plain_backward(net, fn):
+            leaves = [*net["w"], *net["b"]]
+            return lambda: torch.autograd.grad(fn(), leaves)
+
+        self.plain = {
+            "mip_encode": lambda: plain.encode_intervals(o, d, s2, cfg),
+            "mip_resample": lambda: plain.resample(s1, w1, 64, self.xi[1]),
+            "mip_prop_forward": lambda: plain.prop_round(self.prop, o, d, s2, cfg, self.rnd),
+            "mip_prop_backward": plain_backward(self.prop, lambda: torch.sum(
+                plain.prop_round(self.prop, o, d, s2, cfg, self.rnd) * dws[1])),
+            "mip_nerf_forward": lambda: plain.nerf_pass(self.nerf, o, d, s3, cfg, self.rnd),
+            "mip_nerf_backward": plain_backward(self.nerf, lambda: sum(
+                torch.sum(x * g) for x, g in zip(
+                    plain.nerf_pass(self.nerf, o, d, s3, cfg, self.rnd), (dcol, dw3)))),
+            "mip_losses": lambda: torch.autograd.grad(
+                self.plain_terms(plain, col, w3, w1, w2, rounds)[0].sum(),
+                self.loss_leaves)}
+
+    def plain_terms(self, plain, col, w3, w1, w2, rounds):
+        """The four terms of the plain losses on leaf copies of the colours
+        and the three passes' weights (in ``loss_leaves``)."""
+        n = col.shape[0]
+        self.loss_leaves = [x.detach().clone().requires_grad_(True) for x in (col, w3, w1, w2)]
+        c, w, a, b = self.loss_leaves
+        s3 = self.out["s3"]
+        return (torch.stack([plain.charbonnier(c, self.tgt).sum() / (3 * n),
+                             0.01 * plain.distortion(s3, w).sum() / n,
+                             plain.interlevel(s3, w3, rounds[0][0], a).sum() / n,
+                             plain.interlevel(s3, w3, rounds[1][0], b).sum() / n]),)
+
+
+def mip360_check(mip360, plain, cfg, model, o, d, tgt, seed):
+    """Each entry's outputs at one step's inputs against the plain pieces
+    (the resampler 1e-3: a CDF step of little mass turns the f32 cumulative
+    sums' order into a larger move of s; the encode two bf16 steps; the
+    weights 1e-2; the losses' terms rtol 1e-4 and their cotangents 1e-4 of each one's largest
+    entry), then the whole step (loss terms rtol 1e-2; the NeRF's intervals
+    2e-4 apart on average and less than a round-1 bin at worst: each
+    endpoint moves with the weights' rounding, the reflected first one
+    twice; every gradient within ``MIP360_GRAD`` of its leaf's norm; repeats
+    bit-identical) and the render (colours 2e-2).  Returns the worst
+    |kernel - plain| per entry (the backward entries': the worst leaf's
+    share of its norm)."""
+    n = o.shape[0]
+    pc = Mip360Pieces(mip360, plain, cfg, model, o, d, tgt, seed)
+    out, worst = pc.out, {}
+    with torch.no_grad():
+        want_s1 = plain.resample(*plain.one_bin(n, o), 64, pc.xi[0])
+        want_s2 = plain.resample(out["s1"], out["w1"], 64, pc.xi[1])
+        worst["mip_resample"] = max(float((out["s1"] - want_s1).abs().max()),
+                                    float((out["s2"] - want_s2).abs().max()))
+        pc.run["mip_encode"]()
+        got = pc.feats[:n * 64 * mip360.PROP_LD].view(n * 64, mip360.PROP_LD)[:, :96].float()
+        worst["mip_encode"] = float((got - pc.rnd(pc.plain["mip_encode"]())).abs().max())
+        worst["mip_prop_forward"] = float((out["w2"] - pc.plain["mip_prop_forward"]()).abs().max())
+        col, w3 = pc.plain["mip_nerf_forward"]()
+        worst["mip_nerf_forward"] = max(float((out["col"] - col).abs().max()),
+                                        float((out["w3"] - w3).abs().max()))
+    terms = pc.plain_terms(plain, out["col"], out["w3"], out["w1"], out["w2"],
+                           [(out["s1"], out["w1"]), (out["s2"], out["w2"])])[0]
+    grads = torch.autograd.grad(terms[0] + terms[1], pc.loss_leaves[:2]) + \
+        torch.autograd.grad(terms[2] + terms[3], pc.loss_leaves[2:])
+    torch.testing.assert_close(out["terms"], terms.detach(), rtol=1e-4, atol=1e-9)
+    worst["mip_losses"] = float((out["terms"] - terms.detach()).abs().max())
+    for got, want in zip((out["dcol"], out["dw3"], *out["dws"]), grads):
+        err = float((got - want).abs().max())
+        if err > 1e-4 * float(want.abs().max()) + 1e-9:
+            raise AssertionError(f"mip_losses at {n} rays: a cotangent {err:.3e} off")
+    for k, limit in (("mip_resample", 1e-3), ("mip_encode", 1.6e-2), ("mip_prop_forward", 1e-2),
+                     ("mip_nerf_forward", 1e-2)):
+        if worst[k] > limit:
+            raise AssertionError(f"{k} at {n} rays: {worst[k]:.3e} off the plain version "
+                                 f"(limit {limit})")
+    leaves = [*model.w, *model.b]
+    outs = []
+    for _ in range(2):
+        loss, aux = mip360.train_loss(model.params, o, d, tgt, cfg,
+                                      torch.Generator("cuda").manual_seed(seed))
+        outs.append((loss.detach(), aux["terms"], aux["sdist"],
+                     *torch.autograd.grad(loss, leaves)))
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"mip-NeRF 360 step at {n} rays: repeats differ")
+    want, terms, s3 = plain.train_loss(model.params, o, d, tgt, cfg, pc.xi, pc.rnd)
+    want_grads = torch.autograd.grad(want, leaves)
+    terms_off = float(((outs[0][1] - terms.detach()).abs() / terms.detach().abs()).max())
+    s_off = (outs[0][2] - s3).abs()
+    errors = [float((g - r).norm()) / max(float(r.norm()), 1e-12)
+              for g, r in zip(outs[0][3:], want_grads)]
+    print(f"phase 27 step at {n} rays: terms {terms_off:.3e} apart, intervals mean "
+          f"{float(s_off.mean()):.3e} max {float(s_off.max()):.3e}, gradients {max(errors):.3e} "
+          f"of their norms at worst")
+    if terms_off > 1e-2 or float(s_off.mean()) > 2e-4 or float(s_off.max()) > 1 / 64 or \
+            max(errors) > MIP360_GRAD:
+        raise AssertionError(f"mip-NeRF 360 step at {n} rays off the plain version: terms "
+                             f"{terms_off}, intervals {float(s_off.mean())} / "
+                             f"{float(s_off.max())}, gradients {errors}")
+    k = cfg.proposal_layers + 1
+    n_w = len(model.w)
+    prop_err = errors[:k] + errors[n_w:n_w + k]
+    worst["mip_prop_backward"] = max(prop_err)
+    worst["mip_nerf_backward"] = max(errors[k:n_w] + errors[n_w + k:])
+    with torch.no_grad():
+        got = mip360.render_rays(model.params, o, d, cfg)
+        col = plain.render(model.params, o, d, cfg, pc.rnd)
+    worst["mip_nerf_forward"] = max(worst["mip_nerf_forward"], float((got - col).abs().max()))
+    if worst["mip_nerf_forward"] > 2e-2:
+        raise AssertionError(f"mip-NeRF 360 render at {n} rays: {worst['mip_nerf_forward']}")
+    print(f"phase 27 at {n} rays: worst {worst}")
+    del pc
+    torch.cuda.empty_cache()
+    return worst
+
+
+def mip360_digests(mip360, NeRFConfig, NeRFModel, seed=59):
+    """SHA-256 of the step's loss terms, intervals and gradients (one
+    digest a network) and of the render's colours on 1037 rays at fixed
+    seeded inputs and jitter."""
+    import hashlib
+
+    cfg, model, o, d, tgt = mip360_inputs(NeRFConfig, NeRFModel, MIP360_RAYS, seed)
+    loss, aux = mip360.train_loss(model.params, o, d, tgt, cfg,
+                                  torch.Generator("cuda").manual_seed(seed))
+    grads = torch.autograd.grad(loss, [*model.w, *model.b])
+    with torch.no_grad():
+        col = mip360.render_rays(model.params, o, d, cfg)
+    k, n_w = cfg.proposal_layers + 1, len(model.w)
+    parts = {"step terms and intervals": (aux["terms"], aux["sdist"]),
+             "step proposal gradients": grads[:k] + grads[n_w:n_w + k],
+             "step nerf gradients": grads[k:n_w] + grads[n_w + k:],
+             "render colours": (col,)}
+    digests = {}
+    for name, xs in parts.items():
+        h = hashlib.sha256()
+        for x in xs:
+            h.update(x.detach().cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+    return digests
+
+
+def mip360_bounds(cfg, n):
+    """Each entry's least time at ``n`` rays, ``bound(macs, peak, bytes)``,
+    each input read once and each output written once: the encode and the
+    resampler by their bytes (a round of 64 intervals: the endpoints read,
+    the IPE written; the histogram read, the new endpoints written); a
+    proposal round's forward and backward and the NeRF's (32 intervals) by
+    their products (forward: every leaf's MACs; backward: dW and d_h of
+    every leaf but the first) against their activations' bytes; the losses
+    by theirs."""
+    sizes = cfg.leaf_sizes()
+    k = cfg.proposal_layers + 1
+    nets = {"prop": (sizes[:k], n * 64), "nerf": (sizes[k:], n * 32)}
+    out = {"mip_encode": bound(0, PEAK_BF16, n * 64 * (8 + 192) + n * 24),
+           "mip_resample": bound(0, PEAK_BF16, n * (4 * 65 + 4 * 64 + 4 + 4 * 65)),
+           "mip_losses": bound(0, PEAK_BF16, n * (24 + 4 * 65 + 8 * 129 + 16 + 12 + 4 * 32
+                                                  + 8 * 64))}
+    for name, (net, rows) in nets.items():
+        fwd = sum(fi * fo for fi, fo in net)
+        bwd = fwd + sum(fi * fo for fi, fo in net[1:])
+        width = max(fo for _, fo in net)
+        acts = rows * 2 * width * len(net)  # each layer's bf16 output once
+        out[f"mip_{name}_forward"] = bound(rows * fwd, PEAK_BF16, acts)
+        out[f"mip_{name}_backward"] = bound(rows * bwd, PEAK_BF16, 2 * acts)
+    return out
+
+
+def phase_mip360(mip360, plain, NeRFConfig, NeRFModel, rays, make_single_chip_train_step, smi,
+                 seed=57):
+    """Phase 27, mip-NeRF 360 (``mip360.cu``): :func:`mip360_check` at the
+    benchmark cell's 16,384 rays and on 1037 rays; each entry timed at
+    16,384 rays, in turns, and its plain piece, in turns; on the main path
+    (launches counted) the model's loss and ``render_image`` through the
+    seven entries only, then 20 Adam steps at 16,384 rays through
+    ``make_single_chip_train_step``, the last 10 timed; the digests against
+    ``MIP360_DIGESTS``.  Returns ``(worst, timing, bounds, launches,
+    extra)`` of the seven entries."""
+    gc.collect()  # what earlier phases left
+    torch.cuda.empty_cache()
+    worst = {}
+    for n, s in ((MIP360_STEP_RAYS, seed), (MIP360_RAYS, seed + 2)):
+        cfg, model, o, d, tgt = mip360_inputs(NeRFConfig, NeRFModel, n, s)
+        for k, e in mip360_check(mip360, plain, cfg, model, o, d, tgt, s).items():
+            worst[k] = max(worst.get(k, 0.0), e)
+        del model
+    cfg, model, o, d, tgt = mip360_inputs(NeRFConfig, NeRFModel, MIP360_STEP_RAYS, seed)
+    pc = Mip360Pieces(mip360, plain, cfg, model, o, d, tgt, seed)
+    # the entries in turns, then (their activations freed: the plain NeRF
+    # backward at 16,384 rays holds ~40 GB) the plain pieces in turns
+    med = {}
+    for prefix in ("", "plain "):
+        fns = pc.plain if prefix else pc.run
+        for fn in fns.values():  # warm-up
+            fn()
+        med.update({prefix + k: statistics.median(v) for k, v in timed_turns(fns, 2).items()})
+        del fns
+        pc.run = pc.feats = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    del pc
+    bounds = mip360_bounds(cfg, MIP360_STEP_RAYS)
+    timing = {k: (med[k], med["plain " + k]) for k in bounds}
+    for k, (ms, plain_ms) in timing.items():
+        print(f"phase 27 {k} at {MIP360_STEP_RAYS} rays ({smi}): {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bounds[k][0]:.3f} ms ({bounds[k][1]}), "
+              f"{bounds[k][0] / ms:.1%} of it")
+
+    reset_launches(mip360.fused_nerf)
+    model.loss(o, d, None, None, tgt, generator=torch.Generator("cuda").manual_seed(seed)
+               ).backward()
+    img = model.render_image(rays.normalized_intrinsics(1.1, "cuda"), torch.eye(4, device="cuda"),
+                             64)
+    if not torch.isfinite(img).all():
+        raise AssertionError("phase 27: render_image gave non-finite colours")
+    model.zero_grad(set_to_none=True)
+    # multinerf's first lr, 2e-3 x lr_delay_mult 0.01: at a constant 2e-3 (the
+    # cell's, without the schedule's warm-up) the seeded network's densities
+    # collapse to zero within two steps and the loss stays flat
+    opt = torch.optim.Adam(model.parameters(), lr=2e-5, eps=1e-6)
+    step = make_single_chip_train_step(cfg, opt, generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    losses = [float(step(model, o, d, None, None, tgt)) for _ in range(10)]
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"phase 27: 10 steps of one batch gave losses {losses}")
+    ms = sorted(cuda_ms(lambda: step(model, o, d, None, None, tgt))[0] for _ in range(10))
+    got = {k: v for k, v in mip360.fused_nerf.launches.items() if v}
+    want = {"mip_resample": 3 * 21 + 3, "mip_encode": 3 * 21 + 3,
+            "mip_prop_forward": 2 * 21 + 2, "mip_prop_backward": 2 * 21,
+            "mip_nerf_forward": 21 + 1, "mip_nerf_backward": 21, "mip_losses": 21}
+    if got != want:
+        raise AssertionError(f"phase 27: main-path launches {got}, expected {want}")
+    launches = dict(got)
+    print(f"phase 27 step at {MIP360_STEP_RAYS} rays ({smi}): median {ms[5]:.3f} ms "
+          f"(min {ms[0]:.3f}), losses {losses[0]:.4f} -> {losses[-1]:.4f}; main-path "
+          f"launches {launches}")
+    got = mip360_digests(mip360, NeRFConfig, NeRFModel)
+    for k, h in got.items():
+        print(f"phase 27 digest {k}: {h}")
+    if MIP360_DIGESTS and got != MIP360_DIGESTS:
+        raise AssertionError("mip-NeRF 360's output digests differ from the recorded ones")
+    extra = {k: {"rays": MIP360_STEP_RAYS} for k in bounds}
+    extra["mip_nerf_backward"].update(step_ms=ms[5])
+    return worst, timing, bounds, launches, extra
+
+
 def reset_launches(fused_nerf):
     for name in fused_nerf.launches:
         fused_nerf.launches[name] = 0
@@ -4770,6 +5099,15 @@ def main() -> None:
     # ---- phase 26: the published NeRF (nerf_paper.cu; no TPU counterpart) ----
     for into, got in zip((worst, timing, bounds, launches, extra), phase_paper(
             fused_nerf, NeRFConfig, NeRFModel, rays, make_single_chip_train_step, smi)):
+        into.update(got)
+
+    # ---- phase 27: mip-NeRF 360 (mip360.cu; no TPU counterpart) ----
+    from lomanerf_tpu_torch.core import mip360 as mip360_plain
+    from lomanerf_tpu_torch.ops import mip360
+
+    for into, got in zip((worst, timing, bounds, launches, extra), phase_mip360(
+            mip360, mip360_plain, NeRFConfig, NeRFModel, rays, make_single_chip_train_step,
+            smi)):
         into.update(got)
 
     for name in ("nerf_render_fwd", "nerf_render_fwd_rays"):  # the redesigned render's share

@@ -120,6 +120,18 @@ def init_paper_net(generator: torch.Generator, sizes: Sequence[tuple],
     return {"w": [w.to(device) for w in ws], "b": [b.to(device) for b in bs]}
 
 
+def init_he(generator: torch.Generator, sizes: Sequence[tuple],
+            dtype: torch.dtype = torch.float32, device: torch.device | str = "cpu") -> Params:
+    """He-normal weights (std ``sqrt(2 / fan_in)``) and zero biases for
+    every ``(fan_in, fan_out)`` of ``sizes``, drawn leaf by leaf from
+    ``generator`` on its device, then moved to ``device`` (mip-NeRF 360's
+    He init, normal where multinerf draws it uniform)."""
+    ws = [torch.randn((fi, fo), generator=generator, dtype=dtype, device=generator.device)
+          * math.sqrt(2.0 / fi) for fi, fo in sizes]
+    return {"w": [w.to(device) for w in ws],
+            "b": [torch.zeros((fo,), dtype=dtype, device=device) for _, fo in sizes]}
+
+
 def paper_mlp_apply(net: Params, enc_x: torch.Tensor, enc_d: torch.Tensor,
                     skip_layer: int, rnd=None) -> tuple:
     """One network of the published NeRF on ``(rows, in_x)`` encoded points

@@ -8,25 +8,35 @@ as published (Mildenhall et al., ECCV 2020): two networks (coarse and fine)
 of 8 ReLU layers of 256 with the skip into the sixth, a density head, a
 view-direction branch (feature 256, view layer 128, rgb head), L = 10 for
 positions and 4 for directions, 64 stratified coarse samples and 128 fine
-ones drawn from the coarse weights, bf16 compute.
+ones drawn from the coarse weights, bf16 compute; ``mipnerf360()`` —
+mip-NeRF 360 as published (Barron et al., CVPR 2022): a proposal MLP of
+4 x 256 run on two rounds of 64 intervals, the NeRF MLP of 8 x 1024 (skip
+into the sixth layer, bottleneck 256, view layer 128) on 32 intervals drawn
+from the proposal's weights, the integrated encoding of contracted
+frustums, bf16 compute.
 
 ``NeRFModel`` is an ``nn.Module`` that owns its MLP parameters; the device
 of those parameters decides the path: CUDA renders (and differentiates the
 render) through the hand-written kernels (``ops.fused_nerf``: the narrow
 ones for ``small``/``single64``, the wide ones for ``full``, the wide
-chain's sequence for ``paper``, ``csrc/nerf_paper.cu``), CPU through the
-plain PyTorch version.
+chain's sequence for ``paper``, ``csrc/nerf_paper.cu``, and for
+``mipnerf360``, ``csrc/mip360.cu``), CPU through the plain PyTorch version.
 
 ``paper()`` runs coarse, then the sampler, then fine (:func:`paper_loss`,
 :func:`paper_render_rays`).  Spans (``utils.profiling.span``, recorded
 only under a profiler): ``lomanerf.nerf.pass.coarse`` and
 ``lomanerf.nerf.pass.fine`` around each pass's call, and
 ``lomanerf.nerf.sample_pdf`` around the fine depths' draw.
+``mipnerf360()`` runs its rounds, its resampling, the NeRF pass and its
+losses under ``lomanerf.nerf.pass.proposal``, ``lomanerf.nerf.sample_pdf``,
+``lomanerf.nerf.pass.nerf`` and ``lomanerf.nerf.mip360_loss``
+(``ops.mip360``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,7 +44,7 @@ import torch
 from torch import nn
 
 from lomanerf_tpu_torch.core import encoding, mlp, rays
-from lomanerf_tpu_torch.ops import fused_nerf
+from lomanerf_tpu_torch.ops import fused_nerf, mip360
 from lomanerf_tpu_torch.utils.profiling import span, spanned
 
 
@@ -62,16 +72,40 @@ class NeRFConfig:
     dir_encoding_functions: int = 0
     view_width: int = 0
     num_fine_samples: int = 0
+    # mip-NeRF 360 (mipnerf360()); all 0 elsewhere.  proposal_layers and
+    # proposal_width: the proposal MLP's ReLU layers (> 0: mip-NeRF 360);
+    # proposal_samples: the intervals of each proposal round; then
+    # num_samples counts the NeRF MLP's intervals, num_encoding_functions is
+    # the IPE's degree (6 L inputs), bottleneck_width the linear layer the
+    # view layer reads, pixel_radius a ray's cone radius at unit distance
+    # (2 / sqrt(12) of the pixel pitch), near and far bound s-space
+    proposal_layers: int = 0
+    proposal_width: int = 0
+    proposal_samples: tuple = ()
+    bottleneck_width: int = 0
+    pixel_radius: float = 0.0
+
+    def __post_init__(self):
+        # a configuration file gives a list
+        object.__setattr__(self, "proposal_samples", tuple(self.proposal_samples))
+
+    @property
+    def mip360(self) -> bool:
+        """Whether this is mip-NeRF 360: the proposal network, then the NeRF
+        MLP on resampled intervals (:meth:`mipnerf360`)."""
+        return self.proposal_layers > 0
 
     @property
     def in_channels(self) -> int:
+        if self.mip360:
+            return 6 * self.num_encoding_functions
         return encoding.encoded_dim(3, self.num_encoding_functions)
 
     @property
     def view_branch(self) -> bool:
         """Whether this is the published NeRF: coarse and fine networks with
         the view branch (:meth:`paper`)."""
-        return self.view_width > 0
+        return self.view_width > 0 and not self.mip360
 
     @property
     def dir_channels(self) -> int:
@@ -80,7 +114,24 @@ class NeRFConfig:
     def leaf_sizes(self):
         """Per-leaf ``(fan_in, fan_out)`` of the model's parameters: the
         chain's layers, or for :meth:`paper` the coarse network's twelve
-        then the fine one's."""
+        then the fine one's, or for :meth:`mipnerf360` the proposal MLP's
+        layers and density head, then the NeRF MLP's trunk (the skip
+        layer's leaf ``[h | IPE]``), density head, bottleneck, view layer
+        and rgb head."""
+        if self.mip360:
+            w, fan_in, prop = self.proposal_width, self.in_channels, []
+            for _ in range(self.proposal_layers):
+                prop.append((fan_in, w))
+                fan_in = w
+            width, sizes, fan_in = self.filter_size, [], self.in_channels
+            for i in range(self.num_layers):
+                sizes.append((width + self.in_channels if i == self.skip_layer else fan_in,
+                              width))
+                fan_in = width
+            b = self.bottleneck_width
+            return prop + [(w, 1)] + sizes + [(width, 1), (width, b),
+                                              (b + self.dir_channels, self.view_width),
+                                              (self.view_width, 3)]
         if self.view_branch:
             net = mlp.paper_layer_sizes(self.in_channels, self.dir_channels,
                                         self.num_layers, self.filter_size,
@@ -91,13 +142,14 @@ class NeRFConfig:
 
     @staticmethod
     def preset(name: str) -> "NeRFConfig":
-        """Ladder preset by name: ``small``, ``single64``, ``full`` or
-        ``paper``."""
+        """Ladder preset by name: ``small``, ``single64``, ``full``,
+        ``paper`` or ``mipnerf360``."""
         return {
             "small": NeRFConfig.small,
             "single64": NeRFConfig.single_view_64,
             "full": NeRFConfig.full,
             "paper": NeRFConfig.paper,
+            "mipnerf360": NeRFConfig.mipnerf360,
         }[name]()
 
     @staticmethod
@@ -132,6 +184,28 @@ class NeRFConfig:
             num_layers=8, filter_size=256, num_encoding_functions=10, num_samples=64,
             mode="standard", compute_dtype="bfloat16", precision="default", init="nerf",
             skip_layer=5, dir_encoding_functions=4, view_width=128, num_fine_samples=128,
+        )
+
+    @staticmethod
+    def mipnerf360() -> "NeRFConfig":
+        """mip-NeRF 360 as published (Barron et al., CVPR 2022): one proposal
+        MLP of 4 ReLU layers of 256 and a density head, run on two rounds of
+        64 intervals; the NeRF MLP, 8 ReLU layers of 1024, the sixth reading
+        [h_5 | IPE] (1120 inputs), a density head, a linear bottleneck of
+        256, the view layer ([bottleneck | gamma(d)], 283 -> 128, ReLU) and
+        the rgb head, on 32 intervals drawn from round 2's weights; the IPE
+        of the contracted frustums at L = 16 (96 inputs), gamma(d) at L = 4;
+        densities softplus(x - 1), colours the padded sigmoid; near 0.2 and
+        far 1000 bound s-space; the full() compute plan (bf16 products, f32
+        parameters).  ``pixel_radius`` is an 800-pixel Blender camera's
+        (camera_angle_x 0.6911): 2 / sqrt(12) / (focal x 799)."""
+        focal = 0.5 / math.tan(0.5 * 0.6911112070083618)
+        return NeRFConfig(
+            num_layers=8, filter_size=1024, out_channels=4, num_encoding_functions=16,
+            num_samples=32, near=0.2, far=1000.0, mode="standard", compute_dtype="bfloat16",
+            precision="default", init="he", skip_layer=5, dir_encoding_functions=4,
+            view_width=128, proposal_layers=4, proposal_width=256, proposal_samples=(64, 64),
+            bottleneck_width=256, pixel_radius=2.0 / math.sqrt(12.0) / (focal * 799),
         )
 
 
@@ -186,6 +260,9 @@ class NeRFModel(nn.Module):
         """Fill the parameters with the config's init drawn from ``generator``
         (for :meth:`NeRFConfig.paper`: the coarse network, then the fine)."""
         c = self.config
+        if c.mip360:
+            self.load_params(mlp.init_he(generator, c.leaf_sizes(), c.dtype, self.device))
+            return self.params
         if c.view_branch:
             sizes = c.leaf_sizes()[:len(self.w) // 2]
             nets = [mlp.init_paper_net(generator, sizes, c.dtype, self.device)
@@ -210,6 +287,8 @@ class NeRFModel(nn.Module):
         """Colours of ``(N, 3)`` rays; for :meth:`NeRFConfig.paper` at the
         coarse depths given, then the fine pass on the depths the sampler
         draws evenly from the coarse weights (no gradient)."""
+        if self.config.mip360:
+            return mip360.render_rays(self.params, origins, directions, self.config)
         if self.config.view_branch:
             return paper_render_rays(self.config, self.params, origins, directions,
                                      t_vals, dists)
@@ -222,6 +301,9 @@ class NeRFModel(nn.Module):
         backward on CUDA runs the render backward kernel.  For
         :meth:`NeRFConfig.paper`: :func:`paper_loss`, the fine depths drawn
         from ``generator`` (evenly spaced without one)."""
+        if self.config.mip360:
+            return mip360_loss(self.config, self.params, origins, directions, target,
+                               generator)
         if self.config.view_branch:
             return paper_loss(self.config, self.params, origins, directions, t_vals,
                               dists, target, generator)
@@ -245,9 +327,10 @@ class NeRFModel(nn.Module):
 
         Under a profiler the call is the span ``lomanerf.nerf.render_image``,
         with one ``lomanerf.fused_nerf.render_rays`` a chunk inside it."""
-        chunk = chunk or fused_nerf.render_chunk_rays(self.config, self.params)
-        if mesh is not None and self.config.view_branch:
-            raise NotImplementedError("the published NeRF renders on one rank")
+        chunk = chunk or (mip360.RENDER_RAYS if self.config.mip360 else
+                          fused_nerf.render_chunk_rays(self.config, self.params))
+        if mesh is not None and (self.config.view_branch or self.config.mip360):
+            raise NotImplementedError("the published NeRF and mip-NeRF 360 render on one rank")
         if mesh is not None:
             from lomanerf_tpu_torch.parallel import render_step
 
@@ -258,7 +341,11 @@ class NeRFModel(nn.Module):
         K = torch.as_tensor(K, dtype=torch.float32).to(dev)
         c2w = torch.as_tensor(c2w, dtype=torch.float32).to(dev)
         o, d = rays.get_rays(img_size, img_size, K, c2w)
-        cols = [render_chunk(self.config, self.params, oc, dc)
+        config = self.config
+        if config.mip360:  # the cone radius of this frame's pixels
+            config = dataclasses.replace(config, pixel_radius=2.0 / math.sqrt(12.0) / (
+                float(K[0, 0]) * (img_size - 1)))
+        cols = [render_chunk(config, self.params, oc, dc)
                 for oc, dc in zip(o.split(chunk), d.split(chunk))]
         return torch.cat(cols).reshape(img_size, img_size, 3)
 
@@ -269,6 +356,8 @@ class NeRFModel(nn.Module):
 def render_chunk(config: NeRFConfig, params: mlp.Params, o, d) -> torch.Tensor:
     """Render one ``(chunk, 3)`` ray block at the config's uniform depths
     (for :meth:`NeRFConfig.paper` the coarse ones, then the fine pass)."""
+    if config.mip360:
+        return mip360.render_rays(params, o, d, config)
     tv, dists = rays.uniform_depths(config.near, config.far, config.num_samples,
                                     o.device)
     if config.view_branch:
@@ -297,6 +386,18 @@ def paper_loss(config: NeRFConfig, params: mlp.Params, origins, directions, t_va
         loss_f, _ = fused_nerf.paper_train_loss(fine, origins, directions, t_fine, d_fine,
                                                 target, config)
     return loss_c + loss_f
+
+
+def mip360_loss(config: NeRFConfig, params: mlp.Params, origins, directions, target,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """mip-NeRF 360's train loss: the two proposal rounds, the NeRF MLP on
+    the intervals drawn from round 2's weights, then the mean Charbonnier
+    plus 0.01 times the mean distortion plus each round's mean interlevel
+    term; the resampler's jitter from ``generator`` (the deterministic
+    centres without one).  ``ops.mip360.train_loss``: the kernels on the
+    card, which give the loss and its gradients together; the plain version
+    on the CPU."""
+    return mip360.train_loss(params, origins, directions, target, config, generator)[0]
 
 
 def paper_render_rays(config: NeRFConfig, params: mlp.Params, origins, directions,

@@ -24,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the narrow gradient kernels (nerf_grad.cuh): (pk, pk_floats, G, origins,
 # directions, target or dcol, partials, out, n_rays, S, L, in_dim,
 # num_functions, width, loma, stream)
@@ -79,6 +79,26 @@ SIGNATURES = {
     #  chunk_rays, S, stream); weights may be null
     "nerf_paper_render": [_P] * 9 + [_I] * 2 + [_P],
     "nerf_paper_train": [_P] * 14 + [_LL] + [_P] * 4 + [_I] * 3 + [_P],
+    # mip-NeRF 360 (mip360.cu): (origins, directions, sdist, radius, near,
+    #  far, X, ldx, colx, V, ldv, colv, n_rays, S, flags, stream); V may be null
+    "mip_encode": [_P, _P, _P, _F, _F, _F, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
+    # (s_in, w_in, n_in, xi, u0, du, jit, s_out, n_out, n_rays, stream);
+    #  s_in, w_in and xi may be null
+    "mip_resample": [_P, _P, _I, _P, _F, _F, _F, _P, _I, _I, _P],
+    # (W, b, sdist, directions, acts, weights, n_rays, S, near, far, stream)
+    "mip_prop_forward": [_P] * 6 + [_I, _I, _F, _F, _P],
+    # (W, b, sdist, directions, acts, dw, dz, dz_head, db_part, tile_part,
+    #  partials, dW, db, n_rays, S, near, far, stream)
+    "mip_prop_backward": [_P] * 13 + [_I, _I, _F, _F, _P],
+    # (W, b, sdist, directions, acts, out, weights, n_rays, S, near, far,
+    #  stream); weights may be null
+    "mip_nerf_forward": [_P] * 7 + [_I, _I, _F, _F, _P],
+    # (W, b, sdist, directions, acts, dcol, dw, dz, dz_head, db_part,
+    #  tile_part, partials, dW, db, n_rays, S, near, far, stream)
+    "mip_nerf_backward": [_P] * 14 + [_I, _I, _F, _F, _P],
+    # (col, tgt, s3, w3, S, s1, w1, s2, w2, Sp, c_data, c_dist, c_inter,
+    #  ray_terms, terms, dcol, dw, dw1, dw2, n_rays, stream)
+    "mip_losses": [_P] * 4 + [_I] + [_P] * 4 + [_I, _F, _F, _F] + [_P] * 6 + [_I, _P],
     # the wide chain's f32 GEMM alone (nerf_wide_f32_gemm.cuh): (A, lda, B,
     #  ldb, bias, mask, C, ldc, M, N, K, k_chunk, form, stream), form 0
     #  forward, 1 d_h, 2 dW, 3 head, 4 the head's d_z

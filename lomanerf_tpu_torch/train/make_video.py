@@ -23,7 +23,9 @@ Run:
 
 ``--preset full`` renders through the wide kernels (65,536-ray chunks);
 ``--preset paper`` (NeRF as published: coarse, then fine on the depths drawn
-from the coarse weights) through ``nerf_paper_render`` on one rank.
+from the coarse weights) through ``nerf_paper_render`` on one rank, and
+``--preset mipnerf360`` (the proposal rounds, then the NeRF pass) through
+``ops.mip360.render_rays`` on one rank.
 Under ``torchrun --nproc_per_node=N`` each frame's rays are sharded over
 the ranks (``parallel.render_step``, as the JAX driver shards them over its
 devices) and only rank 0 writes.
@@ -109,7 +111,7 @@ def main(argv=None) -> str:
     src.add_argument("--ckpt-dir",
                      help="render from the latest checkpoint of train_nerf in this dir")
     ap.add_argument("--preset", default=None,
-                    choices=["small", "single64", "full", "paper"],
+                    choices=["small", "single64", "full", "paper", "mipnerf360"],
                     help="NeRFConfig preset (must match the params; overrides "
                          "--layers/--width/--samples/--enc-functions)")
     ap.add_argument("--samples", type=int, default=30)

@@ -39,7 +39,15 @@ def nerf_loss_fn(params: Params, origins, directions, t_vals, dists, target, cfg
     ``mlp_fn`` replaces the plain pipeline's MLP (``core.pipeline.nerf_render``).
     For ``NeRFConfig.paper()`` the coarse and the fine passes'
     (``models.nerf.paper_loss``, the fine depths drawn from ``generator``);
-    it has no plain backend beside its CPU route."""
+    it has no plain backend beside its CPU route.  For
+    ``NeRFConfig.mipnerf360()`` the proposal rounds, the NeRF pass and the
+    three losses (``models.nerf.mip360_loss``, ``t_vals`` and ``dists``
+    unused, the resampler's jitter from ``generator``)."""
+    if cfg.mip360:
+        if backend != "fused" or mlp_fn is not None:
+            raise ValueError("mip-NeRF 360 trains on the fused backend only")
+        from lomanerf_tpu_torch.models.nerf import mip360_loss
+        return mip360_loss(cfg, params, origins, directions, target, generator)
     if cfg.view_branch:
         if backend != "fused" or mlp_fn is not None:
             raise ValueError("the published NeRF trains on the fused backend only")

@@ -35,7 +35,10 @@ Run: ``python -m lomanerf_tpu_torch.train.train_nerf --preset small --steps 500`
 (the narrow kernels) or ``--preset full --steps 300`` (the 8x256 bf16
 flagship on the wide kernels; ~4 GB of saved activations per 4096-ray step)
 or ``--preset paper --stratified`` (NeRF as published, coarse and fine
-networks; its fine depths are drawn from the run's generator);
+networks; its fine depths are drawn from the run's generator) or ``--preset
+mipnerf360`` (mip-NeRF 360: the proposal network, then the NeRF MLP on the
+resampled intervals; the resampler's jitter from the run's generator, the
+cone radius from the views' focal length);
 on N cards ``torchrun --nproc_per_node=N -m lomanerf_tpu_torch.train.train_nerf
 --preset small`` (NCCL).
 """
@@ -43,6 +46,7 @@ on N cards ``torchrun --nproc_per_node=N -m lomanerf_tpu_torch.train.train_nerf
 from __future__ import annotations
 
 import argparse
+import math
 import dataclasses
 import os
 
@@ -68,7 +72,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' (built in memory) or a Blender-format dataset dir")
-    ap.add_argument("--preset", default=None, choices=["small", "single64", "full", "paper"],
+    ap.add_argument("--preset", default=None, choices=["small", "single64", "full", "paper", "mipnerf360"],
                     help="NeRFConfig ladder preset (overrides --layers/--width/"
                          "--samples/--mode)")
     ap.add_argument("--img-size", type=int, default=64)
@@ -150,11 +154,14 @@ def main(argv=None) -> dict:
                          num_encoding_functions=args.enc_functions,
                          num_samples=args.samples, near=args.near, far=args.far,
                          mode=args.mode)
-    if cfg.view_branch and (tp or args.pipeline != "python"):
-        raise SystemExit("train_nerf: --preset paper trains with --tp 1 and "
+    if (cfg.view_branch or cfg.mip360) and (tp or args.pipeline != "python"):
+        raise SystemExit("train_nerf: --preset paper and mipnerf360 train with --tp 1 and "
                          "--pipeline python")
 
     images, poses, focal = _views(args, device)
+    if cfg.mip360:  # a ray's cone radius: 2 / sqrt(12) of the pixel pitch
+        cfg = dataclasses.replace(cfg, pixel_radius=2.0 / math.sqrt(12.0)
+                                  / (focal * (args.img_size - 1)))
     n_views, n_pix = images.shape[0], args.img_size * args.img_size
     K = normalized_intrinsics(focal, device=device)
     # every view's rays and targets, once, on the device
@@ -182,11 +189,12 @@ def main(argv=None) -> dict:
     # replicas equal over the data axis; with --tp this rank's shard
     params = place_state(mesh, cfg, model, opt, tp=tp)
     # each data shard draws its own rays (the JAX trainer's per-host stream);
-    # for --preset paper gen also draws the fine depths
+    # for --preset paper gen also draws the fine depths, for mipnerf360 the
+    # resampler's jitter
     seed = args.seed + 7919 * mesh.data_index
     gen = torch.Generator(device=device).manual_seed(seed)
     step_fn = make_train_step(cfg, opt, mesh, tp=tp, backend=args.backend,
-                              generator=gen if cfg.view_branch else None)
+                              generator=gen if cfg.view_branch or cfg.mip360 else None)
     # sharded eval frames over the data axis (with --tp: full params, whole frames)
     eval_mesh = mesh if mesh.dp > 1 and not tp else None
 

@@ -151,6 +151,10 @@ def test_presets_match_jax(name):
     paper = {"skip_layer": 0, "dir_encoding_functions": 0, "view_width": 0,
              "num_fine_samples": 0}
     assert {k: t.pop(k) for k in paper} == paper
+    # and those of mip-NeRF 360 (NeRFConfig.mipnerf360()), off as well
+    mip = {"proposal_layers": 0, "proposal_width": 0, "proposal_samples": (),
+           "bottleneck_width": 0, "pixel_radius": 0.0}
+    assert {k: t.pop(k) for k in mip} == mip
     assert t == j
     assert NeRFConfig.preset(name).in_channels == jmodels.NeRFConfig.preset(name).in_channels
 
