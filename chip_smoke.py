@@ -52,8 +52,9 @@ It builds the CUDA kernels from ``lomanerf_tpu_torch/ops/csrc`` with nvcc
    layer and ``d_h`` on the wgmma/TMA layer GEMM (``layer_wgmma_kernel``),
    none on ``gemm_mma_kernel``; holds that stage
    alone (``wide_dw.wide_dw_gemm``) to f64 at the flagship's 2,097,152 x
-   256 x 256, at layer 0's 40 columns and at 1037 x 128 ragged rows, and
-   times it against ``torch.mm`` and its bound; times the frame also through the
+   256 x 256, at layer 0's 40 columns, at 1037 x 128 ragged rows and at an
+   8x1024 chunk's 598,784 x 1024 x 1024, and times it against ``torch.mm``
+   and its bound at the flagship's and the 8x1024 chunk's; times the frame also through the
    layer chain that the bf16 render's fused MLP (``nerf_wide_mlp.cuh``)
    replaced, asserting the same bits off near ties (``wide_mlp.tied_rows``),
    the fused MLP alone on one 65,536-ray chunk against its bound and a
@@ -1188,57 +1189,56 @@ def layer_gemm_launches(per, cfg, chunks, what, train=True):
 
 
 DW_ROWS = FLAGSHIP_RAYS * 128  # one flagship gradient chunk: 2,097,152 rows
+DW_C4_ROWS = 4678 * 128  # one 8x1024 gradient chunk (wide_grad_chunk_rays): 598,784 rows
 DW_RTOL = 1e-6  # of the f64 sum of |products|: f32 sums of exact products
 
 
 def phase_dw_stage(wide_dw, smi):
     """Phase 9, the dW stage alone: ``wide_dw.wide_dw_gemm`` (the
     wgmma/TMA kernel #7, #9, #11 and #12 run for each hidden layer) at the
-    flagship's 2,097,152 x 256 x 256, at layer 0's 40 columns and at 1037 x
-    128 rows (a ragged last partial), on ReLU'd normal activations and
-    normal d_z x 1e-3 rounded to bf16: within ``DW_RTOL`` of the f64 sum of
-    |products| of the f64 product of the rounded operands, repeats
-    bit-identical.  Then the kernel and ``torch.mm`` of the same bf16
-    operands (one 2,097,152-deep product: a yardstick, never called by the
-    port) in turns, beside the stage's bound.  Returns ``{"ms", "mm_ms",
-    "bound_ms"}``."""
-    g = torch.Generator("cuda").manual_seed(31)
+    flagship's 2,097,152 x 256 x 256, at layer 0's 40 columns, at 1037 x
+    128 rows (a ragged last partial) and at an 8x1024 chunk's 598,784 x
+    1024 x 1024, on ReLU'd normal activations and normal d_z x 1e-3 rounded
+    to bf16 (``wide_dw.operands``): within ``DW_RTOL`` of the f64 sum of
+    |products| of the f64 product of the rounded operands
+    (``wide_dw.f64_gap``), repeats bit-identical.  Then, at the
+    flagship's and the 8x1024 chunk's, the kernel and ``torch.mm`` of the
+    same bf16 operands (one product over all the rows: a yardstick, never
+    called by the port) in turns, beside the stage's bound.  Returns
+    ``{what: {"ms", "mm_ms", "bound_ms"}}``."""
     out = {}
-    for rows, M, what in ((DW_ROWS, 256, "the flagship"), (DW_ROWS, 40, "layer 0's 40 columns"),
-                          (1037 * 128, 256, "1037 x 128 rows (a ragged last partial)")):
-        h = torch.relu(torch.randn((rows, 256), generator=g, device="cuda")).to(torch.bfloat16)
-        db = (torch.randn((rows, 256), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    for rows, M, pw, what in ((DW_ROWS, 256, 256, "the flagship"),
+                              (DW_ROWS, 40, 256, "layer 0's 40 columns"),
+                              (1037 * 128, 256, 256, "1037 x 128 rows (a ragged last partial)"),
+                              (DW_C4_ROWS, 1024, 1024, "an 8x1024 chunk")):
+        h, db = wide_dw.operands(rows, pw)
         new, again = wide_dw.wide_dw_gemm(h, db, M), wide_dw.wide_dw_gemm(h, db, M)
         n = new.shape[0]
-        hp = h.new_zeros((n * wide_dw.ROW_CHUNK, M), dtype=torch.float64)
-        dp = h.new_zeros((n * wide_dw.ROW_CHUNK, 256), dtype=torch.float64)
-        hp[:rows], dp[:rows] = h[:, :M].double(), db.double()
-        h3, d3 = hp.view(n, -1, M).transpose(1, 2), dp.view(n, -1, 256)
-        ref, scale = torch.bmm(h3, d3), torch.bmm(h3.abs(), d3.abs()).clamp_min(1e-30)
-        del hp, dp, h3, d3
-        e_new = ((new.double() - ref) / scale).abs().max().item()
+        e_new = wide_dw.f64_gap(h, db, M, pw, new)
         if not torch.equal(new, again):
             raise AssertionError(f"wide_dw_gemm at {what}: repeat launches differ")
         if e_new > DW_RTOL or not torch.isfinite(new).all():
             raise AssertionError(f"wide_dw_gemm at {what}: {e_new:.3e} off f64, of the sum of "
                                  "|products|")
-        print(f"phase 9 dW stage alone at {what} ({rows} x {M} x 256, {n} partials): "
+        print(f"phase 9 dW stage alone at {what} ({rows} x {M} x {pw}, {n} partials): "
               f"|wgmma - f64| {e_new:.3e} of the f64 sum of |products| (bound {DW_RTOL}); "
               "repeats bit-identical")
-        del ref, scale, new, again
-        if rows == DW_ROWS and M == 256:
-            fns = {"wgmma": lambda: wide_dw.wide_dw_gemm(h, db, 256),
+        del new, again
+        torch.cuda.empty_cache()
+        if M == pw and rows in (DW_ROWS, DW_C4_ROWS):
+            fns = {"wgmma": lambda: wide_dw.wide_dw_gemm(h, db, M),
                    "torch.mm": lambda: torch.mm(h.t(), db)}
             for fn in fns.values():
                 fn()
             ts = timed_turns(fns, 3)
-            kb = bound(rows * 256 * 256, PEAK_BF16,
-                       2 * h.numel() + 2 * db.numel() + 4 * n * 256 * 256)
-            out = {"ms": statistics.median(ts["wgmma"]),
-                   "mm_ms": statistics.median(ts["torch.mm"]), "bound_ms": kb[0]}
-            print(f"phase 9 dW stage alone at the flagship, on {smi}: wgmma/TMA "
-                  f"{spread(ts['wgmma'])}, torch.mm {spread(ts['torch.mm'])}; bound {kb[0]:.4f} ms ({kb[1]}: H, the bf16 d_z "
-                  f"and the partials), the wgmma kernel at {kb[0] / out['ms']:.1%} of it")
+            kb = bound(rows * M * pw, PEAK_BF16,
+                       2 * h.numel() + 2 * db.numel() + 4 * n * M * pw)
+            out[what] = {"ms": statistics.median(ts["wgmma"]),
+                         "mm_ms": statistics.median(ts["torch.mm"]), "bound_ms": kb[0]}
+            print(f"phase 9 dW stage alone at {what}, on {smi}: wgmma/TMA "
+                  f"{spread(ts['wgmma'])}, torch.mm {spread(ts['torch.mm'])}; bound {kb[0]:.4f} "
+                  f"ms ({kb[1]}: H, the bf16 d_z and the partials), the wgmma kernel at "
+                  f"{kb[0] / out[what]['ms']:.1%} of it")
         del h, db
     torch.cuda.empty_cache()
     return out
@@ -2740,7 +2740,8 @@ NERF12 = tuple(f"{pre}{k}{suf}" for suf in ("", "_rays") for pre in ("nerf_", "n
 # per-ray instances were added; unchanged by the scans' lift onto seg_scan.cuh, by
 # the bf16 dW stage's move onto wgmma/TMA (nerf_wide_dw.cuh: each 32-row
 # k-step's tensor-core sum and its f32 promotion give the mma.sync kernel's
-# bits, so the four wide gradient entries did not move either) and by the bf16
+# bits, so the four wide gradient entries did not move either, nor when its
+# persistent 128 x 256 tiles replaced one block a tile) and by the bf16
 # render's MLP moving into one wgmma/TMA kernel (nerf_wide_mlp.cuh: the same
 # promotion, epilogue and encoding arithmetic, so #8 and #10 kept theirs).  The
 # four wide gradient entries moved when bf16 db began to be summed from the

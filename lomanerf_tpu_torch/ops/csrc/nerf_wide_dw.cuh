@@ -12,38 +12,82 @@
 // call of gemm_mma_kernel that this replaces did, and sum_partials adds the
 // partials in z order after it.
 //
-// What bounds it on this card: device memory.  At the flagship's 2,097,152
-// rows x 256 x 256 a layer reads H and Dz once (2 x 1.07 GB of bf16) and
-// writes 256 partials (67 MB): 0.66 ms at 3.35 TB/s, against 0.28 ms of
-// bf16 tensor-core work.
+// What bounds it on this card: arithmetic at 1024 wide, device memory at
+// 256.  An 8x1024 gradient chunk's hidden layer, 598,784 rows x 1024 x
+// 1024, is 1.28 TFLOP (1.30 ms at the bf16 peak) against 2.45 GB of H and
+// Dz and 0.31 GB of partials (0.82 ms at 3.35 TB/s).  At the flagship's
+// 2,097,152 rows x 256 x 256 a layer reads H and Dz once (2 x 1.07 GB) and
+// writes 256 partials (67 MB): 0.66 ms, against 0.28 ms of tensor-core work.
+//
+// The sums: each 32-row set of a partial is summed by the tensor core (two
+// wgmma m64n128k16, scale-d 0 on the first), and the set is added to the
+// partial's f32 running sum by IEEE adds, the sets in ascending rows.  This
+// is gemm_mma_kernel's promotion every 32 rows, bit for bit.  The tensor
+// core's own accumulation truncates: over the 8192 rows of a partial it
+// moved a flagship leaf by 3e-2 of its largest entry, and 64-row sets would
+// move every digest of the gradient entries (chip_smoke.py), so the
+// interval stays 32 rows.
 //
 // The design:
-//   * a block computes 128 x 128 outputs of one partial: two consumer
-//     warpgroups, each a 64 x 128 half (wgmma m64n128k16), and one producer
-//     warp whose lane 0 issues the TMA copies;
+//   * a work item is one partial's output tile of 128 rows (m) x 256
+//     columns (n); min(items, SMs) persistent blocks walk them, the tile
+//     index fastest, so that the tiles of one partial run side by side and
+//     read each operand box from device memory about once and from L2 the
+//     other times;
+//   * two consumer warpgroups, each owning 64 rows of the tile as two
+//     halves of 128 columns (wgmma m64n128k16), and a producer warpgroup
+//     whose first thread issues the TMA copies and whose registers
+//     setmaxnreg hands to the consumers (40 and 232); the producer runs
+//     ahead across work items, so an item's first stages fill under the
+//     last item's products;
 //   * both operands are MN-major in device memory (m or n contiguous, the
 //     row index strided), which wgmma takes for 16-bit types through its
 //     transpose bits: TMA copies 32-row x 64-column boxes, 128-byte swizzled,
-//     two per operand per stage, into a ring of kDwStages stages guarded by
-//     full / empty mbarriers, so no thread scatters or converts a value;
-//   * one stage is one 32-row k-step: two wgmma into a fresh accumulator set
-//     (scale-d 0 on the first), then IEEE f32 adds into the running sum.
-//     This is gemm_mma_kernel's promotion every 32 rows: the tensor core's
-//     own accumulation truncates, and over the 8192 rows of a partial that
-//     moved a flagship leaf by 3e-2 of its largest entry;
+//     two of H and four of Dz per stage, into a ring of kDwStages stages
+//     guarded by full / empty mbarriers, so no thread scatters or converts
+//     a value;
+//   * a stage is one 32-row set: for each half, its two k16 steps into the
+//     fresh accumulator set as one commit group, and once that has finished
+//     (wait_group 0) IEEE adds into the half's running sum (three sets of
+//     64 registers: two running sums, one fresh set; the second half's
+//     commit frees the stage, one arrival a warp).  The warpgroups do not
+//     wait for each other, so one's adds and its epilogue (stores straight
+//     from registers) run under the other's products;
+//   * where 256-column tiles would leave SMs idle, 128-column ones: dw_gemm
+//     takes the walk with fewer rounds of the SMs, a round of 128 columns
+//     weighed as 3/5 of one of 256 (the published NeRF's passes: 32 or 96
+//     partials of 256 x 256, 1 round against 1, 3 against 2);
 //   * ragged edges (the last partial's rows, layer 0's kc = 40 columns) are
-//     zero-filled by TMA's out-of-bounds fill; a block whose second 64
-//     columns of H lie past M skips that half (its second box of Dz past
-//     N: that box, whose stale columns are never stored);
-//   * grid (output tiles, partials) with the tile index fastest, so the
-//     tiles of one partial run side by side and each operand box comes from
-//     device memory about once and from L2 the second time.
-// Every output is one thread's fixed sequence of k-steps: repeat launches
-// are bit-identical.
+//     zero-filled by TMA's out-of-bounds fill; a box of H or Dz whose 64
+//     columns lie past M or N is not copied, and the outputs computed from
+//     whatever that part of the stage holds (the second warpgroup's where
+//     M ends in the tile's first 64 rows, a half's last 64 columns) are
+//     never stored.
+// What scripts/dw_variants measured on an H100 (an 8x1024 chunk's layer, in
+// turns; the 128 x 128 kernel this replaces 3.87-4.02 ms, this one
+// 2.74-2.86; the flagship's 0.89 -> 0.74): 128 x 128 tiles with two fresh
+// sets, each added under the next set's products (wait_group 1), 3.62 ms:
+// 16 KB of operands a stage for 128 x 128 x 32 products, the feed the
+// limit; 256-column tiles cut the operand bytes a product by a quarter but
+// leave no registers for a second fresh set.  The warpgroups taking turns
+// to issue (nerf_wide_mlp.cuh's named barriers) 3.03 ms; a cluster of two
+// blocks that multicasts Dz 3.69; 64-row stages and twelve stages no gain;
+// the second warpgroup skipping its products where the tile's rows end in
+// its first 64 (layer 0) 3.04; each partial's tiles started one further
+// on, so that the ragged ones spread over the blocks, 2.80 (its gain on the
+// published NeRF's ragged calls smaller than its loss on the rest).  Taken
+// out one at a time, the waits for data, the products or the adds each
+// leave 2.3-2.6 ms: the feed and the issue of products and adds are both
+// near the kernel's time.
+// Every output is one thread's fixed sequence of wgmma and adds: repeat
+// launches are bit-identical.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
+
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include "mbarrier.cuh"
@@ -52,13 +96,13 @@
 namespace wide {
 namespace {
 
-constexpr int kDwBM = 128, kDwBN = 128;  // outputs per block
-constexpr int kDwBK = 32;                // rows per k-step (stage)
+constexpr int kDwBM = 128, kDwBN = 256;  // outputs per work item, at most
+constexpr int kDwBK = 32;                // rows per stage: one set, one promotion
 constexpr int kDwBox = 64;               // columns per TMA box: 128 bytes of bf16
-constexpr int kDwStages = 8;
 constexpr int kDwBoxBytes = kDwBK * kDwBox * 2;  // 4 KB
-constexpr int kDwStageBytes = 4 * kDwBoxBytes;   // H: 2 boxes, Dz: 2 boxes
-constexpr int kDwThreads = 2 * 128 + 32;         // 2 consumer warpgroups + 1 producer warp
+constexpr int kDwStageBytes = 6 * kDwBoxBytes;   // H: 2 boxes, Dz: 4 boxes
+constexpr int kDwStages = 8;
+constexpr int kDwThreads = 3 * 128;              // 2 consumer warpgroups + the producer's
 
 using mbar::mbar_arrive;
 using mbar::mbar_expect_tx;
@@ -125,97 +169,139 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// grid (tiles_m * tiles_n, partials), block kDwThreads, dynamic shared
-// memory for the ring of kStages stages and its 1024-byte alignment; a
-// template only so that a source which includes this header and never
-// launches it does not compile it
+// A work item: rows [r0, r0 + kRowChunk) of the partial, n_sets sets, the
+// output tile at (m0, n0) of kDwBM rows x bn columns; the tile index is
+// fastest, the column tile fastest within it
+struct DwItem {
+  int r0, m0, n0, n_sets;
+};
+__device__ __forceinline__ DwItem dw_item(int item, int tiles, int tiles_n, int bn, int rows) {
+  const int tile = item % tiles, r0 = item / tiles * kRowChunk;
+  return {r0, tile / tiles_n * kDwBM, tile % tiles_n * bn,
+          (min(rows - r0, kRowChunk) + kDwBK - 1) / kDwBK};
+}
+
+// grid min(items, SMs), block kDwThreads, dynamic shared memory for the
+// ring of kStages stages and its 1024-byte alignment; tiles of bn (128 or
+// 256) columns, tiles_n of them across N; a template only so that a source
+// which includes this header and never launches it does not compile it
 template <int kStages>
 __global__ void __launch_bounds__(kDwThreads, 1)
 dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
-                const __grid_constant__ CUtensorMap tm_d, int M, int N, int rows, int tiles_n,
-                float* __restrict__ part) {
+                const __grid_constant__ CUtensorMap tm_d, int M, int N, int rows, int bn,
+                int tiles_n, int tiles, int items, float* __restrict__ part) {
   extern __shared__ uint8_t dw_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   // the ring starts at a shared-memory address that is a multiple of 1024
   uint8_t* ring = dw_raw + ((1024 - (smem_u32(dw_raw) & 1023)) & 1023);
-  const int m0 = blockIdx.x / tiles_n * kDwBM, n0 = blockIdx.x % tiles_n * kDwBN;
-  const int z = blockIdx.y, r0 = z * kRowChunk;
-  const int n_k = (min(rows - r0, kRowChunk) + kDwBK - 1) / kDwBK;
-  // whether the tile's second 64 columns of H (of Dz) hold data
-  const bool two_m = m0 + kDwBox < M, two_n = n0 + kDwBox < N;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 2) {  // the producer warp: lane 0 keeps the ring full
+  // the roles never reconverge, so that setmaxnreg moves the producer's
+  // registers to the consumers: 128 x 40 + 256 x 232 = 384 x 168
+  if (wg == 2) {  // the producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (threadIdx.x == 256) {
-      const uint32_t bytes = (2 + two_m + two_n) * kDwBoxBytes;
-      for (int i = 0; i < n_k; ++i) {
-        const int s = i % kStages;
-        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
-        uint8_t* a = ring + s * kDwStageBytes;
-        uint8_t* b = a + 2 * kDwBoxBytes;
-        const int row = r0 + i * kDwBK;
-        mbar_expect_tx(&full[s], bytes);
-        tma_load(a, &tm_h, m0, row, &full[s]);
-        if (two_m) tma_load(a + kDwBoxBytes, &tm_h, m0 + kDwBox, row, &full[s]);
-        tma_load(b, &tm_d, n0, row, &full[s]);
-        if (two_n) tma_load(b + kDwBoxBytes, &tm_d, n0 + kDwBox, row, &full[s]);
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const DwItem w = dw_item(item, tiles, tiles_n, bn, rows);
+        // the boxes of the tile's 64-column blocks of H (of Dz) that hold data
+        const int boxes_m = min(2, (M - w.m0 + kDwBox - 1) / kDwBox);
+        const int boxes_n = min(bn / kDwBox, (N - w.n0 + kDwBox - 1) / kDwBox);
+        const uint32_t bytes = (boxes_m + boxes_n) * kDwBoxBytes;
+        for (int st = 0; st < w.n_sets; ++st, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+          uint8_t* a = ring + s * kDwStageBytes;
+          uint8_t* b = a + 2 * kDwBoxBytes;
+          const int row = w.r0 + st * kDwBK;
+          mbar_expect_tx(&full[s], bytes);
+          for (int j = 0; j < boxes_m; ++j) {
+            tma_load(a + j * kDwBoxBytes, &tm_h, w.m0 + j * kDwBox, row, &full[s]);
+          }
+          for (int j = 0; j < boxes_n; ++j) {
+            tma_load(b + j * kDwBoxBytes, &tm_d, w.n0 + j * kDwBox, row, &full[s]);
+          }
+        }
       }
     }
-    return;
-  }
+  } else {  // consumer warpgroup wg: outputs m0 + 64 wg .. + 63, n0 .. n0 + bn - 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const uint32_t ring_s = smem_u32(ring);
+    // the running sums of the tile's two 128-column halves, the fresh set
+    float acc0[64], acc1[64], ks[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) ks[i] = 0.0f;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const DwItem w = dw_item(item, tiles, tiles_n, bn, rows);
+      // whether the tile's second half holds data
+      const bool two_halves = bn > kDwBN / 2 && w.n0 + kDwBN / 2 < N;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.0f;
+      // a half's set: its two k16 steps (rows 0-15, then 16-31: 2 x 1024
+      // bytes further) of the warpgroup's 64 columns of H and the half's
+      // 128 columns of Dz, one commit group; once it has finished, the
+      // thread adds it to the half's running sum while the other
+      // warpgroup's set runs.  The last half of a stage frees the stage
+      // (one arrival a warp).  Where the tile's rows end in the first 64
+      // (layer 0), the second warpgroup computes from whatever its box of
+      // the stage holds and stores nothing: skipping its products saved
+      // 0.02 ms at an 8x1024 chunk's layer 0 but cost 0.3 at its hidden
+      // layers, whose loop the branch slowed
+      auto half = [&](float(&sum)[64], uint32_t a, uint32_t b, int s, bool last) {
+        fence_regs(ks);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        wgmma_m64n128<1>(ks, mn_desc(a, kDwBoxBytes), mn_desc(b, kDwBoxBytes), 0);
+        wgmma_m64n128<1>(ks, mn_desc(a + 2048, kDwBoxBytes), mn_desc(b + 2048, kDwBoxBytes), 1);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_regs(ks);
+        if (last && lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int q = 0; q < 64; ++q) sum[q] += ks[q];
+      };
+      for (int st = 0; st < w.n_sets; ++st, ++it) {
+        const int s = it % kStages;
+        const uint32_t a = ring_s + s * kDwStageBytes + wg * kDwBoxBytes;
+        const uint32_t b = ring_s + s * kDwStageBytes + 2 * kDwBoxBytes;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        half(acc0, a, b, s, !two_halves);
+        if (two_halves) half(acc1, a, b + 2 * kDwBoxBytes, s, true);
+      }
 
-  // consumer warpgroup wg: outputs m0 + 64 wg .. + 63, n0 .. n0 + 127
-  const bool active = wg == 0 || two_m;
-  float acc[64], kstep[64];
+      // the epilogue, straight from registers: the m64n128 accumulator
+      // layout puts rows lane / 4 (+ 8 for q >= 2) of warp w's 16 in
+      // register 4 j + q, column 8 j + 2 (lane % 4) (+ 1 for odd q); rows
+      // past M (all of the second warpgroup's where M ends in the first 64)
+      // and columns past N or the tile are not stored
+      const int m = w.m0 + wg * 64 + (t >> 5) * 16 + (lane >> 2);
+      float* out = part + static_cast<size_t>(w.r0 / kRowChunk) * M * N;
+      auto store = [&](const float(&sum)[64], int nh) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = kstep[i] = 0.0f;
-  for (int i = 0; i < n_k; ++i) {
-    const int s = i % kStages;
-    mbar_wait(&full[s], (i / kStages) & 1);
-    if (active) {
-      const uint32_t a = smem_u32(ring + s * kDwStageBytes + wg * kDwBoxBytes);
-      const uint32_t b = smem_u32(ring + s * kDwStageBytes + 2 * kDwBoxBytes);
-      fence_regs(kstep);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-      // rows 0-15, then 16-31 of the stage: 2 x 1024 bytes further
-      wgmma_m64n128<1>(kstep, mn_desc(a, kDwBoxBytes), mn_desc(b, kDwBoxBytes), 0);
-      wgmma_m64n128<1>(kstep, mn_desc(a + 2048, kDwBoxBytes), mn_desc(b + 2048, kDwBoxBytes), 1);
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_regs(kstep);
-    }
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[s]);  // the stage is free again
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < 64; ++j) acc[j] += kstep[j];
-    }
-  }
-  if (!active) return;
-
-  // the m64n128 accumulator layout: warp w of the group holds rows 16 w ..
-  // 16 w + 15; register 4 j + q is row lane / 4 (+ 8 for q >= 2), column
-  // 8 j + 2 (lane % 4) (+ 1 for odd q)
-  const int t = threadIdx.x & 127, lane = t & 31;
-  const int m = m0 + wg * 64 + (t >> 5) * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int n = n0 + j * 8 + (lane & 3) * 2;
-    if (n >= N) continue;
-    if (m < M) {
-      *reinterpret_cast<float2*>(part + (static_cast<size_t>(z) * M + m) * N + n) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-    }
-    if (m + 8 < M) {
-      *reinterpret_cast<float2*>(part + (static_cast<size_t>(z) * M + m + 8) * N + n) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        for (int j = 0; j < 16; ++j) {
+          const int n = nh + j * 8 + (lane & 3) * 2;
+          if (n >= N) continue;
+          if (m < M) {
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * N + n) =
+                make_float2(sum[4 * j], sum[4 * j + 1]);
+          }
+          if (m + 8 < M) {
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(m + 8) * N + n) =
+                make_float2(sum[4 * j + 2], sum[4 * j + 3]);
+          }
+        }
+      };
+      store(acc0, w.n0);
+      if (two_halves) store(acc1, w.n0 + kDwBN / 2);
     }
   }
 }
@@ -278,26 +364,40 @@ inline cudaError_t dw_map(CUtensorMap* map, const __nv_bfloat16* X, int cols, in
 template <int kStages = kDwStages>
 cudaError_t dw_gemm(const __nv_bfloat16* H, const __nv_bfloat16* Dz, int ld, int M, int N,
                     int rows, float* part, cudaStream_t stream) {
-  const int n_parts = (rows + kRowChunk - 1) / kRowChunk;
   if (rows <= 0 || M <= 0 || N <= 0 || M > ld || N > ld || ld % 8 != 0 || N % 2 != 0 ||
-      n_parts > 65535 || reinterpret_cast<uintptr_t>(H) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(Dz) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(H) % 16 != 0 || reinterpret_cast<uintptr_t>(Dz) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
   constexpr int smem = kStages * kDwStageBytes + 1024;
-  static_assert(smem <= 227 * 1024, "the ring exceeds a block's shared memory");
+  static_assert(smem + 16 * kStages <= 227 * 1024, "the ring exceeds a block's shared memory");
+  auto* kernel = dw_wgmma_kernel<kStages>;
   CUtensorMap tm_h, tm_d;
-  cudaError_t err = dw_map(&tm_h, H, M, rows, ld);
-  if (err == cudaSuccess) err = dw_map(&tm_d, Dz, N, rows, ld);
+  cudaError_t err = tile_map(&tm_h, H, false, M, rows, ld, kDwBox, kDwBK);
+  if (err == cudaSuccess) err = tile_map(&tm_d, Dz, false, N, rows, ld, kDwBox, kDwBK);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(dw_wgmma_kernel<kStages>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int tiles_n = (N + kDwBN - 1) / kDwBN;
-  const int tiles = (M + kDwBM - 1) / kDwBM * tiles_n;
-  dw_wgmma_kernel<kStages><<<dim3(tiles, n_parts), kDwThreads, smem, stream>>>(
-      tm_h, tm_d, M, N, rows, tiles_n, part);
+  // The tiles' width: 256 columns, or 128 where that walk takes fewer
+  // rounds of the SMs, a round of 128-column tiles counting 3/5 of one of
+  // 256.  On an H100 (scripts/dw_variants) an item takes 0.65-0.79 times as
+  // long at 128 columns as at 256; the published NeRF's passes, 32 and 96
+  // partials of 256 x 256, are 21% faster on 1 round of 128 than on 1 of
+  // 256 and even on 3 rounds of 128 against 2 of 256, the flagship's 256
+  // partials 31% slower on 8 rounds than on 4
+  const long long parts = (rows + kRowChunk - 1) / kRowChunk, tiles_m = (M + kDwBM - 1) / kDwBM;
+  auto items_of = [&](int bn) { return parts * tiles_m * ((N + bn - 1) / bn); };
+  auto rounds = [&](int bn) { return (items_of(bn) + sms - 1) / sms; };
+  const int bn = 3 * rounds(kDwBN / 2) < 5 * rounds(kDwBN) ? kDwBN / 2 : kDwBN;
+  const int tiles_n = (N + bn - 1) / bn;
+  const long long items = items_of(bn);
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<int>(std::min<long long>(items, sms)), kDwThreads, smem, stream>>>(
+      tm_h, tm_d, M, N, rows, bn, tiles_n, static_cast<int>(tiles_m * tiles_n),
+      static_cast<int>(items), part);
   return cudaGetLastError();
 }
 

@@ -39,6 +39,32 @@ def wide_dw_reference(h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> torch.
                      dp.view(n, ROW_CHUNK, pw))
 
 
+def operands(rows: int, ld: int, seed: int = 31, device: str = "cuda"):
+    """ReLU'd normal activations and normal d_z x 1e-3, (rows, ld) bf16: the
+    operands on which ``chip_smoke.py`` phase 9 and ``scripts/dw_variants``
+    hold the kernel to :func:`f64_gap`."""
+    g = torch.Generator(device).manual_seed(seed)
+    h = torch.relu(torch.randn((rows, ld), generator=g, device=device)).to(torch.bfloat16)
+    db = (torch.randn((rows, ld), generator=g, device=device) * 1e-3).to(torch.bfloat16)
+    return h, db
+
+
+def f64_gap(h: torch.Tensor, db: torch.Tensor, M: int, N: int, got: torch.Tensor) -> float:
+    """The largest gap of the partials ``got`` of ``h[:, :M]`` and
+    ``db[:, :N]`` from the f64 product of the same bf16 operands, over the
+    f64 sum of |products| of its entry."""
+    rows = db.shape[0]
+    n = got.shape[0]
+    hp = h.new_zeros((n * ROW_CHUNK, M), dtype=torch.float64)
+    dp = h.new_zeros((n * ROW_CHUNK, N), dtype=torch.float64)
+    hp[:rows], dp[:rows] = h[:, :M].double(), db[:, :N].double()
+    h3, d3 = hp.view(n, -1, M).transpose(1, 2), dp.view(n, -1, N)
+    del hp, dp
+    gap = (got.double() - torch.bmm(h3, d3)).abs_()
+    gap /= torch.bmm(h3.abs(), d3.abs()).clamp_min_(1e-30)
+    return gap.max().item()
+
+
 def _check(h: torch.Tensor, dz: torch.Tensor, in_cols: int) -> None:
     if h.ndim != 2 or dz.shape != h.shape or h.shape[0] == 0:
         raise ValueError(f"need h and dz of one (rows, pw) shape, got {tuple(h.shape)} and "

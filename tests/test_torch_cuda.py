@@ -825,13 +825,19 @@ def test_grid_sum_kernel_matches_f64_and_repeats_exactly(rows, block, n_dummy):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,in_cols,pw", [(2 * 8192 + 1037, 256, 256),
-                                             (1037 * 128, 40, 256), (1037, 128, 128)])
+                                             (1037 * 128, 40, 256), (1037, 128, 128),
+                                             (3 * 8192 + 1037, 1024, 1024),
+                                             (3 * 8192 + 1037, 40, 1024),
+                                             (300 * 8192 + 1037, 256, 256)])
 def test_wide_dw_gemm_matches_f64(rows, in_cols, pw):
     """The bf16 dW stage on wgmma/TMA (``wide_dw.wide_dw_gemm``, the kernel
     #7, #9, #11 and #12 run per hidden layer) within 1e-6 of the f64 sum of
     |products| of the f64 product of its rounded operands, per 8192-row
-    partial, at ragged rows and at layer 0's 40 columns; repeat launches
-    bit-identical."""
+    partial, at ragged rows, at layer 0's 40 columns, 1024 wide, and with
+    many times more work items (partial x 128 x 256 tile) than SMs, so that
+    the persistent blocks walk many of them; repeat launches bit-identical.
+    The 1024-wide and the 300-partial cases take 256-column tiles, the
+    others (their walk has fewer rounds of the SMs so) 128-column ones."""
     need_card()
     from lomanerf_tpu_torch.ops import wide_dw
 

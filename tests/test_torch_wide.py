@@ -368,6 +368,24 @@ def test_dw_stage_plain_matches_its_order(rng, rows, in_cols, pw):
         assert np.all(np.abs(want[z] - exact) <= 1e-6 * scale + 1e-30)
 
 
+@pytest.mark.parametrize("rows,M,N,ld", [(8192 + 1037, 40, 128, 128), (300, 296, 264, 320)])
+def test_dw_f64_gap_reads_the_partials_gap(rows, M, N, ld):
+    """``wide_dw.f64_gap`` (the card checks' yardstick) reads the plain
+    partials of ``wide_dw.operands`` as within f32 rounding of f64 and one
+    entry moved by a hundredth of its sum of |products| as that far off;
+    the operands repeat from their seed."""
+    from lomanerf_tpu_torch.ops import wide_dw
+
+    h, db = wide_dw.operands(rows, ld, device="cpu")
+    assert h.shape == db.shape == (rows, ld) and h.dtype == db.dtype == torch.bfloat16
+    assert torch.equal(h, wide_dw.operands(rows, ld, device="cpu")[0])
+    part = wide_dw.wide_dw_reference(h, db, M)[:, :, :N].contiguous()
+    assert wide_dw.f64_gap(h, db, M, N, part) < 1e-6
+    scale = (h[:8192, :1].double().abs().T @ db[:8192, :1].double().abs()).item()
+    part[0, 0, 0] += 1e-2 * scale
+    assert wide_dw.f64_gap(h, db, M, N, part) == pytest.approx(1e-2, rel=1e-3)
+
+
 def test_dw_stage_refuses_what_it_does_not_take():
     from lomanerf_tpu_torch.ops import wide_dw
 

@@ -205,6 +205,25 @@ def test_gemm_variants_edit_the_current_source():
             gemm_variants.main([])
 
 
+def test_dw_variants_edit_the_current_source():
+    """Every variant of ``scripts/dw_variants`` applies to the dW stage's
+    source as it stands (each edit matches as often as it names), the first
+    is the source unchanged, and each changes what it names; the script
+    refuses to run without a card."""
+    from lomanerf_tpu_torch.scripts import dw_variants
+
+    sources = {name: dw_variants.patched(edits)
+               for name, (edits, _) in dw_variants.VARIANTS.items()}
+    assert sources.pop("as is") == dw_variants.HEADER.read_text()
+    assert len(set(sources.values())) == len(sources)
+    assert all(src != dw_variants.HEADER.read_text() for src in sources.values())
+    with pytest.raises(SystemExit):
+        dw_variants.patched([("no such line", "", 1)])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            dw_variants.main([])
+
+
 def test_smoke_seeds_refuses_without_a_card():
     """``scripts/smoke_seeds`` (chip_smoke phase 24's first check at other
     seeds) parses its seeds and refuses to run without a card."""
